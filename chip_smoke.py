@@ -4,13 +4,23 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, checks
-each against its plain PyTorch version on the card (bit for bit), drives
-the port's main path (FlatIndex.insert_batch of 1,000,000 x 128 bf16 rows,
-then FlatIndex.batch_search with k=10 at B=256 and B=8), checks recall@10
-against brute force and that no query fell back to the strict path,
-checks the kernels against their plain versions again on the main path's
-own tensors, and times the kernels, their plain versions and the
-end-to-end search with CUDA events. It imports nothing of JAX.
+each against its plain PyTorch version on the card (bit for bit), and
+drives the port's two main paths with the launch counts set to 0 just
+before each and read just after:
+
+  flat: FlatIndex.insert_batch of 1,000,000 x 128 bf16 rows, then
+        FlatIndex.batch_search with k=10 at B=256 and B=8 (K1, K2); recall@10
+        against brute force, and no query may fall back to the strict path.
+  IVF:  IVFIndex(nlist=1024, nprobe=32, bf16 storage).insert_batch of
+        1,000,000 x 128 rows, optimize(), then batch_search at B=8 (K3; at
+        nprobe 32 and 8, and with a 10% allow_ids filter), at B=256 (K4)
+        and at B=8 with k=1000 (K5); ids against the exact search of the
+        probed lists over an f32 copy of the store, recall@10 against brute
+        force.
+
+It checks the kernels against their plain versions again on each main
+path's own tensors, and times the kernels, their plain versions and the
+end-to-end searches with CUDA events. It imports nothing of JAX.
 
 Output: one line per phase, the card's name and power limit (from
 nvidia-smi), a JSON line describing each kernel, and last the line
@@ -37,11 +47,34 @@ CASE_ROWS = 262_144
 #: main path: the headline flat configuration of bench.py (bench_flat)
 MAIN_ROWS, MAIN_DIM, MAIN_K, MAIN_BATCH, MAIN_BATCHES = 1_000_000, 128, 10, 256, 4
 SMALL_BATCH = 8
+#: the device of the IVF phases (a rehearsal on the host may set "cpu")
+DEVICE = "cuda"
 
-SOURCE = "vectorindex_tpu_torch/kernels/csrc/scan_fused.cu"
+#: IVF main path: the configuration of bench.py's bench_ivf (1M x 128,
+#: nlist=1024) and README's IVF example; the corpus of bench/synth.lowdim_corpus
+IVF_ROWS, IVF_DIM, IVF_NLIST, IVF_NPROBE, IVF_NPROBE_LOW = 1_000_000, 128, 1024, 32, 8
+IVF_EVAL, IVF_BIG_BATCH, IVF_LARGE_K = 128, 256, 1000
+IVF_RECALL_MIN = 0.90  # bench.py's operating threshold for IVF sweeps
+#: IVF kernel-vs-plain cases: a store of 256 skewed lists, ~262k rows
+IVF_CASE_LISTS, IVF_CASE_NPROBE, IVF_CASE_K4_BATCH, IVF_CASE_LONG = 256, 16, 64, 12_000
+
+#: the H100 SXM's published peaks (NVIDIA's data sheet): bytes/s of HBM3,
+#: bf16 tensor-core and f32 CUDA-core FLOP/s
+HBM_BYTES_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+
+SOURCES = {
+    "bin_candidates": "vectorindex_tpu_torch/kernels/csrc/scan_fused.cu",
+    "count_below": "vectorindex_tpu_torch/kernels/csrc/scan_fused.cu",
+    "ivf_probe_topc": "vectorindex_tpu_torch/kernels/csrc/ivf_probe.cu",
+    "ivf_probe_scores": "vectorindex_tpu_torch/kernels/csrc/ivf_probe.cu",
+    "ivf_probe_scores_rankmajor": "vectorindex_tpu_torch/kernels/csrc/ivf_probe.cu",
+}
 REPLACES = {
     "bin_candidates": "vectorindex_tpu/kernels/scan_fused.py:196",
     "count_below": "vectorindex_tpu/kernels/scan_fused.py:240",
+    "ivf_probe_topc": "vectorindex_tpu/kernels/ivf_probe.py:794",
+    "ivf_probe_scores": "vectorindex_tpu/kernels/ivf_probe.py:148",
+    "ivf_probe_scores_rankmajor": "vectorindex_tpu/kernels/ivf_probe.py:892",
 }
 
 
@@ -60,6 +93,13 @@ def gpu_name_and_power() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
+    """Least time the card could take (ms) for this many bytes moved and
+    operations done, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / peak_flops
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -295,11 +335,336 @@ def phase_times(sf, topk, idx, batches, errs):
     return times
 
 
+
+# ---------------------------------------------------------------------------
+# phase 5: the IVF kernels against their plain versions on the card
+# ---------------------------------------------------------------------------
+
+
+def probe_proof(cand_d, drop_min, kk: int = MAIN_K):
+    """Per query, whether K3's selection is provably complete at kk (the
+    search wrapper's rule)."""
+    tau = torch.sort(cand_d, dim=1).values[:, kk - 1]
+    dmin = drop_min.min(dim=1).values
+    return torch.where(torch.isfinite(tau), dmin > tau, ~torch.isfinite(dmin))
+
+
+def max_abs_err(a, b) -> float:
+    both = torch.isfinite(a) & torch.isfinite(b)
+    return float((a - b)[both].abs().max()) if both.any() else 0.0
+
+
+def check_probe_kernels(kp, args_k3, args_k4, kw, b_small):
+    """K3 and K5 on the K3-route inputs and K4 on the pair-route inputs
+    against their plain versions: equal bit for bit (both compute each
+    distance as one chain of separately rounded f32 products and sums, in
+    d order, with a correctly rounded square root and division for
+    cosine), K3's drop_min and proof flags included. Returns max_abs_err
+    per kernel."""
+    errs = {}
+    got = kp.ivf_probe_topc_rankmajor(*args_k3, **kw)
+    torch.cuda.synchronize()
+    ref = kp.ivf_probe_topc_rankmajor_ref(*args_k3, **kw)
+    errs["ivf_probe_topc"] = max(max_abs_err(got[0], ref[0]), max_abs_err(got[2], ref[2]))
+    for name, a, r in zip(("distances", "rows", "drop_min"), got, ref):
+        require(torch.equal(a, r), f"K3: {name} differ from the plain version (B={b_small})")
+    require(torch.equal(probe_proof(got[0], got[2]), probe_proof(ref[0], ref[2])),
+            "K3: proof flags differ")
+    for name, fn, ref_fn, args in (
+        ("ivf_probe_scores_rankmajor", kp.ivf_probe_scores_rankmajor,
+         kp.ivf_probe_scores_rankmajor_ref, args_k3),
+        ("ivf_probe_scores", kp.ivf_probe_scores, kp.ivf_probe_scores_ref, args_k4),
+    ):
+        a = fn(*args, **kw)
+        torch.cuda.synchronize()
+        r = ref_fn(*args, **kw)
+        errs[name] = max_abs_err(a, r)
+        require(torch.equal(a, r), f"{name}: distances differ from the plain version")
+    return errs
+
+
+def skewed_store(d: int, dtype, gen_seed: int):
+    """256 lists of skewed lengths (8 empty, one of 12,000 rows, the rest
+    lognormal around 1,000, at most 6,000), ~262k rows, packed on the card."""
+    from vectorindex_tpu_torch.ops import ivf as tivf
+
+    rng = np.random.default_rng(gen_seed)
+    lengths = np.minimum(rng.lognormal(6.6, 0.8, IVF_CASE_LISTS), 6000).astype(np.int64)
+    lengths[rng.choice(IVF_CASE_LISTS, 8, replace=False)] = 0
+    lengths[int(np.argmax(lengths))] = IVF_CASE_LONG
+    assign = np.repeat(np.arange(IVF_CASE_LISTS), lengths)
+    centers = rng.standard_normal((IVF_CASE_LISTS, d), dtype=np.float32)
+    x = centers[assign] + 0.5 * rng.standard_normal((len(assign), d), dtype=np.float32)
+    store = tivf.IVFListStore(IVF_CASE_LISTS, d, device=DEVICE)
+    store.append_batch(assign, np.arange(len(x)), x)
+    arrays = store.sync_device(dtype)
+    return arrays, tivf.probe_cap_for(store.max_length), torch.from_numpy(centers).to(DEVICE), len(x)
+
+
+def probe_tables(q, centroids, arrays, nprobe, metric):
+    from vectorindex_tpu_torch.ops import ivf as tivf
+
+    _, lists = tivf.ivf_select(q, centroids, nprobe=nprobe, metric=metric)
+    lists = lists.long()
+    return arrays.starts[lists].contiguous(), arrays.lengths[lists].contiguous()
+
+
+def phase_ivf_compare(kp):
+    from vectorindex_tpu_torch.ops import ivf as tivf
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    errs = dict.fromkeys(("ivf_probe_topc", "ivf_probe_scores", "ivf_probe_scores_rankmajor"), 0.0)
+    for d in (128, 100):
+        for dtype in (torch.float32, torch.bfloat16):
+            arrays, cap, centers, n = skewed_store(d, dtype, d)
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED + d)
+            allow = torch.rand(arrays.row_ids.shape[0], generator=gen, device=DEVICE) < 0.1
+            sq_deny = torch.where(allow, arrays.sqnorms, float("inf")).contiguous()
+            for metric in (Metric.L2, Metric.INNER_PRODUCT, Metric.COSINE):
+                qs = torch.randn(SMALL_BATCH + IVF_CASE_K4_BATCH, d, generator=gen, device=DEVICE)
+                q8, q64 = qs[:SMALL_BATCH], qs[SMALL_BATCH:]
+                kw = dict(nprobe=IVF_CASE_NPROBE, probe_cap=cap, metric=metric)
+                args_k3 = (q8, *probe_tables(q8, centers, arrays, IVF_CASE_NPROBE, metric),
+                           arrays.vecs, sq_deny)
+                args_k4 = (q64, *probe_tables(q64, centers, arrays, IVF_CASE_NPROBE, metric),
+                           arrays.vecs, arrays.sqnorms)
+                case = check_probe_kernels(kp, args_k3, args_k4, kw, SMALL_BATCH)
+                for name, e in case.items():
+                    errs[name] = max(errs[name], e)
+                log(f"ivf compare {metric.value:6s} {str(dtype)[6:]:8s} d={d} rows={n} "
+                    f"cap={cap}: K3/K5 B={SMALL_BATCH} (10% allowed), K4 B={IVF_CASE_K4_BATCH} "
+                    f"equal their plain versions bit for bit")
+            del arrays, sq_deny
+    # five equal rows in one class: K3's proof fails, the batch re-runs on K4
+    x = 100.0 + np.random.default_rng(SEED).standard_normal((1280, 16)).astype(np.float32)
+    x[[0, 256, 512, 768, 1024]] = 1.0
+    store = tivf.IVFListStore(2, 16, device=DEVICE)
+    store.append_batch(np.zeros(len(x), int), np.arange(len(x)), x)
+    kp.reset_launches()
+    _, ids = kp.ivf_search_flat_probe(
+        torch.ones((1, 16), device=DEVICE), torch.zeros((2, 16), device=DEVICE),
+        store.sync_device(), nprobe=1, probe_cap=tivf.probe_cap_for(store.max_length), k=5)
+    fell_back = dict(kp.LAUNCHES)
+    require(fell_back["ivf_probe_topc"] == 1 and fell_back["ivf_probe_scores"] == 1,
+            f"class crowding did not fall back from K3 to K4: {fell_back}")
+    require(sorted(ids[0].tolist()) == [0, 256, 512, 768, 1024], "crowded duplicates lost")
+    log(f"ivf compare class crowding: K3 proof failed, K4 fallback launched ({fell_back}), "
+        "the 5 duplicates returned")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the IVF main path
+# ---------------------------------------------------------------------------
+
+
+def lowdim_corpus(n: int, d: int, dz: int = 16, noise: float = 0.05, seed: int = 42):
+    """(x [n, d], W [dz, d]): unit-norm rows of intrinsic dimension dz, the
+    SIFT-like corpus of the repo's IVF benchmark (numpy only)."""
+    rng = np.random.default_rng(seed)
+    W = (rng.standard_normal((dz, d), dtype=np.float32) / np.sqrt(dz)).astype(np.float32)
+    z = rng.standard_normal((n, dz), dtype=np.float32)
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    x *= noise
+    x += z @ W
+    norms = np.sqrt(np.einsum("nd,nd->n", x, x))
+    x /= np.maximum(norms, 1e-30)[:, None]
+    return x, W
+
+
+def lowdim_queries(W: np.ndarray, nq: int, noise: float = 0.05, seed: int = 9) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    dz, d = W.shape
+    q = rng.standard_normal((nq, dz), dtype=np.float32) @ W
+    q += noise * rng.standard_normal((nq, d), dtype=np.float32)
+    q /= np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-30)
+    return q.astype(np.float32)
+
+
+def ivf_reference(idx, q: np.ndarray, k: int, nprobe: int, row_allow=None):
+    """Exact search of the probed lists over an f32 copy of the index's
+    store on the card (ops/ivf.ivf_search_flat, the gather path) → (dist
+    [B, k+1], ids [B, k+1]), ids being the index's slots."""
+    from vectorindex_tpu_torch.ops import ivf as tivf
+
+    p = idx._store._packed
+    ref = tivf.IVFListArrays(*(torch.from_numpy(p[name]).to(DEVICE) for name in (
+        "vecs", "row_ids", "sqnorms", "starts", "lengths")))
+    dist, ids = tivf.ivf_search_flat(
+        torch.from_numpy(q).to(DEVICE), idx._centroids_dev, ref, nprobe=nprobe,
+        probe_cap=tivf.probe_cap_for(idx._store.max_length), k=k + 1, metric=idx.metric,
+        row_allow=row_allow)
+    return dist.cpu().numpy(), ids.cpu().numpy()
+
+
+def check_ivf_batch(idx, res, q, k, nprobe, what, allow_ids=None):
+    """The batch's ids equal, up to ties, the exact search of the probed
+    lists; squared scores agree within RTOL/ATOL."""
+    from vectorindex_tpu_torch.utils.parity import ATOL, RTOL, ids_match_up_to_ties
+
+    row_allow = None if allow_ids is None else idx._row_allow_mask(allow_ids, None)
+    rd, ri = ivf_reference(idx, q, k, nprobe, row_allow)
+    got = np.array([[r.id for r in row] for row in res])
+    gd = np.array([[r.score for r in row] for row in res], dtype=np.float64) ** 2
+    require(got.shape == (len(q), k), f"{what}: expected {k} results per query")
+    require(np.allclose(gd, rd[:, :k], rtol=RTOL, atol=ATOL), f"{what}: distances differ")
+    require(ids_match_up_to_ties(got, ri, rd, k), f"{what}: ids differ from the probed-list reference")
+
+
+def phase_ivf_main(kp):
+    import dataclasses
+
+    from vectorindex_tpu_torch.models.ivf import IVFConfig, IVFIndex
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    t0 = time.perf_counter()
+    x, W = lowdim_corpus(IVF_ROWS, IVF_DIM, dz=16, seed=21)
+    queries = lowdim_queries(W, IVF_EVAL + IVF_BIG_BATCH)
+    evalq, bigq = queries[:IVF_EVAL], queries[IVF_EVAL:]
+    log(f"ivf: corpus {IVF_ROWS}x{IVF_DIM} (lowdim dz=16, seed 21) in {time.perf_counter() - t0:.2f} s")
+    idx = IVFIndex(IVF_DIM, Metric.L2, IVFConfig(nlist=IVF_NLIST, nprobe=IVF_NPROBE),
+                   storage_dtype=torch.bfloat16, device=DEVICE)
+    t0 = time.perf_counter()
+    idx.insert_batch(list(range(IVF_ROWS)), x)
+    t_insert = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.optimize()
+    torch.cuda.synchronize()
+    t_opt = time.perf_counter() - t0
+    log(f"ivf: insert_batch {t_insert:.2f} s, optimize (k-means|| seeding + Lloyd "
+        f"{idx.config.train_iters} iters, seed {idx.config.seed}) {t_opt:.2f} s")
+    frng = np.random.default_rng(5)
+    allowed = np.nonzero(frng.random(IVF_ROWS) < 0.10)[0]
+    allow_ids = set(allowed.tolist())
+    batches = [evalq[i : i + SMALL_BATCH] for i in range(0, IVF_EVAL, SMALL_BATCH)]
+
+    def run(q, k, route, **kw):
+        before = dict(kp.LAUNCHES)
+        res = idx.batch_search(q, k, **kw)
+        grew = {n for n, c in kp.LAUNCHES.items() if c > before[n]}
+        require(grew == {route}, f"batch B={len(q)} k={k} launched {grew}, expected {route}")
+        return res
+
+    idx.batch_search(batches[0], MAIN_K)  # packs the lists and the f32 rerank copy
+    st = idx._store.list_stats()
+    log(f"ivf: lists max {st['max_len']}, mean {st['mean_len']:.1f}, empty "
+        f"{st['empty_lists']}, reserved rows {st['reserved_rows']}")
+    kp.reset_launches()
+    res = {}
+    for nprobe in (IVF_NPROBE, IVF_NPROBE_LOW):
+        idx.config = dataclasses.replace(idx.config, nprobe=nprobe)
+        res[nprobe] = [run(b, MAIN_K, "ivf_probe_topc") for b in batches]
+    idx.config = dataclasses.replace(idx.config, nprobe=IVF_NPROBE)
+    res_big = run(bigq, MAIN_K, "ivf_probe_scores")
+    res_filt = run(batches[0], MAIN_K, "ivf_probe_topc", allow_ids=allow_ids)
+    res_large_k = run(batches[1], IVF_LARGE_K, "ivf_probe_scores_rankmajor")
+    launches = dict(kp.LAUNCHES)
+    log(f"ivf: main path launches {launches}")
+
+    for nprobe, rows in res.items():
+        for b, r in zip(batches, rows):
+            check_ivf_batch(idx, r, b, MAIN_K, nprobe, f"ivf nprobe={nprobe}")
+    check_ivf_batch(idx, res_big, bigq, MAIN_K, IVF_NPROBE, f"ivf B={IVF_BIG_BATCH}")
+    check_ivf_batch(idx, res_filt, batches[0], MAIN_K, IVF_NPROBE, "ivf filtered", allow_ids)
+    check_ivf_batch(idx, res_large_k, batches[1], IVF_LARGE_K, IVF_NPROBE, f"ivf k={IVF_LARGE_K}")
+    log("ivf: every batch equals the exact search of its probed lists (f32 copy) up to ties")
+    for row in res_filt:
+        require(len(row) == MAIN_K and all(r.id in allow_ids for r in row),
+                "filtered query returned fewer than k or a denied id")
+
+    x_dev = torch.from_numpy(x).to(DEVICE)
+    sq_dev = (x_dev * x_dev).sum(dim=1)
+    recalls = {}
+    for nprobe, rows in res.items():
+        dist, kth, truth = brute_force(x_dev, sq_dev, evalq, MAIN_K)
+        flat_rows = [row for batch in rows for row in batch]
+        recalls[nprobe] = recall(flat_rows, dist, kth, truth, MAIN_K)
+        log(f"ivf: nprobe={nprobe} recall@{MAIN_K}={recalls[nprobe][0]} "
+            f"(set recall {recalls[nprobe][1]}) over {IVF_EVAL} queries")
+    require(recalls[IVF_NPROBE][0] >= IVF_RECALL_MIN,
+            f"recall@{MAIN_K} {recalls[IVF_NPROBE][0]} < {IVF_RECALL_MIN} at nprobe={IVF_NPROBE}")
+    del x_dev, sq_dev
+    return idx, batches, bigq, launches, {"insert_s": t_insert, "optimize_s": t_opt}
+
+
+def probe_bound(kp, q, starts, lives, arrays, probe_cap, kernel):
+    """(bound_ms, bound_by) of one probe kernel call: every live row of the
+    distinct probed lists read once (d * itemsize + 4 bytes), q and the
+    tables read, the output written once; 2 d operations per (query, row)."""
+    b, d = q.shape
+    itemsize = arrays.vecs.element_size()
+    lists = torch.unique(starts.flatten())
+    first = (starts.flatten()[None, :] == lists[:, None]).int().argmax(dim=1)
+    unique_rows = int(lives.flatten()[first].sum())
+    nbytes = unique_rows * (d * itemsize + 4) + q.numel() * 4 + starts.numel() * 8
+    if kernel == "ivf_probe_topc":
+        nbytes += b * kp.TIERS * kp.CBINS * 8 + b * kp.CBINS * 4
+    else:
+        nbytes += b * starts.shape[1] * probe_cap * 4
+    flops = 2.0 * d * int(lives.sum())
+    return bound(nbytes, flops, BF16_FLOPS if itemsize == 2 else F32_FLOPS)
+
+
+def phase_ivf_times(kp, idx, batches, bigq, errs):
+    """On the main path's own tensors: K3 and K5 at B=8 and K4 at B=256
+    (nprobe=32) against their plain versions, then their times, bounds and
+    the end-to-end batch_search latency."""
+    import dataclasses
+
+    from vectorindex_tpu_torch.ops import ivf as tivf
+
+    arrays = idx._store.sync_device(idx.storage_dtype)
+    cap = tivf.probe_cap_for(idx._store.max_length)
+    kw = dict(nprobe=IVF_NPROBE, probe_cap=cap, metric=idx.metric)
+    q8, q256 = torch.from_numpy(batches[0]).to(DEVICE), torch.from_numpy(bigq).to(DEVICE)
+    args8 = (q8, *probe_tables(q8, idx._centroids_dev, arrays, IVF_NPROBE, idx.metric),
+             arrays.vecs, arrays.sqnorms)
+    args256 = (q256, *probe_tables(q256, idx._centroids_dev, arrays, IVF_NPROBE, idx.metric),
+               arrays.vecs, arrays.sqnorms)
+    for name, e in check_probe_kernels(kp, args8, args256, kw, SMALL_BATCH).items():
+        errs[name] = max(errs[name], e)
+    log("ivf main-shape check: K3, K5 (B=8) and K4 (B=256) equal their plain versions bit for bit")
+    t = {}
+    for name, fn, ref, args in (
+        ("ivf_probe_topc", kp.ivf_probe_topc_rankmajor, kp.ivf_probe_topc_rankmajor_ref, args8),
+        ("ivf_probe_scores_rankmajor", kp.ivf_probe_scores_rankmajor,
+         kp.ivf_probe_scores_rankmajor_ref, args8),
+        ("ivf_probe_scores", kp.ivf_probe_scores, kp.ivf_probe_scores_ref, args256),
+    ):
+        t[name] = time_ms(lambda: fn(*args, **kw), 50)
+        t[name + "_plain"] = time_ms(lambda: ref(*args, **kw), 3, warmup=1)
+        t[name + "_bound"] = probe_bound(kp, args[0], args[1], args[2], arrays, cap, name)
+        log(f"ivf times {name} B={len(args[0])} nprobe={IVF_NPROBE}: kernel {t[name]:.4g} ms, "
+            f"plain {t[name + '_plain']:.4g} ms, bound {t[name + '_bound'][0]:.4g} ms "
+            f"({t[name + '_bound'][1]})")
+    for q, nprobe in ((batches[0], IVF_NPROBE), (batches[0], IVF_NPROBE_LOW), (bigq, IVF_NPROBE)):
+        label = f"B={len(q)} nprobe={nprobe}"
+        idx.config = dataclasses.replace(idx.config, nprobe=nprobe)
+        idx.batch_search(q, MAIN_K)  # warm
+        lat = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            idx.batch_search(q, MAIN_K)
+            lat.append(time.perf_counter() - t0)
+        med = float(np.median(lat))
+        t[f"search {label}"] = (1e3 * med, len(q) / med)
+        log(f"ivf batch_search {label}: median {1e3 * med:.4g} ms, {len(q) / med:.1f} QPS")
+    idx.config = dataclasses.replace(idx.config, nprobe=IVF_NPROBE)
+    return t
+
+
+def flat_bound(n: int, d: int, b: int, itemsize: int, kernel: str):
+    """(bound_ms, bound_by) of K1/K2 over the flat main path's corpus."""
+    nbytes = n * (d * itemsize + 4) + b * d * 4
+    nbytes += b * 3 * 256 * 8 if kernel == "bin_candidates" else b * 12
+    return bound(nbytes, 2.0 * b * n * d, BF16_FLOPS if itemsize == 2 else F32_FLOPS)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from vectorindex_tpu_torch.kernels import _build, scan_fused as sf
+    from vectorindex_tpu_torch.kernels import _build, ivf_probe as kp, scan_fused as sf
     from vectorindex_tpu_torch.ops.topk import topk
 
     require(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls must stay off")
@@ -313,22 +678,33 @@ def main() -> int:
     errs = phase_compare(sf, topk)
     idx, batches, launches = phase_main(sf)
     times = phase_times(sf, topk, idx, batches, errs)
+    n_flat, itemsize = idx.capacity, 2
+    del idx, batches
+    torch.cuda.empty_cache()
+
+    errs.update(phase_ivf_compare(kp))
+    ivf_idx, ivf_batches, bigq, ivf_launches, build_s = phase_ivf_main(kp)
+    ivf_times = phase_ivf_times(kp, ivf_idx, ivf_batches, bigq, errs)
+    launches.update(ivf_launches)
 
     big = times[MAIN_BATCH]
-    kernels = [
-        {
-            "name": name,
-            "route": "cuda",
-            "source": SOURCE,
-            "replaces": REPLACES[name],
-            "launches": launches[name],
-            "max_abs_err": errs[name],
-            "ms": big[name],
-            "plain_ms": big[name + "_plain"],
-        }
-        for name in ("bin_candidates", "count_below")
-    ]
-    log(f"gpu: {gpu}; end-to-end batch_search B={MAIN_BATCH}: {big['qps']:.1f} QPS")
+    kernels = []
+    for name in ("bin_candidates", "count_below"):
+        bms, by = flat_bound(n_flat, MAIN_DIM, MAIN_BATCH, itemsize, name)
+        kernels.append({"name": name, "ms": big[name], "plain_ms": big[name + "_plain"],
+                        "bound_ms": bms, "bound_by": by})
+    for name in ("ivf_probe_topc", "ivf_probe_scores", "ivf_probe_scores_rankmajor"):
+        bms, by = ivf_times[name + "_bound"]
+        kernels.append({"name": name, "ms": ivf_times[name],
+                        "plain_ms": ivf_times[name + "_plain"], "bound_ms": bms, "bound_by": by})
+    for k in kernels:
+        # no single PyTorch call computes a per-class top-3, a count below
+        # tau, or distances over per-query probed row lists
+        k.update(route="cuda", source=SOURCES[k["name"]], replaces=REPLACES[k["name"]],
+                 launches=launches[k["name"]], max_abs_err=errs[k["name"]], library_ms=None)
+    require(all(k["launches"] > 0 for k in kernels), f"a kernel did not run on its path: {launches}")
+    log(f"gpu: {gpu}; flat batch_search B={MAIN_BATCH}: {big['qps']:.1f} QPS; ivf insert_batch "
+        f"{build_s['insert_s']:.2f} s, optimize {build_s['optimize_s']:.2f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

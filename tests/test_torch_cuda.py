@@ -8,10 +8,11 @@ that --noconftest skips)
     python -m pytest --noconftest -p no:cacheprovider \
         -o "markers=cuda: needs an NVIDIA GPU" -m cuda tests/test_torch_cuda.py
 
-Tolerance: the kernels against their plain versions on the card, 0 (both
-sum each dot product as one f32 FMA chain over d); the index on the card
-against the index on the host, rtol=2e-4, atol=2e-5 (f32 sums in another
-order; bf16 products are exact in f32).
+Tolerance: the kernels against their plain versions on the card, 0 (K1/K2
+and their plain versions sum each dot product as one f32 FMA chain over d;
+K3/K4/K5 and theirs as one chain of separately rounded products and sums);
+an index on the card against the same index on the host, rtol=2e-4,
+atol=2e-5 (f32 sums in another order; bf16 products are exact in f32).
 """
 
 import numpy as np
@@ -19,7 +20,10 @@ import pytest
 import torch
 
 import vectorindex_tpu_torch.models.flat as tflat
+from vectorindex_tpu_torch.kernels import ivf_probe as kp
 from vectorindex_tpu_torch.kernels import scan_fused as sf
+from vectorindex_tpu_torch.models.ivf import IVFConfig, IVFIndex
+from vectorindex_tpu_torch.ops import ivf as tivf
 from vectorindex_tpu_torch.ops import scoring
 from vectorindex_tpu_torch.ops.topk import INVALID_ID, topk
 from vectorindex_tpu_torch.utils.config import Metric
@@ -111,3 +115,102 @@ def test_f32_gram_refuses_tf32(cuda_device, monkeypatch):
     q = torch.randn(2, 8, device=cuda_device)
     with pytest.raises(RuntimeError, match="allow_tf32"):
         scoring.inner_product_block(q, q)
+
+
+def _skewed_store(d, dtype, device, seed=0, nlist=24):
+    """Lists of skewed lengths (some empty, one long) in the CSR layout."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, 400, nlist)
+    lengths[[2, 9]] = 0
+    lengths[5] = 3000
+    assign = np.repeat(np.arange(nlist), lengths)
+    x = rng.standard_normal((len(assign), d)).astype(np.float32)
+    store = tivf.IVFListStore(nlist, d, device=device)
+    store.append_batch(assign, np.arange(len(x)), x)
+    cent = np.stack([x[assign == i].mean(0) if lengths[i] else np.zeros(d) for i in range(nlist)])
+    return store.sync_device(dtype), tivf.probe_cap_for(store.max_length), cent.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [128, 100])
+def test_ivf_kernels_match_plain_versions(metric, dtype, d, cuda_device):
+    arrays, cap, cent = _skewed_store(d, dtype, cuda_device, seed=d)
+    rng = np.random.default_rng(d + 1)
+    nprobe = 8
+    allow = torch.from_numpy(rng.random(arrays.row_ids.shape[0]) < 0.1).to(cuda_device)
+    sq_deny = torch.where(allow, arrays.sqnorms, float("inf")).contiguous()
+    kp.reset_launches()
+    for b, sqn in ((8, sq_deny), (20, arrays.sqnorms)):
+        q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(cuda_device)
+        _, pl = tivf.ivf_select(q, torch.from_numpy(cent).to(cuda_device), nprobe=nprobe, metric=metric)
+        pl = pl.long()
+        args = (q, arrays.starts[pl].contiguous(), arrays.lengths[pl].contiguous(), arrays.vecs, sqn)
+        kw = dict(nprobe=nprobe, probe_cap=cap, metric=metric)
+        for fn, ref in ((kp.ivf_probe_scores, kp.ivf_probe_scores_ref),
+                        (kp.ivf_probe_scores_rankmajor, kp.ivf_probe_scores_rankmajor_ref)):
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref(*args, **kw))
+        got = kp.ivf_probe_topc_rankmajor(*args, **kw)
+        torch.cuda.synchronize()
+        for a, r in zip(got, kp.ivf_probe_topc_rankmajor_ref(*args, **kw)):
+            assert torch.equal(a, r)
+    assert kp.LAUNCHES == {"ivf_probe_topc": 2, "ivf_probe_scores": 2, "ivf_probe_scores_rankmajor": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_ivf_index_on_card_matches_host(dtype, cuda_device):
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((6000, 32)).astype(np.float32)
+    on_host = IVFIndex(32, Metric.L2, IVFConfig(nlist=32, nprobe=6), storage_dtype=dtype, device="cpu")
+    on_host.insert_batch(list(range(len(x))), x)
+    on_host.optimize()
+    state = {
+        "dimension": 32, "metric": "l2", "storage_dtype": str(dtype).removeprefix("torch."),
+        "config": {"nlist": 32, "nprobe": 6, "train_iters": 20, "seed": 42},
+        "vectors": on_host._vectors, "metadata": on_host._metadata,
+        "ids": list(on_host._idmap.items()), "free": on_host._free,
+        "next_slot": on_host._next_slot, "centroids": on_host._centroids,
+        "lists": on_host._store._lists_ids,
+    }
+    on_card = IVFIndex.from_state(state, device=cuda_device)
+    q = x[rng.choice(len(x), 20, replace=False)] + 0.1 * rng.standard_normal((20, 32)).astype(np.float32)
+    allow = list(range(0, len(x), 4))
+    kp.reset_launches()
+    for b, kw, name in ((8, {}, "ivf_probe_topc"), (8, dict(allow_ids=allow), "ivf_probe_topc"),
+                        (20, {}, "ivf_probe_scores"), (20, dict(allow_ids=allow), "ivf_probe_scores")):
+        before = kp.LAUNCHES[name]
+        got = on_card.batch_search(q[:b], 10, **kw)
+        assert kp.LAUNCHES[name] == before + 1
+        want = on_host.batch_search(q[:b], 11, **kw)
+        wd = np.array([[r.score**2 for r in row] for row in want])
+        gd = np.array([[r.score**2 for r in row] for row in got])
+        np.testing.assert_allclose(gd, wd[:, :10], rtol=RTOL, atol=ATOL)
+        assert ids_match_up_to_ties([[r.id for r in row] for row in got],
+                                    [[r.id for r in row] for row in want], wd, 10)
+    got = on_card.batch_search(q[:4], 600)  # serving batch, k beyond K3: K5
+    assert kp.LAUNCHES["ivf_probe_scores_rankmajor"] == 1
+    want = on_host.batch_search(q[:4], 600)
+    assert [[r.id for r in row][:50] for row in got] == [[r.id for r in row][:50] for row in want]
+
+
+@pytest.mark.cuda
+def test_ivf_class_crowding_falls_back_to_k4(cuda_device):
+    """Five equal rows in one class defeat K3's three tiers: the proof fails
+    and the batch re-runs through K4."""
+    d = 16
+    x = 100.0 + np.random.default_rng(0).standard_normal((1280, d)).astype(np.float32)
+    x[[0, 256, 512, 768, 1024]] = 1.0
+    store = tivf.IVFListStore(2, d, device=cuda_device)
+    store.append_batch(np.zeros(len(x), int), np.arange(len(x)), x)
+    arrays = store.sync_device()
+    cent = torch.zeros((2, d), device=cuda_device)
+    q = torch.ones((1, d), device=cuda_device)
+    kp.reset_launches()
+    _, ids = kp.ivf_search_flat_probe(q, cent, arrays, nprobe=1,
+                                      probe_cap=tivf.probe_cap_for(store.max_length), k=5)
+    assert kp.LAUNCHES == {"ivf_probe_topc": 1, "ivf_probe_scores": 1, "ivf_probe_scores_rankmajor": 0}
+    assert sorted(ids[0].tolist()) == [0, 256, 512, 768, 1024]

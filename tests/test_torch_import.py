@@ -43,8 +43,13 @@ def test_every_module_imports_without_jax_or_nvcc(tmp_path):
     assert not got["library_loaded"]  # building waits for the first launch
     expected = {
         "vectorindex_tpu_torch.kernels.scan_fused",
+        "vectorindex_tpu_torch.kernels.ivf_probe",
         "vectorindex_tpu_torch.kernels._build",
         "vectorindex_tpu_torch.models.flat",
+        "vectorindex_tpu_torch.models.ivf",
+        "vectorindex_tpu_torch.ops.ivf",
+        "vectorindex_tpu_torch.ops.kmeans",
+        "vectorindex_tpu_torch.ops.rng",
         "vectorindex_tpu_torch.ops.scan",
         "vectorindex_tpu_torch.persistence.json_snapshot",
         "vectorindex_tpu_torch.utils.telemetry",
@@ -59,7 +64,11 @@ def test_port_sources_use_no_jax_no_compile_no_fallback():
         re.compile(r"torch\.compile"),
     ]
     # no except around a kernel launch: a CUDA tensor launches or raises
-    launching = [*sorted((PORT / "kernels").glob("*.py")), PORT / "models" / "flat.py"]
+    launching = [
+        *sorted((PORT / "kernels").glob("*.py")),
+        PORT / "models" / "flat.py",
+        PORT / "models" / "ivf.py",
+    ]
     for path in sorted(PORT.rglob("*.py")):
         text = path.read_text()
         for pattern in banned:
@@ -130,3 +139,20 @@ def test_telemetry_records_like_the_reference():
         pass
     off.record_kernel("scan_fused")
     assert off.snapshot()["counters"] == {}
+
+
+def test_ivf_layout_constants_match_the_reference():
+    """The CSR row layout (block size, guard blocks, list capacities) and the
+    K3 route are the JAX package's, so a CSR row means the same in both."""
+    from vectorindex_tpu.kernels import ivf_probe as jkp
+    from vectorindex_tpu.models.ivf import IVFConfig as JConfig
+    from vectorindex_tpu_torch.kernels import ivf_probe as kp
+    from vectorindex_tpu_torch.models.ivf import IVFConfig
+
+    assert (kp.BLK, kp.CBINS, kp.GUARD_BLOCKS) == (jkp.BLK, jkp.CBINS, jkp.GUARD_BLOCKS)
+    for b in (0, 1, 8, 16, 17, 256):
+        assert kp.rank_major_fits(b, 4096, 128, 2) == jkp.rank_major_fits(b, 4096, 128, 2)
+    assert IVFConfig().__dict__ == JConfig().__dict__
+    text = (PORT / "kernels" / "csrc" / "ivf_probe.cu").read_text()
+    for name in ("ivf_probe_scores", "ivf_probe_scores_rankmajor", "ivf_probe_topc_rankmajor"):
+        assert f"ivf_probe.py:{name}" in text  # the source names what it replaces

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-All `csrc/*.cu` files are compiled by one `nvcc` call into one shared library
-with a plain C interface, loaded with ctypes:
+Each `csrc/*.cu` file is compiled by its own `nvcc` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o <cache>/libvectorindex_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <tmp>/<name>.o csrc/<name>.cu   # one per file
+    nvcc -shared -o <cache>/libvectorindex_kernels.so <tmp>/*.o
 
 The library goes to `build/kernels/<hash>/` under the repository root (a
 directory .gitignore lists), keyed by a hash of the sources and flags, so an
@@ -28,7 +30,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libvectorindex_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -63,23 +65,28 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = str(Path(tmp) / f"{src.stem}.o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        # wait for every compile, then report all that failed
+        logs = [(p.args[-1], p.communicate()[0], p.returncode) for p in procs]
+        failed = [f"{src} ({rc}):\n{log}" for src, log, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = str(Path(tmp) / LIB_NAME)
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-            capture_output=True,
-            text=True,
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs], capture_output=True, text=True
         )
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: a reader never sees a partial library
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        os.replace(lib, out)  # atomic: a reader never sees a partial library
     return out
 
 
@@ -89,6 +96,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vi_bin_candidates.restype = ctypes.c_int
     lib.vi_count_below.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, p, p]
     lib.vi_count_below.restype = ctypes.c_int
+    lib.vi_ivf_probe_scores.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p, p]
+    lib.vi_ivf_probe_scores.restype = ctypes.c_int
+    lib.vi_ivf_probe_topc.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p]
+    lib.vi_ivf_probe_topc.restype = ctypes.c_int
     lib.vi_error_string.argtypes = [i]
     lib.vi_error_string.restype = ctypes.c_char_p
 

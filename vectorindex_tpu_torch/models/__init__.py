@@ -1,4 +1,4 @@
-"""Index families of the port (so far: the exact flat index)."""
+"""Index families of the port (so far: the exact flat index and IVF-Flat)."""
 
 from vectorindex_tpu_torch.models.base import (  # noqa: F401
     IndexStats,
@@ -7,3 +7,4 @@ from vectorindex_tpu_torch.models.base import (  # noqa: F401
 )
 from vectorindex_tpu_torch.models.filters import JournalFilter  # noqa: F401
 from vectorindex_tpu_torch.models.flat import FlatIndex  # noqa: F401
+from vectorindex_tpu_torch.models.ivf import IVFConfig, IVFIndex  # noqa: F401

@@ -1,0 +1,559 @@
+"""IVFIndex — inverted-file index with a k-means coarse quantizer (IVF-Flat).
+
+Counterpart of vectorindex_tpu.models.ivf (parity targets: the reference's
+IVFIndex.swift — nlist/nprobe :15-22, optimize() :265-284 and :311-364,
+kernel-30 search :862-985, JSON save/load re-running optimize() :657-665,
+statistics :612-628).
+
+  - Host numpy mirrors are the control plane (vectors by slot, metadata, id
+    map, free slots); the lists live in ops/ivf.IVFListStore, whose device
+    tensors sit on `device` (default "cuda").
+  - optimize() trains ops/kmeans (Lloyd, seeded from (config.seed, 0)) on
+    the device and assigns every row to its nearest centroid.
+  - A trained index searches through kernels/ivf_probe.ivf_search_flat_probe:
+    on a CUDA index the kernels K3/K4/K5, on a CPU index their plain
+    versions. bf16 storage hands it an f32 rerank source in CSR row order.
+    An untrained index scans every row exactly (ops/scan.scan_topk_strict).
+
+Not ported yet: IVFPQConfig/IVFPQIndex (ROADMAP.md Queue 1 item 6) and the
+durable container (item 9).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from vectorindex_tpu_torch.kernels.ivf_probe import ivf_search_flat_probe
+from vectorindex_tpu_torch.models.base import (
+    FilterFn,
+    IndexStats,
+    Metadata,
+    SearchResult,
+    VectorID,
+    VectorIndex,
+)
+from vectorindex_tpu_torch.ops import kmeans as km
+from vectorindex_tpu_torch.ops.filtering import slot_mask_np
+from vectorindex_tpu_torch.ops.idmap import IDMap
+from vectorindex_tpu_torch.ops.ivf import IVFListStore, probe_cap_for
+from vectorindex_tpu_torch.ops.scan import scan_topk_strict
+from vectorindex_tpu_torch.ops.topk import INVALID_ID
+from vectorindex_tpu_torch.persistence.json_snapshot import (
+    PersistedIndex,
+    PersistedRecord,
+    load_snapshot,
+    save_snapshot,
+)
+from vectorindex_tpu_torch.utils.config import Metric
+from vectorindex_tpu_torch.utils.errors import (
+    ErrorBuilder,
+    IndexErrorKind,
+    dimension_mismatch,
+    duplicate_id,
+)
+from vectorindex_tpu_torch.utils.telemetry import TELEM, QueryStats
+
+_STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DURABLE = "the durable container is not ported yet (ROADMAP.md Queue 1 item 9)"
+
+
+@dataclass(frozen=True)
+class IVFConfig:
+    """Reference IVFIndex.Configuration (IVFIndex.swift:15-22)."""
+
+    nlist: int = 64
+    nprobe: int = 8
+    train_iters: int = 20  # reference maxIterations 20 (:311)
+    seed: int = 42  # reference k-means seed 42 (:367)
+
+
+class IVFIndex(VectorIndex):
+    TYPE = "ivf"
+    _ALLOWED_METRICS = (Metric.L2, Metric.INNER_PRODUCT, Metric.COSINE)
+
+    def __init__(
+        self,
+        dimension: int,
+        metric: Metric = Metric.L2,
+        config: IVFConfig = IVFConfig(),
+        storage_dtype: torch.dtype = torch.float32,
+        device="cuda",
+    ):
+        if metric not in self._ALLOWED_METRICS:
+            allowed = "/".join(m.value for m in self._ALLOWED_METRICS)
+            raise (
+                ErrorBuilder(IndexErrorKind.UNSUPPORTED_METRIC)
+                .message(f"{type(self).__name__} supports {allowed}, got {metric.value}")
+                .build()
+            )
+        if storage_dtype not in _STORAGE_DTYPES.values():
+            raise (
+                ErrorBuilder(IndexErrorKind.INVALID_CONFIGURATION)
+                .message(f"storage_dtype must be float32 or bfloat16, got {storage_dtype}")
+                .build()
+            )
+        self.dimension = dimension
+        self.metric = metric
+        self.config = config
+        self.storage_dtype = storage_dtype
+        self.device = torch.device(device)
+        # host control plane
+        self._vectors: dict[int, np.ndarray] = {}  # slot -> vector
+        self._metadata: dict[int, Metadata] = {}
+        self._idmap = IDMap()
+        self._next_slot = 0
+        self._free: list[int] = []
+        # quantizer + lists
+        self._centroids: Optional[np.ndarray] = None
+        self._centroids_dev: Optional[torch.Tensor] = None
+        self._store = IVFListStore(config.nlist, dimension, device=self.device)
+        self._slot_list: dict[int, int] = {}  # slot -> list id
+        self._rerank_f32_cache = None
+
+    @classmethod
+    def from_state(cls, state: dict, device="cuda") -> "IVFIndex":
+        """Rebuild an index from another index's state as plain numpy/python
+        values, so both hold the same lists in the same order and search
+        the same rows. Keys: dimension, metric (name or Metric), config
+        (dict of IVFConfig fields), storage_dtype ("float32" or
+        "bfloat16"), vectors {slot: vector}, metadata {slot: metadata},
+        ids (iterable of (external, slot)), free (list), next_slot,
+        centroids ([nlist, d] or None), lists (per list, its slots in
+        order; ignored when centroids is None)."""
+        metric = state["metric"]
+        idx = cls(
+            int(state["dimension"]),
+            Metric(getattr(metric, "value", metric)),
+            IVFConfig(**dict(state["config"])),
+            storage_dtype=_STORAGE_DTYPES[str(state["storage_dtype"])],
+            device=device,
+        )
+        idx._vectors = {
+            int(s): np.array(v, dtype=np.float32) for s, v in state["vectors"].items()
+        }
+        idx._metadata = {int(s): m for s, m in state["metadata"].items()}
+        for ext, slot in state["ids"]:
+            idx._idmap.append(ext, int(slot))
+        idx._free = [int(s) for s in state["free"]]
+        idx._next_slot = int(state["next_slot"])
+        if state.get("centroids") is not None:
+            idx._set_centroids(np.asarray(state["centroids"], dtype=np.float32))
+            for lst, slots in enumerate(state["lists"]):
+                slots = [int(s) for s in slots]
+                if slots:
+                    vecs = np.stack([idx._vectors[s] for s in slots])
+                    idx._store.append_batch([lst] * len(slots), slots, vecs)
+                for s in slots:
+                    idx._slot_list[s] = lst
+        return idx
+
+    # ------------------------------------------------------------------
+
+    @property
+    def count(self) -> int:
+        return len(self._idmap)
+
+    @property
+    def trained(self) -> bool:
+        return self._centroids is not None
+
+    def _set_centroids(self, centroids: np.ndarray) -> None:
+        self._centroids = np.array(centroids, dtype=np.float32)
+        self._centroids_dev = torch.from_numpy(self._centroids).to(self.device, copy=True)
+
+    def _alloc(self) -> int:
+        if self._free:
+            return self._free.pop()
+        s = self._next_slot
+        self._next_slot += 1
+        return s
+
+    def _check(self, vector) -> np.ndarray:
+        v = np.asarray(vector, dtype=np.float32).reshape(-1)
+        if v.shape[0] != self.dimension:
+            raise dimension_mismatch(self.dimension, v.shape[0], "ivf.insert")
+        if not np.all(np.isfinite(v)):
+            raise (
+                ErrorBuilder(IndexErrorKind.INVALID_VECTOR)
+                .message("vector contains non-finite values")
+                .build()
+            )
+        return v
+
+    def _assign_lists(self, vecs: np.ndarray) -> np.ndarray:
+        assign, _ = km.assign_clusters_chunked(
+            torch.from_numpy(np.ascontiguousarray(vecs)).to(self.device), self._centroids_dev
+        )
+        return assign.cpu().numpy()
+
+    def _sync_rerank_f32(self) -> torch.Tensor:
+        """f32 CSR-ordered rerank source for bf16 scan storage (cached per
+        store version; the store's packed host vectors are f32 in CSR row
+        order)."""
+        key = (self._store.version, self._store.layout_version)
+        if self._rerank_f32_cache is not None and self._rerank_f32_cache[0] == key:
+            return self._rerank_f32_cache[1]
+        self._store.sync_device(self.storage_dtype)  # ensure packed
+        src = torch.from_numpy(self._store._packed["vecs"]).to(self.device, copy=True)
+        self._rerank_f32_cache = (key, src)
+        return src
+
+    # ------------------------------------------------------------------
+    # CRUD
+    # ------------------------------------------------------------------
+
+    def insert(self, id: VectorID, vector, metadata: Metadata = None) -> None:
+        if id in self._idmap:
+            raise duplicate_id(id, "ivf.insert")
+        v = self._check(vector)
+        slot = self._alloc()
+        self._vectors[slot] = v
+        self._metadata[slot] = metadata
+        self._idmap.append(id, slot)
+        if self.trained:
+            lst = int(self._assign_lists(v[None, :])[0])
+            self._store.append(lst, slot, v)
+            self._slot_list[slot] = lst
+
+    def insert_batch(self, ids, vectors, metadatas=None) -> None:
+        vectors = np.asarray(vectors, dtype=np.float32)
+        if vectors.ndim != 2 or vectors.shape[1] != self.dimension:
+            raise dimension_mismatch(self.dimension, vectors.shape[-1], "ivf.insert_batch")
+        for id_ in ids:
+            if id_ in self._idmap:
+                raise duplicate_id(id_, "ivf.insert_batch")
+        slots = []
+        for i, id_ in enumerate(ids):
+            slot = self._alloc()
+            self._vectors[slot] = vectors[i]
+            self._metadata[slot] = None if metadatas is None else metadatas[i]
+            self._idmap.append(id_, slot)
+            slots.append(slot)
+        if self.trained:
+            lists = self._assign_lists(vectors)
+            self._store.append_batch(lists, slots, vectors)
+            for s, l in zip(slots, lists):
+                self._slot_list[s] = int(l)
+
+    def remove(self, id: VectorID) -> None:
+        slot = self._idmap.erase(id)
+        self._vectors.pop(slot, None)
+        self._metadata.pop(slot, None)
+        self._free.append(slot)
+        lst = self._slot_list.pop(slot, None)
+        if lst is not None:
+            self._store.remove(lst, slot)
+
+    def update(self, id: VectorID, vector=None, metadata: Metadata = None) -> None:
+        slot = self._idmap.lookup(id)
+        if vector is not None:
+            v = self._check(vector)
+            self._vectors[slot] = v
+            old = self._slot_list.pop(slot, None)
+            if old is not None:
+                self._store.remove(old, slot)
+            if self.trained:
+                lst = int(self._assign_lists(v[None, :])[0])
+                self._store.append(lst, slot, v)
+                self._slot_list[slot] = lst
+        if metadata is not None:
+            self._metadata[slot] = metadata
+
+    def contains(self, id: VectorID) -> bool:
+        return id in self._idmap
+
+    def ingest_flat(self, ids, vectors, assignments) -> None:
+        """Bulk-ingest vectors with precomputed list assignments, bypassing
+        the quantizer (reference ingestFlat, IVFIndex.swift:180)."""
+        vectors = np.asarray(vectors, dtype=np.float32)
+        assignments = np.asarray(assignments, dtype=np.int64)
+        if vectors.ndim != 2 or vectors.shape[1] != self.dimension:
+            raise dimension_mismatch(self.dimension, vectors.shape[-1], "ingest_flat")
+        if assignments.min(initial=0) < 0 or assignments.max(initial=0) >= self.config.nlist:
+            raise (
+                ErrorBuilder(IndexErrorKind.OUT_OF_RANGE)
+                .message("assignment outside [0, nlist)")
+                .build()
+            )
+        for id_ in ids:
+            if id_ in self._idmap:
+                raise duplicate_id(id_, "ingest_flat")
+        slots = []
+        for i, id_ in enumerate(ids):
+            slot = self._alloc()
+            self._vectors[slot] = vectors[i]
+            self._metadata[slot] = None
+            self._idmap.append(id_, slot)
+            slots.append(slot)
+        self._store.append_batch(assignments, slots, vectors)
+        for s, l in zip(slots, assignments):
+            self._slot_list[s] = int(l)
+
+    # ------------------------------------------------------------------
+    # training (reference optimize(), IVFIndex.swift:265)
+    # ------------------------------------------------------------------
+
+    def _stacked(self) -> tuple[list[int], np.ndarray]:
+        slots = sorted(self._vectors.keys())
+        return slots, np.stack([self._vectors[s] for s in slots])
+
+    def _reassign(self, slots: list[int], x: np.ndarray, assigns: np.ndarray) -> None:
+        self._store.clear()
+        self._store.append_batch(assigns, slots, x)
+        self._slot_list = {s: int(l) for s, l in zip(slots, assigns)}
+
+    def optimize(self) -> None:
+        if self.count == 0:
+            return
+        slots, x = self._stacked()
+        cfg = km.KMeansConfig(
+            k=self.config.nlist, iters=self.config.train_iters, algo="lloyd",
+            seed=self.config.seed,
+        )
+        res = km.kmeans(torch.from_numpy(x).to(self.device), cfg)
+        self._set_centroids(res.centroids.cpu().numpy())
+        self._reassign(slots, x, res.assignments.cpu().numpy())
+
+    def refresh_quantizer(
+        self, iters: int = 5, sample: int = 262144, chunk: int = km.ASSIGN_CHUNK
+    ) -> dict:
+        """Warm-start quantizer adaptation after distribution shift: a few
+        minibatch k-means iterations seeded from the current centroids over
+        a sample of live rows, then a full reassignment + repack. Returns
+        {'moved_frac', 'seconds'}; a no-op when untrained or empty."""
+        import time
+
+        if not self.trained or self.count == 0:
+            return {"moved_frac": 0.0, "seconds": 0.0}
+        t0 = time.perf_counter()
+        slots, x = self._stacked()
+        xs = x
+        if x.shape[0] > sample:
+            rng = np.random.default_rng(self.config.seed ^ 0x5EED)
+            xs = x[rng.choice(x.shape[0], sample, replace=False)]
+        res = km.kmeans(
+            torch.from_numpy(xs).to(self.device),
+            km.KMeansConfig(
+                k=self.config.nlist, iters=iters, algo="minibatch",
+                batch_size=min(65536, xs.shape[0]), seed=self.config.seed,
+            ),
+            init=self._centroids_dev,
+        )
+        self._set_centroids(res.centroids.cpu().numpy())
+        assign, _ = km.assign_clusters_chunked(
+            torch.from_numpy(x).to(self.device), self._centroids_dev, chunk=chunk
+        )
+        assigns = assign.cpu().numpy().astype(np.int64)
+        moved = sum(1 for s_, l_ in zip(slots, assigns) if self._slot_list.get(s_) != l_)
+        self._reassign(slots, x, assigns)
+        return {"moved_frac": moved / max(len(slots), 1), "seconds": time.perf_counter() - t0}
+
+    # ------------------------------------------------------------------
+    # search
+    # ------------------------------------------------------------------
+
+    def _public_score(self, dist: np.ndarray) -> np.ndarray:
+        if self.metric == Metric.L2:
+            return np.sqrt(np.maximum(dist, 0.0))
+        if self.metric == Metric.INNER_PRODUCT:
+            return -dist
+        return 1.0 - dist
+
+    def _row_allow_mask(self, allow_ids, deny_ids) -> Optional[torch.Tensor]:
+        """[N_pad] bool allow mask in CSR row order from external-id sets
+        (None when no id filter was requested), applied by the probed search
+        before candidate selection (reference IDFilter.swift:104)."""
+        smask = slot_mask_np(max(self._next_slot, 1), self._idmap, allow_ids, deny_ids)
+        if smask is None:
+            return None
+        self._store.sync_device(self.storage_dtype)  # ensure packed layout
+        rid = self._store._packed["row_ids"]
+        ra = np.zeros(rid.shape[0], dtype=bool)
+        live = rid >= 0
+        ra[live] = smask[rid[live]]
+        return torch.from_numpy(ra).to(self.device)
+
+    def batch_search(
+        self,
+        queries,
+        k: int,
+        filter: Optional[FilterFn] = None,
+        *,
+        allow_ids=None,
+        deny_ids=None,
+        disabled_lists=None,
+    ) -> list[list[SearchResult]]:
+        """allow_ids / deny_ids: external-id sets masked into the probed
+        distances before top-k (k results survive selective filters).
+        disabled_lists: list ids excluded from coarse routing (reference
+        IVFSelectOpts.disabledLists, IVFSelect.swift:16-56)."""
+        q = np.ascontiguousarray(queries, dtype=np.float32)
+        if q.ndim == 1:
+            q = q[None, :]
+        if q.shape[1] != self.dimension:
+            raise dimension_mismatch(self.dimension, q.shape[1], "ivf.search")
+        if self.count == 0 or k <= 0 or q.shape[0] == 0:
+            return [[] for _ in range(q.shape[0])]
+        # oversample when a host-side metadata filter will drop hits
+        kk = min(k if filter is None else max(4 * k, k + 32), self.count)
+        qt = torch.from_numpy(q).to(self.device)
+        if not self.trained:
+            # untrained: exact scan over every record
+            slots, x = self._stacked()
+            vmask = np.ones((len(slots),), bool)
+            smask = slot_mask_np(max(self._next_slot, 1), self._idmap, allow_ids, deny_ids)
+            if smask is not None:
+                vmask = smask[np.asarray(slots, dtype=np.int64)]
+            dist, idx = scan_topk_strict(
+                qt, torch.from_numpy(x).to(self.device), None, None,
+                torch.from_numpy(vmask).to(self.device), metric=self.metric,
+                k=min(kk, len(slots)),
+            )
+            idx = idx.cpu().numpy()
+            slots_arr = np.asarray(slots, dtype=np.int64)
+            ok = (idx != INVALID_ID) & (idx >= 0) & (idx < len(slots))
+            ids = np.where(ok, slots_arr[np.where(ok, idx, 0)], INVALID_ID)
+            dist = dist.cpu().numpy()
+        else:
+            disabled = None
+            if disabled_lists is not None:
+                dm = np.zeros((self.config.nlist,), dtype=bool)
+                dm[np.asarray(list(disabled_lists), dtype=np.int64)] = True
+                disabled = torch.from_numpy(dm).to(self.device)
+            arrays = self._store.sync_device(self.storage_dtype)
+            cap = probe_cap_for(self._store.max_length)
+            nprobe = min(self.config.nprobe, self.config.nlist)
+            row_allow = self._row_allow_mask(allow_ids, deny_ids)
+            # bf16 storage: the exact rerank reads an f32 CSR-ordered copy
+            rerank_src = None if self.storage_dtype == torch.float32 else self._sync_rerank_f32()
+            stats = QueryStats(
+                batch=q.shape[0], lists_routed=q.shape[0] * nprobe,
+                rows_scored=q.shape[0] * nprobe * cap,
+            )
+            with TELEM.timer("score_flat", stats):  # select fused in the search
+                dist, ids = ivf_search_flat_probe(
+                    qt, self._centroids_dev, arrays, rerank_src, row_allow, disabled,
+                    nprobe=nprobe, probe_cap=cap, k=min(kk, max(self.count, 1)),
+                    metric=self.metric,
+                )
+                dist, ids = dist.cpu().numpy(), ids.cpu().numpy()
+            TELEM.record_kernel("ivf_probe", rows=stats.rows_scored)
+            TELEM.record_query(stats)
+
+        scores = self._public_score(dist)
+        out: list[list[SearchResult]] = []
+        for b in range(q.shape[0]):
+            row: list[SearchResult] = []
+            for j in range(ids.shape[1]):
+                slot = int(ids[b, j])
+                if slot == INVALID_ID or not np.isfinite(dist[b, j]):
+                    break
+                meta = self._metadata.get(slot)
+                if filter is not None and not filter(meta):
+                    continue
+                row.append(SearchResult(
+                    id=self._idmap.external_for(slot), score=float(scores[b, j]), metadata=meta,
+                ))
+                if len(row) == k:
+                    break
+            out.append(row)
+        return out
+
+    def search(
+        self,
+        query,
+        k: int,
+        filter: Optional[FilterFn] = None,
+        *,
+        allow_ids=None,
+        deny_ids=None,
+        disabled_lists=None,
+    ):
+        return self.batch_search(
+            np.asarray(query)[None, :], k, filter,
+            allow_ids=allow_ids, deny_ids=deny_ids, disabled_lists=disabled_lists,
+        )[0]
+
+    # ------------------------------------------------------------------
+
+    def statistics(self) -> IndexStats:
+        st = self._store.list_stats()
+        mem = sum(v.nbytes for v in self._vectors.values())
+        return IndexStats(
+            count=self.count,
+            dimension=self.dimension,
+            metric=self.metric.value,
+            memory_bytes=mem,
+            details={
+                "nlist": self.config.nlist,
+                "nprobe": self.config.nprobe,
+                "trained": self.trained,
+                "assigned": st["total"],
+                "max_list_len": st["max_len"],
+                "empty_lists": st["empty_lists"],
+            },
+        )
+
+    def save(self, path: str) -> None:
+        records = [
+            PersistedRecord(id=ext, vector=self._vectors[slot], metadata=self._metadata.get(slot))
+            for ext, slot in sorted(self._idmap.items(), key=lambda kv: kv[1])
+        ]
+        save_snapshot(
+            path,
+            PersistedIndex(
+                type=self.TYPE,
+                dimension=self.dimension,
+                metric=self.metric.value,
+                records=records,
+                config={
+                    "nlist": self.config.nlist,
+                    "nprobe": self.config.nprobe,
+                    "train_iters": self.config.train_iters,
+                    "seed": self.config.seed,
+                },
+            ),
+        )
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "IVFIndex":
+        """Load records and re-run optimize() (reference contract,
+        IVFIndex.swift:657-665)."""
+        snap = load_snapshot(path, expected_type=cls.TYPE)
+        cfg = IVFConfig(
+            nlist=snap.config.get("nlist", 64),
+            nprobe=snap.config.get("nprobe", 8),
+            train_iters=snap.config.get("train_iters", 20),
+            seed=snap.config.get("seed", 42),
+        )
+        idx = cls(snap.dimension, Metric(snap.metric), cfg, device=device)
+        if snap.records:
+            idx.insert_batch(
+                [r.id for r in snap.records],
+                np.stack([r.vector for r in snap.records]),
+                [r.metadata for r in snap.records],
+            )
+            idx.optimize()
+        return idx
+
+    # ------------------------------------------------------------------
+    # durable binary container (reference enableKernel30Storage,
+    # IVFIndex.swift:103-144): not ported yet
+    # ------------------------------------------------------------------
+
+    def enable_durable(self, path: str) -> None:
+        raise NotImplementedError(f"IVFIndex.enable_durable: {_DURABLE}")
+
+    def checkpoint(self) -> None:
+        raise NotImplementedError(f"IVFIndex.checkpoint: {_DURABLE}")
+
+    def close_durable(self) -> None:
+        raise NotImplementedError(f"IVFIndex.close_durable: {_DURABLE}")
+
+    @classmethod
+    def load_durable(cls, path: str, device="cuda") -> "IVFIndex":
+        raise NotImplementedError(f"IVFIndex.load_durable: {_DURABLE}")

@@ -4,6 +4,9 @@ counterparts of vectorindex_tpu.ops)."""
 from vectorindex_tpu_torch.ops import (  # noqa: F401
     filtering,
     idmap,
+    ivf,
+    kmeans,
+    rng,
     scan,
     scoring,
     topk,
