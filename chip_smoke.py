@@ -5,8 +5,8 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, checks
 each against its plain PyTorch version on the card (bit for bit), and
-drives the port's two main paths with the launch counts set to 0 just
-before each and read just after:
+drives the port's main paths with the launch counts set to 0 just before
+each and read just after:
 
   flat: FlatIndex.insert_batch of 1,000,000 x 128 bf16 rows, then
         FlatIndex.batch_search with k=10 at B=256 and B=8 (K1, K2); recall@10
@@ -17,6 +17,14 @@ before each and read just after:
         and at B=8 with k=1000 (K5); ids against the exact search of the
         probed lists over an f32 copy of the store, recall@10 against brute
         force.
+  IVF-PQ: IVFPQIndex(nlist=4096, nprobe=32, rerank_c=512) over 1,000,000 x
+        96 rows, twice: pq16 (m=16, ks=256) searched at B=8 (K10; nprobe 32
+        and 8, and with a 10% allow_ids filter) and at B=256 (K9), then
+        pq32x4 (m=32, ks=16 packed u4) with spill_eps=0.2 at B=8 (K10 with
+        dedup; every row must hold k distinct ids). insert_batch, optimize()
+        and the first search (packing, encoding) are timed; ids against the
+        same search through the kernels' plain versions, recall@10 against
+        brute force (>= 0.85 and >= 0.90).
 
 It checks the kernels against their plain versions again on each main
 path's own tensors, and times the kernels, their plain versions and the
@@ -30,6 +38,8 @@ without a CUDA device it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -58,6 +68,18 @@ IVF_RECALL_MIN = 0.90  # bench.py's operating threshold for IVF sweeps
 #: IVF kernel-vs-plain cases: a store of 256 skewed lists, ~262k rows
 IVF_CASE_LISTS, IVF_CASE_NPROBE, IVF_CASE_K4_BATCH, IVF_CASE_LONG = 256, 16, 64, 12_000
 
+#: IVF-PQ main path: bench.py's bench_ivfpq (BASELINE config 4, README's
+#: "IVF-PQ nlist=4096, 1M x 96" row) and its pq32x4 + spill variant
+#: (bench.py:1905-1908); the corpus of bench/synth.lowdim_corpus, seed 31
+PQ_ROWS, PQ_DIM, PQ_NLIST, PQ_NPROBE, PQ_NPROBE_LOW = 1_000_000, 96, 4096, 32, 8
+PQ_RERANK_C, PQ_EVAL, PQ_BIG_BATCH, PQ_TIMED = 512, 128, 256, 20
+PQ_CONFIGS = {
+    "pq16": dict(m=16, ks=256, spill_eps=0.0, recall_min=0.85),
+    "pq32x4": dict(m=32, ks=16, spill_eps=0.2, recall_min=0.90),
+}
+#: K9/K10 kernel-vs-plain cases over the skewed IVF store
+PQ_CASE_NPROBE, PQ_CASE_BIG_BATCH = 16, 32
+
 #: the H100 SXM's published peaks (NVIDIA's data sheet): bytes/s of HBM3,
 #: bf16 tensor-core and f32 CUDA-core FLOP/s
 HBM_BYTES_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -68,6 +90,8 @@ SOURCES = {
     "ivf_probe_topc": "vectorindex_tpu_torch/kernels/csrc/ivf_probe.cu",
     "ivf_probe_scores": "vectorindex_tpu_torch/kernels/csrc/ivf_probe.cu",
     "ivf_probe_scores_rankmajor": "vectorindex_tpu_torch/kernels/csrc/ivf_probe.cu",
+    "adc_probe_scores": "vectorindex_tpu_torch/kernels/csrc/adc_probe.cu",
+    "adc_probe_scores_rankseg": "vectorindex_tpu_torch/kernels/csrc/adc_probe.cu",
 }
 REPLACES = {
     "bin_candidates": "vectorindex_tpu/kernels/scan_fused.py:196",
@@ -75,6 +99,8 @@ REPLACES = {
     "ivf_probe_topc": "vectorindex_tpu/kernels/ivf_probe.py:794",
     "ivf_probe_scores": "vectorindex_tpu/kernels/ivf_probe.py:148",
     "ivf_probe_scores_rankmajor": "vectorindex_tpu/kernels/ivf_probe.py:892",
+    "adc_probe_scores": "vectorindex_tpu/kernels/adc_probe.py:348",
+    "adc_probe_scores_rankseg": "vectorindex_tpu/kernels/adc_probe.py:278",
 }
 
 
@@ -512,8 +538,6 @@ def check_ivf_batch(idx, res, q, k, nprobe, what, allow_ids=None):
 
 
 def phase_ivf_main(kp):
-    import dataclasses
-
     from vectorindex_tpu_torch.models.ivf import IVFConfig, IVFIndex
     from vectorindex_tpu_torch.utils.config import Metric
 
@@ -587,16 +611,21 @@ def phase_ivf_main(kp):
     return idx, batches, bigq, launches, {"insert_s": t_insert, "optimize_s": t_opt}
 
 
+def distinct_rows(starts, lives) -> int:
+    """Live rows of the distinct lists a batch probes (a list probed by
+    several queries counts once)."""
+    lists = torch.unique(starts.flatten())
+    first = (starts.flatten()[None, :] == lists[:, None]).int().argmax(dim=1)
+    return int(lives.flatten()[first].sum())
+
+
 def probe_bound(kp, q, starts, lives, arrays, probe_cap, kernel):
     """(bound_ms, bound_by) of one probe kernel call: every live row of the
     distinct probed lists read once (d * itemsize + 4 bytes), q and the
     tables read, the output written once; 2 d operations per (query, row)."""
     b, d = q.shape
     itemsize = arrays.vecs.element_size()
-    lists = torch.unique(starts.flatten())
-    first = (starts.flatten()[None, :] == lists[:, None]).int().argmax(dim=1)
-    unique_rows = int(lives.flatten()[first].sum())
-    nbytes = unique_rows * (d * itemsize + 4) + q.numel() * 4 + starts.numel() * 8
+    nbytes = distinct_rows(starts, lives) * (d * itemsize + 4) + q.numel() * 4 + starts.numel() * 8
     if kernel == "ivf_probe_topc":
         nbytes += b * kp.TIERS * kp.CBINS * 8 + b * kp.CBINS * 4
     else:
@@ -609,8 +638,6 @@ def phase_ivf_times(kp, idx, batches, bigq, errs):
     """On the main path's own tensors: K3 and K5 at B=8 and K4 at B=256
     (nprobe=32) against their plain versions, then their times, bounds and
     the end-to-end batch_search latency."""
-    import dataclasses
-
     from vectorindex_tpu_torch.ops import ivf as tivf
 
     arrays = idx._store.sync_device(idx.storage_dtype)
@@ -653,6 +680,266 @@ def phase_ivf_times(kp, idx, batches, bigq, errs):
     return t
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the IVF-PQ kernels against their plain versions on the card
+# ---------------------------------------------------------------------------
+
+PQ_KERNELS = ("adc_probe_scores", "adc_probe_scores_rankseg")
+
+
+def check_adc_kernels(ap, args, kw, what):
+    """K9 and K10 against their plain versions on the same inputs: equal bit
+    for bit (both add the m LUT entries in order from 0, each add rounded,
+    then the row correction). Returns max_abs_err per kernel."""
+    errs = {}
+    for name in PQ_KERNELS:
+        got = getattr(ap, name)(*args, **kw)
+        torch.cuda.synchronize()
+        ref = getattr(ap, name + "_ref")(*args, **kw)
+        errs[name] = max_abs_err(got, ref)
+        require(torch.equal(got, ref), f"{name}: {what} differs from the plain version")
+    return errs
+
+
+def phase_pq_compare(ap):
+    """Random codes, row corrections and query LUTs over the skewed store
+    (empty lists, one of 12,000 rows: probe_cap 16,384), u8 m=16 ks=256 and
+    packed u4 m=32 ks=16, L2 and IP LUTs, B=8 and B=32."""
+    from vectorindex_tpu_torch.ops import pq
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    errs = dict.fromkeys(PQ_KERNELS, 0.0)
+    arrays, cap, centers, n = skewed_store(PQ_DIM, torch.float32, PQ_DIM)
+    require(cap >= 4096, f"probe_cap {cap} < 4096")
+    n_rows = arrays.row_ids.shape[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    for name, cfg in PQ_CONFIGS.items():
+        m, ks = cfg["m"], cfg["ks"]
+        codes = torch.randint(0, ks, (n_rows, m), generator=gen, device=DEVICE).to(torch.uint8)
+        if ks <= 16:
+            codes = pq.pack_u4(codes)
+        books = pq.books_from_centroids(
+            torch.randn(m, ks, PQ_DIM // m, generator=gen, device=DEVICE))
+        for metric, lut_fn in ((Metric.L2, pq.pq_lut_q_l2), (Metric.INNER_PRODUCT, pq.pq_lut_ip)):
+            tcorr = torch.randn(n_rows, generator=gen, device=DEVICE)
+            if metric == Metric.INNER_PRODUCT:
+                tcorr = torch.zeros_like(tcorr)
+            for b in (SMALL_BATCH, PQ_CASE_BIG_BATCH):
+                q = torch.randn(b, PQ_DIM, generator=gen, device=DEVICE)
+                args = (lut_fn(q, books).contiguous(),
+                        *probe_tables(q, centers, arrays, PQ_CASE_NPROBE, metric), codes, tcorr)
+                kw = dict(nprobe=PQ_CASE_NPROBE, probe_cap=cap, m=m, ks=ks, packed_u4=ks <= 16)
+                for k, e in check_adc_kernels(ap, args, kw, "a synthetic case").items():
+                    errs[k] = max(errs[k], e)
+            log(f"pq compare {name} (m={m} ks={ks}) {metric.value}: rows={n} cap={cap} "
+                f"B={SMALL_BATCH} and B={PQ_CASE_BIG_BATCH}: K9 and K10 equal their plain "
+                "versions bit for bit")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the IVF-PQ main path
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_adc(ap):
+    """Route the IVF-PQ search through K9/K10's plain versions (on the same
+    device tensors) while inside."""
+    saved = {name: getattr(ap, name) for name in PQ_KERNELS}
+    for name in PQ_KERNELS:
+        setattr(ap, name, getattr(ap, name + "_ref"))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ap, name, fn)
+
+
+def same_results(got, want, k, what):
+    """Ids equal up to ties of the reference distances; squared scores agree
+    within RTOL/ATOL."""
+    from vectorindex_tpu_torch.utils.parity import ATOL, RTOL, ids_match_up_to_ties
+
+    gi = np.array([[r.id for r in row] for row in got])
+    wi = np.array([[r.id for r in row] for row in want])
+    gd = np.array([[r.score for r in row] for row in got], dtype=np.float64) ** 2
+    wd = np.array([[r.score for r in row] for row in want], dtype=np.float64) ** 2
+    require(gi.shape == (len(got), k) and wi.shape == gi.shape, f"{what}: expected {k} results per query")
+    require(np.allclose(gd, wd, rtol=RTOL, atol=ATOL), f"{what}: distances differ")
+    require(ids_match_up_to_ties(gi, wi, wd, k), f"{what}: ids differ from the plain-version search")
+
+
+def phase_pq_main(ap, name, x, evalq, bigq, truth):
+    """Build the index, drive its searches with the launch counts set to 0
+    just before and read just after, then check them."""
+    from vectorindex_tpu_torch.models.ivf import IVFPQConfig, IVFPQIndex
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    cfg = PQ_CONFIGS[name]
+    idx = IVFPQIndex(
+        PQ_DIM, Metric.L2,
+        IVFPQConfig(nlist=PQ_NLIST, nprobe=PQ_NPROBE, m=cfg["m"], ks=cfg["ks"], rerank=True,
+                    rerank_c=PQ_RERANK_C, spill_eps=cfg["spill_eps"]),
+        storage_dtype=torch.float32, device=DEVICE)
+    build = {}
+    t0 = time.perf_counter()
+    idx.insert_batch(list(range(PQ_ROWS)), x)
+    build["insert_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.optimize()
+    torch.cuda.synchronize()
+    build["optimize_s"] = time.perf_counter() - t0
+    batches = [evalq[i : i + SMALL_BATCH] for i in range(0, PQ_EVAL, SMALL_BATCH)]
+    t0 = time.perf_counter()
+    idx.batch_search(batches[0], MAIN_K)  # packs the lists and encodes every row
+    build["first_search_s"] = time.perf_counter() - t0
+    st = idx._store.list_stats()
+    log(f"{name}: insert_batch {build['insert_s']:.2f} s, optimize (coarse k-means, "
+        f"{len(idx._slot_spill)} spill copies, residual PQ m={cfg['m']} ks={cfg['ks']}) "
+        f"{build['optimize_s']:.2f} s, first search (pack + encode) {build['first_search_s']:.2f} s; "
+        f"lists max {st['max_len']}, mean {st['mean_len']:.1f}, empty {st['empty_lists']}, "
+        f"reserved rows {st['reserved_rows']}")
+    frng = np.random.default_rng(5)
+    allow_ids = set(np.nonzero(frng.random(PQ_ROWS) < 0.10)[0].tolist())
+
+    def run(q, route, **kw):
+        before = dict(ap.LAUNCHES)
+        res = idx.batch_search(q, MAIN_K, **kw)
+        grew = {n for n, c in ap.LAUNCHES.items() if c > before[n]}
+        require(grew == {route}, f"{name} batch B={len(q)} launched {grew}, expected {route}")
+        return res
+
+    nprobes = (PQ_NPROBE, PQ_NPROBE_LOW) if name == "pq16" else (PQ_NPROBE,)
+    searches = []  # (label, nprobe, queries, kwargs, results)
+    ap.reset_launches()
+    for nprobe in nprobes:
+        idx.config = dataclasses.replace(idx.config, nprobe=nprobe)
+        for i, b in enumerate(batches):
+            searches.append((f"B=8 #{i} nprobe={nprobe}", nprobe, b, {},
+                             run(b, "adc_probe_scores_rankseg")))
+    idx.config = dataclasses.replace(idx.config, nprobe=PQ_NPROBE)
+    if name == "pq16":
+        searches.append((f"B={PQ_BIG_BATCH}", PQ_NPROBE, bigq, {}, run(bigq, "adc_probe_scores")))
+        searches.append(("B=8 filtered", PQ_NPROBE, batches[0], dict(allow_ids=allow_ids),
+                         run(batches[0], "adc_probe_scores_rankseg", allow_ids=allow_ids)))
+    launches = dict(ap.LAUNCHES)
+    log(f"{name}: main path launches {launches}")
+
+    with plain_adc(ap):
+        for label, nprobe, q, kw, res in searches:
+            idx.config = dataclasses.replace(idx.config, nprobe=nprobe)
+            same_results(res, idx.batch_search(q, MAIN_K, **kw), MAIN_K, f"{name} {label}")
+            for row in res:
+                ids = [r.id for r in row]
+                require(len(set(ids)) == MAIN_K, f"{name} {label}: a row holds a duplicate id")
+                require(not kw or all(i in allow_ids for i in ids), f"{name} {label}: a denied id")
+    idx.config = dataclasses.replace(idx.config, nprobe=PQ_NPROBE)
+    log(f"{name}: every batch equals the same search through the plain versions up to ties; "
+        f"every row holds {MAIN_K} distinct ids")
+
+    dist, kth, truth_ids = truth
+    recalls = {}
+    for nprobe in nprobes:
+        rows = [row for label, npb, q, kw, res in searches
+                if npb == nprobe and label.startswith("B=8 #") for row in res]
+        recalls[nprobe] = recall(rows, dist, kth, truth_ids, MAIN_K)
+        log(f"{name}: nprobe={nprobe} recall@{MAIN_K}={recalls[nprobe][0]} "
+            f"(set recall {recalls[nprobe][1]}) over {PQ_EVAL} queries")
+    require(recalls[PQ_NPROBE][0] >= cfg["recall_min"],
+            f"{name}: recall@{MAIN_K} {recalls[PQ_NPROBE][0]} < {cfg['recall_min']} at nprobe={PQ_NPROBE}")
+    build["recall"] = {npb: r[0] for npb, r in recalls.items()}
+    return idx, batches, launches, build
+
+
+def adc_bound(args, probe_cap, m, packed_u4):
+    """(bound_ms, bound_by) of one K9/K10 call: each distinct probed row's
+    codes and correction read once, the LUT and tables read, the output
+    written once; m + 1 adds per (query, live row)."""
+    lut, starts, lives = args[:3]
+    mb = m // 2 if packed_u4 else m
+    nbytes = (distinct_rows(starts, lives) * (mb + 4) + lut.numel() * 4 + starts.numel() * 8
+              + starts.numel() * probe_cap * 4)
+    return bound(nbytes, (m + 1) * float(lives.sum()), F32_FLOPS)
+
+
+def phase_pq_times(ap, name, idx, batches, bigq, pool, errs):
+    """On the main path's own tensors: K10 at B=8 (and K9 at B=256 for
+    pq16) against their plain versions, then their times and bounds, and
+    the median batch_search wall over PQ_TIMED batches of the timing pool."""
+    from vectorindex_tpu_torch.ops import ivf as tivf
+    from vectorindex_tpu_torch.ops import pq
+
+    arrays, codes, tcorr = idx._sync_pq()
+    cap = tivf.probe_cap_for(idx._store.max_length)
+    m, ks = idx.config.m, idx.config.ks
+    kw = dict(nprobe=PQ_NPROBE, probe_cap=cap, m=m, ks=ks, packed_u4=ks <= 16)
+
+    def kernel_args(qnp):
+        q = torch.from_numpy(qnp).to(DEVICE)
+        return (pq.pq_lut_q_l2(q, idx._books).contiguous(),
+                *probe_tables(q, idx._centroids_dev, arrays, PQ_NPROBE, idx.metric), codes, tcorr)
+
+    cases = [("adc_probe_scores_rankseg", kernel_args(batches[0]))]
+    if name == "pq16":
+        cases.append(("adc_probe_scores", kernel_args(bigq)))
+    t = {}
+    for kname, args in cases:
+        for k, e in check_adc_kernels(ap, args, kw, "the main path's tensors").items():
+            errs[k] = max(errs[k], e)
+        fn, ref = getattr(ap, kname), getattr(ap, kname + "_ref")
+        t[kname] = time_ms(lambda: fn(*args, **kw), 50)
+        t[kname + "_plain"] = time_ms(lambda: ref(*args, **kw), 3, warmup=1)
+        t[kname + "_bound"] = adc_bound(args, cap, m, ks <= 16)
+        log(f"{name} times {kname} B={args[0].shape[0]} nprobe={PQ_NPROBE} cap={cap}: kernel "
+            f"{t[kname]:.4g} ms, plain {t[kname + '_plain']:.4g} ms, bound "
+            f"{t[kname + '_bound'][0]:.4g} ms ({t[kname + '_bound'][1]})")
+    log(f"{name} main-shape check: K9 and K10 equal their plain versions bit for bit")
+    small = [pool[i * SMALL_BATCH : (i + 1) * SMALL_BATCH] for i in range(PQ_TIMED)]
+    timed = [(SMALL_BATCH, PQ_NPROBE, small)]
+    if name == "pq16":
+        timed += [(SMALL_BATCH, PQ_NPROBE_LOW, small), (PQ_BIG_BATCH, PQ_NPROBE, [pool] * 10)]
+    for b, nprobe, qs in timed:
+        idx.config = dataclasses.replace(idx.config, nprobe=nprobe)
+        idx.batch_search(qs[0], MAIN_K)  # warm
+        lat = []
+        for q in qs:
+            t0 = time.perf_counter()
+            idx.batch_search(q, MAIN_K)
+            lat.append(time.perf_counter() - t0)
+        med = float(np.median(lat))
+        t[f"search B={b} nprobe={nprobe}"] = (1e3 * med, b / med)
+        log(f"{name} batch_search B={b} nprobe={nprobe}: median {1e3 * med:.4g} ms over "
+            f"{len(qs)} batches, {b / med:.1f} QPS")
+    idx.config = dataclasses.replace(idx.config, nprobe=PQ_NPROBE)
+    return t
+
+
+def phase_pq(ap):
+    """Both IVF-PQ configurations over one corpus → (launches summed over
+    both main-path runs, pq16 times, pq32x4 times, build and recall figures)."""
+    errs = phase_pq_compare(ap)
+    t0 = time.perf_counter()
+    x, W = lowdim_corpus(PQ_ROWS, PQ_DIM, dz=16, seed=31)
+    evalq = lowdim_queries(W, PQ_BIG_BATCH, seed=9)
+    pool = lowdim_queries(W, PQ_BIG_BATCH, seed=10)
+    log(f"ivfpq: corpus {PQ_ROWS}x{PQ_DIM} (lowdim dz=16, seed 31) in {time.perf_counter() - t0:.2f} s")
+    x_dev = torch.from_numpy(x).to(DEVICE)
+    truth = brute_force(x_dev, (x_dev * x_dev).sum(dim=1), evalq[:PQ_EVAL], MAIN_K)
+    del x_dev
+    launches = dict.fromkeys(PQ_KERNELS, 0)
+    times, builds = {}, {}
+    for name in PQ_CONFIGS:
+        idx, batches, run_launches, builds[name] = phase_pq_main(ap, name, x, evalq[:PQ_EVAL],
+                                                                  evalq, truth)
+        for k, c in run_launches.items():
+            launches[k] += c
+        times[name] = phase_pq_times(ap, name, idx, batches, evalq, pool, errs)
+        del idx
+        torch.cuda.empty_cache()
+    return errs, launches, times, builds
+
+
 def flat_bound(n: int, d: int, b: int, itemsize: int, kernel: str):
     """(bound_ms, bound_by) of K1/K2 over the flat main path's corpus."""
     nbytes = n * (d * itemsize + 4) + b * d * 4
@@ -664,7 +951,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from vectorindex_tpu_torch.kernels import _build, ivf_probe as kp, scan_fused as sf
+    from vectorindex_tpu_torch.kernels import _build, adc_probe as ap, ivf_probe as kp, scan_fused as sf
     from vectorindex_tpu_torch.ops.topk import topk
 
     require(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls must stay off")
@@ -686,6 +973,12 @@ def main() -> int:
     ivf_idx, ivf_batches, bigq, ivf_launches, build_s = phase_ivf_main(kp)
     ivf_times = phase_ivf_times(kp, ivf_idx, ivf_batches, bigq, errs)
     launches.update(ivf_launches)
+    del ivf_idx, ivf_batches, bigq
+    torch.cuda.empty_cache()
+
+    pq_errs, pq_launches, pq_times, pq_builds = phase_pq(ap)
+    errs.update(pq_errs)
+    launches.update(pq_launches)
 
     big = times[MAIN_BATCH]
     kernels = []
@@ -697,14 +990,22 @@ def main() -> int:
         bms, by = ivf_times[name + "_bound"]
         kernels.append({"name": name, "ms": ivf_times[name],
                         "plain_ms": ivf_times[name + "_plain"], "bound_ms": bms, "bound_by": by})
+    for name in PQ_KERNELS:  # pq16's: K10 at B=8, K9 at B=256
+        bms, by = pq_times["pq16"][name + "_bound"]
+        kernels.append({"name": name, "ms": pq_times["pq16"][name],
+                        "plain_ms": pq_times["pq16"][name + "_plain"], "bound_ms": bms,
+                        "bound_by": by})
     for k in kernels:
         # no single PyTorch call computes a per-class top-3, a count below
-        # tau, or distances over per-query probed row lists
+        # tau, or distances (or LUT-gather sums) over per-query probed row
+        # lists
         k.update(route="cuda", source=SOURCES[k["name"]], replaces=REPLACES[k["name"]],
                  launches=launches[k["name"]], max_abs_err=errs[k["name"]], library_ms=None)
     require(all(k["launches"] > 0 for k in kernels), f"a kernel did not run on its path: {launches}")
     log(f"gpu: {gpu}; flat batch_search B={MAIN_BATCH}: {big['qps']:.1f} QPS; ivf insert_batch "
-        f"{build_s['insert_s']:.2f} s, optimize {build_s['optimize_s']:.2f} s")
+        f"{build_s['insert_s']:.2f} s, optimize {build_s['optimize_s']:.2f} s; ivfpq "
+        + "; ".join(f"{name} recall@{MAIN_K} {b['recall']}, insert {b['insert_s']:.2f} s, optimize "
+                    f"{b['optimize_s']:.2f} s" for name, b in pq_builds.items()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

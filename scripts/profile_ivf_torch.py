@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time of vectorindex_tpu_torch's IVF search goes, on one GPU.
+"""Where the time of vectorindex_tpu_torch's IVF and IVF-PQ searches goes, on one GPU.
 
-    python3 scripts/profile_ivf_torch.py [--batches 5]
+    python3 scripts/profile_ivf_torch.py [--index ivf|ivfpq|all] [--batches 5]
 
 Builds the IVF main path of chip_smoke.py (1,000,000 x 128 lowdim corpus,
-IVFIndex nlist=1024, bf16 storage, optimize()), then for B=8 at nprobe 32
-and 8 and for B=256 at nprobe 32: the median wall time of batch_search over
-20 calls, and a torch.profiler trace of `--batches` calls, printed as the
-device time per kernel, the device busy time per batch and the idle share
-(1 - busy / median wall). Writes the chrome traces to build/profiles/. Needs
-a CUDA device; imports nothing of JAX.
+IVFIndex nlist=1024, bf16 storage, optimize()) and/or its IVF-PQ main path
+(1,000,000 x 96 lowdim corpus, IVFPQIndex pq16: nlist=4096, m=16, ks=256,
+rerank_c=512, optimize()), then for B=8 at nprobe 32 and 8 and for B=256 at
+nprobe 32: the median wall time of batch_search over 20 calls, and a
+torch.profiler trace of `--batches` calls, printed as the device time per
+kernel, the device busy time per batch, the idle share (1 - busy / median
+wall) and the kernel launches per batch. Writes the chrome traces to
+build/profiles/. Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -30,31 +32,50 @@ sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (  # noqa: E402
     IVF_BIG_BATCH, IVF_DIM, IVF_NLIST, IVF_NPROBE, IVF_NPROBE_LOW, IVF_ROWS, MAIN_K,
+    PQ_BIG_BATCH, PQ_CONFIGS, PQ_DIM, PQ_NLIST, PQ_NPROBE, PQ_NPROBE_LOW, PQ_RERANK_C, PQ_ROWS,
     SMALL_BATCH, gpu_name_and_power, lowdim_corpus, lowdim_queries,
 )
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--batches", type=int, default=5)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_ivf_torch: no CUDA device", file=sys.stderr)
-        return 1
+#: device-time groups by kernel name (first match wins)
+GROUPS = (
+    ("probe kernels (K3-K5, K9/K10)", ("probe_scores_kernel", "topc_", "adc_probe_kernel")),
+    ("sorts", ("Sort", "sort")),
+    ("products (select, LUT, rerank)", ("gemm", "gemv", "xmma", "cutlass", "bmm")),
+    ("gathers and scatters", ("index", "gather", "scatter")),
+    ("copies and fills", ("Memcpy", "Memset", "fill", "copy")),
+)
+
+
+def build_ivf():
     from vectorindex_tpu_torch.models.ivf import IVFConfig, IVFIndex
     from vectorindex_tpu_torch.utils.config import Metric
 
-    print(f"gpu: {gpu_name_and_power()}", flush=True)
     x, W = lowdim_corpus(IVF_ROWS, IVF_DIM, dz=16, seed=21)
-    q = lowdim_queries(W, IVF_BIG_BATCH)
     idx = IVFIndex(IVF_DIM, Metric.L2, IVFConfig(nlist=IVF_NLIST, nprobe=IVF_NPROBE),
                    storage_dtype=torch.bfloat16, device="cuda")
     idx.insert_batch(list(range(IVF_ROWS)), x)
     idx.optimize()
-    out = ROOT / "build" / "profiles"
-    out.mkdir(parents=True, exist_ok=True)
-    for b, nprobe in ((SMALL_BATCH, IVF_NPROBE), (SMALL_BATCH, IVF_NPROBE_LOW),
-                      (IVF_BIG_BATCH, IVF_NPROBE)):
+    return idx, lowdim_queries(W, IVF_BIG_BATCH), (IVF_NPROBE, IVF_NPROBE_LOW)
+
+
+def build_ivfpq():
+    from vectorindex_tpu_torch.models.ivf import IVFPQConfig, IVFPQIndex
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    cfg = PQ_CONFIGS["pq16"]
+    x, W = lowdim_corpus(PQ_ROWS, PQ_DIM, dz=16, seed=31)
+    idx = IVFPQIndex(PQ_DIM, Metric.L2,
+                     IVFPQConfig(nlist=PQ_NLIST, nprobe=PQ_NPROBE, m=cfg["m"], ks=cfg["ks"],
+                                 rerank=True, rerank_c=PQ_RERANK_C),
+                     storage_dtype=torch.float32, device="cuda")
+    idx.insert_batch(list(range(PQ_ROWS)), x)
+    idx.optimize()
+    return idx, lowdim_queries(W, PQ_BIG_BATCH, seed=10), (PQ_NPROBE, PQ_NPROBE_LOW)
+
+
+def profile_searches(name: str, idx, q: np.ndarray, nprobes, batches: int, out: Path) -> None:
+    for b, nprobe in ((SMALL_BATCH, nprobes[0]), (SMALL_BATCH, nprobes[1]), (len(q), nprobes[0])):
         idx.config = dataclasses.replace(idx.config, nprobe=nprobe)
         qb = q[:b]
         for _ in range(3):
@@ -67,29 +88,56 @@ def main() -> int:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(args.batches):
+            for _ in range(batches):
                 idx.batch_search(qb, MAIN_K)
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / args.batches
+            wall = (time.perf_counter() - t0) / batches
         # kernels and device copies only: an operator's device time repeats
         # the time of the kernels it launched
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        busy = sum(e.self_device_time_total for e in events) / 1e3 / args.batches
+        busy = sum(e.self_device_time_total for e in events) / 1e3 / batches
+        launches = sum(e.count for e in events) / batches
         med = float(np.median(lat))
-        print(f"\nB={b} nprobe={nprobe}: batch_search median {1e3 * med:.4g} ms "
+        print(f"\n{name} B={b} nprobe={nprobe}: batch_search median {1e3 * med:.4g} ms "
               f"({b / med:.1f} QPS); under the profiler {1e3 * wall:.4g} ms per batch; "
               f"device busy {busy:.4g} ms per batch, idle share {1 - busy / (1e3 * med):.3f} "
-              f"of the median")
+              f"of the median; {launches:.0f} kernels and copies per batch")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-            print(f"  {e.self_device_time_total / 1e3 / args.batches:9.4f} ms  "
-                  f"{e.count // args.batches:3d}x  {e.key[:90]}")
+            print(f"  {e.self_device_time_total / 1e3 / batches:9.4f} ms  "
+                  f"{e.count // batches:3d}x  {e.key[:90]}")
+        groups: dict[str, float] = {}
+        for e in events:
+            group = next((g for g, keys in GROUPS if any(k in e.key for k in keys)), "other")
+            groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3 / batches
+        print("  device time per batch by group: " + ", ".join(
+            f"{g} {t:.4f} ms ({t / busy:.0%})" for g, t in sorted(groups.items(), key=lambda kv: -kv[1])))
         host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
         print("  host, self time per batch:")
         for e in host:
-            print(f"  {e.self_cpu_time_total / 1e3 / args.batches:9.4f} ms  "
-                  f"{e.count // args.batches:3d}x  {e.key[:90]}")
-        prof.export_chrome_trace(str(out / f"ivf_trace_b{b}_np{nprobe}.json"))
+            print(f"  {e.self_cpu_time_total / 1e3 / batches:9.4f} ms  "
+                  f"{e.count // batches:3d}x  {e.key[:90]}")
+        prof.export_chrome_trace(str(out / f"{name}_trace_b{b}_np{nprobe}.json"))
+    idx.config = dataclasses.replace(idx.config, nprobe=nprobes[0])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--index", choices=("ivf", "ivfpq", "all"), default="all")
+    ap.add_argument("--batches", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_ivf_torch: no CUDA device", file=sys.stderr)
+        return 1
+    print(f"gpu: {gpu_name_and_power()}", flush=True)
+    out = ROOT / "build" / "profiles"
+    out.mkdir(parents=True, exist_ok=True)
+    builders = {"ivf": build_ivf, "ivfpq": build_ivfpq}
+    for name in (builders if args.index == "all" else (args.index,)):
+        idx, q, nprobes = builders[name]()
+        profile_searches(name, idx, q, nprobes, args.batches, out)
+        del idx
+        torch.cuda.empty_cache()
     return 0
 
 

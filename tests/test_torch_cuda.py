@@ -10,7 +10,8 @@ that --noconftest skips)
 
 Tolerance: the kernels against their plain versions on the card, 0 (K1/K2
 and their plain versions sum each dot product as one f32 FMA chain over d;
-K3/K4/K5 and theirs as one chain of separately rounded products and sums);
+K3/K4/K5 and theirs as one chain of separately rounded products and sums;
+K9/K10 and theirs add the m LUT entries in order, each add rounded);
 an index on the card against the same index on the host, rtol=2e-4,
 atol=2e-5 (f32 sums in another order; bf16 products are exact in f32).
 """
@@ -20,11 +21,12 @@ import pytest
 import torch
 
 import vectorindex_tpu_torch.models.flat as tflat
+from vectorindex_tpu_torch.kernels import adc_probe as ap
 from vectorindex_tpu_torch.kernels import ivf_probe as kp
 from vectorindex_tpu_torch.kernels import scan_fused as sf
-from vectorindex_tpu_torch.models.ivf import IVFConfig, IVFIndex
+from vectorindex_tpu_torch.models.ivf import IVFConfig, IVFIndex, IVFPQConfig, IVFPQIndex
 from vectorindex_tpu_torch.ops import ivf as tivf
-from vectorindex_tpu_torch.ops import scoring
+from vectorindex_tpu_torch.ops import pq, scoring
 from vectorindex_tpu_torch.ops.topk import INVALID_ID, topk
 from vectorindex_tpu_torch.utils.config import Metric
 from vectorindex_tpu_torch.utils.parity import ATOL, RTOL, ids_match_up_to_ties
@@ -214,3 +216,74 @@ def test_ivf_class_crowding_falls_back_to_k4(cuda_device):
                                       probe_cap=tivf.probe_cap_for(store.max_length), k=5)
     assert kp.LAUNCHES == {"ivf_probe_topc": 1, "ivf_probe_scores": 1, "ivf_probe_scores_rankmajor": 0}
     assert sorted(ids[0].tolist()) == [0, 256, 512, 768, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, ks", [(16, 256), (32, 16)], ids=["u8-pq16", "u4-pq32x4"])
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT], ids=lambda m: m.value)
+def test_adc_kernels_match_plain_versions(m, ks, metric, cuda_device):
+    d = 96
+    arrays, cap, cent = _skewed_store(d, torch.float32, cuda_device, seed=m)
+    gen = torch.Generator(device=cuda_device).manual_seed(m + ks)
+    packed = ks <= 16
+    n_rows = arrays.row_ids.shape[0]
+    codes = torch.randint(0, ks, (n_rows, m), generator=gen, device=cuda_device).to(torch.uint8)
+    if packed:
+        codes = pq.pack_u4(codes)
+    books = pq.books_from_centroids(torch.randn(m, ks, d // m, generator=gen, device=cuda_device))
+    tcorr = torch.randn(n_rows, generator=gen, device=cuda_device)
+    if metric == Metric.INNER_PRODUCT:
+        tcorr = torch.zeros_like(tcorr)
+    ap.reset_launches()
+    for b in (8, 32):
+        q = torch.randn(b, d, generator=gen, device=cuda_device)
+        lut = (pq.pq_lut_q_l2 if metric == Metric.L2 else pq.pq_lut_ip)(q, books).contiguous()
+        _, pl = tivf.ivf_select(q, torch.from_numpy(cent).to(cuda_device), nprobe=8)
+        pl = pl.long()
+        args = (lut, arrays.starts[pl].contiguous(), arrays.lengths[pl].contiguous(), codes, tcorr)
+        kw = dict(nprobe=8, probe_cap=cap, m=m, ks=ks, packed_u4=packed)
+        for fn, ref in ((ap.adc_probe_scores, ap.adc_probe_scores_ref),
+                        (ap.adc_probe_scores_rankseg, ap.adc_probe_scores_rankseg_ref)):
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref(*args, **kw))
+    assert ap.LAUNCHES == {"adc_probe_scores": 2, "adc_probe_scores_rankseg": 2}
+    with pytest.raises(NotImplementedError, match="K6/K7"):
+        pq.adc_scan(codes if not packed else pq.unpack_u4(codes), lut)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spill", [0.0, 0.2], ids=["pq16", "pq32x4-spill"])
+def test_ivfpq_index_on_card_matches_host(spill, cuda_device):
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((6000, 32)).astype(np.float32)
+    m, ks = (8, 256) if spill == 0.0 else (16, 16)
+    cfg = IVFPQConfig(nlist=32, nprobe=6, m=m, ks=ks, rerank_c=512, spill_eps=spill, pq_iters=5)
+    on_host = IVFPQIndex(32, Metric.L2, cfg, device="cpu")
+    on_host.insert_batch(list(range(len(x))), x)
+    on_host.optimize()
+    state = {
+        "dimension": 32, "metric": "l2", "storage_dtype": "float32",
+        "config": cfg.__dict__, "vectors": on_host._vectors, "metadata": on_host._metadata,
+        "ids": list(on_host._idmap.items()), "free": on_host._free,
+        "next_slot": on_host._next_slot, "centroids": on_host._centroids,
+        "lists": on_host._store._lists_ids, "slot_list": on_host._slot_list,
+        "slot_spill": on_host._slot_spill, "books": on_host._books.centroids.numpy(),
+    }
+    on_card = IVFPQIndex.from_state(state, device=cuda_device)
+    q = x[rng.choice(len(x), 20, replace=False)] + 0.1 * rng.standard_normal((20, 32)).astype(np.float32)
+    allow = list(range(0, len(x), 4))
+    ap.reset_launches()
+    for b, kw, name in ((8, {}, "adc_probe_scores_rankseg"),
+                        (8, dict(allow_ids=allow), "adc_probe_scores_rankseg"),
+                        (20, {}, "adc_probe_scores")):
+        before = ap.LAUNCHES[name]
+        got = on_card.batch_search(q[:b], 10, **kw)
+        assert ap.LAUNCHES[name] == before + 1
+        want = on_host.batch_search(q[:b], 11, **kw)
+        wd = np.array([[r.score**2 for r in row] for row in want])
+        gd = np.array([[r.score**2 for r in row] for row in got])
+        np.testing.assert_allclose(gd, wd[:, :10], rtol=RTOL, atol=ATOL)
+        gi = [[r.id for r in row] for row in got]
+        assert ids_match_up_to_ties(gi, [[r.id for r in row] for row in want], wd, 10)
+        assert all(len(set(row)) == 10 for row in gi)

@@ -44,10 +44,15 @@ def test_every_module_imports_without_jax_or_nvcc(tmp_path):
     expected = {
         "vectorindex_tpu_torch.kernels.scan_fused",
         "vectorindex_tpu_torch.kernels.ivf_probe",
+        "vectorindex_tpu_torch.kernels.adc_probe",
         "vectorindex_tpu_torch.kernels._build",
         "vectorindex_tpu_torch.models.flat",
         "vectorindex_tpu_torch.models.ivf",
         "vectorindex_tpu_torch.ops.ivf",
+        "vectorindex_tpu_torch.ops.ivf_pq",
+        "vectorindex_tpu_torch.ops.pq",
+        "vectorindex_tpu_torch.ops.dtypes",
+        "vectorindex_tpu_torch.ops.dedup",
         "vectorindex_tpu_torch.ops.kmeans",
         "vectorindex_tpu_torch.ops.rng",
         "vectorindex_tpu_torch.ops.scan",
@@ -156,3 +161,19 @@ def test_ivf_layout_constants_match_the_reference():
     text = (PORT / "kernels" / "csrc" / "ivf_probe.cu").read_text()
     for name in ("ivf_probe_scores", "ivf_probe_scores_rankmajor", "ivf_probe_topc_rankmajor"):
         assert f"ivf_probe.py:{name}" in text  # the source names what it replaces
+
+
+def test_ivfpq_constants_match_the_reference():
+    """The K9/K10 route, the IVF-PQ config defaults and the source notes
+    are the JAX package's."""
+    from vectorindex_tpu.kernels import adc_probe as jap
+    from vectorindex_tpu.models.ivf import IVFPQConfig as JConfig
+    from vectorindex_tpu_torch import IVFPQConfig
+    from vectorindex_tpu_torch.kernels import adc_probe as ap
+
+    for b in (0, 1, 8, 16, 17, 256):
+        assert ap.adc_rankseg_fits(b) == jap.adc_rankseg_fits(b)
+    assert IVFPQConfig().__dict__ == JConfig().__dict__
+    text = (PORT / "kernels" / "csrc" / "adc_probe.cu").read_text()
+    for name in ("adc_probe_scores", "adc_probe_scores_rankseg"):
+        assert f"adc_probe.py:{name}" in text  # the source names what it replaces

@@ -3,19 +3,26 @@
 The JAX package `vectorindex_tpu` is the reference; this package mirrors its
 layout and public names so each module has an obvious counterpart:
 
-  ops/         scoring, topk, scan, filtering, idmap, rng, kmeans, ivf
-               (plain torch)
+  ops/         scoring, topk, scan, filtering, idmap, rng, kmeans, ivf,
+               dtypes, dedup, pq, ivf_pq (plain torch)
   kernels/     hand-written CUDA kernels for Hopper (sm_90a), each with a
                plain PyTorch version used for CPU tensors
-  models/      FlatIndex, IVFIndex, JournalFilter, the index protocol
+  models/      FlatIndex, IVFIndex, IVFPQIndex, JournalFilter, the index
+               protocol
   persistence/ JSON snapshots (byte-compatible with the JAX package)
   utils/       config, structured errors, telemetry
 
 Nothing here imports jax or vectorindex_tpu. The port so far covers exact flat
-search and IVF-Flat; ROADMAP.md lists what is still to port.
+search, IVF-Flat and IVF-PQ with the device-resident rerank; ROADMAP.md lists
+what is still to port.
 """
 
 __version__ = "0.1.0"
 
 from vectorindex_tpu_torch.utils.errors import IndexError, IndexErrorKind  # noqa: F401
-from vectorindex_tpu_torch.models.ivf import IVFConfig, IVFIndex  # noqa: F401,E402
+from vectorindex_tpu_torch.models.ivf import (  # noqa: F401,E402
+    IVFConfig,
+    IVFIndex,
+    IVFPQConfig,
+    IVFPQIndex,
+)

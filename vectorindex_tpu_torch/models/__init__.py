@@ -1,4 +1,5 @@
-"""Index families of the port (so far: the exact flat index and IVF-Flat)."""
+"""Index families of the port (so far: the exact flat index, IVF-Flat and
+IVF-PQ)."""
 
 from vectorindex_tpu_torch.models.base import (  # noqa: F401
     IndexStats,
@@ -7,4 +8,9 @@ from vectorindex_tpu_torch.models.base import (  # noqa: F401
 )
 from vectorindex_tpu_torch.models.filters import JournalFilter  # noqa: F401
 from vectorindex_tpu_torch.models.flat import FlatIndex  # noqa: F401
-from vectorindex_tpu_torch.models.ivf import IVFConfig, IVFIndex  # noqa: F401
+from vectorindex_tpu_torch.models.ivf import (  # noqa: F401
+    IVFConfig,
+    IVFIndex,
+    IVFPQConfig,
+    IVFPQIndex,
+)

@@ -15,18 +15,27 @@ statistics :612-628).
     versions. bf16 storage hands it an f32 rerank source in CSR row order.
     An untrained index scans every row exactly (ops/scan.scan_topk_strict).
 
-Not ported yet: IVFPQConfig/IVFPQIndex (ROADMAP.md Queue 1 item 6) and the
+IVFPQIndex adds residual product quantization on top (IVF-PQ): the lists
+hold PQ codes of the residuals x − c_list beside the vectors, and a trained
+index searches through kernels/adc_probe.ivf_search_pq_probe (K9/K10 on a
+CUDA index, their plain versions on a CPU index) with the exact f32 rerank
+of the ADC top-C from the device-resident vectors.
+
+Not ported yet: the IVF-PQ host-memory rerank tier (IVFPQConfig.host_rerank,
+serve_session, batch_search_stream over it; ROADMAP.md Queue 1 item 6) and the
 durable container (item 9).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
+from vectorindex_tpu_torch.kernels.adc_probe import ivf_search_pq_probe
 from vectorindex_tpu_torch.kernels.ivf_probe import ivf_search_flat_probe
 from vectorindex_tpu_torch.models.base import (
     FilterFn,
@@ -37,9 +46,12 @@ from vectorindex_tpu_torch.models.base import (
     VectorIndex,
 )
 from vectorindex_tpu_torch.ops import kmeans as km
+from vectorindex_tpu_torch.ops import pq as pq_ops
+from vectorindex_tpu_torch.ops import rng as vrng
+from vectorindex_tpu_torch.ops.dtypes import pack_u4
 from vectorindex_tpu_torch.ops.filtering import slot_mask_np
 from vectorindex_tpu_torch.ops.idmap import IDMap
-from vectorindex_tpu_torch.ops.ivf import IVFListStore, probe_cap_for
+from vectorindex_tpu_torch.ops.ivf import IVFListStore, nearest_two, probe_cap_for
 from vectorindex_tpu_torch.ops.scan import scan_topk_strict
 from vectorindex_tpu_torch.ops.topk import INVALID_ID
 from vectorindex_tpu_torch.persistence.json_snapshot import (
@@ -74,6 +86,7 @@ class IVFConfig:
 class IVFIndex(VectorIndex):
     TYPE = "ivf"
     _ALLOWED_METRICS = (Metric.L2, Metric.INNER_PRODUCT, Metric.COSINE)
+    _CONFIG = IVFConfig
 
     def __init__(
         self,
@@ -119,7 +132,7 @@ class IVFIndex(VectorIndex):
         """Rebuild an index from another index's state as plain numpy/python
         values, so both hold the same lists in the same order and search
         the same rows. Keys: dimension, metric (name or Metric), config
-        (dict of IVFConfig fields), storage_dtype ("float32" or
+        (dict of the config's fields), storage_dtype ("float32" or
         "bfloat16"), vectors {slot: vector}, metadata {slot: metadata},
         ids (iterable of (external, slot)), free (list), next_slot,
         centroids ([nlist, d] or None), lists (per list, its slots in
@@ -128,7 +141,7 @@ class IVFIndex(VectorIndex):
         idx = cls(
             int(state["dimension"]),
             Metric(getattr(metric, "value", metric)),
-            IVFConfig(**dict(state["config"])),
+            cls._CONFIG(**dict(state["config"])),
             storage_dtype=_STORAGE_DTYPES[str(state["storage_dtype"])],
             device=device,
         )
@@ -510,12 +523,9 @@ class IVFIndex(VectorIndex):
                 dimension=self.dimension,
                 metric=self.metric.value,
                 records=records,
-                config={
-                    "nlist": self.config.nlist,
-                    "nprobe": self.config.nprobe,
-                    "train_iters": self.config.train_iters,
-                    "seed": self.config.seed,
-                },
+                # the config's fields in order: the JAX package's keys (and
+                # order), so the files are byte-compatible both ways
+                config=dataclasses.asdict(self.config),
             ),
         )
 
@@ -524,12 +534,10 @@ class IVFIndex(VectorIndex):
         """Load records and re-run optimize() (reference contract,
         IVFIndex.swift:657-665)."""
         snap = load_snapshot(path, expected_type=cls.TYPE)
-        cfg = IVFConfig(
-            nlist=snap.config.get("nlist", 64),
-            nprobe=snap.config.get("nprobe", 8),
-            train_iters=snap.config.get("train_iters", 20),
-            seed=snap.config.get("seed", 42),
-        )
+        # a missing key takes the field's default (the JAX package's too)
+        cfg = cls._CONFIG(**{
+            f.name: snap.config.get(f.name, f.default) for f in dataclasses.fields(cls._CONFIG)
+        })
         idx = cls(snap.dimension, Metric(snap.metric), cfg, device=device)
         if snap.records:
             idx.insert_batch(
@@ -557,3 +565,356 @@ class IVFIndex(VectorIndex):
     @classmethod
     def load_durable(cls, path: str, device="cuda") -> "IVFIndex":
         raise NotImplementedError(f"IVFIndex.load_durable: {_DURABLE}")
+
+
+# ---------------------------------------------------------------------------
+# IVF-PQ
+# ---------------------------------------------------------------------------
+
+_HOST_RERANK = (
+    "the IVF-PQ host-memory rerank tier is not ported yet "
+    "(ROADMAP.md Queue 1 item 6, the host-rerank tier)"
+)
+
+
+@dataclass(frozen=True)
+class IVFPQConfig(IVFConfig):
+    """IVF-PQ knobs on top of IVFConfig (reference IVFAppendOpts.format
+    pq8/pq4, IVFAppend.swift:30; PQTrainConfig, PQTrain.swift:20-43)."""
+
+    m: int = 8  # PQ subspaces
+    ks: int = 256  # codes per subspace (256 = pq8, 16 = pq4, packed two per byte)
+    pq_iters: int = 15
+    rerank: bool = True  # exact rerank of the ADC candidates (#40)
+    rerank_c: int = 64  # ADC candidates fed to the rerank
+    # host-memory rerank tier (vectors in host RAM, only the top-C rows
+    # cross to the rerank): not ported yet, searches raise
+    host_rerank: bool = False
+    # boundary multi-assignment ("list spill", ops.ivf.spill_assign): rows
+    # whose 2nd-nearest centroid is within (1+eps)·d1 are also encoded into
+    # that list; search dedups the copies. 0.0 = off.
+    spill_eps: float = 0.0
+
+
+class IVFPQIndex(IVFIndex):
+    """IVF with residual product quantization and ADC scanning.
+
+    Search (reference SURVEY.md §3.3 ADC variant): #29 select → per-query
+    LUT (#21) → ADC over the probed code lists (K9/K10, #22) → exact rerank
+    of the top-C against the stored vectors (#40 / IVFPostADC). Codes are
+    residuals r = x − c_list (#23) of the packed CSR rows, encoded on the
+    device whenever the store changes: in-place appends encode only the new
+    rows, a repack re-encodes every row."""
+
+    TYPE = "ivfpq"
+    _ALLOWED_METRICS = (Metric.L2, Metric.INNER_PRODUCT)
+    _CONFIG = IVFPQConfig
+
+    def __init__(
+        self,
+        dimension: int,
+        metric: Metric = Metric.L2,
+        config: IVFPQConfig = IVFPQConfig(),
+        storage_dtype: torch.dtype = torch.float32,
+        device="cuda",
+    ):
+        if dimension % config.m != 0:
+            raise (
+                ErrorBuilder(IndexErrorKind.INVALID_CONFIGURATION)
+                .message(f"dimension {dimension} not divisible by m={config.m}")
+                .build()
+            )
+        if config.ks <= 16 and config.m % 2:
+            raise (
+                ErrorBuilder(IndexErrorKind.INVALID_CONFIGURATION)
+                .message(
+                    f"pq4 (ks={config.ks}) packs two codes per byte and needs "
+                    f"an even m, got m={config.m}"
+                )
+                .build()
+            )
+        super().__init__(dimension, metric, config, storage_dtype, device)
+        self._books: Optional[pq_ops.PQCodebooks] = None
+        self._pq_cache: Optional[dict] = None  # codes of the packed layout
+        self._slot_spill: dict[int, int] = {}  # slot -> spill list id
+
+    @classmethod
+    def from_state(cls, state: dict, device="cuda") -> "IVFPQIndex":
+        """IVFIndex.from_state, plus: books ([m, ks, dsub] PQ codebook
+        centroids, or None while PQ is untrained), slot_list {slot: primary
+        list} and slot_spill {slot: spill list}. With spill, `lists` holds
+        every copy, so the primary list of a slot comes from slot_list."""
+        idx = super().from_state(state, device)
+        if state.get("slot_list") is not None:
+            idx._slot_list = {int(s): int(l) for s, l in state["slot_list"].items()}
+        idx._slot_spill = {int(s): int(l) for s, l in state.get("slot_spill", {}).items()}
+        if state.get("books") is not None:
+            cents = torch.from_numpy(np.array(state["books"], dtype=np.float32))
+            idx._books = pq_ops.books_from_centroids(cents.to(idx.device))
+        return idx
+
+    @property
+    def pq_trained(self) -> bool:
+        return self._books is not None
+
+    @property
+    def _spill(self) -> bool:
+        return self.config.spill_eps > 0.0
+
+    # -- spill bookkeeping --
+
+    def _spill_secondary(self, vecs: np.ndarray) -> np.ndarray:
+        """Per row: the 2nd-nearest list when d2 <= (1+spill_eps)·d1, else
+        -1 (ops.ivf.spill_assign's rule, for incremental row blocks)."""
+        d, ids = nearest_two(torch.from_numpy(np.ascontiguousarray(vecs)).to(self.device),
+                             self._centroids_dev)
+        d, ids = d.cpu().numpy(), ids.cpu().numpy()
+        ok = d[:, 1] <= (1.0 + self.config.spill_eps) * np.maximum(d[:, 0], 1e-30)
+        return np.where(ok, ids[:, 1], -1).astype(np.int64)
+
+    def _append_spill(self, slots, vecs: np.ndarray) -> None:
+        """Append spill copies for the given rows (after their primary)."""
+        if not (self._spill and self.trained):
+            return
+        vecs = np.atleast_2d(vecs)
+        sec = self._spill_secondary(vecs)
+        for i, s in enumerate(np.atleast_1d(slots)):
+            if sec[i] >= 0:
+                self._store.append(int(sec[i]), int(s), vecs[i])
+                self._slot_spill[int(s)] = int(sec[i])
+
+    def _drop_spill(self, slot: int) -> None:
+        lst = self._slot_spill.pop(slot, None)
+        if lst is not None:
+            self._store.remove(lst, slot)
+
+    def _respill_all(self, chunk: int = 131072) -> None:
+        """Rebuild every spill copy against the current centroids (after
+        optimize/refresh repacked the store with primary assignments)."""
+        self._slot_spill.clear()
+        if not (self._spill and self.trained and self.count):
+            return
+        slots = sorted(self._vectors.keys())
+        for s in range(0, len(slots), chunk):
+            blk = slots[s : s + chunk]
+            self._append_spill(blk, np.stack([self._vectors[sl] for sl in blk]))
+
+    def insert(self, id: VectorID, vector, metadata: Metadata = None) -> None:
+        super().insert(id, vector, metadata)
+        if self._spill and self.trained:
+            slot = self._idmap.lookup(id)
+            self._append_spill([slot], self._vectors[slot][None, :])
+
+    def insert_batch(self, ids, vectors, metadatas=None) -> None:
+        super().insert_batch(ids, vectors, metadatas)
+        if self._spill and self.trained:
+            self._append_spill([self._idmap.lookup(i) for i in ids],
+                               np.asarray(vectors, dtype=np.float32))
+
+    def remove(self, id: VectorID) -> None:
+        self._drop_spill(self._idmap.lookup(id))
+        super().remove(id)
+
+    def update(self, id: VectorID, vector=None, metadata: Metadata = None) -> None:
+        if vector is not None:
+            self._drop_spill(self._idmap.lookup(id))
+        super().update(id, vector, metadata)
+        if vector is not None and self._spill and self.trained:
+            slot = self._idmap.lookup(id)
+            self._append_spill([slot], self._vectors[slot][None, :])
+
+    # -- training and encoding --
+
+    def optimize(self) -> None:
+        """Coarse k-means + respill + residual PQ training on every row
+        (reference optimize + pq_train_f32 residual mode). PQ draws come
+        from the stream (config.seed, 1)."""
+        super().optimize()
+        self._respill_all()
+        if not self.trained or self.count == 0:
+            return
+        slots, x = self._stacked()
+        assigns = np.array([self._slot_list[s] for s in slots], dtype=np.int64)
+        self._books = pq_ops.pq_train_residual(
+            vrng.make_generator(self.config.seed, 1, device=self.device),
+            torch.from_numpy(x).to(self.device),
+            self._centroids_dev,
+            torch.from_numpy(assigns).to(self.device),
+            m=self.config.m, ks=self.config.ks, iters=self.config.pq_iters,
+        )
+        self._pq_cache = None
+
+    def refresh_quantizer(
+        self, iters: int = 5, sample: int = 262144, chunk: int = km.ASSIGN_CHUNK
+    ) -> dict:
+        out = super().refresh_quantizer(iters=iters, sample=sample, chunk=chunk)
+        self._respill_all()
+        return out
+
+    def _encode_rows(self, vecs: torch.Tensor, row_list: torch.Tensor):
+        """Residual-encode a row block on the device → (codes, tcorr). Codes
+        pack to u4 when ks ≤ 16 (reference IVFFormat.pq4); tcorr is the
+        per-row constant of the decomposed residual LUT
+        (pq_row_corrections), zeros for IP."""
+        codes = pq_ops.pq_encode_residual(vecs, self._centroids_dev, row_list, self._books,
+                                          chunk=65536)
+        if self.metric == Metric.L2:
+            tcorr = pq_ops.pq_row_corrections(codes, row_list, self._centroids_dev, self._books)
+        else:
+            tcorr = torch.zeros(codes.shape[0], dtype=torch.float32, device=codes.device)
+        if self.config.ks <= 16:
+            codes = pack_u4(codes)
+        return codes, tcorr
+
+    def _sync_pq(self):
+        """(device lists, codes, tcorr) for the current packed layout.
+
+        Incremental: while the CSR layout is stable (in-place appends only),
+        only the rows appended since the last sync (the store's patch log)
+        are encoded and copied into the cached code and correction tensors,
+        in place. A repack (list overflow / remove / retrain) changes
+        layout_version and re-encodes every row."""
+        store = self._store
+        arrays = store.sync_device(self.storage_dtype, with_vecs=not self.config.host_rerank)
+        cache = self._pq_cache
+        if cache is not None and cache["version"] == store.version:
+            return arrays, cache["codes"], cache["tcorr"]
+        if cache is not None and cache["layout"] == store.layout_version:
+            new = [(row, lst) for v, row, lst in store._patch_log if v > cache["version"]]
+            if new:
+                rows_np = np.asarray([r for r, _ in new], dtype=np.int64)
+                rows = torch.from_numpy(rows_np).to(self.device)
+                lists = torch.tensor([l for _, l in new], dtype=torch.int64, device=self.device)
+                # from the host packed mirror: f32 CSR order, full precision
+                # under bf16 device storage
+                vecs = torch.from_numpy(store._packed["vecs"][rows_np]).to(self.device)
+                codes_new, tcorr_new = self._encode_rows(vecs, lists)
+                cache["codes"].index_copy_(0, rows, codes_new)
+                cache["tcorr"].index_copy_(0, rows, tcorr_new)
+                cache["version"] = store.version
+                return arrays, cache["codes"], cache["tcorr"]
+        # full rebuild (new layout / first sync)
+        p = store._packed
+        row_list = np.zeros(p["row_ids"].shape[0], dtype=np.int64)  # dead rows: list 0
+        for lst, (s, n) in enumerate(zip(p["starts"], p["lengths"])):
+            row_list[s : s + n] = lst
+        codes, tcorr = self._encode_rows(torch.from_numpy(p["vecs"]).to(self.device),
+                                         torch.from_numpy(row_list).to(self.device))
+        self._pq_cache = {"version": store.version, "layout": store.layout_version,
+                          "codes": codes, "tcorr": tcorr}
+        return arrays, codes, tcorr
+
+    # -- search --
+
+    def batch_search(
+        self,
+        queries,
+        k: int,
+        filter: Optional[FilterFn] = None,
+        *,
+        allow_ids=None,
+        deny_ids=None,
+        disabled_lists=None,
+    ) -> list[list[SearchResult]]:
+        q = np.ascontiguousarray(queries, dtype=np.float32)
+        if q.ndim == 1:
+            q = q[None, :]
+        if q.shape[1] != self.dimension:
+            raise dimension_mismatch(self.dimension, q.shape[1], "ivfpq.search")
+        if self.count == 0 or k <= 0 or q.shape[0] == 0:
+            return [[] for _ in range(q.shape[0])]
+        if not (self.trained and self.pq_trained):
+            return super().batch_search(queries, k, filter, allow_ids=allow_ids,
+                                        deny_ids=deny_ids, disabled_lists=disabled_lists)
+        # oversample when a host-side metadata filter will drop hits
+        kk = min(k if filter is None else max(4 * k, k + 32), self.count)
+        arrays, codes, tcorr = self._sync_pq()
+        cap = probe_cap_for(self._store.max_length)
+        nprobe = min(self.config.nprobe, self.config.nlist)
+        row_allow = self._row_allow_mask(allow_ids, deny_ids)
+        disabled = None
+        if disabled_lists is not None:
+            dm = np.zeros((self.config.nlist,), dtype=bool)
+            dm[np.asarray(list(disabled_lists), dtype=np.int64)] = True
+            disabled = torch.from_numpy(dm).to(self.device)
+        u4 = self.config.ks <= 16
+        code_bytes = self.config.m // 2 if u4 else self.config.m
+        stats = QueryStats(
+            batch=q.shape[0], lists_routed=q.shape[0] * nprobe,
+            codes_scanned=q.shape[0] * nprobe * cap,
+            bytes_read={"codes": q.shape[0] * nprobe * cap * code_bytes},
+            flags={"u4"} if u4 else set(),
+        )
+        with TELEM.timer("scan_adc", stats):
+            dist, ids = self._pq_dispatch(q, kk, arrays, codes, tcorr, cap, nprobe,
+                                          row_allow, disabled)
+        TELEM.record_kernel("adc_probe", rows=stats.codes_scanned,
+                            bytes=stats.bytes_read["codes"])
+        TELEM.record_query(stats)
+
+        scores = self._public_score(dist)
+        out: list[list[SearchResult]] = []
+        for b in range(q.shape[0]):
+            row: list[SearchResult] = []
+            for j in range(ids.shape[1]):
+                slot = int(ids[b, j])
+                if slot == INVALID_ID or not np.isfinite(dist[b, j]):
+                    break
+                meta = self._metadata.get(slot)
+                if filter is not None and not filter(meta):
+                    continue
+                row.append(SearchResult(
+                    id=self._idmap.external_for(slot), score=float(scores[b, j]), metadata=meta,
+                ))
+                if len(row) == k:
+                    break
+            out.append(row)
+        return out
+
+    def _pq_dispatch(self, q, kk, arrays, codes, tcorr, cap, nprobe, row_allow, disabled):
+        """One query batch through the device route → (dist, ids) as numpy:
+        ivf_search_pq_probe, the counterpart of the TPU's route, on every
+        device (K9/K10 on a CUDA index, their plain versions on a CPU
+        index). The host-rerank tier is not ported yet."""
+        if self.config.host_rerank and self.config.rerank:
+            raise NotImplementedError(f"IVFPQIndex search with host_rerank: {_HOST_RERANK}")
+        dist, ids = ivf_search_pq_probe(
+            torch.from_numpy(q).to(self.device), self._centroids_dev, arrays, codes, tcorr,
+            self._books, nprobe=nprobe, probe_cap=cap, k=kk, metric=self.metric,
+            packed_u4=self.config.ks <= 16,
+            rerank_c=self.config.rerank_c if self.config.rerank else 0,
+            row_allow=row_allow, disabled_lists=disabled, dedup=self._spill,
+        )
+        return dist.cpu().numpy(), ids.cpu().numpy()
+
+    def serve_session(self, *, lookahead: int = 3, allow_ids=None, deny_ids=None):
+        """The long-lived serving session of the host-rerank tier: not
+        ported yet."""
+        if not (self.config.host_rerank and self.config.rerank):
+            raise ValueError(
+                "serve_session requires the host-rerank tier "
+                "(IVFPQConfig(rerank=True, host_rerank=True))"
+            )
+        raise NotImplementedError(f"IVFPQIndex.serve_session: {_HOST_RERANK}")
+
+    def batch_search_stream(self, q_batches, k: int, *, lookahead: int = 3,
+                            allow_ids=None, deny_ids=None):
+        """Serve a stream of query batches, yielding batch_search's rows per
+        batch, in order. Off the host-rerank tier every batch is one
+        batch_search call; the pipelined host tier is not ported yet."""
+        del lookahead
+        if self.config.host_rerank and self.config.rerank and self.trained and self.pq_trained:
+            raise NotImplementedError(f"IVFPQIndex.batch_search_stream: {_HOST_RERANK}")
+        for qb in q_batches:
+            yield self.batch_search(qb, k, allow_ids=allow_ids, deny_ids=deny_ids)
+
+    def statistics(self) -> IndexStats:
+        st = super().statistics()
+        st.details.update({
+            "pq_m": self.config.m,
+            "pq_ks": self.config.ks,
+            "pq_trained": self.pq_trained,
+            "rerank": self.config.rerank,
+            "code_bytes_per_vector": self.config.m if self.config.ks > 16 else self.config.m // 2,
+        })
+        return st

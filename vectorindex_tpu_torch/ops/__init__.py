@@ -2,10 +2,14 @@
 counterparts of vectorindex_tpu.ops)."""
 
 from vectorindex_tpu_torch.ops import (  # noqa: F401
+    dedup,
+    dtypes,
     filtering,
     idmap,
     ivf,
+    ivf_pq,
     kmeans,
+    pq,
     rng,
     scan,
     scoring,

@@ -15,9 +15,11 @@ IVFSelect.swift:78, IVFAppend.swift:220-712, ExactRerank.swift:655).
   - `ivf_search_flat`: the gather path (select → gather probed rows →
     score → strict top-k). It is the plain reference for the probed search
     of kernels/ivf_probe.ivf_search_flat_probe.
+  - `spill_assign`: boundary multi-assignment for IVF-PQ, on a stable
+    top-2 (`nearest_two`).
 
-Not ported yet: `spill_assign`, `build_centroid_graph`, `ivf_select_beam`
-(they belong to the IVF-PQ slice, ROADMAP.md Queue 1).
+Not ported yet: `build_centroid_graph`, `ivf_select_beam` (ROADMAP.md
+Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -60,6 +62,53 @@ def ivf_select(
     if disabled is not None:
         dist = torch.where(disabled[None, :], INVALID_DIST, dist)
     return topk(dist, min(nprobe, centroids.shape[0]), strict_ties=True)
+
+
+def nearest_two(x: Tensor, centroids: Tensor) -> Tuple[Tensor, Tensor]:
+    """The two nearest centroids of each row by squared L2 → (d [n, 2],
+    ids [n, 2] int64), the lower index first on ties (jax.lax.top_k's order):
+    a first-index argmin, then another with that column masked out."""
+    d = scoring.l2sqr_block(x.float(), centroids.float())
+    d1, i1 = torch.min(d, dim=1)
+    d.scatter_(1, i1[:, None], INVALID_DIST)
+    d2, i2 = torch.min(d, dim=1)
+    return torch.stack([d1, d2], dim=1), torch.stack([i1, i2], dim=1)
+
+
+def spill_assign(
+    x,
+    centroids,
+    *,
+    eps: float = 0.2,
+    chunk: int = 131072,
+    max_spill: int = 2,
+) -> Tuple[np.ndarray, np.ndarray, float]:
+    """Boundary multi-assignment ("list spill"): rows whose second-nearest
+    centroid is nearly as close as their first are placed in BOTH lists.
+
+    Returns (src [n_exp] int32, assign [n_exp] int32, spill_frac): row j of
+    the expanded corpus is x[src[j]] assigned to list assign[j]; the first n
+    entries are the primary assignment in corpus order, spilled copies
+    follow. A row spills when d2 <= (1+eps)·d1 (squared L2). Search paths
+    must dedup candidate ids (spilled copies share their internal id).
+    x and centroids are numpy arrays or tensors; the top-2 runs on the
+    centroids' device (a numpy array: the CPU) in row chunks."""
+    if max_spill != 2:
+        raise ValueError("only primary + one spill copy is supported")
+    cent = torch.as_tensor(centroids, dtype=torch.float32)
+    n = x.shape[0]
+    a = np.empty((n, 2), np.int32)
+    dd = np.empty((n, 2), np.float32)
+    for s in range(0, n, chunk):
+        xc = torch.as_tensor(x[s : s + chunk], dtype=torch.float32).to(cent.device)
+        d, i = nearest_two(xc, cent)
+        dd[s : s + chunk] = d.cpu().numpy()
+        a[s : s + chunk] = i.cpu().numpy()
+    spill = dd[:, 1] <= (1.0 + eps) * np.maximum(dd[:, 0], 1e-30)
+    idx = np.flatnonzero(spill).astype(np.int32)
+    src = np.concatenate([np.arange(n, dtype=np.int32), idx])
+    assign = np.concatenate([a[:, 0], a[idx, 1]])
+    return src, assign, float(idx.size) / max(n, 1)
 
 
 # ---------------------------------------------------------------------------
