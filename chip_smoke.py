@@ -25,6 +25,17 @@ each and read just after:
         and the first search (packing, encoding) are timed; ids against the
         same search through the kernels' plain versions, recall@10 against
         brute force (>= 0.85 and >= 0.90).
+  ADC:  bench.py's bench_adc: PQ8x8 (pq_train 15 iters on 131,072 rows,
+        pq_encode) of a 1,000,000 x 128 lowdim corpus; at B=256 the ADC-only
+        top-10 and the exact f32 rerank of the ADC top-128 and top-512 (K8);
+        range_scan_adc(strategy="auto") at B=64 with a radius from the data
+        (K6); adc_scan_u4 over a pq16x4 encoding at B=64 (K7). Ids against
+        the same calls through the plain versions, range ids and counts
+        against a mask over K6's plain output, recall@10 against brute
+        force (>= 0.95 after rerank512).
+
+The flat path also runs FlatIndex.range_search on its index (a few queries,
+one filtered), checked against brute force.
 
 It checks the kernels against their plain versions again on each main
 path's own tensors, and times the kernels, their plain versions and the
@@ -80,6 +91,24 @@ PQ_CONFIGS = {
 #: K9/K10 kernel-vs-plain cases over the skewed IVF store
 PQ_CASE_NPROBE, PQ_CASE_BIG_BATCH = 16, 32
 
+#: ADC main path: bench.py's bench_adc (BASELINE config 2): PQ8x8 over
+#: bench/synth.lowdim_corpus(1M, 128, dz=16, seed=11), trained (15 Lloyd
+#: iterations) on a 131,072-row sample of np.random.default_rng(0).choice,
+#: queries lowdim_queries(W, 21 * 256): the first 256 evaluate, the other 20
+#: batches time; ADC-only top-10 and an exact f32 rerank of the ADC top-C
+ADC_ROWS, ADC_DIM, ADC_M, ADC_KS, ADC_ITERS, ADC_SAMPLE = 1_000_000, 128, 8, 256, 15, 131_072
+ADC_BATCH, ADC_TIMED, ADC_RERANK = 256, 20, (128, 512)
+ADC_RECALL_MIN = 0.95  # after rerank512; the TPU bench's adc line reads 0.9773
+#: ADC range queries (K6) at B=64, the radius set so the median count is
+#: ADC_RANGE_MEDIAN, into buffers of ADC_RANGE_MAX; the u4 scan (K7) over a
+#: pq16x4 encoding of the same corpus at B=64
+ADC_RANGE_BATCH, ADC_RANGE_MEDIAN, ADC_RANGE_MAX, ADC_U4_M, ADC_U4_KS = 64, 100, 128, 16, 16
+#: K6/K7/K8 kernel-vs-plain cases: (m, ks) over a ragged row count
+ADC_CASE_ROWS, ADC_CASES = 262_144 + 77, ((8, 256), (16, 256), (16, 16), (32, 16))
+ADC_KERNELS = ("adc_scan_u8", "adc_scan_u4", "adc_topk_fused")
+#: flat range search on the flat main path's index: queries, matches each
+FLAT_RANGE_QUERIES, FLAT_RANGE_HITS = 4, 50
+
 #: the H100 SXM's published peaks (NVIDIA's data sheet): bytes/s of HBM3,
 #: bf16 tensor-core and f32 CUDA-core FLOP/s
 HBM_BYTES_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -92,6 +121,9 @@ SOURCES = {
     "ivf_probe_scores_rankmajor": "vectorindex_tpu_torch/kernels/csrc/ivf_probe.cu",
     "adc_probe_scores": "vectorindex_tpu_torch/kernels/csrc/adc_probe.cu",
     "adc_probe_scores_rankseg": "vectorindex_tpu_torch/kernels/csrc/adc_probe.cu",
+    "adc_scan_u8": "vectorindex_tpu_torch/kernels/csrc/adc.cu",
+    "adc_scan_u4": "vectorindex_tpu_torch/kernels/csrc/adc.cu",
+    "adc_topk_fused": "vectorindex_tpu_torch/kernels/csrc/adc.cu",
 }
 REPLACES = {
     "bin_candidates": "vectorindex_tpu/kernels/scan_fused.py:196",
@@ -101,6 +133,9 @@ REPLACES = {
     "ivf_probe_scores_rankmajor": "vectorindex_tpu/kernels/ivf_probe.py:892",
     "adc_probe_scores": "vectorindex_tpu/kernels/adc_probe.py:348",
     "adc_probe_scores_rankseg": "vectorindex_tpu/kernels/adc_probe.py:278",
+    "adc_scan_u8": "vectorindex_tpu/kernels/adc.py:65",
+    "adc_scan_u4": "vectorindex_tpu/kernels/adc.py:133",
+    "adc_topk_fused": "vectorindex_tpu/kernels/adc.py:254",
 }
 
 
@@ -259,7 +294,13 @@ def brute_force(x_dev, sq_dev, q: np.ndarray, k: int):
 def recall(results, dist, kth, truth_ids, k: int):
     """(tie-aware recall, set recall) of one batch's results."""
     got = torch.tensor([[r.id for r in row] for row in results], device=dist.device)
-    require(got.shape == (len(results), k), f"expected {k} results per query")
+    return recall_ids(got, dist, kth, truth_ids, k)
+
+
+def recall_ids(got, dist, kth, truth_ids, k: int):
+    """(tie-aware recall, set recall) of result ids [B, k]."""
+    require(got.shape == (dist.shape[0], k), f"expected {k} results per query")
+    got = got.long()
     d_got = torch.gather(dist, 1, got)
     hits = d_got <= kth[:, None] + RECALL_RTOL * kth.abs()[:, None]
     same = (got[:, :, None] == truth_ids[:, None, :]).any(dim=2)
@@ -743,17 +784,17 @@ def phase_pq_compare(ap):
 
 
 @contextlib.contextmanager
-def plain_adc(ap):
-    """Route the IVF-PQ search through K9/K10's plain versions (on the same
-    device tensors) while inside."""
-    saved = {name: getattr(ap, name) for name in PQ_KERNELS}
-    for name in PQ_KERNELS:
-        setattr(ap, name, getattr(ap, name + "_ref"))
+def plain_versions(module, names):
+    """Route a kernel module's wrappers `names` through their plain versions
+    (on the same device tensors) while inside."""
+    saved = {name: getattr(module, name) for name in names}
+    for name in names:
+        setattr(module, name, getattr(module, name + "_ref"))
     try:
         yield
     finally:
         for name, fn in saved.items():
-            setattr(ap, name, fn)
+            setattr(module, name, fn)
 
 
 def same_results(got, want, k, what):
@@ -826,7 +867,7 @@ def phase_pq_main(ap, name, x, evalq, bigq, truth):
     launches = dict(ap.LAUNCHES)
     log(f"{name}: main path launches {launches}")
 
-    with plain_adc(ap):
+    with plain_versions(ap, PQ_KERNELS):
         for label, nprobe, q, kw, res in searches:
             idx.config = dataclasses.replace(idx.config, nprobe=nprobe)
             same_results(res, idx.batch_search(q, MAIN_K, **kw), MAIN_K, f"{name} {label}")
@@ -940,6 +981,333 @@ def phase_pq(ap):
     return errs, launches, times, builds
 
 
+# ---------------------------------------------------------------------------
+# phase 9: exact range search on the flat main path's index
+# ---------------------------------------------------------------------------
+
+
+def phase_flat_range(idx, batches):
+    """FlatIndex.range_search over the flat main path's 1M x 128 bf16 index
+    (no kernel of its own: one distance block and a compaction). Each query's
+    radius lies midway between its FLAT_RANGE_HITS-th and next brute-force
+    distance; the hits must be those rows in brute-force order (up to
+    ties), with squared scores within RTOL/ATOL, and a filter must hold."""
+    from vectorindex_tpu_torch.utils.parity import ATOL, RTOL, ids_match_up_to_ties
+
+    x_dev = torch.from_numpy(idx._vectors).to(DEVICE)  # the bf16-exact rows as f32
+    sq_dev = (x_dev * x_dev).sum(dim=1)
+    live = torch.from_numpy(idx._valid).to(DEVICE)
+    queries = batches[-1][:FLAT_RANGE_QUERIES]
+    dist, _, _ = brute_force(x_dev, sq_dev, queries, 1)
+    dist = torch.where(live[None, :], dist, float("inf"))
+    sd, order = torch.sort(dist, dim=1, stable=True)
+    walls = []
+    for i, q in enumerate(queries):
+        # the first rank from FLAT_RANGE_HITS on whose gap to the next is
+        # far above f32 rounding, so no row lies near the radius
+        h = FLAT_RANGE_HITS
+        while float(sd[i, h] - sd[i, h - 1]) <= 1e-3 * float(sd[i, h]):
+            h += 1
+        r2 = 0.5 * float(sd[i, h - 1] + sd[i, h])
+        flt = None
+        want = order[i, :h].tolist()
+        if i == 0:  # tag the matches and filter to half of them
+            for rank, slot in enumerate(want):
+                idx.update(idx._idmap.external_for(slot), metadata={"even": rank % 2 == 0})
+            flt = lambda md: md is not None and md["even"]  # noqa: E731
+            want = want[0::2]
+        t0 = time.perf_counter()
+        hits = idx.range_search(q, float(np.sqrt(r2)), max_results=2 * h, filter=flt)
+        walls.append(time.perf_counter() - t0)
+        got = [r.id for r in hits]
+        wd = torch.gather(dist[i], 0, torch.tensor(want, device=DEVICE)).cpu().numpy()
+        require(len(got) == len(want), f"range query {i}: {len(got)} hits, brute force {len(want)}")
+        require(np.allclose(np.array([r.score for r in hits], dtype=np.float64) ** 2, wd,
+                            rtol=RTOL, atol=ATOL), f"range query {i}: distances differ")
+        require(ids_match_up_to_ties([got], [want], wd[None, :], len(want)),
+                f"range query {i}: ids differ from brute force")
+    log(f"flat range_search: {FLAT_RANGE_QUERIES} queries of >= {FLAT_RANGE_HITS} matches (one "
+        f"filtered to the even ranks) equal brute force over 1M rows up to ties; wall per call "
+        f"{1e3 * float(np.median(walls)):.4g} ms (median)")
+    del x_dev, sq_dev
+    return float(np.median(walls))
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the full-corpus ADC kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def phase_adc_compare(fa):
+    """Random codes and non-negative LUTs over ADC_CASE_ROWS rows (a ragged
+    last tile), B=8 and 64: K6 and K8 (k=10 and 512) on u8 codes, K7 on
+    packed u4, against their plain versions. Equal bit for bit (one add
+    order: j ascending from 0, each add rounded); K8's distances equal K6's
+    at K8's rows, K7's equal K6's on the unpacked codes."""
+    from vectorindex_tpu_torch.ops import pq
+
+    errs = dict.fromkeys(ADC_KERNELS, 0.0)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    n = ADC_CASE_ROWS
+    for m, ks in ADC_CASES:
+        codes = torch.randint(0, ks, (n, m), generator=gen, device=DEVICE).to(torch.uint8)
+        packed = pq.pack_u4(codes) if ks <= 16 else None
+        for b in (SMALL_BATCH, ADC_RANGE_BATCH):
+            lut = torch.rand(b, m, ks, generator=gen, device=DEVICE)
+            k6 = fa.adc_scan_u8(codes, lut)
+            torch.cuda.synchronize()
+            ref = fa.adc_scan_u8_ref(codes, lut)
+            errs["adc_scan_u8"] = max(errs["adc_scan_u8"], max_abs_err(k6, ref))
+            require(torch.equal(k6, ref), f"K6 m={m} ks={ks} B={b}: differs from the plain version")
+            if packed is not None:
+                k7 = fa.adc_scan_u4(packed, lut)
+                torch.cuda.synchronize()
+                ref = fa.adc_scan_u4_ref(packed, lut)
+                errs["adc_scan_u4"] = max(errs["adc_scan_u4"], max_abs_err(k7, ref))
+                require(torch.equal(k7, ref) and torch.equal(k7, k6),
+                        f"K7 m={m} B={b}: differs from its plain version or from K6")
+                continue
+            for k in (MAIN_K, 2 * 256):
+                kd, ki = fa.adc_topk_fused(codes, lut, k)
+                torch.cuda.synchronize()
+                rd, ri = fa.adc_topk_fused_ref(codes, lut, k)
+                errs["adc_topk_fused"] = max(errs["adc_topk_fused"], max_abs_err(kd, rd))
+                require(torch.equal(kd, rd) and torch.equal(ki, ri),
+                        f"K8 m={m} B={b} k={k}: differs from the plain version")
+                require(torch.equal(kd, torch.gather(k6, 1, ki.long())) and bool((ki < n).all()),
+                        f"K8 m={m} B={b} k={k}: distances are not K6's at its rows")
+        log(f"adc compare m={m} ks={ks} rows={n}: " + ("K7 (packed u4)" if packed is not None
+            else "K6 and K8 (k=10, 512)") + f" at B={SMALL_BATCH} and B={ADC_RANGE_BATCH} "
+            "equal their plain versions bit for bit")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the ADC main path
+# ---------------------------------------------------------------------------
+
+
+def adc_build():
+    """bench_adc's corpus, PQ8x8 books and codes, the pq16x4 books and packed
+    codes of the same corpus, and the f32 rows for the rerank → dict."""
+    from vectorindex_tpu_torch.ops import pq
+    from vectorindex_tpu_torch.ops import rng as vrng
+
+    t0 = time.perf_counter()
+    x, W = lowdim_corpus(ADC_ROWS, ADC_DIM, dz=16, seed=11)
+    queries = lowdim_queries(W, (ADC_TIMED + 1) * ADC_BATCH)
+    st = {"corpus_s": time.perf_counter() - t0, "x": x, "queries": queries}
+    x_dev = torch.from_numpy(x).to(DEVICE)
+    samp = torch.from_numpy(np.random.default_rng(0).choice(ADC_ROWS, ADC_SAMPLE, replace=False))
+    sample = x_dev[samp.to(DEVICE)]
+    for name, m, ks, stream in (("books", ADC_M, ADC_KS, 0), ("books4", ADC_U4_M, ADC_U4_KS, 1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st[name] = pq.pq_train(vrng.make_generator(7, stream, device=DEVICE), sample, m=m, ks=ks,
+                               iters=ADC_ITERS)
+        torch.cuda.synchronize()
+        st[name + "_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st["codes"] = pq.pq_encode(x_dev, st["books"], chunk=65536)
+    torch.cuda.synchronize()
+    st["encode_s"] = time.perf_counter() - t0
+    st["packed"] = pq.pq_encode_u4(x_dev, st["books4"], chunk=65536)
+    st["x_dev"], st["sq_dev"] = x_dev, (x_dev * x_dev).sum(dim=1)
+    return st
+
+
+def adc_search(fa, st, q, c: int):
+    """bench_adc's search of a batch: f32 LUT, K8 top-c and, for c > k, the
+    exact f32 rerank of the c candidates → (dist [B, k], rows [B, k])."""
+    from vectorindex_tpu_torch.ops import ivf as tivf
+    from vectorindex_tpu_torch.ops import pq
+
+    lut = pq.pq_lut_l2(q, st["books"])
+    d, rows = fa.adc_topk_fused(st["codes"], lut, c)
+    if c == MAIN_K:
+        return d, rows
+    return tivf.rerank_exact_topk(q, rows, st["x_dev"], st["sq_dev"], k=MAIN_K)
+
+
+def range_reference(plain, r2: float, mr: int):
+    """The compaction of a mask over K6's plain output, on the host: per
+    query the matches by (dist, id), the first mr, padded with INVALID_ID;
+    and the counts."""
+    from vectorindex_tpu_torch.ops.topk import INVALID_ID
+
+    d = plain.cpu().numpy()
+    ids = np.full((d.shape[0], mr), INVALID_ID, dtype=np.int64)
+    counts = []
+    for b in range(d.shape[0]):
+        hit = np.nonzero(d[b] <= r2)[0]
+        counts.append(len(hit))
+        keep = hit[np.lexsort((hit, d[b][hit]))][:mr]
+        ids[b, : len(keep)] = keep
+    return torch.from_numpy(ids), torch.tensor(counts)
+
+
+def phase_adc_main(fa, st):
+    """Drive the ADC main path with the launch counts set to 0 just before
+    and read just after, then check it."""
+    from vectorindex_tpu_torch.ops import pq
+    from vectorindex_tpu_torch.ops import range_query as rq
+
+    queries = st["queries"]
+    evalq = torch.from_numpy(queries[:ADC_BATCH]).to(DEVICE)
+    q64 = evalq[:ADC_RANGE_BATCH]
+    lut64 = pq.pq_lut_l2(q64, st["books"])
+    lut4 = pq.pq_lut_l2(q64, st["books4"])
+    # the radius: median over the queries of the ADC_RANGE_MEDIAN-th ADC distance
+    plain64 = fa.adc_scan_u8_ref(st["codes"], lut64)
+    r2 = float(torch.kthvalue(plain64, ADC_RANGE_MEDIAN, dim=1).values.median())
+    radius = float(np.sqrt(np.float32(r2)))
+    r2 = float(np.float32(radius) * np.float32(radius))  # range_query's f32 threshold
+
+    fa.reset_launches()
+    res = {c: adc_search(fa, st, evalq, c) for c in (MAIN_K, *ADC_RERANK)}
+    rng_res = rq.range_scan_adc(st["codes"], lut64, radius, max_results=ADC_RANGE_MAX,
+                                strategy="auto")
+    u4 = pq.adc_scan_u4(st["packed"], lut4)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    log(f"adc: main path launches {launches}")
+    require(all(launches[n] > 0 for n in ADC_KERNELS), f"a K6/K7/K8 kernel did not run: {launches}")
+
+    with plain_versions(fa, ADC_KERNELS):
+        for c, (_, ids) in res.items():
+            _, want = adc_search(fa, st, evalq, c)
+            require(torch.equal(ids, want), f"adc c={c}: ids differ from the plain-version search")
+        require(torch.equal(u4, fa.adc_scan_u4(st["packed"], lut4)), "K7 differs from its plain version")
+    require(torch.equal(u4, fa.adc_scan_u8(pq.unpack_u4(st["packed"]), lut4)),
+            "K7 differs from K6 on the unpacked codes")
+    log("adc: ADC-only and rerank 128/512 ids equal the same search through the plain versions; "
+        "K7 equals its plain version and K6 on the unpacked codes")
+    ref_ids, ref_counts = range_reference(plain64, r2, ADC_RANGE_MAX)
+    counts = rng_res.counts.cpu()
+    require(torch.equal(counts.long(), ref_counts), "range counts differ from K6's plain output")
+    require(torch.equal(rng_res.ids.cpu().long(), ref_ids), "range ids differ from K6's plain output")
+    live = rng_res.ids != 2**31 - 1
+    require(torch.equal(rng_res.dists[live], torch.gather(plain64, 1, rng_res.ids.long().clamp_max(
+        ADC_ROWS - 1))[live]), "range distances differ from K6's plain output")
+    over = int((counts > ADC_RANGE_MAX).sum())
+    log(f"adc: range radius {radius:.6g} (r^2 {r2:.6g}); counts median {float(counts.median())}, "
+        f"min {int(counts.min())}, max {int(counts.max())}; {over} of {ADC_RANGE_BATCH} queries "
+        f"overflow max_results={ADC_RANGE_MAX}; ids and counts equal a mask over K6's plain output")
+    require(over > 0, "no range query overflowed its buffers")
+
+    dist, kth, truth = brute_force(st["x_dev"], st["sq_dev"], queries[:ADC_BATCH], MAIN_K)
+    recalls = {}
+    for c, (_, ids) in res.items():
+        recalls[c] = recall_ids(ids, dist, kth, truth, MAIN_K)
+        label = "ADC-only" if c == MAIN_K else f"rerank{c}"
+        log(f"adc: {label} recall@{MAIN_K}={recalls[c][0]} (set recall {recalls[c][1]}) over "
+            f"{ADC_BATCH} queries")
+    require(recalls[ADC_RERANK[-1]][0] >= ADC_RECALL_MIN,
+            f"rerank{ADC_RERANK[-1]} recall@{MAIN_K} {recalls[ADC_RERANK[-1]][0]} < {ADC_RECALL_MIN}")
+    del dist, truth
+    return launches, {"recall": {c: r[0] for c, r in recalls.items()}}, (evalq, q64, lut64, lut4)
+
+
+def adc_bounds(n: int, b: int, m: int, ks: int, mb: int, k: int = 0):
+    """(bound_ms, bound_by) of K6/K7 (k=0: a [B, n] f32 output) or K8 (a
+    [B, k] top-k): the codes and LUTs read once, the output written once;
+    B * n * m f32 adds."""
+    out = b * k * 8 if k else b * n * 4
+    return bound(n * mb + b * m * ks * 4 + out, float(b) * n * m, F32_FLOPS)
+
+
+def phase_adc_times(fa, st, tensors, errs):
+    """K6/K7 at B=64 and K8 at B=256 on the main path's tensors: against
+    their plain versions, times and bounds; K6 + a stable top-10 of its
+    [256, 1M] output as K8's scan-then-select yardstick; embedding_bag as
+    K6's library call; then the median wall of the B=256 searches."""
+    from vectorindex_tpu_torch.ops import pq
+    from vectorindex_tpu_torch.ops.topk import topk
+
+    evalq, q64, lut64, lut4 = tensors
+    codes, packed = st["codes"], st["packed"]
+    lut256 = pq.pq_lut_l2(evalq, st["books"])
+    n = codes.shape[0]
+    t = {}
+    k8 = fa.adc_topk_fused(codes, lut256, MAIN_K)
+    k6_256 = fa.adc_scan_u8(codes, lut256)
+    torch.cuda.synchronize()
+    require(torch.equal(k8[0], torch.gather(k6_256, 1, k8[1].long())),
+            "K8's distances are not K6's at its rows (B=256)")
+    ref8 = fa.adc_topk_fused_ref(codes, lut256, MAIN_K)
+    require(torch.equal(k8[0], ref8[0]) and torch.equal(k8[1], ref8[1]),
+            "K8 differs from its plain version (B=256)")
+    for name, fn, args in (("adc_scan_u8", "adc_scan_u8", (codes, lut64)),
+                           ("adc_scan_u4", "adc_scan_u4", (packed, lut4))):
+        got, ref = getattr(fa, fn)(*args), getattr(fa, fn + "_ref")(*args)
+        require(torch.equal(got, ref), f"{name} differs from its plain version (main path)")
+        errs[name] = max(errs[name], max_abs_err(got, ref))
+    errs["adc_topk_fused"] = max(errs["adc_topk_fused"], max_abs_err(k8[0], ref8[0]))
+    log("adc main-shape check: K6, K7 (B=64) and K8 (B=256) equal their plain versions bit for bit")
+    del k6_256, ref8
+    cases = (
+        ("adc_scan_u8", lambda: fa.adc_scan_u8(codes, lut64), lambda: fa.adc_scan_u8_ref(codes, lut64),
+         adc_bounds(n, ADC_RANGE_BATCH, ADC_M, ADC_KS, ADC_M)),
+        ("adc_scan_u4", lambda: fa.adc_scan_u4(packed, lut4), lambda: fa.adc_scan_u4_ref(packed, lut4),
+         adc_bounds(n, ADC_RANGE_BATCH, ADC_U4_M, ADC_U4_KS, ADC_U4_M // 2)),
+        ("adc_topk_fused", lambda: fa.adc_topk_fused(codes, lut256, MAIN_K),
+         lambda: fa.adc_topk_fused_ref(codes, lut256, MAIN_K),
+         adc_bounds(n, ADC_BATCH, ADC_M, ADC_KS, ADC_M, MAIN_K)),
+    )
+    for name, fn, ref, bnd in cases:
+        t[name] = time_ms(fn, 20)
+        t[name + "_plain"] = time_ms(ref, 2, warmup=1)
+        t[name + "_bound"] = bnd
+        log(f"adc times {name}: kernel {t[name]:.4g} ms, plain {t[name + '_plain']:.4g} ms, "
+            f"bound {bnd[0]:.4g} ms ({bnd[1]})")
+    # K8's yardstick: scan then select (K6 at B=256, stable top-10 of [256, 1M])
+    t["scan_then_topk"] = time_ms(lambda: topk(fa.adc_scan_u8(codes, lut256), MAIN_K), 5, warmup=1)
+    # K6's library call: one embedding_bag over the subspace-offset codes with
+    # the LUTs as a [m * ks, B] table (sum mode) computes [n, B]
+    flat = (codes.long() + torch.arange(ADC_M, device=DEVICE) * ADC_KS).contiguous()
+    table = lut64.reshape(ADC_RANGE_BATCH, -1).T.contiguous()
+    emb = torch.nn.functional.embedding_bag(flat, table, mode="sum")
+    require(torch.allclose(emb.T, fa.adc_scan_u8(codes, lut64), rtol=1e-5, atol=1e-5),
+            "embedding_bag does not compute K6's function")
+    t["adc_scan_u8_library"] = time_ms(
+        lambda: torch.nn.functional.embedding_bag(flat, table, mode="sum"), 20)
+    del flat, emb
+    log(f"adc times: K6 + stable top-{MAIN_K} at B={ADC_BATCH} (scan then select) "
+        f"{t['scan_then_topk']:.4g} ms; embedding_bag (K6's function at B={ADC_RANGE_BATCH}) "
+        f"{t['adc_scan_u8_library']:.4g} ms")
+    queries = st["queries"]
+    pool = [torch.from_numpy(queries[(i + 1) * ADC_BATCH : (i + 2) * ADC_BATCH]).to(DEVICE)
+            for i in range(ADC_TIMED)]
+    for c in (MAIN_K, *ADC_RERANK):
+        label = "adc_only" if c == MAIN_K else f"rerank{c}"
+        adc_search(fa, st, pool[0], c)[1].cpu()  # warm
+        lat = []
+        for q in pool:
+            t0 = time.perf_counter()
+            adc_search(fa, st, q, c)[1].cpu()
+            lat.append(time.perf_counter() - t0)
+        med = float(np.median(lat))
+        t[f"search {label}"] = (1e3 * med, ADC_BATCH / med)
+        log(f"adc search B={ADC_BATCH} {label}: median {1e3 * med:.4g} ms over {ADC_TIMED} "
+            f"batches, {ADC_BATCH / med:.1f} QPS")
+    return t
+
+
+def phase_adc(fa):
+    """The ADC kernels against their plain versions, then the main path
+    and its times → (errors, launches, times, build figures)."""
+    errs = phase_adc_compare(fa)
+    st = adc_build()
+    log(f"adc: corpus {ADC_ROWS}x{ADC_DIM} (lowdim dz=16, seed 11) in {st['corpus_s']:.2f} s; "
+        f"pq_train m={ADC_M} ks={ADC_KS} ({ADC_ITERS} iters, {ADC_SAMPLE} rows) "
+        f"{st['books_train_s']:.2f} s, m={ADC_U4_M} ks={ADC_U4_KS} {st['books4_train_s']:.2f} s; "
+        f"pq_encode of {ADC_ROWS} rows {st['encode_s']:.3f} s")
+    launches, build, tensors = phase_adc_main(fa, st)
+    times = phase_adc_times(fa, st, tensors, errs)
+    build.update(train_s=st["books_train_s"], encode_s=st["encode_s"])
+    return errs, launches, times, build
+
+
 def flat_bound(n: int, d: int, b: int, itemsize: int, kernel: str):
     """(bound_ms, bound_by) of K1/K2 over the flat main path's corpus."""
     nbytes = n * (d * itemsize + 4) + b * d * 4
@@ -951,7 +1319,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from vectorindex_tpu_torch.kernels import _build, adc_probe as ap, ivf_probe as kp, scan_fused as sf
+    from vectorindex_tpu_torch.kernels import _build, adc as fa, adc_probe as ap, ivf_probe as kp
+    from vectorindex_tpu_torch.kernels import scan_fused as sf
     from vectorindex_tpu_torch.ops.topk import topk
 
     require(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls must stay off")
@@ -965,6 +1334,7 @@ def main() -> int:
     errs = phase_compare(sf, topk)
     idx, batches, launches = phase_main(sf)
     times = phase_times(sf, topk, idx, batches, errs)
+    range_s = phase_flat_range(idx, batches)
     n_flat, itemsize = idx.capacity, 2
     del idx, batches
     torch.cuda.empty_cache()
@@ -979,6 +1349,11 @@ def main() -> int:
     pq_errs, pq_launches, pq_times, pq_builds = phase_pq(ap)
     errs.update(pq_errs)
     launches.update(pq_launches)
+    torch.cuda.empty_cache()
+
+    adc_errs, adc_launches, adc_times, adc_figs = phase_adc(fa)
+    errs.update(adc_errs)
+    launches.update(adc_launches)
 
     big = times[MAIN_BATCH]
     kernels = []
@@ -995,17 +1370,26 @@ def main() -> int:
         kernels.append({"name": name, "ms": pq_times["pq16"][name],
                         "plain_ms": pq_times["pq16"][name + "_plain"], "bound_ms": bms,
                         "bound_by": by})
+    for name in ADC_KERNELS:  # K6/K7 at B=64, K8 at B=256
+        bms, by = adc_times[name + "_bound"]
+        kernels.append({"name": name, "ms": adc_times[name], "plain_ms": adc_times[name + "_plain"],
+                        "bound_ms": bms, "bound_by": by})
+    # embedding_bag computes K6's function in one call; no single PyTorch
+    # call computes a per-class top-3, a count below tau, distances (or
+    # LUT-gather sums) over per-query probed row lists, or reads packed u4
+    library = {"adc_scan_u8": adc_times["adc_scan_u8_library"]}
     for k in kernels:
-        # no single PyTorch call computes a per-class top-3, a count below
-        # tau, or distances (or LUT-gather sums) over per-query probed row
-        # lists
         k.update(route="cuda", source=SOURCES[k["name"]], replaces=REPLACES[k["name"]],
-                 launches=launches[k["name"]], max_abs_err=errs[k["name"]], library_ms=None)
+                 launches=launches[k["name"]], max_abs_err=errs[k["name"]],
+                 library_ms=library.get(k["name"]))
     require(all(k["launches"] > 0 for k in kernels), f"a kernel did not run on its path: {launches}")
     log(f"gpu: {gpu}; flat batch_search B={MAIN_BATCH}: {big['qps']:.1f} QPS; ivf insert_batch "
         f"{build_s['insert_s']:.2f} s, optimize {build_s['optimize_s']:.2f} s; ivfpq "
         + "; ".join(f"{name} recall@{MAIN_K} {b['recall']}, insert {b['insert_s']:.2f} s, optimize "
-                    f"{b['optimize_s']:.2f} s" for name, b in pq_builds.items()))
+                    f"{b['optimize_s']:.2f} s" for name, b in pq_builds.items())
+        + f"; flat range_search {1e3 * range_s:.4g} ms; adc recall@{MAIN_K} {adc_figs['recall']}, "
+        f"rerank512 B={ADC_BATCH} {adc_times['search rerank512'][1]:.1f} QPS, pq_train "
+        f"{adc_figs['train_s']:.2f} s, pq_encode {adc_figs['encode_s']:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Where the time of vectorindex_tpu_torch's IVF and IVF-PQ searches goes, on one GPU.
+"""Where the time of vectorindex_tpu_torch's IVF, IVF-PQ and ADC searches goes, on one GPU.
 
-    python3 scripts/profile_ivf_torch.py [--index ivf|ivfpq|all] [--batches 5]
+    python3 scripts/profile_ivf_torch.py [--index ivf|ivfpq|adc|all] [--batches 5]
 
 Builds the IVF main path of chip_smoke.py (1,000,000 x 128 lowdim corpus,
-IVFIndex nlist=1024, bf16 storage, optimize()) and/or its IVF-PQ main path
+IVFIndex nlist=1024, bf16 storage, optimize()), its IVF-PQ main path
 (1,000,000 x 96 lowdim corpus, IVFPQIndex pq16: nlist=4096, m=16, ks=256,
-rerank_c=512, optimize()), then for B=8 at nprobe 32 and 8 and for B=256 at
-nprobe 32: the median wall time of batch_search over 20 calls, and a
-torch.profiler trace of `--batches` calls, printed as the device time per
-kernel, the device busy time per batch, the idle share (1 - busy / median
-wall) and the kernel launches per batch. Writes the chrome traces to
-build/profiles/. Needs a CUDA device; imports nothing of JAX.
+rerank_c=512, optimize()) and/or its ADC main path (bench_adc: PQ8x8 codes
+of a 1,000,000 x 128 lowdim corpus, K8, exact f32 rerank). Then, for the
+indexes B=8 at nprobe 32 and 8 and B=256 at nprobe 32, for ADC B=256
+ADC-only top-10 and rerank of the top 128 and 512: the median wall time of
+a search over 20 calls, and a torch.profiler trace of `--batches` calls,
+printed as the device time per kernel, the device busy time per batch, the
+idle share (1 - busy / median wall) and the kernel launches per batch.
+Writes the chrome traces to build/profiles/. Needs a CUDA device; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -31,14 +34,16 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (  # noqa: E402
-    IVF_BIG_BATCH, IVF_DIM, IVF_NLIST, IVF_NPROBE, IVF_NPROBE_LOW, IVF_ROWS, MAIN_K,
-    PQ_BIG_BATCH, PQ_CONFIGS, PQ_DIM, PQ_NLIST, PQ_NPROBE, PQ_NPROBE_LOW, PQ_RERANK_C, PQ_ROWS,
-    SMALL_BATCH, gpu_name_and_power, lowdim_corpus, lowdim_queries,
+    ADC_BATCH, ADC_RERANK, IVF_BIG_BATCH, IVF_DIM, IVF_NLIST, IVF_NPROBE, IVF_NPROBE_LOW,
+    IVF_ROWS, MAIN_K, PQ_BIG_BATCH, PQ_CONFIGS, PQ_DIM, PQ_NLIST, PQ_NPROBE, PQ_NPROBE_LOW,
+    PQ_RERANK_C, PQ_ROWS, SMALL_BATCH, adc_build, adc_search, gpu_name_and_power, lowdim_corpus,
+    lowdim_queries,
 )
 
 
 #: device-time groups by kernel name (first match wins)
 GROUPS = (
+    ("ADC kernels (K6-K8)", ("adc_scan_kernel", "adc_candidates_kernel", "merge_splits")),
     ("probe kernels (K3-K5, K9/K10)", ("probe_scores_kernel", "topc_", "adc_probe_kernel")),
     ("sorts", ("Sort", "sort")),
     ("products (select, LUT, rerank)", ("gemm", "gemv", "xmma", "cutlass", "bmm")),
@@ -74,22 +79,40 @@ def build_ivfpq():
     return idx, lowdim_queries(W, PQ_BIG_BATCH, seed=10), (PQ_NPROBE, PQ_NPROBE_LOW)
 
 
-def profile_searches(name: str, idx, q: np.ndarray, nprobes, batches: int, out: Path) -> None:
-    for b, nprobe in ((SMALL_BATCH, nprobes[0]), (SMALL_BATCH, nprobes[1]), (len(q), nprobes[0])):
-        idx.config = dataclasses.replace(idx.config, nprobe=nprobe)
-        qb = q[:b]
+def build_adc():
+    from vectorindex_tpu_torch.kernels import adc as fa
+
+    st = adc_build()
+    q = torch.from_numpy(st["queries"][ADC_BATCH : 2 * ADC_BATCH]).to("cuda")
+    return [(f"B={ADC_BATCH} " + ("adc_only" if c == MAIN_K else f"rerank{c}"), lambda: None,
+             lambda c=c: adc_search(fa, st, q, c)[1].cpu()) for c in (MAIN_K, *ADC_RERANK)]
+
+
+def index_cases(idx, q: np.ndarray, nprobes):
+    """(label, setup, search) for B=8 at both nprobes and B=256 at the first."""
+    def setup(nprobe):
+        return lambda: setattr(idx, "config", dataclasses.replace(idx.config, nprobe=nprobe))
+
+    return [(f"B={b} nprobe={nprobe}", setup(nprobe), lambda qb=q[:b]: idx.batch_search(qb, MAIN_K))
+            for b, nprobe in ((SMALL_BATCH, nprobes[0]), (SMALL_BATCH, nprobes[1]),
+                              (len(q), nprobes[0]))]
+
+
+def profile_searches(name: str, cases, batches: int, out: Path) -> None:
+    for label, setup, run in cases:
+        setup()
         for _ in range(3):
-            idx.batch_search(qb, MAIN_K)
+            run()
         lat = []
         for _ in range(20):
             t0 = time.perf_counter()
-            idx.batch_search(qb, MAIN_K)
+            run()
             lat.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(batches):
-                idx.batch_search(qb, MAIN_K)
+                run()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / batches
         # kernels and device copies only: an operator's device time repeats
@@ -99,7 +122,8 @@ def profile_searches(name: str, idx, q: np.ndarray, nprobes, batches: int, out: 
         busy = sum(e.self_device_time_total for e in events) / 1e3 / batches
         launches = sum(e.count for e in events) / batches
         med = float(np.median(lat))
-        print(f"\n{name} B={b} nprobe={nprobe}: batch_search median {1e3 * med:.4g} ms "
+        b = int(label.split()[0][2:])
+        print(f"\n{name} {label}: search median {1e3 * med:.4g} ms "
               f"({b / med:.1f} QPS); under the profiler {1e3 * wall:.4g} ms per batch; "
               f"device busy {busy:.4g} ms per batch, idle share {1 - busy / (1e3 * med):.3f} "
               f"of the median; {launches:.0f} kernels and copies per batch")
@@ -117,13 +141,12 @@ def profile_searches(name: str, idx, q: np.ndarray, nprobes, batches: int, out: 
         for e in host:
             print(f"  {e.self_cpu_time_total / 1e3 / batches:9.4f} ms  "
                   f"{e.count // batches:3d}x  {e.key[:90]}")
-        prof.export_chrome_trace(str(out / f"{name}_trace_b{b}_np{nprobe}.json"))
-    idx.config = dataclasses.replace(idx.config, nprobe=nprobes[0])
+        prof.export_chrome_trace(str(out / f"{name}_trace_{label.replace(' ', '_')}.json"))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--index", choices=("ivf", "ivfpq", "all"), default="all")
+    ap.add_argument("--index", choices=("ivf", "ivfpq", "adc", "all"), default="all")
     ap.add_argument("--batches", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -132,11 +155,10 @@ def main() -> int:
     print(f"gpu: {gpu_name_and_power()}", flush=True)
     out = ROOT / "build" / "profiles"
     out.mkdir(parents=True, exist_ok=True)
-    builders = {"ivf": build_ivf, "ivfpq": build_ivfpq}
+    builders = {"ivf": lambda: index_cases(*build_ivf()),
+                "ivfpq": lambda: index_cases(*build_ivfpq()), "adc": build_adc}
     for name in (builders if args.index == "all" else (args.index,)):
-        idx, q, nprobes = builders[name]()
-        profile_searches(name, idx, q, nprobes, args.batches, out)
-        del idx
+        profile_searches(name, builders[name](), args.batches, out)
         torch.cuda.empty_cache()
     return 0
 

@@ -11,7 +11,7 @@ that --noconftest skips)
 Tolerance: the kernels against their plain versions on the card, 0 (K1/K2
 and their plain versions sum each dot product as one f32 FMA chain over d;
 K3/K4/K5 and theirs as one chain of separately rounded products and sums;
-K9/K10 and theirs add the m LUT entries in order, each add rounded);
+K6-K10 and theirs add the m LUT entries in order, each add rounded);
 an index on the card against the same index on the host, rtol=2e-4,
 atol=2e-5 (f32 sums in another order; bf16 products are exact in f32).
 """
@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import vectorindex_tpu_torch.models.flat as tflat
+from vectorindex_tpu_torch.kernels import adc as fa
 from vectorindex_tpu_torch.kernels import adc_probe as ap
 from vectorindex_tpu_torch.kernels import ivf_probe as kp
 from vectorindex_tpu_torch.kernels import scan_fused as sf
@@ -248,8 +249,10 @@ def test_adc_kernels_match_plain_versions(m, ks, metric, cuda_device):
             torch.cuda.synchronize()
             assert torch.equal(got, ref(*args, **kw))
     assert ap.LAUNCHES == {"adc_probe_scores": 2, "adc_probe_scores_rankseg": 2}
-    with pytest.raises(NotImplementedError, match="K6/K7"):
-        pq.adc_scan(codes if not packed else pq.unpack_u4(codes), lut)
+    # 'auto' over a whole code array launches the full-corpus ADC kernel K6
+    fa.reset_launches()
+    full = pq.adc_scan(codes if not packed else pq.unpack_u4(codes), lut)
+    assert fa.LAUNCHES["adc_scan_u8"] == 1 and full.shape == (32, n_rows)
 
 
 @pytest.mark.cuda
@@ -287,3 +290,59 @@ def test_ivfpq_index_on_card_matches_host(spill, cuda_device):
         gi = [[r.id for r in row] for row in got]
         assert ids_match_up_to_ties(gi, [[r.id for r in row] for row in want], wd, 10)
         assert all(len(set(row)) == 10 for row in gi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, ks", [(8, 256), (16, 256), (16, 16), (32, 16)],
+                         ids=["pq8x8", "pq16", "pq16x4", "pq32x4"])
+def test_full_corpus_adc_kernels_match_plain_versions(m, ks, cuda_device):
+    """K6 and K8 (u8 codes) or K7 (packed u4) against their plain versions
+    over a ragged row count, at query blocks that fill and that do not fill
+    a CTA; K8's distances are K6's at K8's rows, K7's equal K6's on the
+    unpacked codes."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m * ks)
+    n = 20_000 + 77
+    codes = torch.randint(0, ks, (n, m), generator=gen, device=cuda_device).to(torch.uint8)
+    fa.reset_launches()
+    for b in (8, 13):
+        lut = torch.rand(b, m, ks, generator=gen, device=cuda_device)
+        k6 = fa.adc_scan_u8(codes, lut)
+        torch.cuda.synchronize()
+        assert torch.equal(k6, fa.adc_scan_u8_ref(codes, lut))
+        if ks <= 16:
+            packed = pq.pack_u4(codes)
+            k7 = fa.adc_scan_u4(packed, lut)
+            torch.cuda.synchronize()
+            assert torch.equal(k7, fa.adc_scan_u4_ref(packed, lut)) and torch.equal(k7, k6)
+        for k in (10, 600):
+            kd, ki = fa.adc_topk_fused(codes, lut, k)
+            torch.cuda.synchronize()
+            rd, ri = fa.adc_topk_fused_ref(codes, lut, k)
+            assert kd.shape == (b, min(k, 512)) and torch.equal(kd, rd) and torch.equal(ki, ri)
+            assert torch.equal(kd, torch.gather(k6, 1, ki.long()))
+            assert (ki < n).all()
+    assert fa.LAUNCHES == {"adc_scan_u8": 2, "adc_scan_u4": 2 if ks <= 16 else 0, "adc_topk_fused": 4}
+    with pytest.raises(ValueError):
+        fa.adc_scan_u4(codes, torch.rand(2, m, ks, device=cuda_device))  # unpacked width
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_range_search_on_card_matches_host(dtype, cuda_device):
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((3000, 32)).astype(np.float32)
+    q = rng.standard_normal((4, 32)).astype(np.float32)
+    on_card = tflat.FlatIndex(32, Metric.L2, storage_dtype=dtype, device=cuda_device)
+    on_host = tflat.FlatIndex(32, Metric.L2, storage_dtype=dtype, device="cpu")
+    meta = [{"even": i % 2 == 0} for i in range(len(x))]
+    for idx in (on_card, on_host):
+        idx.insert_batch(list(range(len(x))), x, meta)
+        for i in range(0, len(x), 7):
+            idx.remove(i)
+    for qi, kw in ((q[0], {}), (q[1], dict(filter=lambda md: md["even"])), (q[2], dict(max_results=5))):
+        got = on_card.range_search(qi, 6.5, **kw)
+        want = on_host.range_search(qi, 6.5, **kw)
+        assert 0 < len(got) == len(want)
+        wd = np.array([[r.score**2 for r in want]])
+        np.testing.assert_allclose([[r.score**2 for r in got]], wd, rtol=RTOL, atol=ATOL)
+        assert ids_match_up_to_ties([[r.id for r in got]], [[r.id for r in want]], wd, len(want))

@@ -191,7 +191,7 @@ def test_errors():
         with pytest.raises(IndexError) as info:
             call()
         assert info.value.kind == kind
-    for call in (lambda: t.range_search(np.ones(4), 1.0), lambda: t.save_container("x"),
+    for call in (lambda: t.save_container("x"),
                  lambda: tflat.FlatIndex.load_container("x", device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()

@@ -45,6 +45,7 @@ def test_every_module_imports_without_jax_or_nvcc(tmp_path):
         "vectorindex_tpu_torch.kernels.scan_fused",
         "vectorindex_tpu_torch.kernels.ivf_probe",
         "vectorindex_tpu_torch.kernels.adc_probe",
+        "vectorindex_tpu_torch.kernels.adc",
         "vectorindex_tpu_torch.kernels._build",
         "vectorindex_tpu_torch.models.flat",
         "vectorindex_tpu_torch.models.ivf",
@@ -54,6 +55,8 @@ def test_every_module_imports_without_jax_or_nvcc(tmp_path):
         "vectorindex_tpu_torch.ops.dtypes",
         "vectorindex_tpu_torch.ops.dedup",
         "vectorindex_tpu_torch.ops.kmeans",
+        "vectorindex_tpu_torch.ops.range_query",
+        "vectorindex_tpu_torch.ops.reservoir",
         "vectorindex_tpu_torch.ops.rng",
         "vectorindex_tpu_torch.ops.scan",
         "vectorindex_tpu_torch.persistence.json_snapshot",

@@ -4,7 +4,8 @@ The JAX package `vectorindex_tpu` is the reference; this package mirrors its
 layout and public names so each module has an obvious counterpart:
 
   ops/         scoring, topk, scan, filtering, idmap, rng, kmeans, ivf,
-               dtypes, dedup, pq, ivf_pq (plain torch)
+               dtypes, dedup, pq, ivf_pq, range_query, reservoir (plain
+               torch)
   kernels/     hand-written CUDA kernels for Hopper (sm_90a), each with a
                plain PyTorch version used for CPU tensors
   models/      FlatIndex, IVFIndex, IVFPQIndex, JournalFilter, the index
@@ -13,8 +14,8 @@ layout and public names so each module has an obvious counterpart:
   utils/       config, structured errors, telemetry
 
 Nothing here imports jax or vectorindex_tpu. The port so far covers exact flat
-search, IVF-Flat and IVF-PQ with the device-resident rerank; ROADMAP.md lists
-what is still to port.
+search and range queries, IVF-Flat, IVF-PQ with the device-resident rerank
+and the full-corpus ADC scans; ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.1.0"

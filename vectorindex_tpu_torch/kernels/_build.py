@@ -102,6 +102,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vi_ivf_probe_topc.restype = ctypes.c_int
     lib.vi_adc_probe_scores.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, p]
     lib.vi_adc_probe_scores.restype = ctypes.c_int
+    lib.vi_adc_scan.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p, p]
+    lib.vi_adc_scan.restype = ctypes.c_int
+    lib.vi_adc_topk_candidates.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p, p, p]
+    lib.vi_adc_topk_candidates.restype = ctypes.c_int
     lib.vi_error_string.argtypes = [i]
     lib.vi_error_string.restype = ctypes.c_char_p
 

@@ -1,0 +1,235 @@
+"""Full-corpus ADC: kernels K6, K7 and K8.
+
+Counterpart of vectorindex_tpu/kernels/adc.py. For B queries' LUTs
+lut [B, m, ks] f32 (ops/pq.pq_lut_l2 / pq_lut_ip) over n PQ-coded rows:
+
+  K6 `adc_scan_u8` (the JAX package's `adc_scan_pallas`): dist[b, i] =
+      Σ_j lut[b, j, codes[i, j]] over u8 codes [n, m] → [B, n] f32.
+  K7 `adc_scan_u4` (`adc_scan_u4_pallas`): the same over packed u4 codes
+      [n, m/2] (ks ≤ 16, m even; ops/dtypes.pack_u4: subspace 2i in the low
+      nibble of byte i, read as it is).
+  K8 `adc_topk_fused` (`adc_topk_fused`): K6's scan and K1's per-class
+      selection in one corpus pass, so the [B, n] matrix never exists: per
+      query and class c = row mod C the 3 smallest finite (dist, row), then
+      the strict (dist, row) top-min(k, 2C) of the 3C candidates →
+      (dist [B, kk] f32, rows [B, kk] int32), padded with (+inf,
+      INVALID_ID). No verify pass: ADC distances are approximate and the
+      caller reranks. The exact per-class top-3 is a superset of what the
+      TPU kernel keeps (2 per class per 1,024-row tile), so where three of a
+      query's nearest rows share a class and a tile the port returns the
+      scan-then-sort answer and the TPU drops one.
+
+Every code must be < ks. The kernels (csrc/adc.cu) sum j = 0..m−1 in order
+from 0, each add rounded; the plain versions (`*_ref`) do exactly these
+adds in this order (a Python loop over j), so kernel and plain version agree
+bit for bit on any device, and K8's candidate distances equal K6's output
+at those rows. The LUT stays f32 (the TPU casts it to bf16 for the MXU).
+CPU tensors take the plain versions; CUDA tensors always launch the kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from vectorindex_tpu_torch.kernels.scan_fused import (
+    MAX_SMEM_BYTES,
+    TARGET_CTAS,
+    TIERS,
+    C,
+    class_top3_fold,
+    class_top3_init,
+)
+from vectorindex_tpu_torch.ops.topk import INVALID_DIST, topk
+
+Tensor = torch.Tensor
+
+#: candidate bins per query (residue classes); K8 keeps TIERS per bin
+C_BINS = C
+#: most queries per CTA (csrc/adc.cu kMaxQB); fewer where their LUTs
+#: would not fit in shared memory
+MAX_QUERY_BLOCK = 8
+#: code rows per chunk in the plain versions (a multiple of C)
+REF_ROWS = 256 * C
+
+#: kernel launches per wrapper since the last reset (plain versions do not count)
+LAUNCHES = {"adc_scan_u8": 0, "adc_scan_u4": 0, "adc_topk_fused": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def query_block(m: int, ks: int) -> int:
+    """Queries per CTA: as many LUTs (m·ks f32 each) as shared memory
+    holds, at most MAX_QUERY_BLOCK."""
+    return min(MAX_QUERY_BLOCK, MAX_SMEM_BYTES // (4 * m * ks))
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def _adc_rows_ref(codes: Tensor, lut: Tensor, packed_u4: bool) -> Tensor:
+    """Σ_j lut[b, j, code_j] of a block of code rows → [B, rows] f32, one
+    rounded add per subspace, in order."""
+    c = codes.long()
+    b, m, _ = lut.shape
+    acc = torch.zeros((b, c.shape[0]), dtype=torch.float32, device=lut.device)
+    for j in range(m):
+        if packed_u4:
+            byte = c[:, j // 2]
+            code = (byte >> 4) if j % 2 else (byte & 0xF)
+        else:
+            code = c[:, j]
+        acc = acc + lut[:, j][:, code]
+    return acc
+
+
+def _adc_scan_ref(codes: Tensor, lut: Tensor, packed_u4: bool) -> Tensor:
+    n = codes.shape[0]
+    out = torch.empty((lut.shape[0], n), dtype=torch.float32, device=lut.device)
+    for s in range(0, n, REF_ROWS):
+        out[:, s : s + REF_ROWS] = _adc_rows_ref(codes[s : s + REF_ROWS], lut, packed_u4)
+    return out
+
+
+def adc_scan_u8_ref(codes: Tensor, lut: Tensor) -> Tensor:
+    """Plain K6 → [B, n] f32."""
+    return _adc_scan_ref(codes, lut, False)
+
+
+def adc_scan_u4_ref(packed_codes: Tensor, lut: Tensor) -> Tensor:
+    """Plain K7 → [B, n] f32."""
+    return _adc_scan_ref(packed_codes, lut, True)
+
+
+def _select(cand_d: Tensor, cand_i: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """Strict (dist, row) top-min(k, 2C) of the [B, 3, C] candidates."""
+    b = cand_d.shape[0]
+    return topk(cand_d.view(b, -1), min(k, 2 * C_BINS), ids=cand_i.view(b, -1), strict_ties=True)
+
+
+def adc_topk_candidates_ref(codes: Tensor, lut: Tensor) -> Tuple[Tensor, Tensor]:
+    """Plain K8's candidates: plain K6's distances, then per (query, class)
+    the 3 smallest finite (dist, row) → (dist [B, 3, C], rows [B, 3, C])."""
+    b, n = lut.shape[0], codes.shape[0]
+    best_d, best_i = class_top3_init(b, lut.device)
+    for start in range(0, n, REF_ROWS):
+        dist = _adc_rows_ref(codes[start : start + REF_ROWS], lut, False)
+        pad = (-dist.shape[1]) % C
+        if pad:  # rows >= n: +inf, never kept
+            dist = torch.cat([dist, dist.new_full((b, pad), INVALID_DIST)], dim=1)
+        best_d, best_i = class_top3_fold(best_d, best_i, dist, start)
+    return best_d, best_i
+
+
+def adc_topk_fused_ref(codes: Tensor, lut: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """Plain K8 → (dist [B, kk] f32, rows [B, kk] int32), kk = min(k, 2C)."""
+    return _select(*adc_topk_candidates_ref(codes, lut), k)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_inputs(codes: Tensor, lut: Tensor, packed_u4: bool) -> None:
+    if lut.dtype != torch.float32 or lut.dim() != 3:
+        raise ValueError(f"lut must be float32 [B, m, ks], got {lut.dtype} {tuple(lut.shape)}")
+    _, m, ks = lut.shape
+    if packed_u4 and (m % 2 or ks > 16):
+        raise ValueError(f"packed u4 codes need an even m and ks <= 16, got m={m}, ks={ks}")
+    if ks > 256:
+        raise ValueError(f"u8 codes index at most 256 entries, got ks={ks}")
+    mb = m // 2 if packed_u4 else m
+    if codes.dtype != torch.uint8 or codes.dim() != 2 or codes.shape[1] != mb:
+        raise ValueError(f"codes must be uint8 [N, {mb}], got {codes.dtype} {tuple(codes.shape)}")
+    if lut.device != codes.device:
+        raise ValueError("codes and lut must be on one device")
+    if not (lut.is_contiguous() and codes.is_contiguous()):
+        raise ValueError("codes and lut must be contiguous")
+    if 4 * m * ks > MAX_SMEM_BYTES:  # one query's LUT lives in shared memory
+        raise ValueError(f"m·ks = {m * ks} exceeds the kernels' shared-memory limit")
+
+
+def _grid(nq: int, qb: int, ntiles: int) -> Tuple[int, int]:
+    """(splits, tiles of C rows per split) for a pass over ntiles tiles."""
+    qblocks = -(-nq // qb)
+    splits = max(1, min(ntiles, -(-TARGET_CTAS // qblocks)))
+    per = -(-ntiles // splits)
+    return -(-ntiles // per), per
+
+
+def _launch_scan(name: str, codes: Tensor, lut: Tensor, packed_u4: bool) -> Tensor:
+    from vectorindex_tpu_torch.kernels import _build
+
+    b, m, ks = lut.shape
+    n = codes.shape[0]
+    out = torch.empty((b, n), dtype=torch.float32, device=codes.device)
+    if b == 0 or n == 0:
+        return out
+    qb = query_block(m, ks)
+    splits, per = _grid(b, qb, -(-n // C))
+    lib = _build.load()
+    err = lib.vi_adc_scan(
+        lut.data_ptr(), codes.data_ptr(), b, n, m, ks, codes.shape[1], int(packed_u4), qb,
+        splits, per * C, out.data_ptr(), torch.cuda.current_stream(codes.device).cuda_stream,
+    )
+    _build.check(lib, err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def adc_scan_u8(codes: Tensor, lut: Tensor) -> Tensor:
+    """K6: codes [N, m] uint8, lut [B, m, ks] f32 (ks ≤ 256) → [B, N] f32.
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    adc_scan_u8_ref."""
+    _check_inputs(codes, lut, False)
+    if codes.device.type == "cpu":
+        return adc_scan_u8_ref(codes, lut)
+    return _launch_scan("adc_scan_u8", codes, lut, False)
+
+
+def adc_scan_u4(packed_codes: Tensor, lut: Tensor) -> Tensor:
+    """K7: packed_codes [N, m/2] uint8 (pack_u4 layout), lut [B, m, ks] f32
+    (ks ≤ 16) → [B, N] f32. CUDA tensors launch the kernel (or raise); CPU
+    tensors take adc_scan_u4_ref."""
+    _check_inputs(packed_codes, lut, True)
+    if packed_codes.device.type == "cpu":
+        return adc_scan_u4_ref(packed_codes, lut)
+    return _launch_scan("adc_scan_u4", packed_codes, lut, True)
+
+
+def adc_topk_fused(codes: Tensor, lut: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """K8: full-corpus ADC top-k → (dist [B, kk] f32, rows [B, kk] int32),
+    kk = min(k, 2C), strict (dist, row) order over the per-class
+    candidates; (+inf, INVALID_ID) where fewer rows exist. CUDA tensors
+    launch the kernel (or raise); CPU tensors take adc_topk_fused_ref."""
+    _check_inputs(codes, lut, False)
+    if codes.device.type == "cpu":
+        return adc_topk_fused_ref(codes, lut, k)
+    from vectorindex_tpu_torch.kernels import _build
+
+    b, m, ks = lut.shape
+    n = codes.shape[0]
+    if b == 0 or n == 0:
+        return _select(*class_top3_init(b, codes.device), k)
+    qb = query_block(m, ks)
+    splits, per = _grid(b, qb, -(-n // C))
+    part_d = torch.empty((splits, b, TIERS, C), dtype=torch.float32, device=codes.device)
+    part_i = torch.empty((splits, b, TIERS, C), dtype=torch.int32, device=codes.device)
+    out_d = torch.empty((b, TIERS, C), dtype=torch.float32, device=codes.device)
+    out_i = torch.empty((b, TIERS, C), dtype=torch.int32, device=codes.device)
+    lib = _build.load()
+    err = lib.vi_adc_topk_candidates(
+        lut.data_ptr(), codes.data_ptr(), b, n, m, ks, qb, splits, per,
+        part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+        torch.cuda.current_stream(codes.device).cuda_stream,
+    )
+    _build.check(lib, err, "adc_topk_fused")
+    LAUNCHES["adc_topk_fused"] += 1
+    return _select(out_d, out_i, k)

@@ -18,9 +18,9 @@
 // not needed here. The LUT stays f32 (the TPU casts it to bf16 for the MXU).
 //
 // The sum runs in order j = 0..m-1 from 0.0f, every add rounded apart
-// (__fadd_rn), then + tcorr[row]: the plain PyTorch version in
-// kernels/adc_probe.py does the same adds in the same order, so kernel and
-// plain version agree bit for bit.
+// (__fadd_rn, add_byte in adc_sum.cuh, shared with K6/K7/K8), then
+// + tcorr[row]: the plain PyTorch version in kernels/adc_probe.py does the
+// same adds in the same order, so kernel and plain version agree bit for bit.
 //
 // Design: grid (pair = query * nprobe + probe, row chunk of kChunk slots),
 // kThreads threads. A CTA whose chunk holds no live row writes +inf and
@@ -45,20 +45,12 @@
 #include <cmath>
 #include <cstdint>
 
+#include "adc_sum.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChunk = 1024;  // output slots per CTA
-
-template <bool PACKED>
-__device__ __forceinline__ float add_byte(float acc, const float* __restrict__ slut, int ks,
-                                          int i, uint32_t byte) {
-  if (PACKED) {
-    acc = __fadd_rn(acc, slut[(2 * i) * ks + (byte & 15u)]);
-    return __fadd_rn(acc, slut[(2 * i + 1) * ks + (byte >> 4)]);
-  }
-  return __fadd_rn(acc, slut[i * ks + byte]);
-}
 
 template <bool PACKED>
 __global__ void __launch_bounds__(kThreads)

@@ -25,7 +25,8 @@
 // launch merges the splits. Per-class top-3 is decomposable (the top-3 of a
 // union is the top-3 of the parts' top-3s) and the lexicographic insert is
 // order-free, so the result does not depend on the split count. It keeps at
-// least what the TPU kernel keeps (which drops a tile's third-smallest).
+// least what the TPU kernel keeps (which drops a tile's third-smallest). The
+// insert and the merge launch live in class_top3.cuh, shared with K8.
 //
 // K2 counts, per query, rows with dist < tau and dist <= tau. Each CTA counts
 // its split and adds into per-query int32 counters with atomicAdd: integer
@@ -55,13 +56,11 @@
 #include <cmath>
 #include <cstdint>
 
+#include "class_top3.cuh"
+
 namespace {
 
-constexpr int kClasses = 256;  // classes per query = threads per CTA = rows per tile
-constexpr int kTB = 8;         // queries per CTA
-constexpr int kTiers = 3;      // candidates kept per (query, class)
-constexpr int kInvalidId = 0x7fffffff;
-constexpr int kMergeGroups = 8;  // split groups per class in the merge launch
+constexpr int kTB = 8;  // queries per CTA
 constexpr int kL2 = 0, kIP = 1, kCos = 2;
 
 __device__ __forceinline__ float widen(float v) { return v; }
@@ -161,31 +160,6 @@ __device__ __forceinline__ void stage_queries(float* __restrict__ qs, const floa
   __syncthreads();
 }
 
-__device__ __forceinline__ bool lex_less(float da, int ra, float db, int rb) {
-  return da < db || (da == db && ra < rb);
-}
-
-// Keep the 3 smallest finite (dist, row) pairs in strict (dist, row) order.
-__device__ __forceinline__ void insert3(float (&td)[kTiers], int (&ti)[kTiers], float v, int row) {
-  if (!(v < INFINITY) || !lex_less(v, row, td[2], ti[2])) return;
-  if (lex_less(v, row, td[1], ti[1])) {
-    td[2] = td[1];
-    ti[2] = ti[1];
-    if (lex_less(v, row, td[0], ti[0])) {
-      td[1] = td[0];
-      ti[1] = ti[0];
-      td[0] = v;
-      ti[0] = row;
-    } else {
-      td[1] = v;
-      ti[1] = row;
-    }
-  } else {
-    td[2] = v;
-    ti[2] = row;
-  }
-}
-
 // K1 scan: grid (query block, split), kClasses threads. Writes per-split
 // top-3 to part_[dist|row] laid out [split][query][tier][class].
 template <typename T, int METRIC>
@@ -230,47 +204,6 @@ __global__ void __launch_bounds__(kClasses)
       part_dist[o] = td[b][t];
       part_row[o] = ti[b][t];
     }
-  }
-}
-
-// K1 merge: grid (query, kClasses / 32), 32 x kMergeGroups threads. Thread
-// (g, lane) folds splits g, g + 8, ... of class blockIdx.y * 32 + lane, then
-// group 0 folds the 8 partial top-3s. Output [query][tier][class].
-__global__ void __launch_bounds__(32 * kMergeGroups)
-    merge_splits_kernel(const float* __restrict__ part_dist, const int* __restrict__ part_row,
-                        int nq, int splits, float* __restrict__ out_dist,
-                        int* __restrict__ out_row) {
-  __shared__ float sd[kMergeGroups][kTiers][32];
-  __shared__ int si[kMergeGroups][kTiers][32];
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int g = threadIdx.x >> 5;
-  const int c = blockIdx.y * 32 + lane;
-  float td[kTiers] = {INFINITY, INFINITY, INFINITY};
-  int ti[kTiers] = {kInvalidId, kInvalidId, kInvalidId};
-  for (int s = g; s < splits; s += kMergeGroups) {
-#pragma unroll
-    for (int t = 0; t < kTiers; ++t) {
-      const size_t o = ((static_cast<size_t>(s) * nq + b) * kTiers + t) * kClasses + c;
-      insert3(td, ti, part_dist[o], part_row[o]);
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < kTiers; ++t) {
-    sd[g][t][lane] = td[t];
-    si[g][t][lane] = ti[t];
-  }
-  __syncthreads();
-  if (g != 0) return;
-  for (int h = 1; h < kMergeGroups; ++h) {
-#pragma unroll
-    for (int t = 0; t < kTiers; ++t) insert3(td, ti, sd[h][t][lane], si[h][t][lane]);
-  }
-#pragma unroll
-  for (int t = 0; t < kTiers; ++t) {
-    const size_t o = (static_cast<size_t>(b) * kTiers + t) * kClasses + c;
-    out_dist[o] = td[t];
-    out_row[o] = ti[t];
   }
 }
 
@@ -345,9 +278,7 @@ cudaError_t launch_bin(const float* q, const void* x, const float* bias, const f
       q, xt, bias, cs, nq, d, n / kClasses, tiles_per_split, vec, part_dist, part_row);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  merge_splits_kernel<<<dim3(nq, kClasses / 32), 32 * kMergeGroups, 0, stream>>>(
-      part_dist, part_row, nq, splits, out_dist, out_row);
-  return cudaGetLastError();
+  return launch_merge_splits(part_dist, part_row, nq, splits, out_dist, out_row, stream);
 }
 
 template <typename T, int METRIC>

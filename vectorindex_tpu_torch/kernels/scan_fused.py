@@ -77,34 +77,48 @@ def _dist_ref(q, x, bias, colscale, metric: Metric, start: int, stop: int) -> Te
     return b - g * colscale[start:stop]
 
 
+def class_top3_init(b: int, device) -> Tuple[Tensor, Tensor]:
+    """Empty per-class tiers: (+inf [B, 3, C] f32, INVALID_ID [B, 3, C] int32)."""
+    return (
+        torch.full((b, TIERS, C), INVALID_DIST, device=device),
+        torch.full((b, TIERS, C), INVALID_ID, dtype=torch.int32, device=device),
+    )
+
+
+def class_top3_fold(best_d: Tensor, best_i: Tensor, dist: Tensor, start: int) -> Tuple[Tensor, Tensor]:
+    """Fold the distances of rows [start, start + W) (dist [B, W], W a
+    multiple of C, every row above the tiers' rows) into the running
+    per-class tiers: per class the 3 smallest finite (dist, row) in (dist,
+    row) order. The selection of plain K1 and plain K8."""
+    b = dist.shape[0]
+    rows = torch.arange(start, start + dist.shape[1], dtype=torch.int32, device=dist.device)
+    # running tiers first: their rows are all smaller than the chunk's, and
+    # min() returns the first index of a tie, so each round takes the
+    # smallest (dist, row)
+    cat_d = torch.cat([best_d, dist.view(b, -1, C)], dim=1)
+    cat_i = torch.cat([best_i, rows.view(1, -1, C).expand(b, -1, -1)], dim=1)
+    picked_d, picked_i = [], []
+    for _ in range(TIERS):
+        v, pos = torch.min(cat_d, dim=1, keepdim=True)
+        picked_d.append(v)
+        picked_i.append(torch.gather(cat_i, 1, pos))
+        cat_d = cat_d.scatter(1, pos, INVALID_DIST)
+    best_d = torch.cat(picked_d, dim=1)
+    best_i = torch.cat(picked_i, dim=1)
+    return best_d, torch.where(torch.isfinite(best_d), best_i, INVALID_ID)
+
+
 def bin_candidates_ref(
     q: Tensor, x: Tensor, bias: Tensor, colscale: Optional[Tensor], *, metric: Metric
 ) -> Tuple[Tensor, Tensor]:
     """Plain K1: per (query, class) the 3 smallest finite (dist, row) in
     (dist, row) order -> (dist [B, 3, C] f32, row [B, 3, C] int32); unfilled
     tiers are (+inf, INVALID_ID)."""
-    b = q.shape[0]
     n = x.shape[0]
-    best_d = torch.full((b, TIERS, C), INVALID_DIST, device=q.device)
-    best_i = torch.full((b, TIERS, C), INVALID_ID, dtype=torch.int32, device=q.device)
+    best_d, best_i = class_top3_init(q.shape[0], q.device)
     for start in range(0, n, REF_CHUNK):
-        stop = min(start + REF_CHUNK, n)
-        dist = _dist_ref(q, x, bias, colscale, metric, start, stop)
-        rows = torch.arange(start, stop, dtype=torch.int32, device=q.device)
-        # running tiers first: their rows are all smaller than the chunk's,
-        # and min() returns the first index of a tie, so each round takes
-        # the smallest (dist, row)
-        cat_d = torch.cat([best_d, dist.view(b, -1, C)], dim=1)
-        cat_i = torch.cat([best_i, rows.view(1, -1, C).expand(b, -1, -1)], dim=1)
-        picked_d, picked_i = [], []
-        for _ in range(TIERS):
-            v, pos = torch.min(cat_d, dim=1, keepdim=True)
-            picked_d.append(v)
-            picked_i.append(torch.gather(cat_i, 1, pos))
-            cat_d = cat_d.scatter(1, pos, INVALID_DIST)
-        best_d = torch.cat(picked_d, dim=1)
-        best_i = torch.cat(picked_i, dim=1)
-        best_i = torch.where(torch.isfinite(best_d), best_i, INVALID_ID)
+        dist = _dist_ref(q, x, bias, colscale, metric, start, min(start + REF_CHUNK, n))
+        best_d, best_i = class_top3_fold(best_d, best_i, dist, start)
     return best_d, best_i
 
 

@@ -15,6 +15,8 @@ FlatIndexOptimized.swift:20-420 and FlatIndex.swift).
     (kernels/scan_fused), then the strict path for queries they cannot prove
     exact; otherwise the strict path (ops/scan.scan_topk_strict). Both give
     the exact top-k under the (score, id) contract.
+  - range_search is one distance block and a compaction
+    (ops/range_query.range_scan).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from vectorindex_tpu_torch.models.base import (
 )
 from vectorindex_tpu_torch.ops.filtering import slot_mask_np
 from vectorindex_tpu_torch.ops.idmap import IDMap
+from vectorindex_tpu_torch.ops.range_query import range_scan
 from vectorindex_tpu_torch.ops.scan import pad_queries, scan_topk_strict
 from vectorindex_tpu_torch.ops.topk import INVALID_ID
 from vectorindex_tpu_torch.persistence.json_snapshot import (
@@ -419,11 +422,31 @@ class FlatIndex(VectorIndex):
             allow_ids=allow_ids, deny_ids=deny_ids,
         )[0]
 
-    def range_search(self, query, radius: float, max_results: int = 128, filter=None):
-        raise NotImplementedError(
-            "FlatIndex.range_search is not ported yet (ROADMAP.md Queue 1: "
-            "range_query)"
+    def range_search(
+        self,
+        query,
+        radius: float,
+        max_results: int = 128,
+        filter: Optional[FilterFn] = None,
+    ) -> list[SearchResult]:
+        """Threshold query: all vectors within `radius` (L2 distance) or
+        with score ≥ radius (IP/cosine), nearest-first, capped at
+        max_results (reference rangeScanBlock compacted mode;
+        ops/range_query.range_scan)."""
+        q = np.asarray(query, dtype=np.float32)[None, :]
+        if q.shape[1] != self.dimension:
+            raise dimension_mismatch(self.dimension, q.shape[1], "range_search")
+        if self.count == 0:
+            return []
+        vecs, sqn, inv, valid = self._sync_device()
+        if filter is not None:
+            valid = torch.from_numpy(self._filter_valid(filter)).to(self.device)
+        res = range_scan(
+            torch.from_numpy(q).to(self.device), vecs, radius, metric=self.metric,
+            max_results=min(max_results, self.capacity), valid=valid,
+            x_sqnorms=sqn, x_invnorms=inv,
         )
+        return self._results(res.dists.cpu().numpy(), res.ids.cpu().numpy(), max_results)[0]
 
     # ------------------------------------------------------------------
     # maintenance

@@ -10,6 +10,8 @@ from vectorindex_tpu_torch.ops import (  # noqa: F401
     ivf_pq,
     kmeans,
     pq,
+    range_query,
+    reservoir,
     rng,
     scan,
     scoring,

@@ -14,11 +14,11 @@ ResidualKernel.swift:148 (#23)).
   - Every product here (encode, the LUTs, the row corrections) runs at full
     f32: on the card that needs torch.backends.cuda.matmul.allow_tf32 False,
     and the functions raise otherwise.
-  - ADC over a whole code array (`adc_scan`, `adc_scan_u4`) offers the JAX
-    package's two plain strategies, 'gather' and 'onehot'. 'auto' takes
-    'gather' on a CPU tensor; on a CUDA tensor it would be the full-corpus
-    ADC kernels K6/K7, which belong to a later slice of the port, so it
-    raises NotImplementedError there.
+  - ADC over a whole code array (`adc_scan`, `adc_scan_u4`): 'auto' launches
+    the full-corpus ADC kernels K6/K7 (kernels/adc) on a CUDA tensor, as the
+    JAX package takes its Pallas kernels on a TPU, and takes 'gather' on a
+    CPU tensor, the JAX package's CPU route. 'gather' and 'onehot' are the
+    JAX package's two plain strategies.
 """
 
 from __future__ import annotations
@@ -32,11 +32,6 @@ from vectorindex_tpu_torch.ops import rng as vrng
 from vectorindex_tpu_torch.ops.dtypes import pack_u4, unpack_u4
 
 Tensor = torch.Tensor
-
-_ADC_KERNELS = (
-    "the full-corpus ADC kernels K6/K7 are not ported yet (ROADMAP.md Queue 1 "
-    "item 2): pass strategy='gather' or 'onehot'"
-)
 
 
 class PQCodebooks(NamedTuple):
@@ -275,13 +270,14 @@ def adc_scan(codes: Tensor, lut: Tensor, *, strategy: str = "auto", chunk: int =
     """dist[b, i] = Σ_j LUT[b, j, codes[i, j]] (reference adc_scan_u8,
     ADCScan.swift:54). codes [n, m] uint8, lut [B, m, ks] → [B, n] f32.
 
-    strategy='gather': flat-index gather and a sum over j. 'onehot':
-    one-hot(codes) @ lutᵀ (exact: the one-hot side is 0/1). 'auto': 'gather'
-    on a CPU tensor; on a CUDA tensor it raises NotImplementedError (the
-    full-corpus ADC kernels are a later slice)."""
+    strategy='auto': kernel K6 on a CUDA tensor (kernels/adc.adc_scan_u8),
+    'gather' on a CPU tensor. 'gather': flat-index gather and a sum over j.
+    'onehot': one-hot(codes) @ lutᵀ (exact: the one-hot side is 0/1)."""
     if strategy == "auto":
         if codes.is_cuda:
-            raise NotImplementedError(f"adc_scan(strategy='auto'): {_ADC_KERNELS}")
+            from vectorindex_tpu_torch.kernels.adc import adc_scan_u8
+
+            return adc_scan_u8(codes.contiguous(), lut.float().contiguous())
         strategy = "gather"
     n, m = codes.shape
     b, m2, ks = lut.shape
@@ -307,11 +303,14 @@ def adc_scan(codes: Tensor, lut: Tensor, *, strategy: str = "auto", chunk: int =
 
 
 def adc_scan_u4(packed_codes: Tensor, lut: Tensor, **kw) -> Tensor:
-    """u4 variant (reference adc_scan_u4, ADCScan.swift:99): unpack, then
-    adc_scan. lut must have ks ≤ 16. 'auto' on a CUDA tensor raises, as in
+    """u4 variant (reference adc_scan_u4, ADCScan.swift:99). lut must have
+    ks ≤ 16. 'auto' on a CUDA tensor is kernel K7, which reads the packed
+    bytes as they are (kernels/adc.adc_scan_u4); elsewhere unpack, then
     adc_scan."""
     if kw.get("strategy", "auto") == "auto" and packed_codes.is_cuda:
-        raise NotImplementedError(f"adc_scan_u4(strategy='auto'): {_ADC_KERNELS}")
+        from vectorindex_tpu_torch.kernels.adc import adc_scan_u4 as adc_scan_u4_kernel
+
+        return adc_scan_u4_kernel(packed_codes.contiguous(), lut.float().contiguous())
     return adc_scan(unpack_u4(packed_codes), lut, **kw)
 
 
