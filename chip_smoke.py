@@ -4,13 +4,20 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, checks
-each against its plain PyTorch version on the card (bit for bit), and
-drives the port's main paths with the launch counts set to 0 just before
-each and read just after:
+each against its plain PyTorch version on the card (bit for bit, except K1,
+K2 and K11 on gaussian bf16 rows: they sum on the tensor cores, so each
+distance must lie within the tensor-core tolerance of utils/parity and the
+counts within the rows that close to tau; on integer-valued bf16 rows, where
+every partial sum is exact, they too agree bit for bit), and drives the
+port's main paths with the launch counts set to 0 just before each and read
+just after:
 
   flat: FlatIndex.insert_batch of 1,000,000 x 128 bf16 rows, then
         FlatIndex.batch_search with k=10 at B=256 and B=8 (K1, K2); recall@10
         against brute force, and no query may fall back to the strict path.
+  flat A/B (scripts/ab_flat_tree_torch.py's path): K11 on the flat index's
+        own tensors at B=256, tile 4096 and 8192; its tau through K2, the
+        queries it flags, and its ids against scan_topk_fused's.
   IVF:  IVFIndex(nlist=1024, nprobe=32, bf16 storage).insert_batch of
         1,000,000 x 128 rows, optimize(), then batch_search at B=8 (K3; at
         nprobe 32 and 8, and with a 10% allow_ids filter), at B=256 (K4)
@@ -124,6 +131,7 @@ SOURCES = {
     "adc_scan_u8": "vectorindex_tpu_torch/kernels/csrc/adc.cu",
     "adc_scan_u4": "vectorindex_tpu_torch/kernels/csrc/adc.cu",
     "adc_topk_fused": "vectorindex_tpu_torch/kernels/csrc/adc.cu",
+    "bin_candidates_tree": "vectorindex_tpu_torch/kernels/csrc/scan_fused.cu",
 }
 REPLACES = {
     "bin_candidates": "vectorindex_tpu/kernels/scan_fused.py:196",
@@ -136,7 +144,10 @@ REPLACES = {
     "adc_scan_u8": "vectorindex_tpu/kernels/adc.py:65",
     "adc_scan_u4": "vectorindex_tpu/kernels/adc.py:133",
     "adc_topk_fused": "vectorindex_tpu/kernels/adc.py:254",
+    "bin_candidates_tree": "scripts/ab_flat_tree.py:110",
 }
+#: K11's blocks on the A/B path (the JAX script's two tiles)
+TREE_TILES = (4096, 8192)
 
 
 def log(msg: str) -> None:
@@ -183,48 +194,125 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 # ---------------------------------------------------------------------------
 
 
-def check_against_plain(sf, topk, qk, x, bias, cs, metric, kk=MAIN_K):
+def same_row_err(kd, ki, rd, ri) -> float:
+    """Largest |kernel - plain| over candidates that hold the same row at
+    the same place on both sides."""
+    same = (ki == ri) & torch.isfinite(kd) & torch.isfinite(rd)
+    return float((kd - rd)[same].abs().max()) if same.any() else 0.0
+
+
+def check_candidates(name, kd, ki, rd, ri, qk, x, bias, cs, metric, exact) -> float:
+    """K1 or K11 candidates against the plain version's: equal bit for bit
+    where `exact` (f32 corpora: one FMA chain per dot product on both sides;
+    integer-valued bf16: every partial sum exact), else the tensor-core rule
+    (utils/parity.tensor_core_candidates_ok). Returns the largest
+    |kernel - plain| at the same row."""
+    from vectorindex_tpu_torch.utils import parity
+
+    err = same_row_err(kd, ki, rd, ri)
+    if exact:
+        require(torch.equal(kd, rd), f"{name}: candidate distances differ (max_abs_err {err})")
+        require(torch.equal(ki, ri), f"{name}: candidate rows differ")
+    else:
+        ok, to_exact = parity.tensor_core_candidates_ok(kd, ki, rd, ri, qk, x, bias, cs, metric)
+        require(ok, f"{name}: candidates outside the tensor-core tolerance (max |err| {to_exact})")
+    return err
+
+
+def check_counts(sf, qk, x, bias, cs, tau, klt, kle, metric, exact) -> int:
+    """K2's counts against the plain version's at the same tau: equal where
+    `exact`, else apart by at most the rows whose distance lies within the
+    tensor-core tolerance of tau. Returns the largest difference."""
+    from vectorindex_tpu_torch.utils import parity
+
+    rlt, rle = sf.count_below_ref(qk, x, bias, cs, tau, metric=metric)
+    torch.cuda.synchronize()
+    diff = torch.maximum((klt - rlt).abs(), (kle - rle).abs())
+    if exact:
+        require(int(diff.max()) == 0, f"K2: counts differ from the plain version by up to {int(diff.max())}")
+    else:
+        near = parity.count_near(qk, x, bias, cs, tau, metric)
+        require(bool((diff <= near).all()), "K2: counts differ by more than the rows near tau")
+    return int(diff.max())
+
+
+def check_identity(sf, qk, x, bias, cs, metric, kd):
+    """K1 <-> K2 bit identity on these inputs: with tau at K1's sorted
+    candidate distances (ranks 0, 9, 99 and the last finite), K2 counts
+    every candidate at or below its own distance, and no row below K1's
+    smallest."""
+    b = kd.shape[0]
+    sd, _ = torch.sort(kd.view(b, -1), dim=1)
+    last = int(torch.isfinite(sd).sum(dim=1).min()) - 1
+    for rank in sorted({0, 9, 99, last}):
+        tau = sd[:, rank].contiguous()
+        lt, le = sf.count_below(qk, x, bias, cs, tau, metric=metric)
+        require(bool((le >= (sd <= tau[:, None]).sum(dim=1)).all()),
+                f"K2 does not recompute K1's distances (tau at rank {rank})")
+        require(rank != 0 or not bool(lt.any()), "K2 finds a row below K1's smallest distance")
+
+
+def check_against_plain(sf, topk, qk, x, bias, cs, metric, kk=MAIN_K, exact=None):
     """K1 and K2 against their plain versions on the same inputs on the card.
 
-    Both sides sum each dot product as one f32 FMA chain over d in order
-    (the kernels' row_distances; for the plain versions cuBLAS's f32 GEMM
-    with TF32 off), so they must agree bit for bit: K1's candidate
-    distances and rows, and K2's two counts at K1's tau. Tolerance: 0.
-    Returns (K1 max_abs_err over finite candidates, K2 max count
-    difference, K1's tau [B]).
+    f32 corpora: both sides sum each dot product as one f32 FMA chain over d
+    in order (the kernels' row_distances; cuBLAS's f32 GEMM with TF32 off for
+    the plain versions), so they agree bit for bit. bf16 corpora: the
+    kernels sum on the tensor cores; on integer-valued data (exact=True)
+    every partial sum is exact and they agree bit for bit; otherwise the
+    tensor-core rule holds (check_candidates, check_counts) and K1 <-> K2
+    bit identity is checked on its own (check_identity). Returns (K1
+    max_abs_err at the same rows, K2 max count difference, K1's tau [B]).
     """
+    if exact is None:
+        exact = x.dtype == torch.float32
     b = qk.shape[0]
     kd, ki = sf.bin_candidates(qk, x, bias, cs, metric=metric)
     torch.cuda.synchronize()
     rd, ri = sf.bin_candidates_ref(qk, x, bias, cs, metric=metric)
     torch.cuda.synchronize()
-    both = torch.isfinite(kd) & torch.isfinite(rd)
-    k1_err = float((kd - rd)[both].abs().max()) if both.any() else 0.0
-    require(torch.equal(kd, rd), f"K1: candidate distances differ (max_abs_err {k1_err})")
-    require(torch.equal(ki, ri), "K1: candidate rows differ")
+    k1_err = check_candidates("K1", kd, ki, rd, ri, qk, x, bias, cs, metric, exact)
 
     sd, _ = topk(kd.view(b, -1), kk, ids=ki.view(b, -1), strict_ties=True)
     tau = sd[:, kk - 1].contiguous()
     klt, kle = sf.count_below(qk, x, bias, cs, tau, metric=metric)
     torch.cuda.synchronize()
-    rlt, rle = sf.count_below_ref(qk, x, bias, cs, tau, metric=metric)
-    torch.cuda.synchronize()
     # bit identity of K1 and K2: the kk selected rows all recount <= tau
     require(bool((kle >= kk).all()), "K2 does not recompute K1's distances")
-    k2_err = int(max((klt - rlt).abs().max(), (kle - rle).abs().max()))
-    require(k2_err == 0, f"K2: counts differ from the plain version by up to {k2_err}")
+    k2_err = check_counts(sf, qk, x, bias, cs, tau, klt, kle, metric, exact)
+    if not exact:
+        check_identity(sf, qk, x, bias, cs, metric, kd)
     return k1_err, k2_err, tau
 
 
-def compare_case(sf, topk, metric, dtype, d, b, gen, device, n):
+def compare_case(sf, topk, metric, data, d, b, gen, device, n):
+    from vectorindex_tpu_torch.utils.config import Metric
     from vectorindex_tpu_torch.utils.parity import ATOL, RTOL, ids_match_up_to_ties
 
-    x = torch.randn(n, d, generator=gen, device=device).to(dtype)
+    if data == "bf16-int":
+        # entries in [-8, 8]: every partial sum of d <= 128 products is an
+        # integer below 2^24, exact in any order
+        x = torch.randint(-8, 9, (n, d), generator=gen, device=device).float()
+        q = torch.randint(-8, 9, (b, d), generator=gen, device=device).float()
+    else:
+        x = torch.randn(n, d, generator=gen, device=device)
+        q = torch.randn(b, d, generator=gen, device=device)
+    dtype = torch.float32 if data == "f32" else torch.bfloat16
     valid = torch.ones(n, dtype=torch.bool, device=device)
     valid[torch.randperm(n, generator=gen, device=device)[: n // 8]] = False
-    q = torch.randn(b, d, generator=gen, device=device)
-    x_pad, sq_pad, valid_pad = sf.pad_corpus(x, None, valid)
+    x_pad, sq_pad, valid_pad = sf.pad_corpus(x.to(dtype), None, valid)
     qk, bias, cs, _ = sf.kernel_inputs(q, sq_pad, valid_pad, metric)
+    if data == "bf16-int":
+        # the kernel function on the integer queries themselves (cosine's
+        # normalisation would make them inexact), K11 too
+        k1_err, k2_err, _ = check_against_plain(sf, topk, q, x_pad, bias, cs, metric, exact=True)
+        if metric != Metric.COSINE:
+            for tile in TREE_TILES:
+                kd, ki = sf.bin_candidates_tree(q, x_pad, bias, metric=metric, tile=tile)
+                torch.cuda.synchronize()
+                rd, ri = sf.bin_candidates_tree_ref(q, x_pad, bias, metric=metric, tile=tile)
+                check_candidates("K11", kd, ki, rd, ri, q, x_pad, bias, None, metric, True)
+        return k1_err, k2_err, None, None
     k1_err, k2_err, _ = check_against_plain(sf, topk, qk, x_pad, bias, cs, metric)
 
     # final top-k: kernel path on the card against the plain path on the
@@ -248,19 +336,19 @@ def phase_compare(sf, topk, device="cuda", n=CASE_ROWS):
     from vectorindex_tpu_torch.utils.config import Metric
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    errs = {"bin_candidates": 0.0, "count_below": 0}
+    errs = {"bin_candidates": 0.0, "count_below": 0, "bin_candidates_tree": 0.0}
     for metric in (Metric.L2, Metric.INNER_PRODUCT, Metric.COSINE):
-        for dtype in (torch.float32, torch.bfloat16):
+        for data in ("f32", "bf16-int", "bf16-gauss"):
             for d in (128, 100):
                 for b in (SMALL_BATCH, MAIN_BATCH):
-                    k1, k2, kex, pex = compare_case(sf, topk, metric, dtype, d, b, gen, device, n)
+                    k1, k2, kex, pex = compare_case(sf, topk, metric, data, d, b, gen, device, n)
                     errs["bin_candidates"] = max(errs["bin_candidates"], k1)
                     errs["count_below"] = max(errs["count_below"], k2)
-                    log(
-                        f"compare {metric.value:6s} {str(dtype)[6:]:8s} d={d} B={b}: "
-                        f"K1 max_abs_err={k1:.3g} K2 count diff={k2} "
-                        f"exact kernel={kex}/{b} plain={pex}/{b} ok"
-                    )
+                    rule = "bit for bit" if data != "bf16-gauss" else "tensor-core tolerance"
+                    tail = (f" exact kernel={kex}/{b} plain={pex}/{b}" if kex is not None
+                            else " (K11 at tiles 4096, 8192 too)" if metric != Metric.COSINE else "")
+                    log(f"compare {metric.value:6s} {data:10s} d={d} B={b}: {rule}, "
+                        f"K1 max_abs_err={k1:.3g} K2 count diff={k2}{tail} ok")
     return errs
 
 
@@ -330,9 +418,9 @@ def phase_main(sf, device="cuda", rows=MAIN_ROWS, dim=MAIN_DIM):
     for batch in batches:
         before = dict(sf.LAUNCHES)
         results.append(idx.batch_search(batch, MAIN_K))
-        for name, count in sf.LAUNCHES.items():
-            require(count > before[name], f"batch_search did not launch {name}")
-    launches = dict(sf.LAUNCHES)
+        for name in ("bin_candidates", "count_below"):
+            require(sf.LAUNCHES[name] > before[name], f"batch_search did not launch {name}")
+    launches = {name: sf.LAUNCHES[name] for name in ("bin_candidates", "count_below")}
     TELEM.disable()
     counters = TELEM.snapshot()["counters"]
     fallback = counters.get("flat.verify_fallback", 0)
@@ -378,7 +466,9 @@ def phase_times(sf, topk, idx, batches, errs):
         k1, k2, tau = check_against_plain(sf, topk, qk, x, bias, cs, Metric.L2)
         errs["bin_candidates"] = max(errs["bin_candidates"], k1)
         errs["count_below"] = max(errs["count_below"], k2)
-        log(f"main-shape check B={b}: K1 and K2 equal their plain versions bit for bit")
+        log(f"main-shape check B={b}: K1 and K2 within the tensor-core tolerance of their plain "
+            f"versions (K1 max_abs_err {k1:.3g} at the same rows, K2 count diff {k2}); K2 "
+            "recomputes K1's distances bit for bit")
         args = (qk, x, bias, cs)
         t = {
             "bin_candidates": time_ms(lambda: sf.bin_candidates(*args, metric=Metric.L2), 10),
@@ -401,6 +491,58 @@ def phase_times(sf, topk, idx, batches, errs):
             f"{key}={val:.4g}" for key, val in t.items()))
     return times
 
+
+
+def phase_tree(sf, topk, idx, batches, errs):
+    """The A/B harness's path (scripts/ab_flat_tree_torch.py) on the flat
+    main path's own tensors at B=256: K11 at both tiles with the launch
+    counts set to 0 just before and read just after; then each against its
+    plain version (the tensor-core rule), K2 on its tau (the queries it
+    flags; its ids against scan_topk_fused's on queries exact in both), the
+    times, and cuBLAS's bf16 product q x^T as the tensor-core floor of the
+    product alone (not K11's function)."""
+    from vectorindex_tpu_torch.utils.config import Metric
+    from vectorindex_tpu_torch.utils.parity import ids_match_up_to_ties
+
+    x, sqn, _, valid = idx._sync_device()
+    q = torch.from_numpy(batches[0]).cuda()
+    b = q.shape[0]
+    qk, bias, _, _ = sf.kernel_inputs(q, sqn, valid, Metric.L2)
+    sf.reset_launches()
+    outs = {tile: sf.bin_candidates_tree(qk, x, bias, metric=Metric.L2, tile=tile)
+            for tile in TREE_TILES}
+    torch.cuda.synchronize()
+    launches = sf.LAUNCHES["bin_candidates_tree"]
+    require(launches == len(TREE_TILES), f"K11 did not run on its path: {sf.LAUNCHES}")
+    fd, fi, fex = sf.scan_topk_fused(q, x, sqn, valid, metric=Metric.L2, k=MAIN_K)
+    t = {}
+    for tile, (kd, ki) in outs.items():
+        rd, ri = sf.bin_candidates_tree_ref(qk, x, bias, metric=Metric.L2, tile=tile)
+        err = check_candidates("K11", kd, ki, rd, ri, qk, x, bias, None, Metric.L2, False)
+        errs["bin_candidates_tree"] = max(errs["bin_candidates_tree"], err)
+        sd, si = topk(kd.view(b, -1), MAIN_K, ids=ki.view(b, -1), strict_ties=True)
+        tau = sd[:, MAIN_K - 1].contiguous()
+        lt, le = sf.count_below(qk, x, bias, None, tau, metric=Metric.L2)
+        require(bool((le >= MAIN_K).all()), "K2 does not recompute K11's distances")
+        exact = (lt == (sd < tau[:, None]).sum(dim=1)) & (le == MAIN_K)
+        both = (exact & fex).cpu()
+        require(ids_match_up_to_ties(si.cpu()[both], fi.cpu()[both], fd.cpu()[both], MAIN_K),
+                f"K11 tile={tile}: ids differ from scan_topk_fused's on queries exact in both")
+        t[tile] = {
+            "ms": time_ms(lambda: sf.bin_candidates_tree(qk, x, bias, metric=Metric.L2, tile=tile), 10),
+            "plain_ms": time_ms(lambda: sf.bin_candidates_tree_ref(qk, x, bias, metric=Metric.L2,
+                                                                    tile=tile), 3),
+            "flagged": int((~exact).sum()),
+        }
+        log(f"tree tile={tile} B={b}: K11 within the tensor-core tolerance of its plain version "
+            f"(max_abs_err {err:.3g} at the same rows); flags {t[tile]['flagged']}/{b} queries "
+            f"(K1+K2: {int((~fex).sum())}); ids equal scan_topk_fused's on the {int(both.sum())} "
+            f"queries exact in both; kernel {t[tile]['ms']:.4g} ms, plain {t[tile]['plain_ms']:.4g} ms")
+    qb = qk.to(torch.bfloat16)
+    t["matmul_ms"] = time_ms(lambda: torch.matmul(qb, x.T), 10)
+    log(f"tree: cuBLAS bf16 q x^T [{b}, {x.shape[0]}] (the product alone, bf16 out) "
+        f"{t['matmul_ms']:.4g} ms; path launches {{'bin_candidates_tree': {launches}}}")
+    return launches, t
 
 
 # ---------------------------------------------------------------------------
@@ -1309,7 +1451,8 @@ def phase_adc(fa):
 
 
 def flat_bound(n: int, d: int, b: int, itemsize: int, kernel: str):
-    """(bound_ms, bound_by) of K1/K2 over the flat main path's corpus."""
+    """(bound_ms, bound_by) of K1/K2 (K11: K1's) over the flat main path's
+    corpus: rows, bias and q read once, the candidates or counts written."""
     nbytes = n * (d * itemsize + 4) + b * d * 4
     nbytes += b * 3 * 256 * 8 if kernel == "bin_candidates" else b * 12
     return bound(nbytes, 2.0 * b * n * d, BF16_FLOPS if itemsize == 2 else F32_FLOPS)
@@ -1334,6 +1477,7 @@ def main() -> int:
     errs = phase_compare(sf, topk)
     idx, batches, launches = phase_main(sf)
     times = phase_times(sf, topk, idx, batches, errs)
+    launches["bin_candidates_tree"], tree_times = phase_tree(sf, topk, idx, batches, errs)
     range_s = phase_flat_range(idx, batches)
     n_flat, itemsize = idx.capacity, 2
     del idx, batches
@@ -1361,6 +1505,10 @@ def main() -> int:
         bms, by = flat_bound(n_flat, MAIN_DIM, MAIN_BATCH, itemsize, name)
         kernels.append({"name": name, "ms": big[name], "plain_ms": big[name + "_plain"],
                         "bound_ms": bms, "bound_by": by})
+    bms, by = flat_bound(n_flat, MAIN_DIM, MAIN_BATCH, itemsize, "bin_candidates")
+    kernels.append({"name": "bin_candidates_tree", "ms": tree_times[TREE_TILES[0]]["ms"],
+                    "plain_ms": tree_times[TREE_TILES[0]]["plain_ms"], "bound_ms": bms,
+                    "bound_by": by})
     for name in ("ivf_probe_topc", "ivf_probe_scores", "ivf_probe_scores_rankmajor"):
         bms, by = ivf_times[name + "_bound"]
         kernels.append({"name": name, "ms": ivf_times[name],

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time of vectorindex_tpu_torch's IVF, IVF-PQ and ADC searches goes, on one GPU.
+"""Where the time of vectorindex_tpu_torch's flat, IVF, IVF-PQ and ADC searches goes, on one GPU.
 
-    python3 scripts/profile_ivf_torch.py [--index ivf|ivfpq|adc|all] [--batches 5]
+    python3 scripts/profile_ivf_torch.py [--index flat|ivf|ivfpq|adc|all] [--batches 5]
 
-Builds the IVF main path of chip_smoke.py (1,000,000 x 128 lowdim corpus,
-IVFIndex nlist=1024, bf16 storage, optimize()), its IVF-PQ main path
-(1,000,000 x 96 lowdim corpus, IVFPQIndex pq16: nlist=4096, m=16, ks=256,
-rerank_c=512, optimize()) and/or its ADC main path (bench_adc: PQ8x8 codes
-of a 1,000,000 x 128 lowdim corpus, K8, exact f32 rerank). Then, for the
-indexes B=8 at nprobe 32 and 8 and B=256 at nprobe 32, for ADC B=256
+Builds the flat main path of chip_smoke.py (FlatIndex of 1,000,000 x 128
+gaussian rows in bf16, L2), its IVF main path (1,000,000 x 128 lowdim
+corpus, IVFIndex nlist=1024, bf16 storage, optimize()), its IVF-PQ main
+path (1,000,000 x 96 lowdim corpus, IVFPQIndex pq16: nlist=4096, m=16,
+ks=256, rerank_c=512, optimize()) and/or its ADC main path (bench_adc:
+PQ8x8 codes of a 1,000,000 x 128 lowdim corpus, K8, exact f32 rerank).
+Then, for flat B=8 and B=256, for the IVF indexes B=8 at nprobe 32 and 8
+and B=256 at nprobe 32, for ADC B=256
 ADC-only top-10 and rerank of the top 128 and 512: the median wall time of
 a search over 20 calls, and a torch.profiler trace of `--batches` calls,
 printed as the device time per kernel, the device busy time per batch, the
@@ -35,21 +37,34 @@ sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (  # noqa: E402
     ADC_BATCH, ADC_RERANK, IVF_BIG_BATCH, IVF_DIM, IVF_NLIST, IVF_NPROBE, IVF_NPROBE_LOW,
-    IVF_ROWS, MAIN_K, PQ_BIG_BATCH, PQ_CONFIGS, PQ_DIM, PQ_NLIST, PQ_NPROBE, PQ_NPROBE_LOW,
-    PQ_RERANK_C, PQ_ROWS, SMALL_BATCH, adc_build, adc_search, gpu_name_and_power, lowdim_corpus,
-    lowdim_queries,
+    IVF_ROWS, MAIN_BATCH, MAIN_DIM, MAIN_K, MAIN_ROWS, PQ_BIG_BATCH, PQ_CONFIGS, PQ_DIM, PQ_NLIST,
+    PQ_NPROBE, PQ_NPROBE_LOW, PQ_RERANK_C, PQ_ROWS, SMALL_BATCH, adc_build, adc_search,
+    gpu_name_and_power, lowdim_corpus, lowdim_queries, make_data,
 )
 
 
 #: device-time groups by kernel name (first match wins)
 GROUPS = (
-    ("ADC kernels (K6-K8)", ("adc_scan_kernel", "adc_candidates_kernel", "merge_splits")),
+    ("flat scan kernels (K1/K2)", ("scan_mma_kernel", "bin_candidates_kernel", "count_below_kernel")),
+    ("split merge (K1/K8)", ("merge_splits",)),
+    ("ADC kernels (K6-K8)", ("adc_scan_kernel", "adc_candidates_kernel")),
     ("probe kernels (K3-K5, K9/K10)", ("probe_scores_kernel", "topc_", "adc_probe_kernel")),
     ("sorts", ("Sort", "sort")),
     ("products (select, LUT, rerank)", ("gemm", "gemv", "xmma", "cutlass", "bmm")),
     ("gathers and scatters", ("index", "gather", "scatter")),
     ("copies and fills", ("Memcpy", "Memset", "fill", "copy")),
 )
+
+
+def build_flat():
+    from vectorindex_tpu_torch.models.flat import FlatIndex
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    x, q = make_data(MAIN_ROWS, MAIN_DIM, MAIN_BATCH)
+    idx = FlatIndex(MAIN_DIM, Metric.L2, storage_dtype=torch.bfloat16, device="cuda")
+    idx.insert_batch(list(range(MAIN_ROWS)), x)
+    return [(f"B={b}", lambda: None, lambda qb=q[:b]: idx.batch_search(qb, MAIN_K))
+            for b in (SMALL_BATCH, MAIN_BATCH)]
 
 
 def build_ivf():
@@ -146,7 +161,7 @@ def profile_searches(name: str, cases, batches: int, out: Path) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--index", choices=("ivf", "ivfpq", "adc", "all"), default="all")
+    ap.add_argument("--index", choices=("flat", "ivf", "ivfpq", "adc", "all"), default="all")
     ap.add_argument("--batches", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -155,7 +170,7 @@ def main() -> int:
     print(f"gpu: {gpu_name_and_power()}", flush=True)
     out = ROOT / "build" / "profiles"
     out.mkdir(parents=True, exist_ok=True)
-    builders = {"ivf": lambda: index_cases(*build_ivf()),
+    builders = {"flat": build_flat, "ivf": lambda: index_cases(*build_ivf()),
                 "ivfpq": lambda: index_cases(*build_ivfpq()), "adc": build_adc}
     for name in (builders if args.index == "all" else (args.index,)):
         profile_searches(name, builders[name](), args.batches, out)

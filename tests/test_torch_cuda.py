@@ -9,11 +9,16 @@ that --noconftest skips)
         -o "markers=cuda: needs an NVIDIA GPU" -m cuda tests/test_torch_cuda.py
 
 Tolerance: the kernels against their plain versions on the card, 0 (K1/K2
-and their plain versions sum each dot product as one f32 FMA chain over d;
-K3/K4/K5 and theirs as one chain of separately rounded products and sums;
-K6-K10 and theirs add the m LUT entries in order, each add rounded);
-an index on the card against the same index on the host, rtol=2e-4,
-atol=2e-5 (f32 sums in another order; bf16 products are exact in f32).
+on f32 corpora and their plain versions sum each dot product as one f32 FMA
+chain over d; K3/K4/K5 and theirs as one chain of separately rounded
+products and sums; K6-K10 and theirs add the m LUT entries in order, each
+add rounded). K1/K2/K11 on bf16 corpora run on the tensor cores, whose sum
+order is not cuBLAS's: 0 on integer-valued data (every partial sum exact),
+else the tensor-core rule of utils/parity (each distance within
+2 d 2^-23 sum_k |q_k x_k|, scaled by the metric, of the exact one; counts
+within the rows that close to tau). An index on the card against the same
+index on the host, rtol=2e-4, atol=2e-5 (f32 sums in another order; bf16
+products are exact in f32).
 """
 
 import numpy as np
@@ -30,6 +35,7 @@ from vectorindex_tpu_torch.ops import ivf as tivf
 from vectorindex_tpu_torch.ops import pq, scoring
 from vectorindex_tpu_torch.ops.topk import INVALID_ID, topk
 from vectorindex_tpu_torch.utils.config import Metric
+from vectorindex_tpu_torch.utils import parity
 from vectorindex_tpu_torch.utils.parity import ATOL, RTOL, ids_match_up_to_ties
 
 METRICS = [Metric.L2, Metric.INNER_PRODUCT, Metric.COSINE]
@@ -43,24 +49,42 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _scan_case(data, metric, d, b, device, n=8192):
+    """(q_kernel, x_pad, bias, colscale) of a seeded case: f32 or bf16
+    gaussian rows, or integer-valued bf16 rows and queries in [-8, 8]
+    (every partial sum of d <= 128 products exact in f32), 1/8 dead."""
+    gen = torch.Generator(device=device).manual_seed(d * b)
+    if data == "bf16-int":
+        x = torch.randint(-8, 9, (n, d), generator=gen, device=device).float()
+        q = torch.randint(-8, 9, (b, d), generator=gen, device=device).float()
+    else:
+        x = torch.randn(n, d, generator=gen, device=device)
+        q = torch.randn(b, d, generator=gen, device=device)
+    valid = torch.rand(n, generator=gen, device=device) >= 0.125
+    xp, sqp, vp = sf.pad_corpus(x.to(torch.float32 if data == "f32" else torch.bfloat16), None, valid)
+    qk, bias, cs, _ = sf.kernel_inputs(q, sqp, vp, metric)
+    if data == "bf16-int":
+        qk = q  # the kernel function on integer queries: cosine's normalisation would break exactness
+    return qk, xp, bias, cs
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("d, b", [(128, 8), (100, 13)])
-def test_kernels_match_plain_versions(metric, dtype, d, b, cuda_device):
-    gen = torch.Generator(device=cuda_device).manual_seed(d * b)
-    x = torch.randn(8192, d, generator=gen, device=cuda_device).to(dtype)
-    valid = torch.rand(8192, generator=gen, device=cuda_device) >= 0.125
-    q = torch.randn(b, d, generator=gen, device=cuda_device)
-    xp, sqp, vp = sf.pad_corpus(x, None, valid)
-    qk, bias, cs, _ = sf.kernel_inputs(q, sqp, vp, metric)
+@pytest.mark.parametrize("data", ["f32", "bf16-int", "bf16-gauss"])
+@pytest.mark.parametrize("d, b", [(128, 8), (100, 13), (128, 256)])
+def test_kernels_match_plain_versions(metric, data, d, b, cuda_device):
+    qk, xp, bias, cs = _scan_case(data, metric, d, b, cuda_device)
     sf.reset_launches()
     kd, ki = sf.bin_candidates(qk, xp, bias, cs, metric=metric)
     torch.cuda.synchronize()
     rd, ri = sf.bin_candidates_ref(qk, xp, bias, cs, metric=metric)
-    # both sum each dot product as one f32 FMA chain over d in order (cuBLAS
-    # f32 GEMM, TF32 off, for the plain version): equal bit for bit
-    assert torch.equal(kd, rd) and torch.equal(ki, ri)
+    if data == "bf16-gauss":
+        ok, err = parity.tensor_core_candidates_ok(kd, ki, rd, ri, qk, xp, bias, cs, metric)
+        assert ok, f"K1 outside the tensor-core tolerance (max |err| {err})"
+    else:
+        # f32: one FMA chain each (cuBLAS f32 GEMM, TF32 off, for the plain
+        # version); integer bf16: every sum exact. Equal bit for bit
+        assert torch.equal(kd, rd) and torch.equal(ki, ri)
     finite = torch.isfinite(kd)
     assert (ki[~finite] == INVALID_ID).all()
     cls = torch.arange(sf.C, device=cuda_device).expand_as(ki)
@@ -72,8 +96,54 @@ def test_kernels_match_plain_versions(metric, dtype, d, b, cuda_device):
     torch.cuda.synchronize()
     assert (le >= kk).all()  # K2 recomputes K1's floats bit for bit
     rlt, rle = sf.count_below_ref(qk, xp, bias, cs, tau, metric=metric)
-    assert torch.equal(lt, rlt) and torch.equal(le, rle)
-    assert sf.LAUNCHES == {"bin_candidates": 1, "count_below": 1}
+    if data == "bf16-gauss":
+        near = parity.count_near(qk, xp, bias, cs, tau, metric).to(lt.dtype)
+        assert ((lt - rlt).abs() <= near).all() and ((le - rle).abs() <= near).all()
+    else:
+        assert torch.equal(lt, rlt) and torch.equal(le, rle)
+    assert sf.LAUNCHES["bin_candidates"] == 1 and sf.LAUNCHES["count_below"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
+@pytest.mark.parametrize("d, b", [(128, 8), (100, 13), (128, 256)])
+def test_k1_and_k2_compute_the_same_floats(metric, d, b, cuda_device):
+    """On gaussian bf16 rows (tensor cores): every K1 candidate counts itself
+    at or below its own distance, and no row lies below K1's smallest."""
+    qk, xp, bias, cs = _scan_case("bf16-gauss", metric, d, b, cuda_device)
+    kd, ki = sf.bin_candidates(qk, xp, bias, cs, metric=metric)
+    sd, _ = torch.sort(kd.view(b, -1), dim=1)
+    n_fin = int(torch.isfinite(sd).sum(dim=1).min())
+    for rank in sorted({0, 9, 99, n_fin - 1}):
+        tau = sd[:, rank].contiguous()
+        lt, le = sf.count_below(qk, xp, bias, cs, tau, metric=metric)
+        assert (le >= (sd <= tau[:, None]).sum(dim=1)).all(), f"rank {rank}"
+        if rank == 0:
+            assert (lt == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT], ids=lambda m: m.value)
+@pytest.mark.parametrize("data", ["bf16-int", "bf16-gauss"])
+@pytest.mark.parametrize("tile", [512, 4096])
+def test_tree_kernel_matches_plain_version(metric, data, tile, cuda_device):
+    """K11 against its plain version (bit for bit on integer rows, the
+    tensor-core rule on gaussian rows); K2 on its tau proves it or flags."""
+    b = 13
+    qk, xp, bias, _ = _scan_case(data, metric, 128, b, cuda_device)
+    sf.reset_launches()
+    kd, ki = sf.bin_candidates_tree(qk, xp, bias, metric=metric, tile=tile)
+    torch.cuda.synchronize()
+    rd, ri = sf.bin_candidates_tree_ref(qk, xp, bias, metric=metric, tile=tile)
+    if data == "bf16-gauss":
+        ok, err = parity.tensor_core_candidates_ok(kd, ki, rd, ri, qk, xp, bias, None, metric)
+        assert ok, f"K11 outside the tensor-core tolerance (max |err| {err})"
+    else:
+        assert torch.equal(kd, rd) and torch.equal(ki, ri)
+    assert sf.LAUNCHES["bin_candidates_tree"] == 1
+    sd, _ = topk(kd.view(b, -1), 10, ids=ki.view(b, -1))
+    lt, le = sf.count_below(qk, xp, bias, None, sd[:, 9].contiguous(), metric=metric)
+    assert (le >= 10).all()  # K2 recomputes K11's floats bit for bit
 
 
 @pytest.mark.cuda
@@ -91,7 +161,8 @@ def test_index_routes_through_the_kernels(dtype, cuda_device, monkeypatch):
             idx.remove(i)
     sf.reset_launches()
     got = on_card.batch_search(q, 10)
-    assert sf.LAUNCHES == {"bin_candidates": 1, "count_below": 1}
+    assert sf.LAUNCHES == {"bin_candidates": 1, "count_below": 1, "bin_candidates_tree": 0,
+                           "bin_candidates_fma": 0}
     want = on_host.batch_search(q, 11)
     wd = np.array([[r.score**2 for r in row] for row in want])
     gd = np.array([[r.score**2 for r in row] for row in got])

@@ -92,9 +92,11 @@ def build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vi_bin_candidates.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
+    lib.vi_bin_candidates.argtypes = [p, p, p, p] + [i] * 10 + [p, p, p, p, p]
     lib.vi_bin_candidates.restype = ctypes.c_int
-    lib.vi_count_below.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, p, p]
+    lib.vi_bin_candidates_tree.argtypes = [p, p, p] + [i] * 10 + [p, p, p, p, p]
+    lib.vi_bin_candidates_tree.restype = ctypes.c_int
+    lib.vi_count_below.argtypes = [p, p, p, p, p] + [i] * 10 + [p, p, p]
     lib.vi_count_below.restype = ctypes.c_int
     lib.vi_ivf_probe_scores.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p, p]
     lib.vi_ivf_probe_scores.restype = ctypes.c_int
