@@ -41,15 +41,23 @@ just after:
         against a mask over K6's plain output, recall@10 against brute
         force (>= 0.95 after rerank512).
 
+  wide flat: a bf16 FlatIndex at d = 3,072 (capacity 2^17, 120,000 rows) past
+        the tensor-core CTA: batch_search at B=8 and 64 through K1/K2 on the
+        CUDA cores (scan_fused.scan_design "fma"), recall@10 = 1.0, no strict
+        fallback; then d = 8,192 through the strict path.
+
 The flat path also runs FlatIndex.range_search on its index (a few queries,
-one filtered), checked against brute force.
+one filtered), checked against brute force. K8 is also timed in its first
+design (kernels/adc.adc_topk_fused_v1) in turns with the shipping one.
 
 It checks the kernels against their plain versions again on each main
 path's own tensors, and times the kernels, their plain versions and the
 end-to-end searches with CUDA events. It imports nothing of JAX.
 
 Output: one line per phase, the card's name and power limit (from
-nvidia-smi), a JSON line describing each kernel, and last the line
+nvidia-smi), a JSON line describing each kernel (K6-K10 with their lookup
+floor: the f32 shared-memory lookups over 132 SMs x 128 B a clock at the SM
+clock nvidia-smi reads under K8), and last the line
 {"ok": true, "device": {...}}. Any failed check raises, exiting non-zero;
 without a CUDA device it exits 1 and prints no result.
 """
@@ -110,15 +118,26 @@ ADC_RECALL_MIN = 0.95  # after rerank512; the TPU bench's adc line reads 0.9773
 #: ADC_RANGE_MEDIAN, into buffers of ADC_RANGE_MAX; the u4 scan (K7) over a
 #: pq16x4 encoding of the same corpus at B=64
 ADC_RANGE_BATCH, ADC_RANGE_MEDIAN, ADC_RANGE_MAX, ADC_U4_M, ADC_U4_KS = 64, 100, 128, 16, 16
-#: K6/K7/K8 kernel-vs-plain cases: (m, ks) over a ragged row count
+#: K6/K7/K8 kernel-vs-plain cases: (m, ks) over a ragged row count, at
+#: batches below, within and past one K8 query block
 ADC_CASE_ROWS, ADC_CASES = 262_144 + 77, ((8, 256), (16, 256), (16, 16), (32, 16))
+ADC_CASE_BATCHES = (1, SMALL_BATCH, 17, ADC_RANGE_BATCH)
 ADC_KERNELS = ("adc_scan_u8", "adc_scan_u4", "adc_topk_fused")
 #: flat range search on the flat main path's index: queries, matches each
 FLAT_RANGE_QUERIES, FLAT_RANGE_HITS = 4, 50
+#: flat rows too wide for the tensor-core CTA (d > 2,400): a bf16 index of
+#: capacity 2^17 at d = 3,072 (an embedding width users serve) whose K1/K2
+#: run on the CUDA cores, searched at B=8 and 64; then d = 8,192, past the
+#: FMA design (d > 7,264), which takes the strict path
+FLAT_WIDE_DIM, FLAT_WIDE_ROWS, FLAT_WIDE_BATCHES, FLAT_WIDE_CAPACITY = 3072, 120_000, (8, 64), 1 << 17
+FLAT_STRICT_DIM, FLAT_STRICT_ROWS = 8192, 20_000
 
 #: the H100 SXM's published peaks (NVIDIA's data sheet): bytes/s of HBM3,
 #: bf16 tensor-core and f32 CUDA-core FLOP/s
 HBM_BYTES_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+#: its SMs, and the bytes one SM's shared memory delivers a clock (32 banks
+#: of 4 B; the Hopper architecture white paper)
+H100_SMS, SMEM_BYTES_PER_CLOCK = 132, 128
 
 SOURCES = {
     "bin_candidates": "vectorindex_tpu_torch/kernels/csrc/scan_fused.cu",
@@ -371,9 +390,10 @@ def make_data(rows: int, dim: int, nq: int, seed: int = SEED):
 
 
 def brute_force(x_dev, sq_dev, q: np.ndarray, k: int):
-    """f32 squared-L2 distances to every row, stable sort -> (distances
-    [B, N], true k-th distance [B], top-k ids [B, k])."""
-    qd = torch.from_numpy(q).to(x_dev.device)
+    """Squared-L2 distances to every row in x_dev's dtype (f32, or f64 for
+    wide rows), stable sort -> (distances [B, N], true k-th distance [B],
+    top-k ids [B, k])."""
+    qd = torch.from_numpy(q).to(x_dev.device, x_dev.dtype)
     dist = sq_dev[None, :] - 2.0 * (qd @ x_dev.T) + (qd * qd).sum(dim=1, keepdim=True)
     sd, order = torch.sort(dist, dim=1, stable=True)
     return dist, sd[:, k - 1], order[:, :k]
@@ -1074,6 +1094,7 @@ def phase_pq_times(ap, name, idx, batches, bigq, pool, errs):
         t[kname] = time_ms(lambda: fn(*args, **kw), 50)
         t[kname + "_plain"] = time_ms(lambda: ref(*args, **kw), 3, warmup=1)
         t[kname + "_bound"] = adc_bound(args, cap, m, ks <= 16)
+        t[kname + "_lookups"] = m * float(args[2].sum())
         log(f"{name} times {kname} B={args[0].shape[0]} nprobe={PQ_NPROBE} cap={cap}: kernel "
             f"{t[kname]:.4g} ms, plain {t[kname + '_plain']:.4g} ms, bound "
             f"{t[kname + '_bound'][0]:.4g} ms ({t[kname + '_bound'][1]})")
@@ -1175,17 +1196,145 @@ def phase_flat_range(idx, batches):
     return float(np.median(walls))
 
 
+def wide_index(dim: int, rows: int, nq: int, seed: int):
+    """A bf16 L2 FlatIndex of capacity FLAT_WIDE_CAPACITY holding `rows`
+    seeded gaussian rows of width dim (bf16 values), nq held-out queries
+    (bf16 values too, so no path's rounding of q changes them), and the rows
+    on the card as f64 for brute force."""
+    from vectorindex_tpu_torch.models.flat import FlatIndex
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    x, queries = make_data(rows, dim, nq, seed)
+    idx = FlatIndex(dim, Metric.L2, capacity=FLAT_WIDE_CAPACITY, storage_dtype=torch.bfloat16,
+                    device=DEVICE)
+    idx.insert_batch(list(range(rows)), x)
+    # f64: an f32 brute force over thousands of terms errs by more than
+    # RECALL_RTOL; the index's own f32 sums err far less than the gaps
+    x_dev = torch.from_numpy(x).to(DEVICE).double()
+    return idx, queries, x_dev
+
+
+def search_counted(sf, idx, q: np.ndarray):
+    """batch_search with the launch and telemetry counts set to 0 just
+    before and read just after -> (results, K1/K2 launches by design,
+    telemetry counters)."""
+    from vectorindex_tpu_torch.utils.telemetry import TELEM
+
+    TELEM.reset()
+    TELEM.enable()
+    sf.reset_launches()
+    try:
+        res = idx.batch_search(q, MAIN_K)
+    finally:
+        TELEM.disable()
+    designs = {d: dict(c) for d, c in sf.DESIGN_LAUNCHES.items()}
+    return res, designs, TELEM.snapshot()["counters"]
+
+
+def phase_flat_wide(sf, topk):
+    """bf16 rows past the tensor-core CTA: FlatIndex at d = FLAT_WIDE_DIM,
+    capacity 2^17 (FLAT_WIDE_ROWS live rows: dead slots keep the mask path
+    live), batch_search at B=8 and 64 through K1/K2 on the FMA design, no
+    strict fallback, recall@10 = 1.0; K1 and K2 against their plain versions
+    on the index's tensors (any f32 sum order is within the utils/parity
+    rule; K1 <-> K2 bit identity on its own) and timed at B=64. Then an index
+    at d = FLAT_STRICT_DIM through scan_strict, recall@10 = 1.0."""
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    t0 = time.perf_counter()
+    nq = sum(FLAT_WIDE_BATCHES)
+    idx, queries, x_dev = wide_index(FLAT_WIDE_DIM, FLAT_WIDE_ROWS, nq, SEED + 3)
+    log(f"wide: bf16 FlatIndex {FLAT_WIDE_ROWS}x{FLAT_WIDE_DIM}, capacity {idx.capacity}, built "
+        f"in {time.perf_counter() - t0:.2f} s; scan_design -> "
+        f"{sf.scan_design(FLAT_WIDE_DIM, torch.bfloat16)}")
+    sq_dev = (x_dev * x_dev).sum(dim=1)
+    launches, t = {"bin_candidates": 0, "count_below": 0}, {}
+    start = 0
+    for b in FLAT_WIDE_BATCHES:
+        q = queries[start : start + b]
+        start += b
+        res, designs, counters = search_counted(sf, idx, q)
+        require(designs["mma"] == {"bin_candidates": 0, "count_below": 0}
+                and all(c > 0 for c in designs["fma"].values()),
+                f"wide B={b}: K1/K2 did not run on the FMA design: {designs}")
+        require(counters.get("flat.verify_fallback", 0) == 0 and "kernel.scan_strict.calls" not in counters,
+                f"wide B={b}: a query fell back to the strict path")
+        for name, c in designs["fma"].items():
+            launches[name] += c
+        dist, kth, truth = brute_force(x_dev, sq_dev, q, MAIN_K)
+        r_tie, r_set = recall(res, dist, kth, truth, MAIN_K)
+        log(f"wide: B={b} K1/K2 launches by design {designs}, recall@{MAIN_K}={r_tie} "
+            f"(set recall {r_set}), no strict fallback")
+        require(r_tie == 1.0, f"wide B={b}: recall@{MAIN_K} {r_tie} < 1")
+        idx.batch_search(q, MAIN_K)  # warm
+        lat = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            idx.batch_search(q, MAIN_K)
+            lat.append(time.perf_counter() - t1)
+        t[f"search B={b}"] = 1e3 * float(np.median(lat))
+    del dist, x_dev, sq_dev
+
+    x, sqn, _, valid = idx._sync_device()
+    qk, bias, cs, _ = sf.kernel_inputs(torch.from_numpy(queries[-FLAT_WIDE_BATCHES[-1]:]).to(DEVICE),
+                                       sqn, valid, Metric.L2)
+    k1, k2, tau = check_against_plain(sf, topk, qk, x, bias, cs, Metric.L2)
+    args = (qk, x, bias, cs)
+    t["bin_candidates"] = time_ms(lambda: sf.bin_candidates(*args, metric=Metric.L2), 10)
+    t["count_below"] = time_ms(lambda: sf.count_below(*args, tau, metric=Metric.L2), 10)
+    t["bin_candidates_plain"] = time_ms(lambda: sf.bin_candidates_ref(*args, metric=Metric.L2), 3)
+    t["count_below_plain"] = time_ms(lambda: sf.count_below_ref(*args, tau, metric=Metric.L2), 3)
+    t["bound"] = flat_bound(x.shape[0], FLAT_WIDE_DIM, qk.shape[0], 2, "bin_candidates")
+    log(f"wide: K1/K2 (FMA design, B={qk.shape[0]}, n={x.shape[0]}, d={FLAT_WIDE_DIM} bf16) within "
+        f"the parity rule of their plain versions (K1 max_abs_err {k1:.3g}, K2 count diff {k2}); "
+        + ", ".join(f"{key}={val[0] if isinstance(val, tuple) else val:.4g}" for key, val in t.items())
+        + " ms")
+    del idx, x, sqn, valid, qk, bias
+    torch.cuda.empty_cache()
+
+    idx, queries, x_dev = wide_index(FLAT_STRICT_DIM, FLAT_STRICT_ROWS, SMALL_BATCH, SEED + 4)
+    require(sf.scan_design(FLAT_STRICT_DIM, torch.bfloat16) == "strict", "d=8192 found a kernel design")
+    res, designs, counters = search_counted(sf, idx, queries)
+    require(not any(sf.LAUNCHES.values()) and counters.get("kernel.scan_strict.calls") == 1
+            and "kernel.scan_fused.calls" not in counters,
+            f"d={FLAT_STRICT_DIM}: batch_search did not take scan_strict alone: {counters}")
+    dist, kth, truth = brute_force(x_dev, (x_dev * x_dev).sum(dim=1), queries, MAIN_K)
+    r_tie, _ = recall(res, dist, kth, truth, MAIN_K)
+    log(f"wide: d={FLAT_STRICT_DIM} bf16 ({FLAT_STRICT_ROWS} rows, capacity {idx.capacity}) B="
+        f"{SMALL_BATCH}: scan_design -> strict, kernel.scan_strict recorded, no K1/K2 launch, "
+        f"recall@{MAIN_K}={r_tie}")
+    require(r_tie == 1.0, f"d={FLAT_STRICT_DIM}: recall@{MAIN_K} {r_tie} < 1")
+    del idx, x_dev, dist
+    torch.cuda.empty_cache()
+    return launches, t, {"bin_candidates": k1, "count_below": k2}
+
+
 # ---------------------------------------------------------------------------
 # phase 10: the full-corpus ADC kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 
+def check_k8(fa, codes, lut, k, k6, errs, what):
+    """K8 against its plain version (bit for bit) and K6 (its distances at
+    its rows); returns K8's rows."""
+    kd, ki = fa.adc_topk_fused(codes, lut, k)
+    torch.cuda.synchronize()
+    rd, ri = fa.adc_topk_fused_ref(codes, lut, k)
+    errs["adc_topk_fused"] = max(errs["adc_topk_fused"], max_abs_err(kd, rd))
+    require(torch.equal(kd, rd) and torch.equal(ki, ri), f"K8 {what}: differs from the plain version")
+    require(torch.equal(kd, torch.gather(k6, 1, ki.long())) and bool((ki < codes.shape[0]).all()),
+            f"K8 {what}: distances are not K6's at its rows")
+    return ki
+
+
 def phase_adc_compare(fa):
     """Random codes and non-negative LUTs over ADC_CASE_ROWS rows (a ragged
-    last tile), B=8 and 64: K6 and K8 (k=10 and 512) on u8 codes, K7 on
-    packed u4, against their plain versions. Equal bit for bit (one add
-    order: j ascending from 0, each add rounded); K8's distances equal K6's
-    at K8's rows, K7's equal K6's on the unpacked codes."""
+    last tile), B in ADC_CASE_BATCHES (below, within and past one K8 query
+    block): K6 and K8 (k=10 and 512) on u8 codes, K7 on packed u4, against
+    their plain versions; then K8 on a query whose three nearest rows share
+    a class. Equal bit for bit (one add order: j ascending from 0, each add
+    rounded); K8's distances equal K6's at K8's rows, K7's equal K6's on the
+    unpacked codes."""
     from vectorindex_tpu_torch.ops import pq
 
     errs = dict.fromkeys(ADC_KERNELS, 0.0)
@@ -1194,7 +1343,7 @@ def phase_adc_compare(fa):
     for m, ks in ADC_CASES:
         codes = torch.randint(0, ks, (n, m), generator=gen, device=DEVICE).to(torch.uint8)
         packed = pq.pack_u4(codes) if ks <= 16 else None
-        for b in (SMALL_BATCH, ADC_RANGE_BATCH):
+        for b in ADC_CASE_BATCHES:
             lut = torch.rand(b, m, ks, generator=gen, device=DEVICE)
             k6 = fa.adc_scan_u8(codes, lut)
             torch.cuda.synchronize()
@@ -1208,19 +1357,20 @@ def phase_adc_compare(fa):
                 errs["adc_scan_u4"] = max(errs["adc_scan_u4"], max_abs_err(k7, ref))
                 require(torch.equal(k7, ref) and torch.equal(k7, k6),
                         f"K7 m={m} B={b}: differs from its plain version or from K6")
-                continue
             for k in (MAIN_K, 2 * 256):
-                kd, ki = fa.adc_topk_fused(codes, lut, k)
-                torch.cuda.synchronize()
-                rd, ri = fa.adc_topk_fused_ref(codes, lut, k)
-                errs["adc_topk_fused"] = max(errs["adc_topk_fused"], max_abs_err(kd, rd))
-                require(torch.equal(kd, rd) and torch.equal(ki, ri),
-                        f"K8 m={m} B={b} k={k}: differs from the plain version")
-                require(torch.equal(kd, torch.gather(k6, 1, ki.long())) and bool((ki < n).all()),
-                        f"K8 m={m} B={b} k={k}: distances are not K6's at its rows")
-        log(f"adc compare m={m} ks={ks} rows={n}: " + ("K7 (packed u4)" if packed is not None
-            else "K6 and K8 (k=10, 512)") + f" at B={SMALL_BATCH} and B={ADC_RANGE_BATCH} "
-            "equal their plain versions bit for bit")
+                check_k8(fa, codes, lut, k, k6, errs, f"m={m} ks={ks} B={b} k={k}")
+        log(f"adc compare m={m} ks={ks} rows={n}: K6, K8 (k=10, 512)"
+            + (" and K7 (packed u4)" if packed is not None else "")
+            + f" at B={', '.join(map(str, ADC_CASE_BATCHES))} equal their plain versions bit for bit")
+    # class crowding: query 5's three nearest rows c, c + 256, c + 512 share class c
+    codes = torch.randint(0, 256, (n, 8), generator=gen, device=DEVICE).to(torch.uint8)
+    lut = torch.rand(17, 8, 256, generator=gen, device=DEVICE) + 1.0
+    c = 37
+    codes[[c, c + 256, c + 512]] = lut[5].argmin(dim=1).to(torch.uint8)
+    ki = check_k8(fa, codes, lut, MAIN_K, fa.adc_scan_u8(codes, lut), errs, "class crowding")
+    require(ki[5, :3].tolist() == [c, c + 256, c + 512], "K8 lost a row of a crowded class")
+    log("adc compare class crowding (B=17): K8 returns the 3 nearest rows of one class, "
+        "equal to its plain version")
     return errs
 
 
@@ -1350,6 +1500,31 @@ def phase_adc_main(fa, st):
     return launches, {"recall": {c: r[0] for c, r in recalls.items()}}, (evalq, q64, lut64, lut4)
 
 
+def sm_clock_under(fn, seconds: float = 1.5) -> float:
+    """The highest SM clock (MHz) that nvidia-smi reads every 100 ms while
+    fn() runs back to back for about `seconds`."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+    readings = [float(v) for v in out.split() if v.strip().isdigit()]
+    require(readings, "nvidia-smi read no SM clock")
+    return max(readings)
+
+
+def lookup_floor_ms(lookups: float, sm_clock_mhz: float) -> float:
+    """Least time for this many f32 lookups from shared memory: 4 B each
+    over the H100's 132 SMs x 128 B a clock at the measured SM clock."""
+    return 1e3 * lookups * 4.0 / (H100_SMS * SMEM_BYTES_PER_CLOCK * sm_clock_mhz * 1e6)
+
+
 def adc_bounds(n: int, b: int, m: int, ks: int, mb: int, k: int = 0):
     """(bound_ms, bound_by) of K6/K7 (k=0: a [B, n] f32 output) or K8 (a
     [B, k] top-k): the codes and LUTs read once, the output written once;
@@ -1385,23 +1560,43 @@ def phase_adc_times(fa, st, tensors, errs):
         require(torch.equal(got, ref), f"{name} differs from its plain version (main path)")
         errs[name] = max(errs[name], max_abs_err(got, ref))
     errs["adc_topk_fused"] = max(errs["adc_topk_fused"], max_abs_err(k8[0], ref8[0]))
-    log("adc main-shape check: K6, K7 (B=64) and K8 (B=256) equal their plain versions bit for bit")
-    del k6_256, ref8
+    v1 = fa.adc_topk_fused_v1(codes, lut256, MAIN_K)
+    require(torch.equal(v1[0], ref8[0]) and torch.equal(v1[1], ref8[1]),
+            "K8's first design differs from the plain version (B=256)")
+    log("adc main-shape check: K6, K7 (B=64) and K8 (B=256, both designs) equal their plain "
+        "versions bit for bit")
+    del k6_256, ref8, v1
     cases = (
         ("adc_scan_u8", lambda: fa.adc_scan_u8(codes, lut64), lambda: fa.adc_scan_u8_ref(codes, lut64),
-         adc_bounds(n, ADC_RANGE_BATCH, ADC_M, ADC_KS, ADC_M)),
+         adc_bounds(n, ADC_RANGE_BATCH, ADC_M, ADC_KS, ADC_M), ADC_RANGE_BATCH * n * ADC_M),
         ("adc_scan_u4", lambda: fa.adc_scan_u4(packed, lut4), lambda: fa.adc_scan_u4_ref(packed, lut4),
-         adc_bounds(n, ADC_RANGE_BATCH, ADC_U4_M, ADC_U4_KS, ADC_U4_M // 2)),
-        ("adc_topk_fused", lambda: fa.adc_topk_fused(codes, lut256, MAIN_K),
-         lambda: fa.adc_topk_fused_ref(codes, lut256, MAIN_K),
-         adc_bounds(n, ADC_BATCH, ADC_M, ADC_KS, ADC_M, MAIN_K)),
+         adc_bounds(n, ADC_RANGE_BATCH, ADC_U4_M, ADC_U4_KS, ADC_U4_M // 2),
+         ADC_RANGE_BATCH * n * ADC_U4_M),
+        ("adc_topk_fused", None, lambda: fa.adc_topk_fused_ref(codes, lut256, MAIN_K),
+         adc_bounds(n, ADC_BATCH, ADC_M, ADC_KS, ADC_M, MAIN_K), ADC_BATCH * n * ADC_M),
     )
-    for name, fn, ref, bnd in cases:
-        t[name] = time_ms(fn, 20)
+    for name, fn, ref, bnd, lookups in cases:
+        if fn is None:
+            # K8 and its first design in turns (new, old, old, new) on one card
+            runs = {"adc_topk_fused": [], "adc_topk_fused_v1": []}
+            for design in ("adc_topk_fused", "adc_topk_fused_v1", "adc_topk_fused_v1",
+                           "adc_topk_fused"):
+                call = getattr(fa, design)
+                runs[design].append(time_ms(lambda: call(codes, lut256, MAIN_K), 20))
+            t[name], t[name + "_v1"] = (float(np.mean(r)) for r in runs.values())
+            log(f"adc times K8 at B={ADC_BATCH} in turns (new, old, old, new): queries on the "
+                f"lanes {runs['adc_topk_fused']} ms, first design (rows on the lanes) "
+                f"{runs['adc_topk_fused_v1']} ms")
+        else:
+            t[name] = time_ms(fn, 20)
         t[name + "_plain"] = time_ms(ref, 2, warmup=1)
         t[name + "_bound"] = bnd
+        t[name + "_lookups"] = lookups
         log(f"adc times {name}: kernel {t[name]:.4g} ms, plain {t[name + '_plain']:.4g} ms, "
-            f"bound {bnd[0]:.4g} ms ({bnd[1]})")
+            f"bound {bnd[0]:.4g} ms ({bnd[1]}), {lookups} lookups")
+    t["sm_clock_mhz"] = sm_clock_under(lambda: fa.adc_topk_fused(codes, lut256, MAIN_K))
+    log(f"adc: SM clock under K8 {t['sm_clock_mhz']:.0f} MHz (nvidia-smi clocks.sm, highest "
+        "reading while it runs)")
     # K8's yardstick: scan then select (K6 at B=256, stable top-10 of [256, 1M])
     t["scan_then_topk"] = time_ms(lambda: topk(fa.adc_scan_u8(codes, lut256), MAIN_K), 5, warmup=1)
     # K6's library call: one embedding_bag over the subspace-offset codes with
@@ -1482,6 +1677,9 @@ def main() -> int:
     n_flat, itemsize = idx.capacity, 2
     del idx, batches
     torch.cuda.empty_cache()
+    wide_launches, wide_times, wide_errs = phase_flat_wide(sf, topk)
+    for name, e in wide_errs.items():
+        errs[name] = max(errs[name], e)
 
     errs.update(phase_ivf_compare(kp))
     ivf_idx, ivf_batches, bigq, ivf_launches, build_s = phase_ivf_main(kp)
@@ -1513,15 +1711,19 @@ def main() -> int:
         bms, by = ivf_times[name + "_bound"]
         kernels.append({"name": name, "ms": ivf_times[name],
                         "plain_ms": ivf_times[name + "_plain"], "bound_ms": bms, "bound_by": by})
+    clock = adc_times["sm_clock_mhz"]
     for name in PQ_KERNELS:  # pq16's: K10 at B=8, K9 at B=256
         bms, by = pq_times["pq16"][name + "_bound"]
         kernels.append({"name": name, "ms": pq_times["pq16"][name],
                         "plain_ms": pq_times["pq16"][name + "_plain"], "bound_ms": bms,
-                        "bound_by": by})
+                        "bound_by": by,
+                        "lookup_floor_ms": lookup_floor_ms(pq_times["pq16"][name + "_lookups"], clock)})
     for name in ADC_KERNELS:  # K6/K7 at B=64, K8 at B=256
         bms, by = adc_times[name + "_bound"]
         kernels.append({"name": name, "ms": adc_times[name], "plain_ms": adc_times[name + "_plain"],
-                        "bound_ms": bms, "bound_by": by})
+                        "bound_ms": bms, "bound_by": by,
+                        "lookup_floor_ms": lookup_floor_ms(adc_times[name + "_lookups"], clock)})
+    kernels[-1]["first_design_ms"] = adc_times["adc_topk_fused_v1"]  # K8, timed in turns
     # embedding_bag computes K6's function in one call; no single PyTorch
     # call computes a per-class top-3, a count below tau, distances (or
     # LUT-gather sums) over per-query probed row lists, or reads packed u4
@@ -1530,8 +1732,16 @@ def main() -> int:
         k.update(route="cuda", source=SOURCES[k["name"]], replaces=REPLACES[k["name"]],
                  launches=launches[k["name"]], max_abs_err=errs[k["name"]],
                  library_ms=library.get(k["name"]))
+        k.setdefault("lookup_floor_ms", None)
     require(all(k["launches"] > 0 for k in kernels), f"a kernel did not run on its path: {launches}")
-    log(f"gpu: {gpu}; flat batch_search B={MAIN_BATCH}: {big['qps']:.1f} QPS; ivf insert_batch "
+    log(f"gpu: {gpu}; flat batch_search B={MAIN_BATCH}: {big['qps']:.1f} QPS; wide bf16 d="
+        f"{FLAT_WIDE_DIM} K1/K2 on the FMA design (launches {wide_launches}) "
+        f"{wide_times['bin_candidates']:.4g} / {wide_times['count_below']:.4g} ms at B="
+        f"{FLAT_WIDE_BATCHES[-1]}; K8 {adc_times['adc_topk_fused']:.4g} ms (first design "
+        f"{adc_times['adc_topk_fused_v1']:.4g} ms); adc B={ADC_BATCH} walls "
+        + ", ".join(f"{c} {adc_times[f'search {c}'][0]:.4g} ms" for c in
+                    ("adc_only", *(f"rerank{r}" for r in ADC_RERANK)))
+        + "; ivf insert_batch "
         f"{build_s['insert_s']:.2f} s, optimize {build_s['optimize_s']:.2f} s; ivfpq "
         + "; ".join(f"{name} recall@{MAIN_K} {b['recall']}, insert {b['insert_s']:.2f} s, optimize "
                     f"{b['optimize_s']:.2f} s" for name, b in pq_builds.items())

@@ -10,11 +10,12 @@ path (1,000,000 x 96 lowdim corpus, IVFPQIndex pq16: nlist=4096, m=16,
 ks=256, rerank_c=512, optimize()) and/or its ADC main path (bench_adc:
 PQ8x8 codes of a 1,000,000 x 128 lowdim corpus, K8, exact f32 rerank).
 Then, for flat B=8 and B=256, for the IVF indexes B=8 at nprobe 32 and 8
-and B=256 at nprobe 32, for ADC B=256
-ADC-only top-10 and rerank of the top 128 and 512: the median wall time of
-a search over 20 calls, and a torch.profiler trace of `--batches` calls,
-printed as the device time per kernel, the device busy time per batch, the
-idle share (1 - busy / median wall) and the kernel launches per batch.
+and B=256 at nprobe 32 (IVF also B=8 with k=1000, the K5 route), for ADC
+B=256 ADC-only top-10 and rerank of the top 128 and 512: the median wall
+time of a search over 20 calls, and a torch.profiler trace of `--batches`
+calls, printed as the device time per kernel (per batch and per launch), the
+device busy time per batch, the idle share (1 - busy / median wall) and the
+kernel launches per batch.
 Writes the chrome traces to build/profiles/. Needs a CUDA device; imports
 nothing of JAX.
 """
@@ -36,7 +37,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (  # noqa: E402
-    ADC_BATCH, ADC_RERANK, IVF_BIG_BATCH, IVF_DIM, IVF_NLIST, IVF_NPROBE, IVF_NPROBE_LOW,
+    ADC_BATCH, ADC_RERANK, IVF_BIG_BATCH, IVF_DIM, IVF_LARGE_K, IVF_NLIST, IVF_NPROBE, IVF_NPROBE_LOW,
     IVF_ROWS, MAIN_BATCH, MAIN_DIM, MAIN_K, MAIN_ROWS, PQ_BIG_BATCH, PQ_CONFIGS, PQ_DIM, PQ_NLIST,
     PQ_NPROBE, PQ_NPROBE_LOW, PQ_RERANK_C, PQ_ROWS, SMALL_BATCH, adc_build, adc_search,
     gpu_name_and_power, lowdim_corpus, lowdim_queries, make_data,
@@ -47,7 +48,7 @@ from chip_smoke import (  # noqa: E402
 GROUPS = (
     ("flat scan kernels (K1/K2)", ("scan_mma_kernel", "bin_candidates_kernel", "count_below_kernel")),
     ("split merge (K1/K8)", ("merge_splits",)),
-    ("ADC kernels (K6-K8)", ("adc_scan_kernel", "adc_candidates_kernel")),
+    ("ADC kernels (K6-K8)", ("adc_scan_kernel", "adc_candidates_kernel", "adc_qlane_candidates")),
     ("probe kernels (K3-K5, K9/K10)", ("probe_scores_kernel", "topc_", "adc_probe_kernel")),
     ("sorts", ("Sort", "sort")),
     ("products (select, LUT, rerank)", ("gemm", "gemv", "xmma", "cutlass", "bmm")),
@@ -103,14 +104,19 @@ def build_adc():
              lambda c=c: adc_search(fa, st, q, c)[1].cpu()) for c in (MAIN_K, *ADC_RERANK)]
 
 
-def index_cases(idx, q: np.ndarray, nprobes):
-    """(label, setup, search) for B=8 at both nprobes and B=256 at the first."""
+def index_cases(idx, q: np.ndarray, nprobes, large_k=None):
+    """(label, setup, search) for B=8 at both nprobes and B=256 at the
+    first, and B=8 with k=large_k at the first if given."""
     def setup(nprobe):
         return lambda: setattr(idx, "config", dataclasses.replace(idx.config, nprobe=nprobe))
 
-    return [(f"B={b} nprobe={nprobe}", setup(nprobe), lambda qb=q[:b]: idx.batch_search(qb, MAIN_K))
-            for b, nprobe in ((SMALL_BATCH, nprobes[0]), (SMALL_BATCH, nprobes[1]),
-                              (len(q), nprobes[0]))]
+    cases = [(f"B={b} nprobe={nprobe}", setup(nprobe), lambda qb=q[:b]: idx.batch_search(qb, MAIN_K))
+             for b, nprobe in ((SMALL_BATCH, nprobes[0]), (SMALL_BATCH, nprobes[1]),
+                               (len(q), nprobes[0]))]
+    if large_k:
+        cases.append((f"B={SMALL_BATCH} nprobe={nprobes[0]} k={large_k}", setup(nprobes[0]),
+                      lambda qb=q[:SMALL_BATCH]: idx.batch_search(qb, large_k)))
+    return cases
 
 
 def profile_searches(name: str, cases, batches: int, out: Path) -> None:
@@ -142,9 +148,11 @@ def profile_searches(name: str, cases, batches: int, out: Path) -> None:
               f"({b / med:.1f} QPS); under the profiler {1e3 * wall:.4g} ms per batch; "
               f"device busy {busy:.4g} ms per batch, idle share {1 - busy / (1e3 * med):.3f} "
               f"of the median; {launches:.0f} kernels and copies per batch")
+        print("  device ms per batch, launches per batch, device ms per launch, kernel:")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
             print(f"  {e.self_device_time_total / 1e3 / batches:9.4f} ms  "
-                  f"{e.count // batches:3d}x  {e.key[:90]}")
+                  f"{e.count // batches:3d}x  {e.self_device_time_total / 1e3 / e.count:9.5f} ms  "
+                  f"{e.key[:90]}")
         groups: dict[str, float] = {}
         for e in events:
             group = next((g for g, keys in GROUPS if any(k in e.key for k in keys)), "other")
@@ -170,7 +178,7 @@ def main() -> int:
     print(f"gpu: {gpu_name_and_power()}", flush=True)
     out = ROOT / "build" / "profiles"
     out.mkdir(parents=True, exist_ok=True)
-    builders = {"flat": build_flat, "ivf": lambda: index_cases(*build_ivf()),
+    builders = {"flat": build_flat, "ivf": lambda: index_cases(*build_ivf(), large_k=IVF_LARGE_K),
                 "ivfpq": lambda: index_cases(*build_ivfpq()), "adc": build_adc}
     for name in (builders if args.index == "all" else (args.index,)):
         profile_searches(name, builders[name](), args.batches, out)

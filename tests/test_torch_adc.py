@@ -7,6 +7,10 @@ On the CPU the port's wrappers run the plain PyTorch versions; the JAX side
 runs its kernels in interpret mode at the shapes of
 tests/test_pallas_kernels.py, so the compiles stay few.
 
+K8's kernel geometry (the query block, warps and class groups, the grid and
+the [m, ks, B] LUT layout) is checked here by a numpy replay of the kernel's
+index arithmetic; the kernel itself on the card by tests/test_torch_cuda.py.
+
 Tolerances:
   - ADC distances: rtol=atol=1e-5. In interpret mode the JAX kernels
     contract a one-hot matrix with the f32 LUT (XLA's summation order); the
@@ -28,6 +32,7 @@ import torch
 from vectorindex_tpu.kernels import adc as jadc
 from vectorindex_tpu.ops import dtypes as jdtypes
 from vectorindex_tpu_torch.kernels import adc
+from vectorindex_tpu_torch.kernels import scan_fused as sf
 from vectorindex_tpu_torch.ops import dtypes, pq
 from vectorindex_tpu_torch.ops.topk import INVALID_ID, topk
 
@@ -176,7 +181,8 @@ def test_wrappers_check_their_inputs():
     assert adc.query_block(8, 256) == 8 and adc.query_block(64, 256) == 3
     adc.reset_launches()
     adc.adc_scan_u8(codes, lut)
-    assert adc.LAUNCHES == {"adc_scan_u8": 0, "adc_scan_u4": 0, "adc_topk_fused": 0}
+    assert adc.LAUNCHES == {"adc_scan_u8": 0, "adc_scan_u4": 0, "adc_topk_fused": 0,
+                            "adc_topk_fused_v1": 0}
 
 
 def test_source_names_what_it_replaces():
@@ -188,3 +194,111 @@ def test_source_names_what_it_replaces():
     for src, header in (("scan_fused.cu", "class_top3.cuh"), ("adc.cu", "class_top3.cuh"),
                         ("adc.cu", "adc_sum.cuh"), ("adc_probe.cu", "adc_sum.cuh")):
         assert f'#include "{header}"' in (CSRC / src).read_text()
+
+
+@pytest.mark.parametrize("m, ks, qb", [(8, 256, 16), (16, 256, 8), (16, 16, 32), (32, 16, 32),
+                                      (8, 100, 16), (64, 256, 2)])
+def test_k8_query_block_is_the_largest_that_fits(m, ks, qb):
+    """K8 stages the largest power-of-two block of queries (at most 32, one
+    a lane) whose LUTs, each table padded to 16 or 256 entries, fit in
+    shared memory; its warps and class groups cover the C classes with
+    K8_PAIRS classes a thread."""
+    kpad = adc.k8_ks_pad(ks)
+    assert kpad == (16 if ks <= 16 else 256)
+    assert adc.k8_query_block(m, ks) == qb
+    assert 4 * qb * m * kpad <= adc.MAX_SMEM_BYTES
+    assert qb == adc.K8_MAX_QUERY_BLOCK or 8 * qb * m * kpad > adc.MAX_SMEM_BYTES
+    warps, groups = adc.k8_warps(qb)
+    assert 1 <= warps <= adc.K8_MAX_WARPS
+    assert warps * groups * adc.K8_PAIRS * (32 // qb) == adc.C_BINS
+
+
+@pytest.mark.parametrize("nq, ntiles, resident", [
+    (256, 3907, 132), (8, 3907, 132), (1, 3907, 132), (17, 3907, 132), (700, 3907, 132),
+    (256, 3907, 396), (13, 2, 132), (13, 1, 132)])
+def test_k8_grid_covers_every_tile_once(nq, ntiles, resident):
+    qb = 16
+    _, groups = adc.k8_warps(qb)
+    splits, per = adc.k8_grid(nq, qb, groups, ntiles, resident)
+    tiles = [t for s in range(splits) for t in range(s * per, min((s + 1) * per, ntiles))]
+    assert tiles == list(range(ntiles))  # each tile once, no split empty
+    assert (splits - 1) * per < ntiles
+    ctas = -(-nq // qb) * groups * splits
+    fill = ctas / (-(-ctas // resident) * resident)
+    assert fill >= adc.K8_WAVE_FILL or splits == ntiles
+
+
+def test_k8_main_shape_is_one_wave():
+    """bench_adc's batch: B=256 over 1M PQ8x8 rows. 16 queries a CTA take
+    128 KB of LUTs, so one CTA an SM; 16 query blocks x 2 class groups x 4
+    splits = 128 CTAs, one wave on the 132 SMs (PR 4's design ran 544 CTAs
+    in 1.37 waves of 396)."""
+    qb = adc.k8_query_block(8, 256)
+    warps, groups = adc.k8_warps(qb)
+    per_sm = sf.SM_SMEM_BYTES // (4 * qb * 8 * 256 + 1024)
+    assert (qb, warps, groups, per_sm) == (16, 16, 2, 1)
+    splits, per = adc.k8_grid(256, qb, groups, -(-1_000_000 // adc.C_BINS), sf.SMS * per_sm)
+    assert (splits, per) == (4, 977) and 16 * groups * splits <= sf.SMS
+
+
+def test_lut_by_entry_reads_back():
+    _, lut = _case(1, 8, 16, 5, seed=9)
+    t = adc.lut_by_entry(torch.from_numpy(lut))
+    assert t.shape == (8, 16, 5) and t.is_contiguous()
+    assert torch.equal(t.permute(2, 0, 1), torch.from_numpy(lut))
+    assert t[3, 7, 2] == lut[2, 3, 7]
+
+
+@pytest.mark.parametrize("m, ks, b, qb", [(8, 16, 13, 16), (8, 16, 13, 8), (4, 16, 17, 32),
+                                          (16, 16, 3, 32), (8, 16, 1, 16), (5, 100, 5, 16)])
+def test_k8_lane_layout_replays_the_plain_sums(m, ks, b, qb):
+    """A numpy replay of csrc/adc.cu's adc_qlane_candidates_kernel indexing
+    over a ragged n and a ragged last query block: each CTA stages its
+    queries' LUTs [m][kpad][qb] from lut_by_entry (tables padded to kpad =
+    k8_ks_pad(ks) entries), each lane scores query lane % qb of rows
+    tile*C + class for its K8_PAIRS classes, the entry of code c in
+    subspace j at byte (j*kpad*qb + c*qb + q)*4, the sum read in j order
+    with f32 adds. Every (query, row < n) is scored exactly once, by one
+    split, and equals plain K6 bit for bit."""
+    n = 700
+    codes, lut = _case(n, m, ks, b, seed=qb + b)
+    kpad = adc.k8_ks_pad(ks)
+    lut_t = adc.lut_by_entry(torch.from_numpy(lut)).numpy().reshape(m, ks, b)
+    warps, groups = adc.k8_warps(qb)
+    ntiles = -(-n // adc.C_BINS)
+    splits, per = adc.k8_grid(b, qb, groups, ntiles, resident=sf.SMS)
+    rows = 32 // qb
+    y, w, lane, p = (a.ravel() for a in np.meshgrid(range(groups), range(warps), range(32),
+                                                    range(adc.K8_PAIRS), indexing="ij"))
+    q, cls = lane % qb, (y * warps + w) * adc.K8_PAIRS * rows + lane // qb + p * rows
+    got = np.full((b, n), np.nan, dtype=np.float32)
+    hits = np.zeros((b, n), dtype=np.int64)
+    for q0 in range(0, b, qb):
+        nqb = min(qb, b - q0)
+        slut = np.zeros((m, kpad, qb), dtype=np.float32)
+        slut[:, :ks, :nqb] = lut_t[:, :, q0 : q0 + nqb]
+        slut = slut.ravel()
+        for split in range(splits):
+            for tile in range(split * per, min((split + 1) * per, ntiles)):
+                row = tile * adc.C_BINS + cls
+                live = (row < n) & (q < nqb)
+                r, qq = row[live], q[live]
+                acc = np.zeros(len(r), dtype=np.float32)
+                for j in range(m):
+                    byte = (j * kpad * qb + codes[r, j].astype(np.int64) * qb + qq) * 4
+                    acc = acc + slut[byte // 4]
+                got[q0 + qq, r] = acc
+                np.add.at(hits, (q0 + qq, r), 1)
+    assert (hits == 1).all()
+    want = adc.adc_scan_u8_ref(torch.from_numpy(codes), torch.from_numpy(lut)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_k8_first_design_needs_cuda_tensors():
+    codes, lut = _case(300, 8, 16, 2, seed=10)
+    adc.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        adc.adc_topk_fused_v1(torch.from_numpy(codes), torch.from_numpy(lut), 10)
+    with pytest.raises(ValueError):
+        adc.adc_topk_fused_v1(torch.from_numpy(codes), torch.from_numpy(lut).double(), 10)
+    assert not any(adc.LAUNCHES.values())

@@ -36,6 +36,7 @@ from vectorindex_tpu_torch.ops import pq, scoring
 from vectorindex_tpu_torch.ops.topk import INVALID_ID, topk
 from vectorindex_tpu_torch.utils.config import Metric
 from vectorindex_tpu_torch.utils import parity
+from vectorindex_tpu_torch.utils.telemetry import TELEM
 from vectorindex_tpu_torch.utils.parity import ATOL, RTOL, ids_match_up_to_ties
 
 METRICS = [Metric.L2, Metric.INNER_PRODUCT, Metric.COSINE]
@@ -392,7 +393,8 @@ def test_full_corpus_adc_kernels_match_plain_versions(m, ks, cuda_device):
             assert kd.shape == (b, min(k, 512)) and torch.equal(kd, rd) and torch.equal(ki, ri)
             assert torch.equal(kd, torch.gather(k6, 1, ki.long()))
             assert (ki < n).all()
-    assert fa.LAUNCHES == {"adc_scan_u8": 2, "adc_scan_u4": 2 if ks <= 16 else 0, "adc_topk_fused": 4}
+    assert fa.LAUNCHES == {"adc_scan_u8": 2, "adc_scan_u4": 2 if ks <= 16 else 0, "adc_topk_fused": 4,
+                           "adc_topk_fused_v1": 0}
     with pytest.raises(ValueError):
         fa.adc_scan_u4(codes, torch.rand(2, m, ks, device=cuda_device))  # unpacked width
 
@@ -417,3 +419,138 @@ def test_range_search_on_card_matches_host(dtype, cuda_device):
         wd = np.array([[r.score**2 for r in want]])
         np.testing.assert_allclose([[r.score**2 for r in got]], wd, rtol=RTOL, atol=ATOL)
         assert ids_match_up_to_ties([[r.id for r in got]], [[r.id for r in want]], wd, len(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, ks", [(8, 256), (16, 256), (16, 16), (32, 16)],
+                         ids=["pq8x8", "pq16", "pq16x4", "pq32x4"])
+@pytest.mark.parametrize("b", [1, 13, 16, 17, 256])
+def test_k8_designs_match_the_plain_version(m, ks, b, cuda_device):
+    """K8 (queries on the lanes) and its first design (adc_topk_fused_v1)
+    against the plain version bit for bit over a ragged row count, at
+    batches below, at, and past a query block; distances equal K6's at the
+    rows returned."""
+    gen = torch.Generator(device=cuda_device).manual_seed(b * m + ks)
+    n = 20_000 + 77
+    codes = torch.randint(0, ks, (n, m), generator=gen, device=cuda_device).to(torch.uint8)
+    lut = torch.rand(b, m, ks, generator=gen, device=cuda_device)
+    k6 = fa.adc_scan_u8(codes, lut)
+    fa.reset_launches()
+    for k in (10, 512):
+        rd, ri = fa.adc_topk_fused_ref(codes, lut, k)
+        for fn in (fa.adc_topk_fused, fa.adc_topk_fused_v1):
+            kd, ki = fn(codes, lut, k)
+            torch.cuda.synchronize()
+            assert torch.equal(kd, rd) and torch.equal(ki, ri), fn.__name__
+            assert torch.equal(kd, torch.gather(k6, 1, ki.long())) and (ki < n).all()
+    assert fa.LAUNCHES["adc_topk_fused"] == 2 and fa.LAUNCHES["adc_topk_fused_v1"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 200, 256, 300])
+def test_k8_short_corpus_never_reads_past_n(n, cuda_device):
+    """n < 256 and a ragged last tile: rows >= n are never returned, and
+    fewer than k rows pad with (+inf, INVALID_ID)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    codes = torch.randint(0, 256, (n, 8), generator=gen, device=cuda_device).to(torch.uint8)
+    lut = torch.rand(17, 8, 256, generator=gen, device=cuda_device)
+    for fn in (fa.adc_topk_fused, fa.adc_topk_fused_v1):
+        kd, ki = fn(codes, lut, 512)
+        rd, ri = fa.adc_topk_fused_ref(codes, lut, 512)
+        assert torch.equal(kd, rd) and torch.equal(ki, ri)
+        live = ki != INVALID_ID
+        assert (ki[live] < n).all() and int(live.sum(dim=1).max()) == min(n, 512)
+        assert torch.isinf(kd[~live]).all()
+
+
+@pytest.mark.cuda
+def test_k8_class_crowding_keeps_three_rows_of_one_class(cuda_device):
+    """A query whose three nearest rows share a class (c, c + 256, c + 512)
+    gets all three back, as from the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    codes = torch.randint(0, 256, (3000, 8), generator=gen, device=cuda_device).to(torch.uint8)
+    lut = torch.rand(17, 8, 256, generator=gen, device=cuda_device) + 1.0
+    c = 37
+    codes[[c, c + 256, c + 512]] = lut[5].argmin(dim=1).to(torch.uint8)
+    for fn in (fa.adc_topk_fused, fa.adc_topk_fused_v1):
+        kd, ki = fn(codes, lut, 10)
+        rd, ri = fa.adc_topk_fused_ref(codes, lut, 10)
+        assert torch.equal(kd, rd) and torch.equal(ki, ri)
+        assert ki[5, :3].tolist() == [c, c + 256, c + 512]
+
+
+def _wide_flat(dim, cuda_device, rows=3000, nq=9, round_q=True):
+    """A bf16 L2 FlatIndex of capacity 2^17 with `rows` seeded gaussian rows
+    of width dim, nq queries near some of them, and the exact (f64) squared
+    distances [nq, rows], with q rounded to bf16 in the product where the
+    path does (K1/K2 do, the strict path does not), and their f32
+    tolerance: a distance the index sums in f32 over d terms (the dot
+    product, ||x||^2 and ||q||^2) is within 2 d 2^-24 (2 sum_k |q_k x_k| +
+    ||x||^2 + ||q||^2) of the exact one."""
+    rng = np.random.default_rng(dim)
+    x = rng.standard_normal((rows, dim)).astype(np.float32)
+    q = x[rng.choice(rows, nq, replace=False)] + 0.5 * rng.standard_normal((nq, dim)).astype(np.float32)
+    idx = tflat.FlatIndex(dim, Metric.L2, capacity=1 << 17, storage_dtype=torch.bfloat16,
+                          device=cuda_device)
+    idx.insert_batch(list(range(rows)), x)
+    xb = torch.from_numpy(x).to(cuda_device).bfloat16().double()
+    qf = torch.from_numpy(q).to(cuda_device).double()
+    qd = qf.bfloat16().double() if round_q else qf
+    xsq, qsq = (xb * xb).sum(1), (qf * qf).sum(1, keepdim=True)
+    dist = xsq[None, :] - 2.0 * (qd @ xb.T) + qsq
+    tol = 2.0 * dim * 2.0**-24 * (2.0 * (qd.abs() @ xb.abs().T) + xsq[None, :] + qsq)
+    return idx, q, dist, tol
+
+
+def _assert_exact_top_k(got, dist, tol, k=10):
+    """Each returned squared distance is within tol of the exact one at its
+    row, each returned row lies no further than the exact k-th distance by
+    more than the two rows' tolerances, and every query has k distinct rows."""
+    gi = torch.tensor([[r.id for r in row] for row in got], device=dist.device)
+    gd = torch.tensor([[r.score**2 for r in row] for row in got], dtype=torch.float64,
+                      device=dist.device)
+    assert gi.shape == (dist.shape[0], k)
+    ed, et = dist.gather(1, gi), tol.gather(1, gi)
+    assert ((gd - ed).abs() <= et).all()
+    sd, order = torch.sort(dist, dim=1, stable=True)
+    kth_tol = tol.gather(1, order[:, k - 1 : k])
+    assert (ed <= sd[:, k - 1 : k] + et + kth_tol).all()
+    assert all(len(set(row)) == k for row in gi.tolist())
+
+
+@pytest.mark.cuda
+def test_wide_bf16_flat_index_runs_k1_k2_on_the_cuda_cores(cuda_device):
+    """d = 2,416 bf16 is past the tensor-core CTA (d <= 2,400): K1 and K2
+    both run the FMA design, the top-10 is exact (against f64 brute force
+    over the bf16 rows, within the f32 tolerance of _wide_flat) and no query
+    needs the strict path."""
+    idx, q, dist, tol = _wide_flat(2416, cuda_device)
+    assert sf.scan_design(2416, torch.bfloat16) == "fma"
+    sf.reset_launches()
+    TELEM.reset()
+    TELEM.enable()
+    try:
+        got = idx.batch_search(q, 10)
+    finally:
+        TELEM.disable()
+    assert sf.DESIGN_LAUNCHES == {"mma": {"bin_candidates": 0, "count_below": 0},
+                                  "fma": {"bin_candidates": 1, "count_below": 1}}
+    counters = TELEM.snapshot()["counters"]
+    assert counters.get("flat.verify_fallback", 0) == 0 and counters["kernel.scan_fused.calls"] == 1
+    _assert_exact_top_k(got, dist, tol)
+
+
+@pytest.mark.cuda
+def test_bf16_flat_index_past_the_fma_limit_takes_the_strict_path(cuda_device):
+    idx, q, dist, tol = _wide_flat(7300, cuda_device, rows=600, nq=3, round_q=False)
+    assert sf.scan_design(7300, torch.bfloat16) == "strict"
+    sf.reset_launches()
+    TELEM.reset()
+    TELEM.enable()
+    try:
+        got = idx.batch_search(q, 10)
+    finally:
+        TELEM.disable()
+    assert not any(sf.LAUNCHES.values())
+    assert TELEM.snapshot()["counters"]["kernel.scan_strict.calls"] == 1
+    _assert_exact_top_k(got, dist, tol)

@@ -278,3 +278,32 @@ def test_fallback_splices_strict_results(monkeypatch):
     assert counters["kernel.scan_fused.calls"] == 1 and counters["kernel.scan_strict.calls"] == 1
     assert [r.id for r in res[0]] == [7 + r * sf.C for r in range(4)]
 
+
+
+@pytest.mark.parametrize("dim, kernel", [(7264, "scan_fused"), (7265, "scan_strict")])
+def test_rows_too_wide_for_the_kernels_take_the_strict_path(dim, kernel, monkeypatch):
+    """Above the fused threshold a bf16 index runs K1+K2 while a kernel
+    design fits (scan_fused.scan_design) and the strict path past d = 7,264;
+    either way the top-k is exact, and telemetry names the path that ran."""
+    monkeypatch.setattr(tflat, "LARGE_SCAN_THRESHOLD", 1024)
+    rng = np.random.default_rng(41)
+    x = rng.standard_normal((300, dim)).astype(np.float32)
+    q = rng.standard_normal((3, dim)).astype(np.float32)
+    t = tflat.FlatIndex(dim, Metric.L2, storage_dtype=torch.bfloat16, device="cpu")
+    t.insert_batch(list(range(len(x))), x)
+    TELEM.reset()
+    TELEM.enable()
+    try:
+        res = t.batch_search(q, 5)
+    finally:
+        TELEM.disable()
+    counters = TELEM.snapshot()["counters"]
+    assert counters[f"kernel.{kernel}.calls"] == 1
+    assert sum(v for key, v in counters.items() if key.endswith(".calls")) == 1
+    xb = torch.from_numpy(x).bfloat16().double().numpy()
+    dist = ((q[:, None, :] - xb[None]) ** 2).sum(-1)
+    want = np.argsort(dist, axis=1, kind="stable")[:, :6]  # rank 6 decides ties at rank 5
+    want_d = np.take_along_axis(dist, want, axis=1)
+    np.testing.assert_allclose([[r.score**2 for r in row] for row in res], want_d[:, :5],
+                               rtol=RTOL, atol=ATOL)
+    assert ids_match_up_to_ties([[r.id for r in row] for row in res], want, want_d, 5)

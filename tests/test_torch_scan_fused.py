@@ -254,3 +254,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad, err):
         sf.bin_candidates(*bad(q, x, bias), metric=Metric.L2)
     with pytest.raises(ValueError):
         sf.bin_candidates(q, x, bias, None, metric=Metric.COSINE)  # no colscale
+
+
+@pytest.mark.parametrize(
+    "d, dtype, want",
+    [(2400, torch.bfloat16, "mma"), (2401, torch.bfloat16, "fma"), (7264, torch.bfloat16, "fma"),
+     (7265, torch.bfloat16, "strict"), (7264, torch.float32, "fma"),
+     (7265, torch.float32, "strict"), (128, torch.float32, "fma")],
+)
+@pytest.mark.parametrize("nq", [8, 256])
+def test_scan_design_routes_by_width_and_dtype(d, dtype, want, nq):
+    """bf16 takes the tensor cores while their smallest CTA fits (d <=
+    2,400), then the CUDA cores while the FMA query block fits (d <=
+    7,264), as f32 does; past that no kernel fits. The kernels' geometry
+    exists exactly where scan_design names a kernel design and raises where
+    it names the strict path."""
+    assert sf.scan_design(d, dtype) == want
+    n = 1 << 20
+    if want == "strict":
+        for mma in (True, False):
+            with pytest.raises(ValueError, match="shared-memory"):
+                sf._grid(nq, n, d, mma=mma)
+        return
+    qw, cw, tps, splits, per = sf._grid(nq, n, d, mma=want == "mma")
+    assert (qw > 0) == (want == "mma")
+    assert (splits - 1) * per < n // sf.C <= splits * per
+    if want == "mma":
+        assert sf._mma_smem(d, qw, cw, tps) <= sf.MAX_SMEM_BYTES
+    else:
+        assert sf.QUERY_BLOCK * d * 4 <= sf.MAX_SMEM_BYTES

@@ -108,6 +108,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vi_adc_scan.restype = ctypes.c_int
     lib.vi_adc_topk_candidates.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p, p, p]
     lib.vi_adc_topk_candidates.restype = ctypes.c_int
+    lib.vi_adc_topk_qlanes.argtypes = [p, p] + [i] * 9 + [p, p, p, p, p]
+    lib.vi_adc_topk_qlanes.restype = ctypes.c_int
+    lib.vi_adc_topk_qlanes_per_sm.argtypes = [i] * 4
+    lib.vi_adc_topk_qlanes_per_sm.restype = ctypes.c_int
     lib.vi_error_string.argtypes = [i]
     lib.vi_error_string.restype = ctypes.c_char_p
 

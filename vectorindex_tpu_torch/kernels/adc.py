@@ -19,6 +19,15 @@ lut [B, m, ks] f32 (ops/pq.pq_lut_l2 / pq_lut_ip) over n PQ-coded rows:
       query's nearest rows share a class and a tile the port returns the
       scan-then-sort answer and the TPU drops one.
 
+K8's kernel puts queries on the lanes (csrc/adc.cu,
+adc_qlane_candidates_kernel): it takes the LUTs by entry, [m, ks, B]
+(`lut_by_entry`), and a CTA stages k8_query_block(m, ks) queries, each
+subspace's table padded to k8_ks_pad(ks) entries, so that a warp's lookups
+fall on few banks; `k8_warps` and `k8_grid` size the CTA and
+the grid. `adc_topk_fused_v1` launches K8's first design (rows on the lanes,
+the [B, m, ks] layout of K6/K7), kept to time against it
+(scripts/ab_adc_torch.py); nothing else calls it.
+
 Every code must be < ks. The kernels (csrc/adc.cu) sum j = 0..m−1 in order
 from 0, each add rounded; the plain versions (`*_ref`) do exactly these
 adds in this order (a Python loop over j), so kernel and plain version agree
@@ -29,15 +38,17 @@ CPU tensors take the plain versions; CUDA tensors always launch the kernel.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from vectorindex_tpu_torch.kernels.scan_fused import (
     MAX_SMEM_BYTES,
+    SMS,
     TARGET_CTAS,
     TIERS,
     C,
+    _splits,
     class_top3_fold,
     class_top3_init,
 )
@@ -47,14 +58,19 @@ Tensor = torch.Tensor
 
 #: candidate bins per query (residue classes); K8 keeps TIERS per bin
 C_BINS = C
-#: most queries per CTA (csrc/adc.cu kMaxQB); fewer where their LUTs
-#: would not fit in shared memory
+#: most queries per CTA of K6/K7 and K8's first design (csrc/adc.cu kMaxQB);
+#: fewer where their LUTs would not fit in shared memory
 MAX_QUERY_BLOCK = 8
+#: K8: most queries per CTA (one a lane), (query, class) pairs a thread owns
+#: and most warps a CTA holds (csrc/adc.cu kPairs, kK8Warps)
+K8_MAX_QUERY_BLOCK, K8_PAIRS, K8_MAX_WARPS = 32, 4, 16
+#: K8's grid: the fewest splits whose waves of resident CTAs are this full
+K8_WAVE_FILL = 0.9
 #: code rows per chunk in the plain versions (a multiple of C)
 REF_ROWS = 256 * C
 
 #: kernel launches per wrapper since the last reset (plain versions do not count)
-LAUNCHES = {"adc_scan_u8": 0, "adc_scan_u4": 0, "adc_topk_fused": 0}
+LAUNCHES = {"adc_scan_u8": 0, "adc_scan_u4": 0, "adc_topk_fused": 0, "adc_topk_fused_v1": 0}
 
 
 def reset_launches() -> None:
@@ -63,9 +79,58 @@ def reset_launches() -> None:
 
 
 def query_block(m: int, ks: int) -> int:
-    """Queries per CTA: as many LUTs (m·ks f32 each) as shared memory
-    holds, at most MAX_QUERY_BLOCK."""
+    """Queries per CTA of K6/K7 (and K8's first design): as many LUTs
+    (m·ks f32 each) as shared memory holds, at most MAX_QUERY_BLOCK."""
     return min(MAX_QUERY_BLOCK, MAX_SMEM_BYTES // (4 * m * ks))
+
+
+def k8_ks_pad(ks: int) -> int:
+    """Entries of a subspace's table as K8 stages it: 16 or 256, so the
+    kernel's subspace stride is a constant (csrc/adc.cu k8_ks_pad)."""
+    return 16 if ks <= 16 else 256
+
+
+def k8_query_block(m: int, ks: int) -> int:
+    """Queries per K8 CTA: the largest power of two <= K8_MAX_QUERY_BLOCK
+    whose LUTs (qb·m·k8_ks_pad(ks) f32) fit in shared memory. A warp's
+    lookup then touches 32/qb segments of qb consecutive banks."""
+    qb = K8_MAX_QUERY_BLOCK
+    while qb > 1 and 4 * qb * m * k8_ks_pad(ks) > MAX_SMEM_BYTES:
+        qb //= 2
+    return qb
+
+
+def k8_warps(qb: int) -> Tuple[int, int]:
+    """(warps per K8 CTA, class groups): a warp scores 32/qb rows at once
+    and a thread owns K8_PAIRS classes, so a warp covers K8_PAIRS·32/qb
+    classes and the C classes take 2·qb warps: at most K8_MAX_WARPS in one
+    CTA, the rest in class groups of the grid."""
+    need = C // (K8_PAIRS * (32 // qb))
+    warps = min(need, K8_MAX_WARPS)
+    return warps, need // warps
+
+
+def k8_grid(nq: int, qb: int, groups: int, ntiles: int, resident: int) -> Tuple[int, int]:
+    """(splits, tiles of C rows per split) of K8's grid (query blocks x
+    class groups x splits CTAs) over ntiles tiles, `resident` CTAs running
+    at once: the fewest splits whose waves are at least K8_WAVE_FILL full,
+    else the fullest, at most one split a tile."""
+    blocks = -(-nq // qb) * groups
+    best, best_fill = 1, 0.0
+    for splits in range(1, ntiles + 1):
+        ctas = blocks * splits
+        fill = ctas / (-(-ctas // resident) * resident)
+        if fill > best_fill:
+            best, best_fill = splits, fill
+        if fill >= K8_WAVE_FILL:
+            break
+    return _splits(best, ntiles)
+
+
+def lut_by_entry(lut: Tensor) -> Tensor:
+    """The LUTs [B, m, ks] as K8's kernel reads them: [m, ks, B],
+    contiguous (a query's entries of one (subspace, code) side by side)."""
+    return lut.permute(1, 2, 0).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -204,32 +269,108 @@ def adc_scan_u4(packed_codes: Tensor, lut: Tensor) -> Tensor:
     return _launch_scan("adc_scan_u4", packed_codes, lut, True)
 
 
-def adc_topk_fused(codes: Tensor, lut: Tensor, k: int) -> Tuple[Tensor, Tensor]:
-    """K8: full-corpus ADC top-k → (dist [B, kk] f32, rows [B, kk] int32),
-    kk = min(k, 2C), strict (dist, row) order over the per-class
-    candidates; (+inf, INVALID_ID) where fewer rows exist. CUDA tensors
-    launch the kernel (or raise); CPU tensors take adc_topk_fused_ref."""
-    _check_inputs(codes, lut, False)
-    if codes.device.type == "cpu":
-        return adc_topk_fused_ref(codes, lut, k)
+def _k8_out(b: int, splits: int, device) -> Tuple[Tensor, ...]:
+    """K8's scratch and output: part_* [splits, B, 3, C], out_* [B, 3, C]."""
+    return (
+        torch.empty((splits, b, TIERS, C), dtype=torch.float32, device=device),
+        torch.empty((splits, b, TIERS, C), dtype=torch.int32, device=device),
+        torch.empty((b, TIERS, C), dtype=torch.float32, device=device),
+        torch.empty((b, TIERS, C), dtype=torch.int32, device=device),
+    )
+
+
+_K8_PER_SM: dict = {}
+
+
+def k8_per_sm(qb: int, warps: int, m: int, ks: int) -> int:
+    """K8 CTAs one SM holds at once (the CUDA occupancy query, cached)."""
+    from vectorindex_tpu_torch.kernels import _build
+
+    key = (qb, warps, m, ks)
+    if key not in _K8_PER_SM:
+        per_sm = _build.load().vi_adc_topk_qlanes_per_sm(qb, warps, m, ks)
+        if per_sm < 1:
+            raise RuntimeError(f"K8 cannot run qb={qb}, {warps} warps, m={m}, ks={ks}")
+        _K8_PER_SM[key] = per_sm
+    return _K8_PER_SM[key]
+
+
+def k8_candidates(codes: Tensor, lut: Tensor, *, qb: Optional[int] = None,
+                  splits: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+    """Launch K8 on CUDA tensors -> per (query, class) the 3 smallest (dist,
+    row), (dist [B, 3, C] f32, rows [B, 3, C] int32); ValueError where even
+    one query's padded tables do not fit in shared memory. qb and splits default
+    to k8_query_block and k8_grid; the A/B (scripts/ab_adc_torch.py) sets
+    them to other values the design allows."""
     from vectorindex_tpu_torch.kernels import _build
 
     b, m, ks = lut.shape
     n = codes.shape[0]
-    if b == 0 or n == 0:
-        return _select(*class_top3_init(b, codes.device), k)
+    if 4 * m * k8_ks_pad(ks) > MAX_SMEM_BYTES:
+        raise ValueError(f"m={m} tables of {k8_ks_pad(ks)} entries exceed K8's shared memory")
+    qb = qb or k8_query_block(m, ks)
+    warps, groups = k8_warps(qb)
+    ntiles = -(-n // C)
+    if splits is None:
+        splits, per = k8_grid(b, qb, groups, ntiles, SMS * k8_per_sm(qb, warps, m, ks))
+    else:
+        splits, per = _splits(splits, ntiles)
+    part_d, part_i, out_d, out_i = _k8_out(b, splits, codes.device)
+    lib = _build.load()
+    err = lib.vi_adc_topk_qlanes(
+        lut_by_entry(lut).data_ptr(), codes.data_ptr(), b, n, m, ks, qb, warps, groups, splits,
+        per, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+        torch.cuda.current_stream(codes.device).cuda_stream,
+    )
+    _build.check(lib, err, "adc_topk_fused")
+    LAUNCHES["adc_topk_fused"] += 1
+    return out_d, out_i
+
+
+def k8_v1_candidates(codes: Tensor, lut: Tensor, *, splits: Optional[int] = None
+                     ) -> Tuple[Tensor, Tensor]:
+    """Launch K8's first design on CUDA tensors -> (dist [B, 3, C], rows [B,
+    3, C]); splits defaults to its own grid (_grid)."""
+    from vectorindex_tpu_torch.kernels import _build
+
+    b, m, ks = lut.shape
+    n = codes.shape[0]
     qb = query_block(m, ks)
-    splits, per = _grid(b, qb, -(-n // C))
-    part_d = torch.empty((splits, b, TIERS, C), dtype=torch.float32, device=codes.device)
-    part_i = torch.empty((splits, b, TIERS, C), dtype=torch.int32, device=codes.device)
-    out_d = torch.empty((b, TIERS, C), dtype=torch.float32, device=codes.device)
-    out_i = torch.empty((b, TIERS, C), dtype=torch.int32, device=codes.device)
+    ntiles = -(-n // C)
+    splits, per = _grid(b, qb, ntiles) if splits is None else _splits(splits, ntiles)
+    part_d, part_i, out_d, out_i = _k8_out(b, splits, codes.device)
     lib = _build.load()
     err = lib.vi_adc_topk_candidates(
         lut.data_ptr(), codes.data_ptr(), b, n, m, ks, qb, splits, per,
         part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(codes.device).cuda_stream,
     )
-    _build.check(lib, err, "adc_topk_fused")
-    LAUNCHES["adc_topk_fused"] += 1
-    return _select(out_d, out_i, k)
+    _build.check(lib, err, "adc_topk_fused_v1")
+    LAUNCHES["adc_topk_fused_v1"] += 1
+    return out_d, out_i
+
+
+def adc_topk_fused(codes: Tensor, lut: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """K8: full-corpus ADC top-k → (dist [B, kk] f32, rows [B, kk] int32),
+    kk = min(k, 2C), strict (dist, row) order over the per-class
+    candidates; (+inf, INVALID_ID) where fewer rows exist. CUDA tensors
+    launch the kernel (queries on the lanes) or raise; CPU tensors take
+    adc_topk_fused_ref."""
+    _check_inputs(codes, lut, False)
+    if codes.device.type == "cpu":
+        return adc_topk_fused_ref(codes, lut, k)
+    if lut.shape[0] == 0 or codes.shape[0] == 0:
+        return _select(*class_top3_init(lut.shape[0], codes.device), k)
+    return _select(*k8_candidates(codes, lut), k)
+
+
+def adc_topk_fused_v1(codes: Tensor, lut: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """K8 in its first design (rows on the lanes), the same function as
+    adc_topk_fused, kept to time against it (scripts/ab_adc_torch.py).
+    CUDA tensors only."""
+    _check_inputs(codes, lut, False)
+    if codes.device.type == "cpu":
+        raise ValueError("adc_topk_fused_v1 times a CUDA kernel: pass CUDA tensors")
+    if lut.shape[0] == 0 or codes.shape[0] == 0:
+        return _select(*class_top3_init(lut.shape[0], codes.device), k)
+    return _select(*k8_v1_candidates(codes, lut), k)

@@ -79,8 +79,11 @@
 // f32 corpora stay on the CUDA cores in full f32 (row_distances): each
 // query's dot product is one __fmaf_rn chain over k = 0..d-1 in order, equal
 // bit for bit to the plain versions. The same FMA kernel instantiated for
-// bf16 is the earlier design of K1, kept for the A/B (vi_bin_candidates with
-// qwarps = 0) and never reached from an index.
+// bf16 (vi_bin_candidates with qwarps = 0) serves bf16 corpora too wide for
+// the tensor-core CTA (d > 2,400: its smallest geometry no longer fits in
+// shared memory; the FMA design stages only 8 queries, up to d = 7,264); the
+// wrapper's scan_design picks it for K1 and K2 alike. It is also the earlier
+// design of K1 on narrow bf16 rows, timed in the flat A/B.
 //
 // Bounds on the H100 at B=256, d=128, n=2^20: 68.7 GFLOP a pass, 0.069 ms on
 // the tensor cores at 989 TFLOP/s, against 0.080 ms for reading the corpus
@@ -103,7 +106,7 @@ constexpr int kTB = 8;  // queries per CTA of the FMA design
 constexpr int kL2 = 0, kIP = 1, kCos = 2;
 
 // ---------------------------------------------------------------------------
-// the FMA design (f32 corpora; bf16 only through the A/B entry)
+// the FMA design (f32 corpora; bf16 corpora wider than the tensor-core CTA)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float widen(float v) { return v; }
@@ -764,7 +767,7 @@ extern "C" {
 // K1. q [nq, d] f32; x [n, d] (dtype), n a multiple of 256; bias, colscale
 // [n] f32 (colscale read for cosine only); part_* [splits, nq, 3, 256]
 // scratch; out_* [nq, 3, 256]. qwarps = 0 runs the FMA design (f32, or bf16
-// for the A/B); otherwise the tensor-core design (bf16) with qwarps x cwarps
+// past the tensor-core limit); otherwise the tensor-core design (bf16) with qwarps x cwarps
 // warps and ring stages of tiles_per_stage tiles. Returns cudaGetLastError().
 int vi_bin_candidates(const void* q, const void* x, const void* bias, const void* colscale,
                       int nq, int n, int d, int dtype, int metric, int qwarps, int cwarps,

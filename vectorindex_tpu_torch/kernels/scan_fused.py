@@ -20,9 +20,11 @@ Kernel-space distances omit ||q||^2 (monotone per query; added back for L2):
   COS: bias - (q.x) cs       bias = 0 (+inf dead), cs = 1/||x||, q normalised
 
 q is rounded to the corpus dtype before the product. The CUDA kernels live in
-csrc/scan_fused.cu: on a bf16 corpus they run on the tensor cores
-(mma.sync, f32 accumulation), on an f32 corpus on the CUDA cores (one f32
-FMA chain per dot product). `bin_candidates_ref` and `count_below_ref` are
+csrc/scan_fused.cu, in two designs that `scan_design` chooses from the
+corpus dtype and width: on a bf16 corpus up to d = 2,400 the tensor cores
+(mma.sync, f32 accumulation); on an f32 corpus, and on bf16 past 2,400, the
+CUDA cores (one f32 FMA chain per dot product) up to d = 7,264; past that no
+kernel fits and callers take ops/scan.scan_topk_strict. `bin_candidates_ref` and `count_below_ref` are
 their plain PyTorch versions: CPU tensors take them, CUDA tensors always
 launch the kernel. The plain versions share one distance function with one
 chunking, so on a given device K2-ref recomputes K1-ref's floats bit for bit
@@ -78,11 +80,16 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: kernel launches per wrapper since the last reset (plain versions do not count)
 LAUNCHES = dict.fromkeys(
     ("bin_candidates", "count_below", "bin_candidates_tree", "bin_candidates_fma"), 0)
+#: K1's and K2's launches by the design they ran (scan_design)
+DESIGN_LAUNCHES = {design: {"bin_candidates": 0, "count_below": 0} for design in ("mma", "fma")}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for counts in DESIGN_LAUNCHES.values():
+        for name in counts:
+            counts[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +272,23 @@ def _mma_config(nq: int, d: int) -> Tuple[int, int, int]:
     return qw, cw, tps
 
 
+def scan_design(d: int, dtype: torch.dtype) -> str:
+    """The design K1 and K2 run over a corpus of this width and dtype:
+    "mma" (tensor cores) for bf16 while the smallest tensor-core CTA fits in
+    shared memory (d <= 2,400), "fma" (CUDA cores) for f32 and for bf16 past
+    that while the FMA query block fits (d <= 7,264), else "strict": no
+    kernel fits and the caller takes ops/scan.scan_topk_strict (the
+    kernels' _grid raises there). K1 and K2 both take their design from
+    here: the exactness proof needs K2 to recompute K1's floats bit for bit,
+    so they must never run two designs on one corpus. (K11 stays on the
+    tensor cores.)"""
+    if dtype == torch.bfloat16 and _mma_smem(d, 1, 1, 1) <= MAX_SMEM_BYTES:
+        return "mma"
+    if QUERY_BLOCK * d * 4 <= MAX_SMEM_BYTES:
+        return "fma"
+    return "strict"
+
+
 def _grid(nq: int, n: int, d: int, mma: bool, block_tiles: int = 1) -> Tuple[int, ...]:
     """(query warps, class warps, tiles per stage, splits, tiles per split)
     of a pass over n rows; query warps 0 selects the CUDA-core (FMA)
@@ -319,6 +343,8 @@ def _launch_candidates(name: str, q: Tensor, x: Tensor, bias: Tensor, colscale: 
         )
     _build.check(lib, err, name)
     LAUNCHES[name] += 1
+    if name == "bin_candidates":
+        DESIGN_LAUNCHES["mma" if mma else "fma"][name] += 1
     return out_d, out_i
 
 
@@ -326,13 +352,13 @@ def bin_candidates(
     q: Tensor, x: Tensor, bias: Tensor, colscale: Optional[Tensor], *, metric: Metric
 ) -> Tuple[Tensor, Tensor]:
     """K1 -> (dist [B, 3, C] f32, row [B, 3, C] int32). CUDA tensors launch
-    the kernel (tensor cores on bf16, CUDA cores on f32) or raise; CPU
+    the kernel in the design of scan_design (raising where none fits); CPU
     tensors take bin_candidates_ref."""
     _check_inputs(q, x, bias, colscale, metric)
     if x.device.type == "cpu":
         return bin_candidates_ref(q, x, bias, colscale, metric=metric)
     return _launch_candidates("bin_candidates", q, x, bias, colscale, metric,
-                              mma=x.dtype == torch.bfloat16)
+                              mma=scan_design(x.shape[1], x.dtype) == "mma")
 
 
 def bin_candidates_fma(
@@ -395,7 +421,8 @@ def count_below(
     le = torch.zeros(nq, dtype=torch.int32, device=x.device)
     if nq == 0 or n == 0:
         return lt, le
-    qw, cw, tps, splits, per = _grid(nq, n, d, mma=x.dtype == torch.bfloat16)
+    mma = scan_design(d, x.dtype) == "mma"
+    qw, cw, tps, splits, per = _grid(nq, n, d, mma=mma)
     lib = _build.load()
     err = lib.vi_count_below(
         q.data_ptr(), x.data_ptr(), bias.data_ptr(), _ptr(colscale),
@@ -404,6 +431,7 @@ def count_below(
     )
     _build.check(lib, err, "count_below")
     LAUNCHES["count_below"] += 1
+    DESIGN_LAUNCHES["mma" if mma else "fma"]["count_below"] += 1
     return lt, le
 
 

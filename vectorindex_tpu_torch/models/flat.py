@@ -14,7 +14,9 @@ FlatIndexOptimized.swift:20-420 and FlatIndex.swift).
     with L2/IP/cosine and k <= 2*C, the fused kernels K1+K2
     (kernels/scan_fused), then the strict path for queries they cannot prove
     exact; otherwise the strict path (ops/scan.scan_topk_strict). Both give
-    the exact top-k under the (score, id) contract.
+    the exact top-k under the (score, id) contract. The fused pair runs in
+    the design scan_fused.scan_design picks (tensor cores on bf16 up to
+    d = 2,400, CUDA cores up to 7,264); wider rows take the strict path.
   - range_search is one distance block and a compaction
     (ops/range_query.range_scan).
 """
@@ -347,6 +349,7 @@ class FlatIndex(VectorIndex):
             self.capacity >= LARGE_SCAN_THRESHOLD
             and self.metric in _FUSED_METRICS
             and kk <= 2 * scan_fused.C
+            and scan_fused.scan_design(self.dimension, self.storage_dtype) != "strict"
         )
         with TELEM.timer("score_flat", stats):
             if fused:
