@@ -48,7 +48,10 @@ just after:
 
 The flat path also runs FlatIndex.range_search on its index (a few queries,
 one filtered), checked against brute force. K8 is also timed in its first
-design (kernels/adc.adc_topk_fused_v1) in turns with the shipping one.
+design (kernels/adc.adc_topk_fused_v1) in turns with the shipping one, and
+so are K3, K4 and K5 (kernels/ivf_probe.ivf_probe_topc_v1 and
+ivf_probe_scores_v1) on the IVF path's own tensors; the first designs are
+checked against the plain versions there but never run on a main path.
 
 It checks the kernels against their plain versions again on each main
 path's own tensors, and times the kernels, their plain versions and the
@@ -66,6 +69,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -839,8 +843,9 @@ def probe_bound(kp, q, starts, lives, arrays, probe_cap, kernel):
 
 def phase_ivf_times(kp, idx, batches, bigq, errs):
     """On the main path's own tensors: K3 and K5 at B=8 and K4 at B=256
-    (nprobe=32) against their plain versions, then their times, bounds and
-    the end-to-end batch_search latency."""
+    (nprobe=32) against their plain versions, their first designs against
+    the same, then the times of both designs in turns, the plain versions'
+    times, the bounds and the end-to-end batch_search latency."""
     from vectorindex_tpu_torch.ops import ivf as tivf
 
     arrays = idx._store.sync_device(idx.storage_dtype)
@@ -855,17 +860,32 @@ def phase_ivf_times(kp, idx, batches, bigq, errs):
         errs[name] = max(errs[name], e)
     log("ivf main-shape check: K3, K5 (B=8) and K4 (B=256) equal their plain versions bit for bit")
     t = {}
-    for name, fn, ref, args in (
-        ("ivf_probe_topc", kp.ivf_probe_topc_rankmajor, kp.ivf_probe_topc_rankmajor_ref, args8),
+    cases = (
+        ("ivf_probe_topc", kp.ivf_probe_topc_rankmajor, kp.ivf_probe_topc_rankmajor_ref,
+         kp.ivf_probe_topc_v1, {}, args8),
         ("ivf_probe_scores_rankmajor", kp.ivf_probe_scores_rankmajor,
-         kp.ivf_probe_scores_rankmajor_ref, args8),
-        ("ivf_probe_scores", kp.ivf_probe_scores, kp.ivf_probe_scores_ref, args256),
-    ):
-        t[name] = time_ms(lambda: fn(*args, **kw), 50)
+         kp.ivf_probe_scores_rankmajor_ref, kp.ivf_probe_scores_v1, {"deny_sentinel": True}, args8),
+        ("ivf_probe_scores", kp.ivf_probe_scores, kp.ivf_probe_scores_ref, kp.ivf_probe_scores_v1,
+         {}, args256),
+    )
+    for name, _, ref, v1, extra, args in cases:  # the first designs compute the same bits
+        got, want = v1(*args, **extra, **kw), ref(*args, **kw)
+        pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
+        require(all(torch.equal(a, r) for a, r in pairs),
+                f"{name}: the first design differs from the plain version")
+    log("ivf main-shape check: the first designs of K3, K5 and K4 equal the plain versions too")
+    for name, fn, ref, v1, extra, args in cases:
+        # the redesign and its first design in turns (new, old, old, new) on one card
+        runs = {"new": [], "v1": []}
+        for design in ("new", "v1", "v1", "new"):
+            call = fn if design == "new" else functools.partial(v1, **extra)
+            runs[design].append(time_ms(lambda: call(*args, **kw), 50))
+        t[name], t[name + "_v1"] = (float(np.mean(r)) for r in runs.values())
         t[name + "_plain"] = time_ms(lambda: ref(*args, **kw), 3, warmup=1)
         t[name + "_bound"] = probe_bound(kp, args[0], args[1], args[2], arrays, cap, name)
-        log(f"ivf times {name} B={len(args[0])} nprobe={IVF_NPROBE}: kernel {t[name]:.4g} ms, "
-            f"plain {t[name + '_plain']:.4g} ms, bound {t[name + '_bound'][0]:.4g} ms "
+        log(f"ivf times {name} B={len(args[0])} nprobe={IVF_NPROBE} in turns (new, old, old, "
+            f"new): kernel {runs['new']} ms, first design {runs['v1']} ms; plain "
+            f"{t[name + '_plain']:.4g} ms, bound {t[name + '_bound'][0]:.4g} ms "
             f"({t[name + '_bound'][1]})")
     for q, nprobe in ((batches[0], IVF_NPROBE), (batches[0], IVF_NPROBE_LOW), (bigq, IVF_NPROBE)):
         label = f"B={len(q)} nprobe={nprobe}"
@@ -1709,8 +1729,9 @@ def main() -> int:
                     "bound_by": by})
     for name in ("ivf_probe_topc", "ivf_probe_scores", "ivf_probe_scores_rankmajor"):
         bms, by = ivf_times[name + "_bound"]
-        kernels.append({"name": name, "ms": ivf_times[name],
-                        "plain_ms": ivf_times[name + "_plain"], "bound_ms": bms, "bound_by": by})
+        kernels.append({"name": name, "ms": ivf_times[name], "plain_ms": ivf_times[name + "_plain"],
+                        "bound_ms": bms, "bound_by": by,
+                        "first_design_ms": ivf_times[name + "_v1"]})  # timed in turns
     clock = adc_times["sm_clock_mhz"]
     for name in PQ_KERNELS:  # pq16's: K10 at B=8, K9 at B=256
         bms, by = pq_times["pq16"][name + "_bound"]
@@ -1738,7 +1759,11 @@ def main() -> int:
         f"{FLAT_WIDE_DIM} K1/K2 on the FMA design (launches {wide_launches}) "
         f"{wide_times['bin_candidates']:.4g} / {wide_times['count_below']:.4g} ms at B="
         f"{FLAT_WIDE_BATCHES[-1]}; K8 {adc_times['adc_topk_fused']:.4g} ms (first design "
-        f"{adc_times['adc_topk_fused_v1']:.4g} ms); adc B={ADC_BATCH} walls "
+        f"{adc_times['adc_topk_fused_v1']:.4g} ms); ivf K4 B={IVF_BIG_BATCH} "
+        f"{ivf_times['ivf_probe_scores']:.4g} ms (first design "
+        f"{ivf_times['ivf_probe_scores_v1']:.4g} ms), K3 B={SMALL_BATCH} "
+        f"{ivf_times['ivf_probe_topc']:.4g} ms (first design {ivf_times['ivf_probe_topc_v1']:.4g} "
+        f"ms); adc B={ADC_BATCH} walls "
         + ", ".join(f"{c} {adc_times[f'search {c}'][0]:.4g} ms" for c in
                     ("adc_only", *(f"rerank{r}" for r in ADC_RERANK)))
         + "; ivf insert_batch "

@@ -24,6 +24,7 @@ products are exact in f32).
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
 
 import vectorindex_tpu_torch.models.flat as tflat
 from vectorindex_tpu_torch.kernels import adc as fa
@@ -232,7 +233,119 @@ def test_ivf_kernels_match_plain_versions(metric, dtype, d, cuda_device):
         torch.cuda.synchronize()
         for a, r in zip(got, kp.ivf_probe_topc_rankmajor_ref(*args, **kw)):
             assert torch.equal(a, r)
-    assert kp.LAUNCHES == {"ivf_probe_topc": 2, "ivf_probe_scores": 2, "ivf_probe_scores_rankmajor": 2}
+    assert kp.LAUNCHES == {"ivf_probe_topc": 2, "ivf_probe_scores": 2, "ivf_probe_scores_rankmajor": 2,
+                           "ivf_probe_topc_v1": 0, "ivf_probe_scores_v1": 0}
+
+
+def _chip_skewed_store(d, dtype):
+    """chip_smoke.skewed_store: 256 skewed lists (8 empty, one of 12,000
+    rows, probe_cap 16,384), ~262k rows on the card."""
+    import chip_smoke
+
+    arrays, cap, centers, _ = chip_smoke.skewed_store(d, dtype, d)
+    return arrays, cap, centers
+
+
+def _probe_args(arrays, centers, q, nprobe, metric, sqn):
+    _, pl = tivf.ivf_select(q, centers, nprobe=nprobe, metric=metric)
+    pl = pl.long()
+    return (q, arrays.starts[pl].contiguous(), arrays.lengths[pl].contiguous(), arrays.vecs, sqn)
+
+
+def _assert_designs_equal(args, kw, b, what):
+    """K4, K5 and K3 equal their plain versions and their first designs bit
+    for bit on one set of inputs."""
+    for fn, ref, sentinel in ((kp.ivf_probe_scores, kp.ivf_probe_scores_ref, False),
+                              (kp.ivf_probe_scores_rankmajor, kp.ivf_probe_scores_rankmajor_ref, True)):
+        got = fn(*args, **kw)
+        v1 = kp.ivf_probe_scores_v1(*args, deny_sentinel=sentinel, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref(*args, **kw)), f"{fn.__name__} B={b} {what}"
+        assert torch.equal(got, v1), f"{fn.__name__} against v1, B={b} {what}"
+    got = kp.ivf_probe_topc_rankmajor(*args, **kw)
+    v1 = kp.ivf_probe_topc_v1(*args, **kw)
+    torch.cuda.synchronize()
+    for a, r, o in zip(got, kp.ivf_probe_topc_rankmajor_ref(*args, **kw), v1):
+        assert torch.equal(a, r) and torch.equal(a, o), f"K3 B={b} {what}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [128, 100, 264], ids=["d128", "d100-unvectorised", "d264-kslices"])
+def test_ivf_redesigned_kernels_match_plain_and_first_designs(metric, dtype, d, cuda_device):
+    """The list-major K4/K5 and the one-launch K3 against their plain
+    versions and first designs, bit for bit, at B = 1, 8, 17 and 256 on
+    chip_smoke's skewed store (K3/K5 with a 10% deny sentinel); d = 100
+    stages bf16 rows by plain loads, d = 264 takes several k-slices."""
+    arrays, cap, centers = _chip_skewed_store(d, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    allow = torch.rand(arrays.sqnorms.shape[0], generator=gen, device=cuda_device) < 0.1
+    sq_deny = torch.where(allow, arrays.sqnorms, float("inf")).contiguous()
+    kw = dict(nprobe=16, probe_cap=cap, metric=metric)
+    for b in (1, 8, 17, 256):
+        q = torch.randn(b, d, generator=gen, device=cuda_device)
+        for sqn, what in ((arrays.sqnorms, "all allowed"), (sq_deny, "10% allowed")):
+            _assert_designs_equal(_probe_args(arrays, centers, q, 16, metric, sqn), kw, b, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_ivf_every_query_probing_one_list(dtype, cuda_device):
+    """B=256 queries whose 16 probes all fall on the 12,000-row list and on
+    one 0-live copy of it (a disabled list): runs of 4,096 pairs of one
+    start, cut into groups; all designs equal the plain versions."""
+    arrays, cap, centers = _chip_skewed_store(128, dtype)
+    big = int(torch.argmax(arrays.lengths))
+    q = torch.randn(256, 128, generator=torch.Generator(device=cuda_device).manual_seed(3),
+                    device=cuda_device)
+    starts = torch.full((256, 16), int(arrays.starts[big]), dtype=torch.int32, device=cuda_device)
+    lives = torch.full_like(starts, int(arrays.lengths[big]))
+    lives[:, 5] = 0
+    kw = dict(nprobe=16, probe_cap=cap, metric=Metric.L2)
+    args = (q, starts, lives, arrays.vecs, arrays.sqnorms)
+    _assert_designs_equal(args, kw, 256, "one list")
+    args8 = (q[:8], starts[:8], lives[:8], arrays.vecs, arrays.sqnorms)
+    _assert_designs_equal(args8, kw, 8, "one list")
+    # a serving batch skips the grouping; grouped, its run of 128 pairs splits into 8 groups
+    got = kp._launch_scores(*args8, cap, Metric.L2, False, grouped=True)
+    assert torch.equal(got, kp.ivf_probe_scores_ref(*args8, **kw))
+
+
+@pytest.mark.cuda
+def test_ivf_k3_is_one_launch_and_its_counters_reset(cuda_device):
+    """K3 puts one kernel on the card per call (the profiler's count), and
+    back-to-back calls at B = 8, 3 and 8, and at chunks of 256 rows to a
+    whole probe_cap, give the same results as single calls: the folding
+    CTAs leave every arrival counter at 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    arrays, cap, centers = _chip_skewed_store(128, torch.bfloat16)
+    q = torch.randn(8, 128, generator=torch.Generator(device=cuda_device).manual_seed(5),
+                    device=cuda_device)
+    kw = dict(nprobe=16, probe_cap=cap, metric=Metric.L2)
+    a8 = _probe_args(arrays, centers, q, 16, Metric.L2, arrays.sqnorms)
+    a3 = tuple(t[:3] for t in a8[:3]) + a8[3:]
+    kp.ivf_probe_topc_rankmajor(*a8, **kw)  # build and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        first = kp.ivf_probe_topc_rankmajor(*a8, **kw)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA and "topc" in e.name]
+    assert len(names) == 1 and "topc_kernel" in names[0], names
+    mid = kp.ivf_probe_topc_rankmajor(*a3, **kw)
+    last = kp.ivf_probe_topc_rankmajor(*a8, **kw)
+    torch.cuda.synchronize()
+    for a, b, r in zip(first, last, kp.ivf_probe_topc_rankmajor_ref(*a8, **kw)):
+        assert torch.equal(a, b) and torch.equal(a, r)
+    for a, r in zip(mid, kp.ivf_probe_topc_rankmajor_ref(*a3, **kw)):
+        assert torch.equal(a, r)
+    for chunk in (256, 1024, cap):  # 64 chunks a pair down to one: both fold levels
+        got = kp._launch_topc(*a8, 16, cap, Metric.L2, chunk_rows=chunk)
+        for a, r in zip(got, first):
+            assert torch.equal(a, r), chunk
+    torch.cuda.synchronize()
+    assert not kp._ARRIVALS[q.device].any()
 
 
 @pytest.mark.cuda
@@ -287,7 +400,8 @@ def test_ivf_class_crowding_falls_back_to_k4(cuda_device):
     kp.reset_launches()
     _, ids = kp.ivf_search_flat_probe(q, cent, arrays, nprobe=1,
                                       probe_cap=tivf.probe_cap_for(store.max_length), k=5)
-    assert kp.LAUNCHES == {"ivf_probe_topc": 1, "ivf_probe_scores": 1, "ivf_probe_scores_rankmajor": 0}
+    assert kp.LAUNCHES == {"ivf_probe_topc": 1, "ivf_probe_scores": 1, "ivf_probe_scores_rankmajor": 0,
+                           "ivf_probe_topc_v1": 0, "ivf_probe_scores_v1": 0}
     assert sorted(ids[0].tolist()) == [0, 256, 512, 768, 1024]
 
 

@@ -415,3 +415,163 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad, err):
             fn(*bad(T(q), starts, lens, ta.vecs, ta.sqnorms), nprobe=3, probe_cap=cap)
     with pytest.raises(ValueError):
         kp.ivf_probe_scores(T(q), starts, lens, ta.vecs, ta.sqnorms, nprobe=3, probe_cap=100)
+
+
+# ---------------------------------------------------------------------------
+# replays of the CUDA schedules: K4/K5 list-major, K3 with merged partials
+# ---------------------------------------------------------------------------
+
+
+def _replay_k4(q, starts, lives, vecs, sqn, probe_cap, metric, *, group, chunk, slice_elems,
+               deny_sentinel=False):
+    """K4's list-major schedule in plain torch: probe_groups' groups, each
+    group's chunks of rows read once, every pair's chain over k-slices of
+    `slice_elems`, the scatter into [B, nprobe·probe_cap] (+inf past each
+    pair's own live length). Checks that the groups cover every pair once."""
+    b, nprobe = starts.shape
+    qr, qterm = kp._query_terms(q, vecs.dtype, metric)
+    order, glen = kp.probe_groups(starts, group)
+    fs, fl = starts.reshape(-1).long(), lives.reshape(-1).long()
+    out = torch.full((b * nprobe, probe_cap), float("nan"))
+    seen = torch.zeros(b * nprobe, dtype=torch.int64)
+    for pos in torch.nonzero(glen).flatten().tolist():
+        pairs = order[pos : pos + int(glen[pos])].long()
+        assert 1 <= len(pairs) <= group and (fs[pairs] == fs[pairs[0]]).all()
+        seen[pairs] += 1
+        start, maxlive = int(fs[pairs[0]]), int(fl[pairs].max())
+        qb, qt = qr[pairs // nprobe], qterm[pairs // nprobe][:, None]
+        for o0 in range(0, probe_cap, chunk):
+            o1 = min(o0 + chunk, probe_cap)
+            oend = max(o0, min(o1, maxlive))
+            x = vecs[start + o0 : start + oend].float()
+            g = torch.zeros((len(pairs), oend - o0))
+            for k0 in range(0, q.shape[1], slice_elems):  # the chain runs on across slices
+                for k in range(k0, min(k0 + slice_elems, q.shape[1])):
+                    g = g + qb[:, k : k + 1] * x[None, :, k]
+            dist = kp._probe_epilogue(g, qt, sqn[start + o0 : start + oend], metric, deny_sentinel)
+            offs = torch.arange(o0, oend)
+            out[pairs, o0:oend] = torch.where(offs < fl[pairs][:, None], dist, float("inf"))
+            out[pairs, oend:o1] = float("inf")
+    assert (seen == 1).all()
+    return out.reshape(b, nprobe * probe_cap)
+
+
+def _k4_case(case, arrays, starts, lens):
+    """Probe tables [8, 4] for the schedule's edge cases over _packed's lists."""
+    st, ln = starts.clone(), lens.clone()
+    all_starts, all_lens = T(arrays.starts), T(arrays.lengths)
+    big = int(torch.argmax(all_lens))
+    if case == "one_list":  # every pair probes the longest list: a run of 32 > PROBE_GROUP
+        st[:], ln[:] = all_starts[big], all_lens[big]
+    elif case == "disabled":  # one start, live and disabled (live 0) pairs side by side
+        st[:, :2], ln[:, 0] = all_starts[big], all_lens[big]
+        ln[::2, 1] = 0
+        ln[1::2, 1] = all_lens[big]
+    elif case == "empty":  # probed lists with no live rows, and pairs with all live
+        ln[:, ::2] = 0
+    return st.contiguous(), ln.contiguous()
+
+
+@pytest.mark.parametrize("case", ["selected", "one_list", "disabled", "empty"])
+def test_k4_list_major_replay_matches_plain_and_jax(case):
+    """The replay of K4's schedule equals the plain version bit for bit (and
+    K5's with the deny sentinel), and JAX's interpret-mode kernel within
+    rtol=atol=1e-5; groups of 4 and 16, chunks shorter than the longest
+    list, one-element and 8-element k-slices."""
+    x, centers, arrays, vecs, sqn, cap, q = _packed(4000, 32, 16, 3, 8)
+    (js, jl), (ts, tl) = _tables_both(q, centers, arrays, 4)
+    ts, tl = _k4_case(case, arrays, ts, tl)
+    assert int(arrays.lengths.max()) > 128  # some list spans several chunks
+    args = dict(nprobe=4, probe_cap=cap)
+    ref = kp.ivf_probe_scores_ref(T(q), ts, tl, vecs, sqn, **args)
+    for group, chunk, sl in ((kp.PROBE_GROUP, 128, 8), (4, 256, 1)):
+        got = _replay_k4(T(q), ts, tl, vecs, sqn, cap, Metric.L2, group=group, chunk=chunk,
+                         slice_elems=sl)
+        assert torch.equal(got, ref), (group, chunk)
+    deny = torch.where(torch.arange(sqn.shape[0]) % 7 == 0, float("inf"), sqn)
+    got5 = _replay_k4(T(q), ts, tl, vecs, deny, cap, Metric.INNER_PRODUCT, group=kp.PROBE_GROUP,
+                      chunk=128, slice_elems=8, deny_sentinel=True)
+    assert torch.equal(got5, kp.ivf_probe_scores_rankmajor_ref(
+        T(q), ts, tl, vecs, deny, metric=Metric.INNER_PRODUCT, **args))
+    a = jkp.ivf_probe_scores(jnp.asarray(q), jnp.asarray(ts.numpy()), jnp.asarray(tl.numpy()),
+                             arrays.vecs, arrays.sqnorms, interpret=True, **args)
+    _assert_scores_close(got, a)
+
+
+def test_probe_groups_cut_long_runs_and_keep_their_order():
+    """A run of one start longer than the group cap splits into groups of
+    at most `group` pairs, in pair order (the sort is stable)."""
+    starts = torch.tensor([[512, 0, 512], [512, 256, 512], [0, 512, 512]], dtype=torch.int32)
+    order, glen = kp.probe_groups(starts, 3)
+    assert order.tolist() == [1, 6, 4, 0, 2, 3, 5, 7, 8]
+    assert glen.tolist() == [2, 0, 1, 3, 0, 0, 3, 0, 0]
+
+
+def _insert_keep(td, ti, v, r):
+    """csrc/ivf_probe.cu's insert_keep over every class at once: keep the 4
+    smallest finite (dist, row) pairs sorted; the new pair sinks to its
+    place and the largest falls off."""
+    for j in range(td.shape[1]):
+        less = np.isfinite(v) & ((v < td[:, j]) | ((v == td[:, j]) & (r < ti[:, j])))
+        sd, sr = td[:, j].copy(), ti[:, j].copy()
+        td[:, j], ti[:, j] = np.where(less, v, sd), np.where(less, r, sr)
+        v, r = np.where(less, sd, v), np.where(less, sr, r)
+
+
+@pytest.mark.parametrize("chunk", [256, 512, "probe_cap"])
+def test_k3_merge_of_chunk_partials_in_any_order_matches_plain(chunk):
+    """K3's one-launch schedule replayed: per (pair, chunk) the per-class
+    top-4 of the live rows (a partial), merged per query in a shuffled
+    order by the kernel's insert, equals the plain version bit for bit —
+    drop_min included — at every chunk size."""
+    nprobe = 8
+    x, centers, arrays, vecs, sqn, cap, q = _packed(4000, 32, 16, 11, 8)
+    _, (ts, tl) = _tables_both(q, centers, arrays, nprobe)
+    chunk = cap if chunk == "probe_cap" else chunk
+    deny = torch.where(torch.arange(sqn.shape[0]) % 5 == 0, float("inf"), sqn)
+    args = (T(q), ts, tl, vecs, deny)
+    dist, rows = kp._probe_dist_ref(*args, probe_cap=cap, metric=Metric.COSINE, deny_sentinel=True)
+    dist, rows = dist.numpy().reshape(8, nprobe, cap), rows.numpy().reshape(8, nprobe, cap)
+    keep, rng = kp.TIERS + 1, np.random.default_rng(chunk)
+    cand_d, cand_r = np.empty((8, kp.TIERS * kp.CBINS), np.float32), np.empty((8, 768), np.int64)
+    drop = np.empty((8, kp.CBINS), np.float32)
+    for b in range(8):
+        parts = []
+        for p in range(nprobe):
+            for o0 in range(0, int(tl[b, p]), chunk):  # live chunks only
+                td = np.full((kp.CBINS, keep), np.inf, np.float32)
+                ti = np.full((kp.CBINS, keep), 0x7FFFFFFF, np.int64)
+                for o in range(o0, min(o0 + chunk, int(tl[b, p])), kp.CBINS):
+                    sl = slice(o, min(o + kp.CBINS, int(tl[b, p])))
+                    v = np.full(kp.CBINS, np.inf, np.float32)
+                    r = np.full(kp.CBINS, 0x7FFFFFFF, np.int64)
+                    cls = rows[b, p, sl] % kp.CBINS
+                    v[cls], r[cls] = dist[b, p, sl], rows[b, p, sl]
+                    _insert_keep(td, ti, v, r)
+                parts.append((td, ti))
+        td = np.full((kp.CBINS, keep), np.inf, np.float32)
+        ti = np.full((kp.CBINS, keep), 0x7FFFFFFF, np.int64)
+        for i in rng.permutation(len(parts)):
+            for t in range(keep):
+                _insert_keep(td, ti, parts[i][0][:, t].copy(), parts[i][1][:, t].copy())
+        cand_d[b] = td[:, : kp.TIERS].T.reshape(-1)
+        cand_r[b] = np.where(np.isfinite(td[:, : kp.TIERS]), ti[:, : kp.TIERS], 0).T.reshape(-1)
+        drop[b] = td[:, kp.TIERS]
+    rd, rr, rdrop = kp.ivf_probe_topc_rankmajor_ref(*args, nprobe=nprobe, probe_cap=cap,
+                                                     metric=Metric.COSINE)
+    assert np.array_equal(cand_d, rd.numpy()) and np.array_equal(cand_r, rr.numpy())
+    assert np.array_equal(drop, rdrop.numpy())
+
+
+def test_k3_chunking_fills_the_grid():
+    """K3's chunk rule: at B=8, nprobe=32, probe_cap 2,048 (the IVF main
+    path) one chunk a pair, the whole list; a long probe_cap splits into
+    TOPC_CHUNK_MIN-row chunks while the grid stays near TOPC_GRID CTAs; the
+    chunk is a multiple of BLK and covers probe_cap."""
+    assert kp._topc_chunk_rows(2048, 8 * 32) == 2048
+    assert kp._topc_chunk_rows(16384, 8 * 16) == 2048
+    assert kp._topc_chunk_rows(16384, 16 * 256) == 16384
+    for cap, pairs in ((256, 1), (2048, 16 * 1024), (65536, 8), (4096, 3 * 8)):
+        chunk = kp._topc_chunk_rows(cap, pairs)
+        assert chunk % kp.BLK == 0 and 0 < chunk <= cap and -(-cap // chunk) <= max(1, kp.TOPC_GRID)
+    assert kp._topc_chunk_rows_v1(2048) == 2048 and kp._topc_chunk_rows_v1(16384) == 4096

@@ -98,10 +98,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vi_bin_candidates_tree.restype = ctypes.c_int
     lib.vi_count_below.argtypes = [p, p, p, p, p] + [i] * 10 + [p, p, p]
     lib.vi_count_below.restype = ctypes.c_int
-    lib.vi_ivf_probe_scores.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p, p]
+    lib.vi_ivf_probe_scores.argtypes = [p] * 8 + [i] * 8 + [p, p]
     lib.vi_ivf_probe_scores.restype = ctypes.c_int
-    lib.vi_ivf_probe_topc.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p]
+    lib.vi_ivf_probe_scores_v1.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p, p]
+    lib.vi_ivf_probe_scores_v1.restype = ctypes.c_int
+    lib.vi_ivf_probe_topc.argtypes = [p] * 6 + [i] * 7 + [p] * 7
     lib.vi_ivf_probe_topc.restype = ctypes.c_int
+    lib.vi_ivf_probe_topc_v1.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p]
+    lib.vi_ivf_probe_topc_v1.restype = ctypes.c_int
     lib.vi_adc_probe_scores.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, p]
     lib.vi_adc_probe_scores.restype = ctypes.c_int
     lib.vi_adc_scan.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p, p]

@@ -35,6 +35,30 @@ correctly rounded square root and division. The plain versions
 the kernels and their plain versions agree bit for bit, on any device.
 CPU tensors take the plain versions; CUDA tensors always launch the kernels.
 
+Schedules on the card (csrc/ivf_probe.cu):
+
+  K4/K5 are list-major: `probe_groups` sorts the B·nprobe pairs stably by
+      start row on the device (no host sync) and cuts each run of one start
+      into groups of at most PROBE_GROUP pairs; a CTA per (group leader,
+      chunk of rows) stages its chunk of the list through a cp.async ring in
+      shared memory once and runs every pair's chain on it, so a list that
+      several queries probe is read once a group, not once a pair. Each pair
+      keeps its own live length. Serving batches (≤ SCORES_SMALL_PAIRS
+      pairs), whose lists are rarely probed twice, skip the grouping: each
+      pair is its own group.
+  K3 is one launch: CTAs over (pair, chunk of `_topc_chunk_rows` rows) keep
+      their per-class top-4 in registers, fed through a cp.async ring, and
+      write it as a partial; the last CTA of a query to arrive (a per-query
+      counter in a workspace that the folding CTA resets to 0) folds the
+      query's partials. The insert is lexicographic, so neither the chunking
+      nor the order of arrival changes a bit of the result.
+  All three are bound by bytes (each live row of the distinct probed lists
+  read once); grouped K4 comes within 1% of that count on the IVF main path,
+  and at serving batches, where a list is rarely probed twice, the pairs'
+  rows are ~15% more. The first designs (one CTA per pair; K3 as scan +
+  merge launches) stay as `ivf_probe_scores_v1` and `ivf_probe_topc_v1` for
+  timing in turns and are never called by the search.
+
 `ivf_search_flat_probe` is the counterpart of `ivf_search_flat_pallas`:
 select lists, route (K3 for B ≤ 16 and k ≤ 2·CBINS; else the pair path),
 prove K3's selection complete or re-run the batch through the pair path
@@ -59,12 +83,26 @@ CBINS = 256  # K3 classes per query (a CSR row's class is row mod CBINS)
 TIERS = 3  # K3 candidates kept per class
 GUARD_BLOCKS = 16  # trailing dead blocks of the CSR layout (ops/ivf._repack)
 
-#: K3 scan: rows per CTA at least, and chunks per (query, probe) at most
+#: K4/K5: most (query, probe) pairs one CTA serves (the kernel's kGroup)
+PROBE_GROUP = 16
+#: K4/K5 rows per CTA; batches of at most SCORES_SMALL_PAIRS pairs (serving
+#: batches, whose groups hold about one pair) take the smaller chunk so that
+#: their few lists still spread over every SM, and skip the grouping: each
+#: pair is its own group
+SCORES_CHUNK_ROWS, SCORES_CHUNK_ROWS_SMALL, SCORES_SMALL_PAIRS = 1024, 512, 1024
+#: K3: rows per CTA at least (a whole list at the IVF main path's probe_cap:
+#: smaller chunks cost more in per-CTA start-up and fold than they gain in
+#: balance), and the CTAs a launch aims at (two fit an SM); each CTA's
+#: partial is 4 x CBINS x 8 bytes
 TOPC_CHUNK_MIN = 2048
-TOPC_MAX_CHUNKS = 4
+TOPC_GRID = 2048
+#: K3's first design: rows per CTA at least, chunks per pair at most
+TOPC_V1_CHUNK_MIN, TOPC_V1_MAX_CHUNKS = 2048, 4
 
-#: kernel launches per wrapper since the last reset (plain versions do not count)
-LAUNCHES = {"ivf_probe_topc": 0, "ivf_probe_scores": 0, "ivf_probe_scores_rankmajor": 0}
+#: kernel launches per wrapper since the last reset (plain versions do not
+#: count); the *_v1 entries count the first designs, which only timing calls
+LAUNCHES = {"ivf_probe_topc": 0, "ivf_probe_scores": 0, "ivf_probe_scores_rankmajor": 0,
+            "ivf_probe_topc_v1": 0, "ivf_probe_scores_v1": 0}
 
 
 def reset_launches() -> None:
@@ -121,17 +159,24 @@ def _probe_dist_ref(
     g = torch.zeros(rows.shape, dtype=torch.float32, device=q.device)
     for k in range(q.shape[1]):  # one rounded product and one rounded sum per k
         g = g + qr[:, k : k + 1] * vecs[:, k][rows].float()
-    sq = sqnorms[rows]
+    dist = _probe_epilogue(g, qterm[:, None], sqnorms[rows], metric, deny_sentinel)
+    return torch.where(live, dist, INVALID_DIST), rows
+
+
+def _probe_epilogue(g: Tensor, qterm: Tensor, sq: Tensor, metric: Metric,
+                    deny_sentinel: bool) -> Tensor:
+    """Distances from the chain's g, the query term and ‖x‖² (broadcast),
+    in the kernels' epilogue arithmetic (probe_epilogue in the CUDA file)."""
     if metric == Metric.L2:
-        dist = (qterm[:, None] + sq) - 2.0 * g
+        dist = (qterm + sq) - 2.0 * g
     elif metric == Metric.INNER_PRODUCT:
         dist = -g
     else:
         xinv = torch.where(sq > 0, 1.0 / torch.sqrt(torch.clamp_min(sq, 1e-30)), 0.0)
-        dist = 1.0 - g * qterm[:, None] * xinv
+        dist = 1.0 - g * qterm * xinv
     if deny_sentinel and metric != Metric.L2:
         dist = torch.where(sq < INVALID_DIST, dist, INVALID_DIST)
-    return torch.where(live, dist, INVALID_DIST), rows
+    return dist
 
 
 def ivf_probe_scores_ref(
@@ -219,7 +264,28 @@ def _stream(t: Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_scores(q, start_rows, live_rows, vecs, sqnorms, probe_cap, metric, deny_sentinel):
+def probe_groups(start_rows: Tensor, group: int = PROBE_GROUP) -> Tuple[Tensor, Tensor]:
+    """K4/K5's list-major schedule → (order [P] int32: the P = B·nprobe pair
+    ids, pair = query·nprobe + probe, sorted stably by start row; glen [P]
+    int32: at a group leader the pairs its CTA serves, order[pos : pos +
+    glen[pos]], else 0). A leader starts each run of one start row and
+    every `group` pairs within a longer run. Device ops only, no host sync."""
+    flat = start_rows.reshape(-1)
+    srt, order = torch.sort(flat, stable=True)
+    pos = torch.arange(flat.numel(), device=flat.device)
+    run0 = torch.searchsorted(srt, srt)  # first position of each pair's run
+    run1 = torch.searchsorted(srt, srt, right=True)  # one past its last
+    lead = (pos - run0) % group == 0
+    glen = torch.where(lead, torch.clamp(run1 - pos, max=group), 0)
+    return order.to(torch.int32), glen.to(torch.int32)
+
+
+def _scores_chunk_rows(pairs: int) -> int:
+    return SCORES_CHUNK_ROWS_SMALL if pairs <= SCORES_SMALL_PAIRS else SCORES_CHUNK_ROWS
+
+
+def _launch_scores(q, start_rows, live_rows, vecs, sqnorms, probe_cap, metric, deny_sentinel,
+                   chunk_rows=None, grouped=None):
     from vectorindex_tpu_torch.kernels import _build
 
     b, nprobe = start_rows.shape
@@ -227,12 +293,18 @@ def _launch_scores(q, start_rows, live_rows, vecs, sqnorms, probe_cap, metric, d
     if b == 0 or nprobe == 0:
         return out
     qr, qterm = _query_terms(q, vecs.dtype, metric)
+    small = b * nprobe <= SCORES_SMALL_PAIRS
+    if grouped is None:
+        grouped = not small
+    order, glen = probe_groups(start_rows) if grouped else (None, None)
+    chunk = chunk_rows or _scores_chunk_rows(b * nprobe)
     lib = _build.load()
     err = lib.vi_ivf_probe_scores(
         qr.data_ptr(), qterm.data_ptr(), start_rows.data_ptr(), live_rows.data_ptr(),
-        vecs.data_ptr(), sqnorms.data_ptr(), b, nprobe, q.shape[1], probe_cap,
-        _DTYPE_CODE[vecs.dtype], _METRIC_CODE[metric], int(deny_sentinel),
-        out.data_ptr(), _stream(vecs),
+        0 if order is None else order.data_ptr(), 0 if glen is None else glen.data_ptr(),
+        vecs.data_ptr(), sqnorms.data_ptr(), b, nprobe, q.shape[1], probe_cap, chunk,
+        _DTYPE_CODE[vecs.dtype], _METRIC_CODE[metric], int(deny_sentinel), out.data_ptr(),
+        _stream(vecs),
     )
     name = "ivf_probe_scores_rankmajor" if deny_sentinel else "ivf_probe_scores"
     _build.check(lib, err, name)
@@ -275,11 +347,68 @@ def ivf_probe_scores_rankmajor(
     return _launch_scores(q, start_rows, live_rows, vecs, sqnorms, probe_cap, metric, True)
 
 
-def _topc_chunk_rows(probe_cap: int) -> int:
-    """Rows one K3 scan CTA covers: ≥ TOPC_CHUNK_MIN, and at most
-    TOPC_MAX_CHUNKS chunks per (query, probe)."""
-    per = -(-probe_cap // TOPC_MAX_CHUNKS)
-    return max(TOPC_CHUNK_MIN, -(-per // BLK) * BLK)
+def ivf_probe_scores_v1(
+    q: Tensor, start_rows: Tensor, live_rows: Tensor, vecs: Tensor, sqnorms: Tensor,
+    *, nprobe: int, probe_cap: int, metric: Metric = Metric.L2, deny_sentinel: bool = False,
+) -> Tensor:
+    """K4 (K5 with deny_sentinel) in its first design, one CTA per (pair,
+    1024-row chunk), each thread loading its own row: for timing in turns
+    with the list-major kernel. CUDA tensors only."""
+    _check_inputs(q, start_rows, live_rows, vecs, sqnorms, nprobe, probe_cap, metric)
+    if vecs.device.type == "cpu":
+        raise ValueError("ivf_probe_scores_v1 times a CUDA kernel: pass CUDA tensors")
+    from vectorindex_tpu_torch.kernels import _build
+
+    b = q.shape[0]
+    out = torch.empty((b, nprobe * probe_cap), dtype=torch.float32, device=vecs.device)
+    if b == 0 or nprobe == 0:
+        return out
+    qr, qterm = _query_terms(q, vecs.dtype, metric)
+    lib = _build.load()
+    err = lib.vi_ivf_probe_scores_v1(
+        qr.data_ptr(), qterm.data_ptr(), start_rows.data_ptr(), live_rows.data_ptr(),
+        vecs.data_ptr(), sqnorms.data_ptr(), b, nprobe, q.shape[1], probe_cap,
+        _DTYPE_CODE[vecs.dtype], _METRIC_CODE[metric], int(deny_sentinel),
+        out.data_ptr(), _stream(vecs),
+    )
+    _build.check(lib, err, "ivf_probe_scores_v1")
+    LAUNCHES["ivf_probe_scores_v1"] += 1
+    return out
+
+
+def _topc_chunk_rows(probe_cap: int, pairs: int) -> int:
+    """Rows one K3 CTA covers: a multiple of BLK, at least TOPC_CHUNK_MIN
+    (or probe_cap), as few as keep the grid (pairs × chunks) at about
+    TOPC_GRID CTAs or fewer."""
+    chunks = max(1, min(probe_cap // TOPC_CHUNK_MIN, TOPC_GRID // max(pairs, 1)))
+    return -(-probe_cap // chunks // BLK) * BLK
+
+
+def _topc_chunk_rows_v1(probe_cap: int) -> int:
+    """Rows one first-design K3 scan CTA covers: ≥ TOPC_V1_CHUNK_MIN, and at
+    most TOPC_V1_MAX_CHUNKS chunks per (query, probe)."""
+    per = -(-probe_cap // TOPC_V1_MAX_CHUNKS)
+    return max(TOPC_V1_CHUNK_MIN, -(-per // BLK) * BLK)
+
+
+#: K3's per-query arrival counters, one workspace per device; the folding
+#: CTA of each query resets its counter, so they are all 0 between launches
+#: (K3 launches that overlap on two streams of one device would share them)
+_ARRIVALS: dict = {}
+
+
+def _arrivals(dev: torch.device, n: int) -> Tensor:
+    ws = _ARRIVALS.get(dev)
+    if ws is None or ws.numel() < n:
+        ws = torch.zeros(max(n, 64), dtype=torch.int32, device=dev)
+        _ARRIVALS[dev] = ws
+    return ws
+
+
+def _empty_topc(b: int, dev) -> Tuple[Tensor, Tensor, Tensor]:
+    return (torch.full((b, TIERS * CBINS), INVALID_DIST, device=dev),
+            torch.zeros((b, TIERS * CBINS), dtype=torch.int32, device=dev),
+            torch.full((b, CBINS), INVALID_DIST, device=dev))
 
 
 def ivf_probe_topc_rankmajor(
@@ -289,25 +418,28 @@ def ivf_probe_topc_rankmajor(
     """K3 → (cand_dist [B, 3·CBINS] f32, cand_rows [B, 3·CBINS] int32 CSR
     rows, drop_min [B, CBINS] f32). Selection is provably complete for a
     query iff min(drop_min) > its k-th candidate distance. CUDA tensors
-    launch the kernel (a scan launch and a merge launch, or raise); CPU
-    tensors take ivf_probe_topc_rankmajor_ref."""
+    launch the kernel (one launch, or raise); CPU tensors take
+    ivf_probe_topc_rankmajor_ref."""
     _check_inputs(q, start_rows, live_rows, vecs, sqnorms, nprobe, probe_cap, metric)
     if vecs.device.type == "cpu":
         return ivf_probe_topc_rankmajor_ref(q, start_rows, live_rows, vecs, sqnorms,
                                             nprobe=nprobe, probe_cap=probe_cap, metric=metric)
+    return _launch_topc(q, start_rows, live_rows, vecs, sqnorms, nprobe, probe_cap, metric)
+
+
+def _launch_topc(q, start_rows, live_rows, vecs, sqnorms, nprobe, probe_cap, metric,
+                 chunk_rows=None):
     from vectorindex_tpu_torch.kernels import _build
 
     b = q.shape[0]
     dev = vecs.device
     if b == 0 or nprobe == 0:
-        return (torch.full((b, TIERS * CBINS), INVALID_DIST, device=dev),
-                torch.zeros((b, TIERS * CBINS), dtype=torch.int32, device=dev),
-                torch.full((b, CBINS), INVALID_DIST, device=dev))
-    # the merge launch writes every element of the outputs
+        return _empty_topc(b, dev)
+    # the merging CTAs write every element of the outputs
     cand_d = torch.empty((b, TIERS * CBINS), dtype=torch.float32, device=dev)
     cand_r = torch.empty((b, TIERS * CBINS), dtype=torch.int32, device=dev)
     drop = torch.empty((b, CBINS), dtype=torch.float32, device=dev)
-    chunk = _topc_chunk_rows(probe_cap)
+    chunk = chunk_rows or _topc_chunk_rows(probe_cap, b * nprobe)
     nchunks = -(-probe_cap // chunk)
     # per (query, probe, chunk) top-4 of each class; only live chunks are
     # written and read
@@ -319,10 +451,47 @@ def ivf_probe_topc_rankmajor(
         qr.data_ptr(), qterm.data_ptr(), start_rows.data_ptr(), live_rows.data_ptr(),
         vecs.data_ptr(), sqnorms.data_ptr(), b, nprobe, q.shape[1], chunk, nchunks,
         _DTYPE_CODE[vecs.dtype], _METRIC_CODE[metric], part_d.data_ptr(), part_r.data_ptr(),
-        cand_d.data_ptr(), cand_r.data_ptr(), drop.data_ptr(), _stream(vecs),
+        _arrivals(dev, b).data_ptr(), cand_d.data_ptr(), cand_r.data_ptr(), drop.data_ptr(),
+        _stream(vecs),
     )
     _build.check(lib, err, "ivf_probe_topc")
     LAUNCHES["ivf_probe_topc"] += 1
+    return cand_d, cand_r, drop
+
+
+def ivf_probe_topc_v1(
+    q: Tensor, start_rows: Tensor, live_rows: Tensor, vecs: Tensor, sqnorms: Tensor,
+    *, nprobe: int, probe_cap: int, metric: Metric = Metric.L2,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """K3 in its first design (a scan launch over (pair, chunk) and a merge
+    launch), for timing in turns with the one-launch kernel. CUDA tensors
+    only."""
+    _check_inputs(q, start_rows, live_rows, vecs, sqnorms, nprobe, probe_cap, metric)
+    if vecs.device.type == "cpu":
+        raise ValueError("ivf_probe_topc_v1 times a CUDA kernel: pass CUDA tensors")
+    from vectorindex_tpu_torch.kernels import _build
+
+    b = q.shape[0]
+    dev = vecs.device
+    if b == 0 or nprobe == 0:
+        return _empty_topc(b, dev)
+    cand_d = torch.empty((b, TIERS * CBINS), dtype=torch.float32, device=dev)
+    cand_r = torch.empty((b, TIERS * CBINS), dtype=torch.int32, device=dev)
+    drop = torch.empty((b, CBINS), dtype=torch.float32, device=dev)
+    chunk = _topc_chunk_rows_v1(probe_cap)
+    nchunks = -(-probe_cap // chunk)
+    part_d = torch.empty((b * nprobe * nchunks, TIERS + 1, CBINS), dtype=torch.float32, device=dev)
+    part_r = torch.empty((b * nprobe * nchunks, TIERS + 1, CBINS), dtype=torch.int32, device=dev)
+    qr, qterm = _query_terms(q, vecs.dtype, metric)
+    lib = _build.load()
+    err = lib.vi_ivf_probe_topc_v1(
+        qr.data_ptr(), qterm.data_ptr(), start_rows.data_ptr(), live_rows.data_ptr(),
+        vecs.data_ptr(), sqnorms.data_ptr(), b, nprobe, q.shape[1], chunk, nchunks,
+        _DTYPE_CODE[vecs.dtype], _METRIC_CODE[metric], part_d.data_ptr(), part_r.data_ptr(),
+        cand_d.data_ptr(), cand_r.data_ptr(), drop.data_ptr(), _stream(vecs),
+    )
+    _build.check(lib, err, "ivf_probe_topc_v1")
+    LAUNCHES["ivf_probe_topc_v1"] += 1
     return cand_d, cand_r, drop
 
 
