@@ -47,11 +47,14 @@ just after:
         fallback; then d = 8,192 through the strict path.
 
 The flat path also runs FlatIndex.range_search on its index (a few queries,
-one filtered), checked against brute force. K8 is also timed in its first
-design (kernels/adc.adc_topk_fused_v1) in turns with the shipping one, and
-so are K3, K4 and K5 (kernels/ivf_probe.ivf_probe_topc_v1 and
-ivf_probe_scores_v1) on the IVF path's own tensors; the first designs are
-checked against the plain versions there but never run on a main path.
+one filtered), checked against brute force. K6, K7 and K8 are also timed in
+their first designs (kernels/adc.adc_scan_u8_v1, adc_scan_u4_v1,
+adc_topk_fused_v1) in turns with the shipping ones, by CUDA events and the
+profiler's device time, beside the write-only floor of K6/K7's output, and
+the range call at B=64 is split into K6 and its mask + sort; so are K3, K4
+and K5 (kernels/ivf_probe.ivf_probe_topc_v1 and ivf_probe_scores_v1) on the
+IVF path's own tensors; the first designs are checked against the plain
+versions there but never run on a main path.
 
 It checks the kernels against their plain versions again on each main
 path's own tensors, and times the kernels, their plain versions and the
@@ -1329,6 +1332,29 @@ def phase_flat_wide(sf, topk):
     return launches, t, {"bin_candidates": k1, "count_below": k2}
 
 
+def device_ms(fn, calls: int, match: str = "", tries: int = 3) -> float:
+    """torch.profiler device time per call of fn() of the kernels whose
+    names contain `match` ("" = every kernel and copy of the call). A
+    profiling session that records no such kernel is repeated, up to
+    `tries` sessions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and match in e.key)
+        if total > 0:
+            return total / 1e3 / calls
+    raise AssertionError(f"the profiler saw no device time for {match or 'the call'} "
+                         f"in {tries} sessions")
+
+
 # ---------------------------------------------------------------------------
 # phase 10: the full-corpus ADC kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -1349,9 +1375,10 @@ def check_k8(fa, codes, lut, k, k6, errs, what):
 
 def phase_adc_compare(fa):
     """Random codes and non-negative LUTs over ADC_CASE_ROWS rows (a ragged
-    last tile), B in ADC_CASE_BATCHES (below, within and past one K8 query
-    block): K6 and K8 (k=10 and 512) on u8 codes, K7 on packed u4, against
-    their plain versions; then K8 on a query whose three nearest rows share
+    last tile, n % 4 != 0: K6/K7 write with plain stores), B in
+    ADC_CASE_BATCHES (below, within and past one K8 query block): K6 and K8
+    (k=10 and 512) on u8 codes, K7 on packed u4, and K6/K7's first designs,
+    against their plain versions; then K8 on a query whose three nearest rows share
     a class. Equal bit for bit (one add order: j ascending from 0, each add
     rounded); K8's distances equal K6's at K8's rows, K7's equal K6's on the
     unpacked codes."""
@@ -1370,6 +1397,8 @@ def phase_adc_compare(fa):
             ref = fa.adc_scan_u8_ref(codes, lut)
             errs["adc_scan_u8"] = max(errs["adc_scan_u8"], max_abs_err(k6, ref))
             require(torch.equal(k6, ref), f"K6 m={m} ks={ks} B={b}: differs from the plain version")
+            require(torch.equal(fa.adc_scan_u8_v1(codes, lut), ref),
+                    f"K6's first design m={m} ks={ks} B={b}: differs from the plain version")
             if packed is not None:
                 k7 = fa.adc_scan_u4(packed, lut)
                 torch.cuda.synchronize()
@@ -1377,11 +1406,14 @@ def phase_adc_compare(fa):
                 errs["adc_scan_u4"] = max(errs["adc_scan_u4"], max_abs_err(k7, ref))
                 require(torch.equal(k7, ref) and torch.equal(k7, k6),
                         f"K7 m={m} B={b}: differs from its plain version or from K6")
+                require(torch.equal(fa.adc_scan_u4_v1(packed, lut), ref),
+                        f"K7's first design m={m} B={b}: differs from the plain version")
             for k in (MAIN_K, 2 * 256):
                 check_k8(fa, codes, lut, k, k6, errs, f"m={m} ks={ks} B={b} k={k}")
         log(f"adc compare m={m} ks={ks} rows={n}: K6, K8 (k=10, 512)"
             + (" and K7 (packed u4)" if packed is not None else "")
-            + f" at B={', '.join(map(str, ADC_CASE_BATCHES))} equal their plain versions bit for bit")
+            + f" and K6/K7's first designs at B={', '.join(map(str, ADC_CASE_BATCHES))} equal "
+            "their plain versions bit for bit")
     # class crowding: query 5's three nearest rows c, c + 256, c + 512 share class c
     codes = torch.randint(0, 256, (n, 8), generator=gen, device=DEVICE).to(torch.uint8)
     lut = torch.rand(17, 8, 256, generator=gen, device=DEVICE) + 1.0
@@ -1517,7 +1549,8 @@ def phase_adc_main(fa, st):
     require(recalls[ADC_RERANK[-1]][0] >= ADC_RECALL_MIN,
             f"rerank{ADC_RERANK[-1]} recall@{MAIN_K} {recalls[ADC_RERANK[-1]][0]} < {ADC_RECALL_MIN}")
     del dist, truth
-    return launches, {"recall": {c: r[0] for c, r in recalls.items()}}, (evalq, q64, lut64, lut4)
+    return launches, {"recall": {c: r[0] for c, r in recalls.items()}}, (evalq, q64, lut64, lut4,
+                                                                         radius)
 
 
 def sm_clock_under(fn, seconds: float = 1.5) -> float:
@@ -1554,14 +1587,16 @@ def adc_bounds(n: int, b: int, m: int, ks: int, mb: int, k: int = 0):
 
 
 def phase_adc_times(fa, st, tensors, errs):
-    """K6/K7 at B=64 and K8 at B=256 on the main path's tensors: against
-    their plain versions, times and bounds; K6 + a stable top-10 of its
+    """K6/K7 at B=64 and K8 at B=256 on the main path's tensors: each, in
+    both designs, against its plain version; both designs timed in turns
+    (events) and by the profiler; bounds and the write-only floor; the range
+    call's split into K6 and compaction; K6 + a stable top-10 of its
     [256, 1M] output as K8's scan-then-select yardstick; embedding_bag as
     K6's library call; then the median wall of the B=256 searches."""
     from vectorindex_tpu_torch.ops import pq
     from vectorindex_tpu_torch.ops.topk import topk
 
-    evalq, q64, lut64, lut4 = tensors
+    evalq, q64, lut64, lut4, radius = tensors
     codes, packed = st["codes"], st["packed"]
     lut256 = pq.pq_lut_l2(evalq, st["books"])
     n = codes.shape[0]
@@ -1578,37 +1613,55 @@ def phase_adc_times(fa, st, tensors, errs):
                            ("adc_scan_u4", "adc_scan_u4", (packed, lut4))):
         got, ref = getattr(fa, fn)(*args), getattr(fa, fn + "_ref")(*args)
         require(torch.equal(got, ref), f"{name} differs from its plain version (main path)")
+        require(torch.equal(getattr(fa, fn + "_v1")(*args), ref),
+                f"{name}'s first design differs from the plain version (main path)")
         errs[name] = max(errs[name], max_abs_err(got, ref))
+        del got, ref
     errs["adc_topk_fused"] = max(errs["adc_topk_fused"], max_abs_err(k8[0], ref8[0]))
     v1 = fa.adc_topk_fused_v1(codes, lut256, MAIN_K)
     require(torch.equal(v1[0], ref8[0]) and torch.equal(v1[1], ref8[1]),
             "K8's first design differs from the plain version (B=256)")
-    log("adc main-shape check: K6, K7 (B=64) and K8 (B=256, both designs) equal their plain "
-        "versions bit for bit")
+    log("adc main-shape check: K6, K7 (B=64) and K8 (B=256), each in both designs, equal their "
+        "plain versions bit for bit")
     del k6_256, ref8, v1
-    cases = (
-        ("adc_scan_u8", lambda: fa.adc_scan_u8(codes, lut64), lambda: fa.adc_scan_u8_ref(codes, lut64),
+    cases = (  # (kernel, plain version, bound, lookups)
+        ("adc_scan_u8", lambda: fa.adc_scan_u8_ref(codes, lut64),
          adc_bounds(n, ADC_RANGE_BATCH, ADC_M, ADC_KS, ADC_M), ADC_RANGE_BATCH * n * ADC_M),
-        ("adc_scan_u4", lambda: fa.adc_scan_u4(packed, lut4), lambda: fa.adc_scan_u4_ref(packed, lut4),
+        ("adc_scan_u4", lambda: fa.adc_scan_u4_ref(packed, lut4),
          adc_bounds(n, ADC_RANGE_BATCH, ADC_U4_M, ADC_U4_KS, ADC_U4_M // 2),
          ADC_RANGE_BATCH * n * ADC_U4_M),
-        ("adc_topk_fused", None, lambda: fa.adc_topk_fused_ref(codes, lut256, MAIN_K),
+        ("adc_topk_fused", lambda: fa.adc_topk_fused_ref(codes, lut256, MAIN_K),
          adc_bounds(n, ADC_BATCH, ADC_M, ADC_KS, ADC_M, MAIN_K), ADC_BATCH * n * ADC_M),
     )
-    for name, fn, ref, bnd, lookups in cases:
-        if fn is None:
-            # K8 and its first design in turns (new, old, old, new) on one card
-            runs = {"adc_topk_fused": [], "adc_topk_fused_v1": []}
-            for design in ("adc_topk_fused", "adc_topk_fused_v1", "adc_topk_fused_v1",
-                           "adc_topk_fused"):
-                call = getattr(fa, design)
-                runs[design].append(time_ms(lambda: call(codes, lut256, MAIN_K), 20))
-            t[name], t[name + "_v1"] = (float(np.mean(r)) for r in runs.values())
-            log(f"adc times K8 at B={ADC_BATCH} in turns (new, old, old, new): queries on the "
-                f"lanes {runs['adc_topk_fused']} ms, first design (rows on the lanes) "
-                f"{runs['adc_topk_fused_v1']} ms")
-        else:
-            t[name] = time_ms(fn, 20)
+    # each new design and its first one in turns (new, old, old, new) by
+    # CUDA events, then by the profiler's device time per call
+    designs = {
+        "adc_scan_u8": (lambda: fa.adc_scan_u8(codes, lut64), lambda: fa.adc_scan_u8_v1(codes, lut64),
+                        "adc_qlane_scan_kernel", "adc_scan_kernel"),
+        "adc_scan_u4": (lambda: fa.adc_scan_u4(packed, lut4), lambda: fa.adc_scan_u4_v1(packed, lut4),
+                        "adc_qlane_scan_kernel", "adc_scan_kernel"),
+        "adc_topk_fused": (lambda: fa.adc_topk_fused(codes, lut256, MAIN_K),
+                           lambda: fa.adc_topk_fused_v1(codes, lut256, MAIN_K),
+                           "adc_qlane_candidates_kernel", "adc_candidates_kernel"),
+    }
+    for name, (new, old, new_k, old_k) in designs.items():
+        runs = {"new": [], "old": []}
+        for design in ("new", "old", "old", "new"):
+            runs[design].append(time_ms(new if design == "new" else old, 20))
+        t[name], t[name + "_v1"] = float(np.mean(runs["new"])), float(np.mean(runs["old"]))
+        t[name + "_dev"], t[name + "_v1_dev"] = device_ms(new, 10, new_k), device_ms(old, 10, old_k)
+        t[name + "_call_dev"] = device_ms(new, 10)  # every kernel of the wrapper's call
+        log(f"adc times {name} in turns (new, old, old, new): new {runs['new']} ms, first design "
+            f"{runs['old']} ms; device time per call (profiler): kernel {t[name + '_dev']:.4g} ms "
+            f"(the wrapper's whole call {t[name + '_call_dev']:.4g} ms), first design "
+            f"{t[name + '_v1_dev']:.4g} ms")
+    # the card's practical bound for K6/K7's [64, n] f32 write
+    sink = torch.empty((ADC_RANGE_BATCH, n), dtype=torch.float32, device=DEVICE)
+    t["write_floor"] = device_ms(lambda: sink.fill_(0), 10)
+    del sink
+    log(f"adc: write-only floor (fill_ of [{ADC_RANGE_BATCH}, {n}] f32, profiler) "
+        f"{t['write_floor']:.4g} ms")
+    for name, ref, bnd, lookups in cases:
         t[name + "_plain"] = time_ms(ref, 2, warmup=1)
         t[name + "_bound"] = bnd
         t[name + "_lookups"] = lookups
@@ -1632,6 +1685,7 @@ def phase_adc_times(fa, st, tensors, errs):
     log(f"adc times: K6 + stable top-{MAIN_K} at B={ADC_BATCH} (scan then select) "
         f"{t['scan_then_topk']:.4g} ms; embedding_bag (K6's function at B={ADC_RANGE_BATCH}) "
         f"{t['adc_scan_u8_library']:.4g} ms")
+    t.update(range_split(fa, codes, lut64, radius))
     queries = st["queries"]
     pool = [torch.from_numpy(queries[(i + 1) * ADC_BATCH : (i + 2) * ADC_BATCH]).to(DEVICE)
             for i in range(ADC_TIMED)]
@@ -1648,6 +1702,43 @@ def phase_adc_times(fa, st, tensors, errs):
         log(f"adc search B={ADC_BATCH} {label}: median {1e3 * med:.4g} ms over {ADC_TIMED} "
             f"batches, {ADC_BATCH / med:.1f} QPS")
     return t
+
+
+def range_split(fa, codes, lut, radius: float, calls: int = 7) -> dict:
+    """range_scan_adc(strategy="auto") at B=64 split into K6 and the mask +
+    stable-sort compaction (ops/range_query._compact): the median host wall
+    of `calls` synchronised calls of each part, and the profiler's device
+    time per call of the whole call and of K6's kernel in it."""
+    from vectorindex_tpu_torch.ops import range_query as rq
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    def wall(fn):
+        fn()
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            lat.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(lat))
+
+    dist = fa.adc_scan_u8(codes, lut)
+
+    def whole():
+        return rq.range_scan_adc(codes, lut, radius, max_results=ADC_RANGE_MAX, strategy="auto")
+
+    def compact():
+        return rq._compact(dist, rq._range_mask_from_dist(dist, radius, Metric.L2), ADC_RANGE_MAX)
+
+    out = {"range_wall": wall(whole), "range_k6_wall": wall(lambda: fa.adc_scan_u8(codes, lut)),
+           "range_compact_wall": wall(compact), "range_dev": device_ms(whole, 3),
+           "range_k6_dev": device_ms(whole, 3, "adc_qlane_scan_kernel")}
+    log(f"adc range_scan_adc B={ADC_RANGE_BATCH} split (median of {calls} calls): wall "
+        f"{out['range_wall']:.4g} ms = K6 {out['range_k6_wall']:.4g} ms + mask and stable sort "
+        f"{out['range_compact_wall']:.4g} ms; device time (profiler) {out['range_dev']:.4g} ms, "
+        f"of it K6's kernel {out['range_k6_dev']:.4g} ms")
+    return out
 
 
 def phase_adc(fa):
@@ -1739,12 +1830,16 @@ def main() -> int:
                         "plain_ms": pq_times["pq16"][name + "_plain"], "bound_ms": bms,
                         "bound_by": by,
                         "lookup_floor_ms": lookup_floor_ms(pq_times["pq16"][name + "_lookups"], clock)})
-    for name in ADC_KERNELS:  # K6/K7 at B=64, K8 at B=256
+    for name in ADC_KERNELS:  # K6/K7 at B=64, K8 at B=256; each timed in turns with its first design
         bms, by = adc_times[name + "_bound"]
         kernels.append({"name": name, "ms": adc_times[name], "plain_ms": adc_times[name + "_plain"],
                         "bound_ms": bms, "bound_by": by,
-                        "lookup_floor_ms": lookup_floor_ms(adc_times[name + "_lookups"], clock)})
-    kernels[-1]["first_design_ms"] = adc_times["adc_topk_fused_v1"]  # K8, timed in turns
+                        "lookup_floor_ms": lookup_floor_ms(adc_times[name + "_lookups"], clock),
+                        "first_design_ms": adc_times[name + "_v1"],
+                        "device_ms": adc_times[name + "_dev"],
+                        "first_design_device_ms": adc_times[name + "_v1_dev"]})
+        if name != "adc_topk_fused":
+            kernels[-1]["write_floor_ms"] = adc_times["write_floor"]
     # embedding_bag computes K6's function in one call; no single PyTorch
     # call computes a per-class top-3, a count below tau, distances (or
     # LUT-gather sums) over per-query probed row lists, or reads packed u4
@@ -1758,7 +1853,12 @@ def main() -> int:
     log(f"gpu: {gpu}; flat batch_search B={MAIN_BATCH}: {big['qps']:.1f} QPS; wide bf16 d="
         f"{FLAT_WIDE_DIM} K1/K2 on the FMA design (launches {wide_launches}) "
         f"{wide_times['bin_candidates']:.4g} / {wide_times['count_below']:.4g} ms at B="
-        f"{FLAT_WIDE_BATCHES[-1]}; K8 {adc_times['adc_topk_fused']:.4g} ms (first design "
+        f"{FLAT_WIDE_BATCHES[-1]}; K6 device {adc_times['adc_scan_u8_dev']:.4g} ms (first design "
+        f"{adc_times['adc_scan_u8_v1_dev']:.4g} ms), K7 {adc_times['adc_scan_u4_dev']:.4g} ms ("
+        f"{adc_times['adc_scan_u4_v1_dev']:.4g} ms), write floor {adc_times['write_floor']:.4g} ms; "
+        f"adc range B={ADC_RANGE_BATCH} wall {adc_times['range_wall']:.4g} ms (K6 "
+        f"{adc_times['range_k6_wall']:.4g}, mask and sort {adc_times['range_compact_wall']:.4g}); "
+        f"K8 {adc_times['adc_topk_fused']:.4g} ms (first design "
         f"{adc_times['adc_topk_fused_v1']:.4g} ms); ivf K4 B={IVF_BIG_BATCH} "
         f"{ivf_times['ivf_probe_scores']:.4g} ms (first design "
         f"{ivf_times['ivf_probe_scores_v1']:.4g} ms), K3 B={SMALL_BATCH} "

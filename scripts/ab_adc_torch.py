@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""A/B of the full-corpus ADC top-k kernel K8 on one GPU: queries on the lanes against rows on the lanes.
+"""A/B of the full-corpus ADC kernels K8 and K6/K7 on one GPU: queries on the lanes against rows on the lanes.
 
-    python3 scripts/ab_adc_torch.py [--iters 20]
+    python3 scripts/ab_adc_torch.py [--iters 20] [--section all|k8|k6k7]
 
 Builds the port's kernels and chip_smoke.py's ADC main path (bench_adc:
 PQ8x8 codes of a 1,000,000 x 128 lowdim corpus, the LUTs of 256 queries),
@@ -22,9 +22,24 @@ lookup instruction takes in each layout (the bank conflicts), the lookup
 time they imply (lookup floor x wavefronts), and a least-squares line of
 time against wavefronts over K8's query blocks, which it extends to the
 first design. The card's name and power limit come first, the SM clock
-under K8 (nvidia-smi) with the lookup floor after the times. Every variant
-is checked bit for bit against the plain version first. Imports nothing of
-JAX.
+under K8 (nvidia-smi) with the lookup floor after the times.
+
+The K6/K7 section, on the main path's B=64 LUTs (K6 over the PQ8x8 codes,
+K7 over the pq16x4 packed codes of the same corpus), times in two rounds
+(forward, then reversed), by CUDA events over `iters` launches and by the
+profiler's device time per launch:
+
+  K6/K7 (kernels/adc.adc_scan_u8 / adc_scan_u4): queries on the lanes, at
+      their own settings, and a sweep over the query block, the queries a
+      lane (two, read by one 8-byte load, or one), the warp groups and
+      their tile rows, and the store method (bulk copies from the
+      shared-memory tile against plain stores from it);
+  their first designs (adc_scan_u8_v1 / adc_scan_u4_v1): rows on the lanes;
+  the write-only floor: fill_(0) of the [64, n] f32 output.
+
+It prints the lookup floor and byte bound of each, and `-Xptxas -v` for the
+K6/K7 kernels. Every variant is checked bit for bit against the plain
+version first. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -44,7 +59,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (  # noqa: E402
-    ADC_BATCH, MAIN_K, adc_build, gpu_name_and_power, lookup_floor_ms, sm_clock_under, time_ms,
+    ADC_BATCH, ADC_RANGE_BATCH, MAIN_K, adc_bounds, adc_build, device_ms, gpu_name_and_power,
+    lookup_floor_ms, sm_clock_under, time_ms,
 )
 
 #: 256-row tiles of codes sampled for the wavefront counts
@@ -52,6 +68,11 @@ SAMPLE_TILES = 256
 
 
 def kernel_label(mangled: str) -> str:
+    m = re.search(r"(adc_qlane_scan_kernel)ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", mangled)
+    if m:
+        qb, ksp, cnt, bits, ql = m.group(2, 3, 4, 5, 6)
+        return (f"{m.group(1)}<QB={qb}, KSP={ksp}, CNT={cnt}, {'u8' if bits == '8' else 'u4'}, "
+                f"QL={ql}>")
     m = re.search(r"(adc_qlane_candidates_kernel)ILi(\d+)E", mangled)
     if m:
         return f"{m.group(1)}<{m.group(2)}>"
@@ -103,25 +124,11 @@ def wavefronts(codes: np.ndarray, qb: int, ks: int) -> float:
     return total / count
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--iters", type=int, default=20)
-    args = parser.parse_args()
-    if not torch.cuda.is_available():
-        print("ab_adc_torch: no CUDA device", file=sys.stderr)
-        return 1
-    from vectorindex_tpu_torch.kernels import _build
-    from vectorindex_tpu_torch.kernels import adc as fa
+def k8_section(args, st, fa) -> int:
+    """K8 against its first design (the section of the K8 redesign)."""
     from vectorindex_tpu_torch.kernels.scan_fused import SM_SMEM_BYTES, SMS
     from vectorindex_tpu_torch.ops import pq
 
-    print(f"gpu: {gpu_name_and_power()}", flush=True)
-    t0 = time.perf_counter()
-    _build.load()
-    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    ptxas_report()
-
-    st = adc_build()
     codes = st["codes"]
     lut = pq.pq_lut_l2(torch.from_numpy(st["queries"][:ADC_BATCH]).cuda(), st["books"])
     n, (b, m, ks) = codes.shape[0], lut.shape
@@ -180,6 +187,102 @@ def main() -> int:
     print(f"fit over K8's query blocks at their own grids: ms = {icept:.4f} + {slope:.4f} x "
           f"wavefronts; at the first design's {waves[1]:.3f} wavefronts it gives "
           f"{icept + slope * waves[1]:.4f} ms", flush=True)
+    k8_dev = [device_ms(lambda: fa.k8_candidates(codes, lut), 10, "adc_qlane_candidates")
+              for _ in range(2)]
+    print(f"K8 device time per launch at its own settings (profiler): rounds {k8_dev[0]:.4f}, "
+          f"{k8_dev[1]:.4f} ms", flush=True)
+    return 0
+
+
+def k6k7_section(args, st, fa) -> int:
+    """K6/K7 at B=64 against their first designs, a sweep of the design's
+    settings, the write-only floor and each kernel's bounds."""
+    from vectorindex_tpu_torch.ops import pq
+
+    q64 = torch.from_numpy(st["queries"][:ADC_RANGE_BATCH]).cuda()
+    cases = {"K6": (st["codes"], pq.pq_lut_l2(q64, st["books"]), False),
+             "K7": (st["packed"], pq.pq_lut_l2(q64, st["books4"]), True)}
+    variants = {}  # label: (kernel name filter for the profiler, launch)
+    for name, (codes, lut, packed) in cases.items():
+        b, m, ks = lut.shape
+        qb0 = fa.scan_query_block(m, ks)
+        new = fa.adc_scan_u4 if packed else fa.adc_scan_u8
+        old = fa.adc_scan_u4_v1 if packed else fa.adc_scan_u8_v1
+        ql0 = fa.scan_lane_queries(qb0)
+        variants[f"{name} own (qb={qb0}, {ql0} queries a lane, {fa.SCAN_GROUPS} groups x "
+                 f"{fa.scan_tile_rows(qb0)} rows, bulk)"] = (
+            "adc_qlane_scan", lambda c=codes, lt=lut, f=new: f(c, lt))
+        variants[f"{name} first design"] = ("adc_scan_kernel", lambda c=codes, lt=lut, f=old: f(c, lt))
+        for qb in (qb0, qb0 // 2):
+            for ql in (2, 1):
+                for groups in (1, 2, 4, 16):
+                    for rows in (32, 64, 128, 256, 512):
+                        for bulk in (True, False):
+                            if (rows % fa.scan_pass_rows(qb, groups, ql) or rows % 32
+                                    or fa.scan_smem(qb, m, ks, rows, groups, ql) > fa.MAX_SMEM_BYTES
+                                    or (not bulk and (groups, ql) != (16, 2))
+                                    or groups * rows < 256 or (ql == 1 and qb != qb0)):
+                                continue
+                            store = "bulk" if bulk else "plain"
+                            variants[f"{name} qb={qb} ql={ql} {groups} groups x {rows} rows "
+                                     f"{store}"] = ("adc_qlane_scan", lambda c=codes, lt=lut, kw=dict(
+                                         qb=qb, ql=ql, groups=groups, tile_rows=rows, bulk=bulk),
+                                         p=packed: fa.scan_launch(c, lt, p, **kw))
+    refs = {name: (pq.unpack_u4(c) if p else c, lt) for name, (c, lt, p) in cases.items()}
+    for label, (_, fn) in variants.items():
+        codes, lut = refs[label[:2]]
+        if not torch.equal(fn(), fa.adc_scan_u8_ref(codes, lut)):
+            print(f"{label}: differs from the plain version", flush=True)
+            return 1
+    print(f"K6/K7: every one of {len(variants)} variants equals the plain version bit for bit",
+          flush=True)
+    times = {label: [] for label in variants}
+    dev = {label: [] for label in variants}
+    for order in (list(variants), list(variants)[::-1]):
+        for label in order:
+            match, fn = variants[label]
+            times[label].append(time_ms(fn, args.iters))
+            dev[label].append(device_ms(fn, 5, match))
+    out = torch.empty(cases["K6"][1].shape[0], st["codes"].shape[0], device="cuda")
+    fill = [device_ms(lambda: out.fill_(0), 10) for _ in range(2)]
+    del out
+    clock = sm_clock_under(lambda: fa.adc_scan_u8(*cases["K6"][:2]))
+    print(f"write-only floor (fill_ of the [64, n] f32 output, profiler): rounds {fill[0]:.4f}, "
+          f"{fill[1]:.4f} ms; SM clock under K6 {clock:.0f} MHz", flush=True)
+    for name, (codes, lut, packed) in cases.items():
+        b, m, ks = lut.shape
+        bnd = adc_bounds(codes.shape[0], b, m, ks, codes.shape[1])
+        print(f"{name}: B={b}, n={codes.shape[0]}, m={m}, ks={ks}; byte bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}), half of it {bnd[0] / 2:.4f} ms; lookup floor "
+              f"{lookup_floor_ms(b * codes.shape[0] * m, clock):.4f} ms", flush=True)
+    for label in variants:
+        print(f"{label}: events {np.mean(times[label]):.4f} ms (rounds {times[label][0]:.4f}, "
+              f"{times[label][1]:.4f}); device {np.mean(dev[label]):.4f} ms (rounds "
+              f"{dev[label][0]:.4f}, {dev[label][1]:.4f})", flush=True)
+    return 0
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--iters", type=int, default=20)
+    parser.add_argument("--section", choices=("all", "k8", "k6k7"), default="all")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("ab_adc_torch: no CUDA device", file=sys.stderr)
+        return 1
+    from vectorindex_tpu_torch.kernels import _build
+    from vectorindex_tpu_torch.kernels import adc as fa
+
+    print(f"gpu: {gpu_name_and_power()}", flush=True)
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    ptxas_report()
+    st = adc_build()
+    if args.section in ("all", "k8") and k8_section(args, st, fa):
+        return 1
+    if args.section in ("all", "k6k7") and k6k7_section(args, st, fa):
+        return 1
     print("DONE", flush=True)
     return 0
 

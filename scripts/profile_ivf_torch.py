@@ -48,7 +48,8 @@ from chip_smoke import (  # noqa: E402
 GROUPS = (
     ("flat scan kernels (K1/K2)", ("scan_mma_kernel", "bin_candidates_kernel", "count_below_kernel")),
     ("split merge (K1/K8)", ("merge_splits",)),
-    ("ADC kernels (K6-K8)", ("adc_scan_kernel", "adc_candidates_kernel", "adc_qlane_candidates")),
+    ("ADC kernels (K6-K8)", ("adc_scan_kernel", "adc_qlane_scan", "adc_candidates_kernel",
+                             "adc_qlane_candidates")),
     ("probe kernels (K3-K5, K9/K10)", ("probe_scores_", "topc_", "adc_probe_kernel")),
     ("sorts", ("Sort", "sort")),
     ("products (select, LUT, rerank)", ("gemm", "gemv", "xmma", "cutlass", "bmm")),

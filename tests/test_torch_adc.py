@@ -182,7 +182,7 @@ def test_wrappers_check_their_inputs():
     adc.reset_launches()
     adc.adc_scan_u8(codes, lut)
     assert adc.LAUNCHES == {"adc_scan_u8": 0, "adc_scan_u4": 0, "adc_topk_fused": 0,
-                            "adc_topk_fused_v1": 0}
+                            "adc_scan_u8_v1": 0, "adc_scan_u4_v1": 0, "adc_topk_fused_v1": 0}
 
 
 def test_source_names_what_it_replaces():
@@ -301,4 +301,142 @@ def test_k8_first_design_needs_cuda_tensors():
         adc.adc_topk_fused_v1(torch.from_numpy(codes), torch.from_numpy(lut), 10)
     with pytest.raises(ValueError):
         adc.adc_topk_fused_v1(torch.from_numpy(codes), torch.from_numpy(lut).double(), 10)
+    assert not any(adc.LAUNCHES.values())
+
+
+def test_scan_query_block_fits_every_accepted_shape():
+    """K6/K7 stage the largest power-of-two block of queries (at most 32)
+    whose LUTs (tables padded to 16 or 256 entries) and two output tiles a
+    warp group fit in shared memory, for every (m, ks) the wrappers accept;
+    where not even one query's fit, the sizing raises instead of
+    overflowing."""
+    refused = []
+    for ks in (16, 200, 256):
+        for m in range(1, adc.MAX_SMEM_BYTES // (4 * ks) + 1):  # _check_inputs' limit
+            try:
+                qb = adc.scan_query_block(m, ks)
+            except ValueError:
+                assert adc.scan_smem(1, m, ks, adc.scan_tile_rows(1)) > adc.MAX_SMEM_BYTES
+                refused.append((m, ks))
+                continue
+            rows = adc.scan_tile_rows(qb)
+            assert qb & (qb - 1) == 0 and 1 <= qb <= adc.K8_MAX_QUERY_BLOCK
+            assert adc.scan_smem(qb, m, ks, rows) <= adc.MAX_SMEM_BYTES
+            assert qb == adc.K8_MAX_QUERY_BLOCK or (
+                adc.scan_smem(2 * qb, m, ks, adc.scan_tile_rows(2 * qb)) > adc.MAX_SMEM_BYTES)
+            ql = adc.scan_lane_queries(qb)
+            assert ql == min(2, qb)
+            assert rows % 32 == 0 and rows % adc.scan_pass_rows(qb, adc.SCAN_GROUPS, ql) == 0
+    assert refused and all(m * 256 * 4 > 200_000 for m, ks in refused)  # only the widest tables
+    # the main paths: PQ8x8 16 queries a CTA, pq16x4 32 (conflict-free lookups)
+    assert adc.scan_query_block(8, 256) == 16 and adc.scan_query_block(16, 16) == 32
+    assert adc.scan_query_block(16, 256) == 8 and adc.scan_query_block(32, 256) == 4
+
+
+@pytest.mark.parametrize("nq, steps, resident", [
+    (64, 1954, 132), (64, 1954, 264), (1, 1954, 132), (17, 1954, 132), (700, 1954, 132),
+    (13, 2, 132), (13, 1, 132)])
+def test_scan_grid_covers_every_step_once(nq, steps, resident):
+    qb = 16
+    splits, per = adc.scan_grid(nq, qb, steps, resident)
+    got = [t for s in range(splits) for t in range(s * per, min((s + 1) * per, steps))]
+    assert got == list(range(steps))  # each CTA step once, no split empty
+    ctas = -(-nq // qb) * splits
+    fill = ctas / (-(-ctas // resident) * resident)
+    assert fill >= adc.K8_WAVE_FILL or splits == steps
+
+
+def _replay_scan(codes, lut, packed, ql, groups, rows):
+    """A numpy replay of csrc/adc.cu's adc_qlane_scan_kernel: per CTA
+    (query block, split) and step, each warp group's lanes score queries q
+    + h * qb/ql (h < ql) of their rows, reading the LUT columns q * ql + h
+    that lut_blocks lays side by side, and write a float4 of sums per query
+    into the group's tile at query * stride + pass * pass_rows + trow; the
+    tile goes to out[q0 + query, base + r] for r < the tile's live rows.
+    Returns (out, writes per (query, row))."""
+    b, m, ks = lut.shape
+    n = codes.shape[0]
+    qb = adc.scan_query_block(m, ks)
+    lpr = qb // ql  # lanes that share a row
+    kpad, krows = adc.k8_ks_pad(ks), 32 // lpr
+    wpg = adc.SCAN_WARPS // groups
+    pass_rows, stride = adc.scan_pass_rows(qb, groups, ql), adc.scan_tile_stride(lpr, rows)
+    span = groups * rows
+    steps = -(-n // span)
+    splits, per = adc.scan_grid(b, qb, steps, resident=sf.SMS)
+    blocks = adc.lut_blocks(torch.from_numpy(lut), qb, ql).numpy().reshape(-1, m * kpad * qb)
+    gw, lane, p = (a.ravel() for a in np.meshgrid(range(wpg), range(32), range(adc.K8_PAIRS),
+                                                  indexing="ij"))
+    q, trow = lane % lpr, (gw * krows + lane // lpr) * adc.K8_PAIRS
+    out = np.full((b, n), np.nan, dtype=np.float32)
+    hits = np.zeros((b, n), dtype=np.int64)
+    for blk in range(blocks.shape[0]):
+        q0, nqb = blk * qb, min(qb, b - blk * qb)
+        for split in range(splits):
+            for step in range(split * per, min((split + 1) * per, steps)):
+                for g in range(groups):
+                    base = step * span + g * rows
+                    tile = np.full(qb * stride, np.nan, dtype=np.float32)
+                    for ps in range(rows // pass_rows):
+                        row = base + ps * pass_rows + trow + p
+                        live = row < n
+                        code = np.zeros((len(row), m), dtype=np.int64)
+                        if packed:
+                            byte = codes[row[live]].astype(np.int64)
+                            code[live] = np.stack([byte[:, j // 2] >> 4 * (j % 2) & 15
+                                                   for j in range(m)], axis=1)
+                        else:
+                            code[live] = codes[row[live]]
+                        for h in range(ql):
+                            acc = np.zeros(len(row), dtype=np.float32)
+                            for j in range(m):
+                                col = q * ql + h
+                                acc = acc + blocks[blk][(j * kpad * qb + code[:, j] * qb + col)]
+                            query = q + h * lpr
+                            slot = query * stride + ps * pass_rows + trow + p
+                            assert len(set(slot.tolist())) == len(slot)  # one lane a slot
+                            assert np.isnan(tile[slot]).all()  # and one query a slot
+                            tile[slot] = acc
+                            # a quarter-warp's float4 stores hit 8 distinct 16-byte bank groups
+                            f4 = (query * stride + ps * pass_rows + trow)[p == 0]
+                            assert all(len({(a // 4) % 8 for a in grp}) == 8
+                                       for grp in f4.reshape(-1, 8))
+                    live_rows = min(rows, n - base)
+                    for qq in range(nqb):
+                        seg = tile[qq * stride : qq * stride + max(live_rows, 0)]
+                        assert not np.isnan(seg).any()
+                        out[q0 + qq, base : base + live_rows] = seg
+                        hits[q0 + qq, base : base + live_rows] += 1
+    return out, hits
+
+
+@pytest.mark.parametrize("m, ks, b, packed, n, ql, groups", [
+    (8, 256, 17, False, 1234, 2, 2),  # a misaligned n (plain stores) and a ragged query block
+    (8, 256, 16, False, 1100, 1, 1),  # n % 4 == 0 (bulk copies), one query a lane, one group
+    (16, 16, 5, True, 1100, 2, 2),  # packed u4 at 32 queries a CTA
+    (16, 16, 5, True, 700, 1, 16),  # one query a lane, one warp a group
+    (7, 200, 3, False, 777, 2, 4),  # m odd, tables padded to 256
+    (32, 256, 9, False, 600, 2, 2)])  # 4 queries a CTA, rows of 32 codes
+def test_scan_lane_layout_replays_the_plain_sums(m, ks, b, packed, n, ql, groups):
+    """The replay covers every (query, row < n) exactly once and equals
+    plain K6/K7 bit for bit: the sums run over j in order from 0 with f32
+    adds whatever the lane, tile slot or store."""
+    codes, lut = _case(n, m, ks, b, seed=m + b)
+    stored = np.array(jdtypes.pack_u4(jnp.asarray(codes))) if packed else codes
+    rows = adc.scan_tile_rows(adc.scan_query_block(m, ks), groups, ql)
+    got, hits = _replay_scan(stored, lut, packed, ql, groups, rows)
+    assert (hits == 1).all()
+    ref = adc.adc_scan_u4_ref if packed else adc.adc_scan_u8_ref
+    want = ref(torch.from_numpy(stored), torch.from_numpy(lut)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_scan_first_designs_need_cuda_tensors():
+    codes, lut = _case(300, 8, 16, 2, seed=11)
+    adc.reset_launches()
+    for fn, c in ((adc.adc_scan_u8_v1, codes), (adc.adc_scan_u4_v1, np.ascontiguousarray(codes[:, :4]))):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(torch.from_numpy(c), torch.from_numpy(lut))
+        with pytest.raises(ValueError):
+            fn(torch.from_numpy(c), torch.from_numpy(lut).double())
     assert not any(adc.LAUNCHES.values())

@@ -508,9 +508,47 @@ def test_full_corpus_adc_kernels_match_plain_versions(m, ks, cuda_device):
             assert torch.equal(kd, torch.gather(k6, 1, ki.long()))
             assert (ki < n).all()
     assert fa.LAUNCHES == {"adc_scan_u8": 2, "adc_scan_u4": 2 if ks <= 16 else 0, "adc_topk_fused": 4,
-                           "adc_topk_fused_v1": 0}
+                           "adc_scan_u8_v1": 0, "adc_scan_u4_v1": 0, "adc_topk_fused_v1": 0}
     with pytest.raises(ValueError):
         fa.adc_scan_u4(codes, torch.rand(2, m, ks, device=cuda_device))  # unpacked width
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ks", [16, 200, 256])
+@pytest.mark.parametrize("m", [7, 8, 16, 32])
+def test_scan_redesign_matches_plain_and_first_design(m, ks, cuda_device):
+    """K6 and K7 (queries on the lanes, tiles out by bulk copies) against
+    their plain versions and their first designs (adc_scan_*_v1) bit for
+    bit: B = 1, 17, 64; n ragged with n % 4 != 0 (plain stores), n % 4 == 0
+    (bulk copies, ragged last tile) and n below one tile; codes read from
+    one row in (an odd m leaves them unaligned). Plain stores in place of
+    bulk copies, and one query a lane instead of two, give the same floats; K7 equals K6 on the unpacked codes and K8's
+    distances equal K6's at K8's rows."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m * ks)
+    fa.reset_launches()
+    for n in (20_000 + 77, 20_000 + 4, 300):
+        codes = torch.randint(0, ks, (n + 1, m), generator=gen, device=cuda_device).to(torch.uint8)
+        for c in (codes[:n], codes[1:]):
+            packed = pq.pack_u4(c) if ks <= 16 and m % 2 == 0 else None
+            for b in (1, 17, 64):
+                lut = torch.rand(b, m, ks, generator=gen, device=cuda_device)
+                k6 = fa.adc_scan_u8(c, lut)
+                torch.cuda.synchronize()
+                ref = fa.adc_scan_u8_ref(c, lut)
+                assert torch.equal(k6, ref), (n, b)
+                assert torch.equal(fa.adc_scan_u8_v1(c, lut), ref)
+                for kw in (dict(bulk=False), dict(ql=1)):
+                    assert torch.equal(fa.scan_launch(c, lut, False, **kw), ref), kw
+                if packed is not None:
+                    k7 = fa.adc_scan_u4(packed, lut)
+                    torch.cuda.synchronize()
+                    assert torch.equal(k7, fa.adc_scan_u4_ref(packed, lut)) and torch.equal(k7, k6)
+                    assert torch.equal(fa.adc_scan_u4_v1(packed, lut), k7)
+                if ks == 256 and m == 8 and n > 300:
+                    kd, ki = fa.adc_topk_fused(c, lut, 10)
+                    assert torch.equal(kd, torch.gather(k6, 1, ki.long()))
+    assert fa.LAUNCHES["adc_scan_u8"] == 3 * 2 * 3 * 3
+    assert fa.LAUNCHES["adc_scan_u8_v1"] == 3 * 2 * 3
 
 
 @pytest.mark.cuda

@@ -108,8 +108,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vi_ivf_probe_topc_v1.restype = ctypes.c_int
     lib.vi_adc_probe_scores.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, p]
     lib.vi_adc_probe_scores.restype = ctypes.c_int
-    lib.vi_adc_scan.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p, p]
-    lib.vi_adc_scan.restype = ctypes.c_int
+    lib.vi_adc_scan_v1.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p, p]
+    lib.vi_adc_scan_v1.restype = ctypes.c_int
+    lib.vi_adc_scan_qlanes.argtypes = [p, p] + [i] * 13 + [p, p]
+    lib.vi_adc_scan_qlanes.restype = ctypes.c_int
+    lib.vi_adc_scan_qlanes_per_sm.argtypes = [i] * 7
+    lib.vi_adc_scan_qlanes_per_sm.restype = ctypes.c_int
     lib.vi_adc_topk_candidates.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p, p, p]
     lib.vi_adc_topk_candidates.restype = ctypes.c_int
     lib.vi_adc_topk_qlanes.argtypes = [p, p] + [i] * 9 + [p, p, p, p, p]

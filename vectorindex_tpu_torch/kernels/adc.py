@@ -19,6 +19,16 @@ lut [B, m, ks] f32 (ops/pq.pq_lut_l2 / pq_lut_ip) over n PQ-coded rows:
       query's nearest rows share a class and a tile the port returns the
       scan-then-sort answer and the TPU drops one.
 
+K6 and K7 run one kernel with queries on the lanes (csrc/adc.cu,
+adc_qlane_scan_kernel): it takes the LUTs per block of
+scan_query_block(m, ks) queries, [blocks, m, k8_ks_pad(ks), qb]
+(`lut_blocks`), scores scan_lane_queries(qb) queries a lane with K8's
+lookups (two read by one 8-byte load), and writes each warp group's tile
+of scan_tile_rows(qb) rows from shared memory by bulk async copies (plain
+stores where n % 4 != 0); `scan_grid` sizes its grid to whole waves.
+`adc_scan_u8_v1` / `adc_scan_u4_v1` launch their first design (rows on the
+lanes), kept to time against it (scripts/ab_adc_torch.py).
+
 K8's kernel puts queries on the lanes (csrc/adc.cu,
 adc_qlane_candidates_kernel): it takes the LUTs by entry, [m, ks, B]
 (`lut_by_entry`), and a CTA stages k8_query_block(m, ks) queries, each
@@ -58,7 +68,7 @@ Tensor = torch.Tensor
 
 #: candidate bins per query (residue classes); K8 keeps TIERS per bin
 C_BINS = C
-#: most queries per CTA of K6/K7 and K8's first design (csrc/adc.cu kMaxQB);
+#: most queries per CTA of K6/K7/K8's first designs (csrc/adc.cu kMaxQB);
 #: fewer where their LUTs would not fit in shared memory
 MAX_QUERY_BLOCK = 8
 #: K8: most queries per CTA (one a lane), (query, class) pairs a thread owns
@@ -66,11 +76,16 @@ MAX_QUERY_BLOCK = 8
 K8_MAX_QUERY_BLOCK, K8_PAIRS, K8_MAX_WARPS = 32, 4, 16
 #: K8's grid: the fewest splits whose waves of resident CTAs are this full
 K8_WAVE_FILL = 0.9
+#: K6/K7: warps a CTA (csrc/adc.cu kScanWarps), warp groups (each with its
+#: own output tiles and barrier), least rows of a group's output tile and
+#: queries a lane (one 8-byte lookup serves two where a block holds two)
+SCAN_WARPS, SCAN_GROUPS, SCAN_TILE_ROWS, SCAN_LANE_QUERIES = 16, 2, 256, 2
 #: code rows per chunk in the plain versions (a multiple of C)
 REF_ROWS = 256 * C
 
 #: kernel launches per wrapper since the last reset (plain versions do not count)
-LAUNCHES = {"adc_scan_u8": 0, "adc_scan_u4": 0, "adc_topk_fused": 0, "adc_topk_fused_v1": 0}
+LAUNCHES = dict.fromkeys(("adc_scan_u8", "adc_scan_u4", "adc_topk_fused", "adc_scan_u8_v1",
+                         "adc_scan_u4_v1", "adc_topk_fused_v1"), 0)
 
 
 def reset_launches() -> None:
@@ -79,7 +94,7 @@ def reset_launches() -> None:
 
 
 def query_block(m: int, ks: int) -> int:
-    """Queries per CTA of K6/K7 (and K8's first design): as many LUTs
+    """Queries per CTA of the first designs of K6/K7/K8: as many LUTs
     (m·ks f32 each) as shared memory holds, at most MAX_QUERY_BLOCK."""
     return min(MAX_QUERY_BLOCK, MAX_SMEM_BYTES // (4 * m * ks))
 
@@ -113,18 +128,88 @@ def k8_warps(qb: int) -> Tuple[int, int]:
 def k8_grid(nq: int, qb: int, groups: int, ntiles: int, resident: int) -> Tuple[int, int]:
     """(splits, tiles of C rows per split) of K8's grid (query blocks x
     class groups x splits CTAs) over ntiles tiles, `resident` CTAs running
-    at once: the fewest splits whose waves are at least K8_WAVE_FILL full,
-    else the fullest, at most one split a tile."""
+    at once: the fewest splits whose waves, once each split holds whole
+    tiles, are at least K8_WAVE_FILL full, else the fullest, at most one
+    split a tile."""
     blocks = -(-nq // qb) * groups
-    best, best_fill = 1, 0.0
-    for splits in range(1, ntiles + 1):
-        ctas = blocks * splits
+    best, best_fill = _splits(1, ntiles), 0.0
+    for want in range(1, ntiles + 1):
+        grid = _splits(want, ntiles)  # whole tiles a split: may round the splits down
+        ctas = blocks * grid[0]
         fill = ctas / (-(-ctas // resident) * resident)
         if fill > best_fill:
-            best, best_fill = splits, fill
+            best, best_fill = grid, fill
         if fill >= K8_WAVE_FILL:
             break
-    return _splits(best, ntiles)
+    return best
+
+
+def scan_lane_queries(qb: int) -> int:
+    """Queries a K6/K7 lane scores: SCAN_LANE_QUERIES, one where the
+    block holds one query."""
+    return min(SCAN_LANE_QUERIES, qb)
+
+
+def scan_pass_rows(qb: int, groups: int = 1, ql: int = 1) -> int:
+    """Rows one warp group of a K6/K7 CTA scores in one pass: its
+    SCAN_WARPS/groups warps of 32·ql/qb row slots (ql queries a lane),
+    K8_PAIRS consecutive rows a slot (csrc/adc.cu scan_pass_rows)."""
+    return SCAN_WARPS // groups * (32 * ql // qb) * K8_PAIRS
+
+
+def scan_tile_rows(qb: int, groups: int = SCAN_GROUPS, ql: Optional[int] = None) -> int:
+    """Rows of a warp group's output tile: SCAN_TILE_ROWS, or one pass
+    where a pass is longer."""
+    ql = scan_lane_queries(qb) if ql is None else ql
+    return max(SCAN_TILE_ROWS, scan_pass_rows(qb, groups, ql))
+
+
+def scan_tile_stride(lpr: int, rows: int) -> int:
+    """Floats between two queries' rows of an output tile whose rows lpr
+    lanes share (csrc/adc.cu scan_tile_stride): a multiple of 4 (16-byte
+    aligned segments for the bulk copy), padded so that the 8 lanes of a
+    quarter-warp's float4 stores fall on 8 distinct 16-byte bank groups."""
+    return rows + 32 // min(lpr, 8)
+
+
+def scan_smem(qb: int, m: int, ks: int, rows: int, groups: int = SCAN_GROUPS,
+              ql: Optional[int] = None) -> int:
+    """Shared-memory bytes of a K6/K7 CTA: the LUTs [m][k8_ks_pad(ks)][qb]
+    and two output tiles [qb][stride] a warp group."""
+    ql = scan_lane_queries(qb) if ql is None else ql
+    return 4 * (qb * m * k8_ks_pad(ks) + 2 * groups * qb * scan_tile_stride(qb // ql, rows))
+
+
+def scan_query_block(m: int, ks: int) -> int:
+    """Queries per K6/K7 CTA: the largest power of two <= 32 whose LUTs
+    and output tiles (scan_smem at scan_tile_rows(qb)) fit in shared
+    memory; ValueError where not even one query's do."""
+    qb = K8_MAX_QUERY_BLOCK
+    while scan_smem(qb, m, ks, scan_tile_rows(qb)) > MAX_SMEM_BYTES:
+        if qb == 1:
+            raise ValueError(f"m={m} tables of {k8_ks_pad(ks)} entries and K6's output tiles "
+                             "exceed shared memory")
+        qb //= 2
+    return qb
+
+
+def scan_grid(nq: int, qb: int, ntiles: int, resident: int) -> Tuple[int, int]:
+    """(splits, CTA steps per split) of K6/K7's grid (query blocks x
+    splits) over ntiles steps: whole waves of `resident` CTAs, as K8's."""
+    return k8_grid(nq, qb, 1, ntiles, resident)
+
+
+def lut_blocks(lut: Tensor, qb: int, ql: int = 1) -> Tensor:
+    """The LUTs [B, m, ks] as K6/K7's kernel stages them: [ceil(B/qb), m,
+    k8_ks_pad(ks), qb], contiguous, zero past ks and past B, so a CTA copies
+    its block as it lies. With ql = 2 queries a lane, lane q's queries q and
+    q + qb/2 lie side by side (columns 2q, 2q + 1), one 8-byte load."""
+    b, m, ks = lut.shape
+    nblk = -(-b // qb)
+    padded = torch.nn.functional.pad(lut, (0, k8_ks_pad(ks) - ks, 0, 0, 0, nblk * qb - b))
+    # column c holds query (c // ql) + (c % ql) * qb / ql of the block
+    blocks = padded.view(nblk, ql, qb // ql, m, -1).transpose(1, 2).reshape(nblk, qb, m, -1)
+    return blocks.permute(0, 2, 3, 1).contiguous()
 
 
 def lut_by_entry(lut: Tensor) -> Tensor:
@@ -229,7 +314,66 @@ def _grid(nq: int, qb: int, ntiles: int) -> Tuple[int, int]:
     return -(-ntiles // per), per
 
 
-def _launch_scan(name: str, codes: Tensor, lut: Tensor, packed_u4: bool) -> Tensor:
+_SCAN_PER_SM: dict = {}
+
+
+def scan_per_sm(qb: int, ql: int, m: int, ks: int, packed_u4: bool, groups: int,
+                rows: int) -> int:
+    """K6/K7 CTAs one SM holds at once (the CUDA occupancy query, cached)."""
+    from vectorindex_tpu_torch.kernels import _build
+
+    key = (qb, ql, m, ks, packed_u4, groups, rows)
+    if key not in _SCAN_PER_SM:
+        per_sm = _build.load().vi_adc_scan_qlanes_per_sm(qb, ql, m, ks, int(packed_u4), groups,
+                                                         rows)
+        if per_sm < 1:
+            raise RuntimeError(f"K6/K7 cannot run qb={qb}, m={m}, ks={ks}, {groups} groups of "
+                               f"{rows}-row tiles")
+        _SCAN_PER_SM[key] = per_sm
+    return _SCAN_PER_SM[key]
+
+
+def scan_launch(codes: Tensor, lut: Tensor, packed_u4: bool, *, qb: Optional[int] = None,
+                ql: Optional[int] = None, groups: int = SCAN_GROUPS,
+                tile_rows: Optional[int] = None, splits: Optional[int] = None,
+                bulk: bool = True) -> Tensor:
+    """Launch K6 (u8) or K7 (packed u4) on CUDA tensors → [B, n] f32. qb,
+    ql (queries a lane), tile_rows and splits default to scan_query_block,
+    scan_lane_queries, scan_tile_rows and scan_grid; bulk=False writes
+    every tile with plain stores, which n % 4 != 0 always takes. The A/B
+    (scripts/ab_adc_torch.py) sets them to other values the design allows."""
+    from vectorindex_tpu_torch.kernels import _build
+
+    name = "adc_scan_u4" if packed_u4 else "adc_scan_u8"
+    b, m, ks = lut.shape
+    n = codes.shape[0]
+    out = torch.empty((b, n), dtype=torch.float32, device=codes.device)
+    if b == 0 or n == 0:
+        return out
+    qb = qb or scan_query_block(m, ks)
+    ql = ql or scan_lane_queries(qb)
+    rows = tile_rows or scan_tile_rows(qb, groups, ql)
+    if scan_smem(qb, m, ks, rows, groups, ql) > MAX_SMEM_BYTES:
+        raise ValueError(f"K6/K7 at qb={qb}, m={m}, ks={ks}, {groups} groups of {rows}-row tiles "
+                         "exceed shared memory")
+    steps = -(-n // (groups * rows))
+    if splits is None:
+        resident = SMS * scan_per_sm(qb, ql, m, ks, packed_u4, groups, rows)
+        splits, per = scan_grid(b, qb, steps, resident)
+    else:
+        splits, per = _splits(splits, steps)
+    lib = _build.load()
+    err = lib.vi_adc_scan_qlanes(
+        lut_blocks(lut, qb, ql).data_ptr(), codes.data_ptr(), b, n, m, ks, codes.shape[1],
+        int(packed_u4), qb, ql, groups, rows, splits, per, int(bulk), out.data_ptr(),
+        torch.cuda.current_stream(codes.device).cuda_stream,
+    )
+    _build.check(lib, err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _launch_scan_v1(name: str, codes: Tensor, lut: Tensor, packed_u4: bool) -> Tensor:
     from vectorindex_tpu_torch.kernels import _build
 
     b, m, ks = lut.shape
@@ -240,7 +384,7 @@ def _launch_scan(name: str, codes: Tensor, lut: Tensor, packed_u4: bool) -> Tens
     qb = query_block(m, ks)
     splits, per = _grid(b, qb, -(-n // C))
     lib = _build.load()
-    err = lib.vi_adc_scan(
+    err = lib.vi_adc_scan_v1(
         lut.data_ptr(), codes.data_ptr(), b, n, m, ks, codes.shape[1], int(packed_u4), qb,
         splits, per * C, out.data_ptr(), torch.cuda.current_stream(codes.device).cuda_stream,
     )
@@ -256,7 +400,7 @@ def adc_scan_u8(codes: Tensor, lut: Tensor) -> Tensor:
     _check_inputs(codes, lut, False)
     if codes.device.type == "cpu":
         return adc_scan_u8_ref(codes, lut)
-    return _launch_scan("adc_scan_u8", codes, lut, False)
+    return scan_launch(codes, lut, False)
 
 
 def adc_scan_u4(packed_codes: Tensor, lut: Tensor) -> Tensor:
@@ -266,7 +410,26 @@ def adc_scan_u4(packed_codes: Tensor, lut: Tensor) -> Tensor:
     _check_inputs(packed_codes, lut, True)
     if packed_codes.device.type == "cpu":
         return adc_scan_u4_ref(packed_codes, lut)
-    return _launch_scan("adc_scan_u4", packed_codes, lut, True)
+    return scan_launch(packed_codes, lut, True)
+
+
+def adc_scan_u8_v1(codes: Tensor, lut: Tensor) -> Tensor:
+    """K6 in its first design (rows on the lanes), the same function as
+    adc_scan_u8, kept to time against it (scripts/ab_adc_torch.py). CUDA
+    tensors only."""
+    _check_inputs(codes, lut, False)
+    if codes.device.type == "cpu":
+        raise ValueError("adc_scan_u8_v1 times a CUDA kernel: pass CUDA tensors")
+    return _launch_scan_v1("adc_scan_u8_v1", codes, lut, False)
+
+
+def adc_scan_u4_v1(packed_codes: Tensor, lut: Tensor) -> Tensor:
+    """K7 in its first design (rows on the lanes), kept to time against
+    adc_scan_u4. CUDA tensors only."""
+    _check_inputs(packed_codes, lut, True)
+    if packed_codes.device.type == "cpu":
+        raise ValueError("adc_scan_u4_v1 times a CUDA kernel: pass CUDA tensors")
+    return _launch_scan_v1("adc_scan_u4_v1", packed_codes, lut, True)
 
 
 def _k8_out(b: int, splits: int, device) -> Tuple[Tensor, ...]:
