@@ -31,7 +31,10 @@ just after:
         dedup; every row must hold k distinct ids). insert_batch, optimize()
         and the first search (packing, encoding) are timed; ids against the
         same search through the kernels' plain versions, recall@10 against
-        brute force (>= 0.85 and >= 0.90).
+        brute force (>= 0.85 and >= 0.90). The coarse term and the allow
+        mask are K9/K10's epilogue: the filtered search may write no
+        [B, nprobe * probe_cap] tensor but the kernel's output and the
+        top-C sort.
   ADC:  bench.py's bench_adc: PQ8x8 (pq_train 15 iters on 131,072 rows,
         pq_encode) of a 1,000,000 x 128 lowdim corpus; at B=256 the ADC-only
         top-10 and the exact f32 rerank of the ADC top-128 and top-512 (K8);
@@ -53,8 +56,12 @@ adc_topk_fused_v1) in turns with the shipping ones, by CUDA events and the
 profiler's device time, beside the write-only floor of K6/K7's output, and
 the range call at B=64 is split into K6 and its mask + sort; so are K3, K4
 and K5 (kernels/ivf_probe.ivf_probe_topc_v1 and ivf_probe_scores_v1) on the
-IVF path's own tensors; the first designs are checked against the plain
-versions there but never run on a main path.
+IVF path's own tensors, and K9/K10 (kernels/adc_probe.adc_probe_scores_v1)
+on the IVF-PQ path's; the first designs are checked against the plain
+versions there but never run on a main path. K9/K10 are also held to their
+plain versions with and without their epilogue (base, allow) over a skewed
+store at B = 1, 8, 16, 17 and 256 (u8 m=16, u8 m=8, packed u4 m=32; starts
+shifted off the 16-row units), and under every launch plan the A/B sweeps.
 
 It checks the kernels against their plain versions again on each main
 path's own tensors, and times the kernels, their plain versions and the
@@ -110,8 +117,11 @@ PQ_CONFIGS = {
     "pq16": dict(m=16, ks=256, spill_eps=0.0, recall_min=0.85),
     "pq32x4": dict(m=32, ks=16, spill_eps=0.2, recall_min=0.90),
 }
-#: K9/K10 kernel-vs-plain cases over the skewed IVF store
-PQ_CASE_NPROBE, PQ_CASE_BIG_BATCH = 16, 32
+#: K9/K10 kernel-vs-plain cases over the skewed IVF store: batches on both
+#: sides of K10's B <= 16 and of the plans' probes a CTA, an 8-byte code
+#: row (m=8) beside pq16 and pq32x4, starts shifted off the 16-row units
+PQ_CASE_NPROBE, PQ_CASE_BATCHES, PQ_CASE_SHIFT = 16, (1, SMALL_BATCH, 16, 17, 256), 3
+PQ_CASE_CONFIGS = {"pq16": (16, 256), "pq8": (8, 256), "pq32x4": (32, 16)}
 
 #: ADC main path: bench.py's bench_adc (BASELINE config 2): PQ8x8 over
 #: bench/synth.lowdim_corpus(1M, 128, dz=16, seed=11), trained (15 Lloyd
@@ -913,24 +923,45 @@ def phase_ivf_times(kp, idx, batches, bigq, errs):
 PQ_KERNELS = ("adc_probe_scores", "adc_probe_scores_rankseg")
 
 
-def check_adc_kernels(ap, args, kw, what):
-    """K9 and K10 against their plain versions on the same inputs: equal bit
-    for bit (both add the m LUT entries in order from 0, each add rounded,
-    then the row correction). Returns max_abs_err per kernel."""
-    errs = {}
-    for name in PQ_KERNELS:
-        got = getattr(ap, name)(*args, **kw)
-        torch.cuda.synchronize()
-        ref = getattr(ap, name + "_ref")(*args, **kw)
-        errs[name] = max_abs_err(got, ref)
-        require(torch.equal(got, ref), f"{name}: {what} differs from the plain version")
+def check_adc_kernels(ap, args, kw, what, base=None, allow=None):
+    """K9 and K10 against their plain versions on the same inputs, without
+    and with the epilogue (base, allow): equal bit for bit (both add the m
+    LUT entries in order from 0, each add rounded, then the row correction,
+    then base). Returns max_abs_err per kernel."""
+    errs = dict.fromkeys(PQ_KERNELS, 0.0)
+    epilogues = [{}] if base is None else [{}, dict(base=base, row_allow=allow)]
+    for extra in epilogues:
+        ref = ap.adc_probe_scores_ref(*args, **kw, **extra)
+        for name in PQ_KERNELS:
+            got = getattr(ap, name)(*args, **kw, **extra)
+            torch.cuda.synchronize()
+            errs[name] = max(errs[name], max_abs_err(got, ref))
+            require(torch.equal(got, ref), f"{name}: {what}{' with base and allow' if extra else ''} "
+                    "differs from the plain version")
     return errs
+
+
+def check_adc_plans(ap, args, kw, base, allow, what):
+    """The K9/K10 kernel under every launch plan the A/B sweeps (1, 2, 4
+    or 8 probes a CTA) equals the plain version bit for bit."""
+    nprobe = args[1].shape[1]
+    ref = ap.adc_probe_scores_ref(*args, **kw, base=base, row_allow=allow)
+    plans = [g for g in (1, 2, 4, 8) if g <= nprobe]
+    for g in plans:
+        got = ap._launch("adc_probe_scores", *args, kw["probe_cap"], kw["m"], kw["ks"],
+                         kw["packed_u4"], base, allow, probes=g)
+        torch.cuda.synchronize()
+        require(torch.equal(got, ref), f"K9 at G={g}: {what} differs from the plain version")
+    return len(plans)
 
 
 def phase_pq_compare(ap):
     """Random codes, row corrections and query LUTs over the skewed store
-    (empty lists, one of 12,000 rows: probe_cap 16,384), u8 m=16 ks=256 and
-    packed u4 m=32 ks=16, L2 and IP LUTs, B=8 and B=32."""
+    (empty lists, one of 12,000 rows: probe_cap 16,384), u8 m=16 ks=256, u8
+    m=8 (8-byte rows) and packed u4 m=32 ks=16, L2 and IP LUTs, B = 1, 8,
+    16, 17 and 256, starts as stored and shifted by PQ_CASE_SHIFT rows,
+    without and with the epilogue (a coarse term, its rows strided, and a
+    10% allow mask); every launch plan on two of the cases."""
     from vectorindex_tpu_torch.ops import pq
     from vectorindex_tpu_torch.utils.config import Metric
 
@@ -939,8 +970,8 @@ def phase_pq_compare(ap):
     require(cap >= 4096, f"probe_cap {cap} < 4096")
     n_rows = arrays.row_ids.shape[0]
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
-    for name, cfg in PQ_CONFIGS.items():
-        m, ks = cfg["m"], cfg["ks"]
+    allow = torch.rand(n_rows, generator=gen, device=DEVICE) < 0.1
+    for name, (m, ks) in PQ_CASE_CONFIGS.items():
         codes = torch.randint(0, ks, (n_rows, m), generator=gen, device=DEVICE).to(torch.uint8)
         if ks <= 16:
             codes = pq.pack_u4(codes)
@@ -950,17 +981,48 @@ def phase_pq_compare(ap):
             tcorr = torch.randn(n_rows, generator=gen, device=DEVICE)
             if metric == Metric.INNER_PRODUCT:
                 tcorr = torch.zeros_like(tcorr)
-            for b in (SMALL_BATCH, PQ_CASE_BIG_BATCH):
+            for b in PQ_CASE_BATCHES:
                 q = torch.randn(b, PQ_DIM, generator=gen, device=DEVICE)
-                args = (lut_fn(q, books).contiguous(),
-                        *probe_tables(q, centers, arrays, PQ_CASE_NPROBE, metric), codes, tcorr)
+                starts, lives = probe_tables(q, centers, arrays, PQ_CASE_NPROBE, metric)
+                # rows strided, as the search's slice of ivf_select's sort is
+                base = torch.randn(b, 2 * PQ_CASE_NPROBE, generator=gen,
+                                   device=DEVICE)[:, :PQ_CASE_NPROBE]
                 kw = dict(nprobe=PQ_CASE_NPROBE, probe_cap=cap, m=m, ks=ks, packed_u4=ks <= 16)
-                for k, e in check_adc_kernels(ap, args, kw, "a synthetic case").items():
-                    errs[k] = max(errs[k], e)
+                lut = lut_fn(q, books).contiguous()
+                for shift in (0, PQ_CASE_SHIFT):
+                    args = (lut, (starts + shift).contiguous(),
+                            torch.clamp(lives - shift, min=0).contiguous(), codes, tcorr)
+                    for k, e in check_adc_kernels(ap, args, kw, f"a synthetic case (B={b}, shift "
+                                                  f"{shift})", base, allow).items():
+                        errs[k] = max(errs[k], e)
+                    if name == "pq16" and metric == Metric.L2 and b in (SMALL_BATCH, 256) and shift:
+                        plans = check_adc_plans(ap, args, kw, base, allow, f"B={b}")
+                        log(f"pq compare {name} B={b}: {plans} launch plans equal the plain "
+                            "version bit for bit")
             log(f"pq compare {name} (m={m} ks={ks}) {metric.value}: rows={n} cap={cap} "
-                f"B={SMALL_BATCH} and B={PQ_CASE_BIG_BATCH}: K9 and K10 equal their plain "
-                "versions bit for bit")
+                f"B={PQ_CASE_BATCHES}, starts shifted by 0 and {PQ_CASE_SHIFT}, without and with "
+                "base and allow: K9 and K10 equal their plain versions bit for bit")
     return errs
+
+
+def big_ops(fn, numel: int) -> set:
+    """Names of the aten operators fn() dispatches with an output of
+    exactly numel elements (a kernel launched through ctypes is none)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = set()
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            if any(isinstance(o, torch.Tensor) and o.numel() == numel for o in outs):
+                seen.add(func.overloadpacket.__name__)
+            return out
+
+    with Record():
+        fn()
+    return seen
 
 
 # ---------------------------------------------------------------------------
@@ -1051,6 +1113,17 @@ def phase_pq_main(ap, name, x, evalq, bigq, truth):
                          run(batches[0], "adc_probe_scores_rankseg", allow_ids=allow_ids)))
     launches = dict(ap.LAUNCHES)
     log(f"{name}: main path launches {launches}")
+    if name == "pq16":
+        # the coarse term and the allow mask are the kernel's epilogue: no
+        # operator of the filtered search writes a [B, nprobe * probe_cap]
+        # tensor but the kernel's output (empty) and the top-C sort
+        from vectorindex_tpu_torch.ops import ivf as tivf
+
+        slots = SMALL_BATCH * PQ_NPROBE * tivf.probe_cap_for(idx._store.max_length)
+        ops = big_ops(lambda: idx.batch_search(batches[0], MAIN_K, allow_ids=allow_ids), slots)
+        require(ops <= {"empty", "sort"}, f"{name}: the filtered search made extra passes: {ops}")
+        log(f"{name}: filtered B={SMALL_BATCH}: the only operators over its {slots} probed slots "
+            f"are {sorted(ops)} (no separate base add or allow mask)")
 
     with plain_versions(ap, PQ_KERNELS):
         for label, nprobe, q, kw, res in searches:
@@ -1114,13 +1187,25 @@ def phase_pq_times(ap, name, idx, batches, bigq, pool, errs):
         for k, e in check_adc_kernels(ap, args, kw, "the main path's tensors").items():
             errs[k] = max(errs[k], e)
         fn, ref = getattr(ap, kname), getattr(ap, kname + "_ref")
-        t[kname] = time_ms(lambda: fn(*args, **kw), 50)
+        require(torch.equal(ap.adc_probe_scores_v1(*args, **kw), ref(*args, **kw)),
+                f"{kname}: the first design differs from the plain version")
+        # the new design and the first design in turns (new, old, old, new) on one card
+        runs = {"new": [], "v1": []}
+        for design in ("new", "v1", "v1", "new"):
+            call = fn if design == "new" else ap.adc_probe_scores_v1
+            runs[design].append(time_ms(lambda: call(*args, **kw), 50))
+        t[kname], t[kname + "_v1"] = (float(np.mean(r)) for r in runs.values())
+        t[kname + "_dev"] = device_ms(lambda: fn(*args, **kw), 20, "adc_probe")
+        t[kname + "_v1_dev"] = device_ms(lambda: ap.adc_probe_scores_v1(*args, **kw), 20, "adc_probe")
         t[kname + "_plain"] = time_ms(lambda: ref(*args, **kw), 3, warmup=1)
         t[kname + "_bound"] = adc_bound(args, cap, m, ks <= 16)
         t[kname + "_lookups"] = m * float(args[2].sum())
-        log(f"{name} times {kname} B={args[0].shape[0]} nprobe={PQ_NPROBE} cap={cap}: kernel "
-            f"{t[kname]:.4g} ms, plain {t[kname + '_plain']:.4g} ms, bound "
-            f"{t[kname + '_bound'][0]:.4g} ms ({t[kname + '_bound'][1]})")
+        log(f"{name} times {kname} B={args[0].shape[0]} nprobe={PQ_NPROBE} cap={cap} "
+            f"(G={ap.probe_plan(args[0].shape[0], PQ_NPROBE, cap, m, ks, ks <= 16)}) in turns "
+            f"(new, old, old, new): kernel {runs['new']} ms, first design {runs['v1']} ms; device "
+            f"{t[kname + '_dev']:.5g} ms, first design {t[kname + '_v1_dev']:.5g} ms; plain "
+            f"{t[kname + '_plain']:.4g} ms, bound {t[kname + '_bound'][0]:.4g} ms "
+            f"({t[kname + '_bound'][1]})")
     log(f"{name} main-shape check: K9 and K10 equal their plain versions bit for bit")
     small = [pool[i * SMALL_BATCH : (i + 1) * SMALL_BATCH] for i in range(PQ_TIMED)]
     timed = [(SMALL_BATCH, PQ_NPROBE, small)]
@@ -1160,7 +1245,7 @@ def phase_pq(ap):
         idx, batches, run_launches, builds[name] = phase_pq_main(ap, name, x, evalq[:PQ_EVAL],
                                                                   evalq, truth)
         for k, c in run_launches.items():
-            launches[k] += c
+            launches[k] = launches.get(k, 0) + c
         times[name] = phase_pq_times(ap, name, idx, batches, evalq, pool, errs)
         del idx
         torch.cuda.empty_cache()
@@ -1824,12 +1909,14 @@ def main() -> int:
                         "bound_ms": bms, "bound_by": by,
                         "first_design_ms": ivf_times[name + "_v1"]})  # timed in turns
     clock = adc_times["sm_clock_mhz"]
-    for name in PQ_KERNELS:  # pq16's: K10 at B=8, K9 at B=256
-        bms, by = pq_times["pq16"][name + "_bound"]
-        kernels.append({"name": name, "ms": pq_times["pq16"][name],
-                        "plain_ms": pq_times["pq16"][name + "_plain"], "bound_ms": bms,
-                        "bound_by": by,
-                        "lookup_floor_ms": lookup_floor_ms(pq_times["pq16"][name + "_lookups"], clock)})
+    for name in PQ_KERNELS:  # pq16's: K10 at B=8, K9 at B=256; each timed in turns with its first design
+        pt = pq_times["pq16"]
+        bms, by = pt[name + "_bound"]
+        kernels.append({"name": name, "ms": pt[name], "plain_ms": pt[name + "_plain"],
+                        "bound_ms": bms, "bound_by": by,
+                        "lookup_floor_ms": lookup_floor_ms(pt[name + "_lookups"], clock),
+                        "first_design_ms": pt[name + "_v1"], "device_ms": pt[name + "_dev"],
+                        "first_design_device_ms": pt[name + "_v1_dev"]})
     for name in ADC_KERNELS:  # K6/K7 at B=64, K8 at B=256; each timed in turns with its first design
         bms, by = adc_times[name + "_bound"]
         kernels.append({"name": name, "ms": adc_times[name], "plain_ms": adc_times[name + "_plain"],

@@ -50,7 +50,7 @@ GROUPS = (
     ("split merge (K1/K8)", ("merge_splits",)),
     ("ADC kernels (K6-K8)", ("adc_scan_kernel", "adc_qlane_scan", "adc_candidates_kernel",
                              "adc_qlane_candidates")),
-    ("probe kernels (K3-K5, K9/K10)", ("probe_scores_", "topc_", "adc_probe_kernel")),
+    ("probe kernels (K3-K5, K9/K10)", ("probe_scores_", "topc_", "adc_probe_")),
     ("sorts", ("Sort", "sort")),
     ("products (select, LUT, rerank)", ("gemm", "gemv", "xmma", "cutlass", "bmm")),
     ("gathers and scatters", ("index", "gather", "scatter")),

@@ -29,6 +29,7 @@ from vectorindex_tpu.ops import ivf as jivf
 from vectorindex_tpu.ops import pq as jpq
 from vectorindex_tpu.utils.config import Metric as JMetric
 from vectorindex_tpu_torch.kernels import adc_probe as ap
+from vectorindex_tpu_torch.kernels.scan_fused import MAX_SMEM_BYTES
 from vectorindex_tpu_torch.ops import ivf as tivf
 from vectorindex_tpu_torch.ops import pq
 from vectorindex_tpu_torch.ops.dtypes import pack_u4
@@ -130,6 +131,109 @@ def test_kernel_plain_versions_match_jax(f, name, metric, b):
         np.testing.assert_allclose(got[finite], want[finite], **TOL)
     assert set(ap.LAUNCHES.values()) == {0}  # CPU tensors take the plain versions
     assert ap.adc_rankseg_fits(b) == jap.adc_rankseg_fits(b)
+
+
+def _epilogue_case(f, name, metric):
+    """The JAX fixture's kernel inputs at B=6, nprobe=4, with an empty probe
+    and a disabled list (live 0, base +inf), a coarse term and a 30% allow
+    mask in CSR row order."""
+    m, ks = CONFIGS[name]
+    jb, _, codes, tcorr = f[name]
+    if metric == Metric.INNER_PRODUCT:
+        tcorr = np.zeros_like(tcorr)
+    q = f["q"][:6]
+    lut_fn = jpq.pq_lut_q_l2 if metric == Metric.L2 else jpq.pq_lut_ip
+    lut = np.asarray(lut_fn(jnp.asarray(q), jb))
+    base, pls = jivf.ivf_select(jnp.asarray(q), jnp.asarray(f["coarse"]), nprobe=4,
+                                metric=JMetric(metric.value))
+    base = np.array(base)
+    sr = np.array(f["ja"].starts[pls])
+    lr = np.array(f["ja"].lengths[pls])
+    lr[0, 1] = 0  # an empty probe
+    lr[2, 3], base[2, 3] = 0, np.inf  # a disabled list
+    allow = np.random.default_rng(1).random(f["ja"].row_ids.shape[0]) < 0.3
+    kw = dict(nprobe=4, probe_cap=f["cap"], m=m, ks=ks, packed_u4=ks <= 16)
+    return (lut, sr, lr, codes, tcorr), base, allow, kw
+
+
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT], ids=lambda m: m.value)
+@pytest.mark.parametrize("name", ["u8", "u4"])
+def test_plain_epilogue_equals_add_then_mask(f, name, metric):
+    """base and row_allow in the plain versions (and the CPU wrappers) give
+    exactly partial + base[:, :, None], then the allow mask the search
+    applied after the kernel before they existed; the JAX kernel's partials
+    with the same two steps agree within TOL."""
+    args, base, allow, kw = _epilogue_case(f, name, metric)
+    targs = tuple(T(a) for a in args)
+    b, cap = base.shape[0], kw["probe_cap"]
+    partial = ap.adc_probe_scores_ref(*targs, **kw)
+    want = (partial.reshape(b, 4, cap) + T(base)[:, :, None]).reshape(b, -1)
+    slot_of = torch.clamp(T(args[1]).long()[:, :, None] + torch.arange(cap), 0, len(allow) - 1)
+    want = torch.where(T(allow)[slot_of].reshape(b, -1), want, float("inf"))
+    ap.reset_launches()
+    for fn in (ap.adc_probe_scores_ref, ap.adc_probe_scores, ap.adc_probe_scores_rankseg):
+        assert torch.equal(fn(*targs, **kw, base=T(base), row_allow=T(allow)), want)
+    assert set(ap.LAUNCHES.values()) == {0}
+    assert torch.isinf(want[2, 3 * cap : 4 * cap]).all() and torch.isinf(want[0, cap : 2 * cap]).all()
+    jp = np.asarray(jap.adc_probe_scores(*(jnp.asarray(a) for a in args), interpret=True, **kw))
+    jd = (jp.reshape(b, 4, cap) + base[:, :, None]).reshape(b, -1)
+    jd = np.where(allow[slot_of.numpy()].reshape(b, -1), jd, np.inf)
+    finite = np.isfinite(jd)
+    np.testing.assert_array_equal(np.isfinite(want.numpy()), finite)
+    np.testing.assert_allclose(want.numpy()[finite], jd[finite], **TOL)
+
+
+def test_epilogue_input_checks_and_first_design_needs_the_card(f):
+    args, base, allow, kw = _epilogue_case(f, "u8", Metric.L2)
+    targs = tuple(T(a) for a in args)
+    ok = ap.adc_probe_scores(*targs, **kw, base=torch.cat([T(base), T(base)], 1)[:, :4])
+    assert torch.equal(ok, ap.adc_probe_scores(*targs, **kw, base=T(base)))  # strided rows
+    for bad in (dict(base=T(base).double()), dict(base=T(base)[:, :3].contiguous()),
+                dict(base=T(base).t().contiguous().t()),
+                dict(row_allow=T(allow).to(torch.uint8)), dict(row_allow=T(allow)[:-1])):
+        with pytest.raises(ValueError):
+            ap.adc_probe_scores(*targs, **kw, **bad)
+    with pytest.raises(ValueError, match="CUDA"):
+        ap.adc_probe_scores_v1(*targs, **kw)
+
+
+@pytest.mark.parametrize("b", [1, 8, 16, 17, 256])
+def test_probe_plan_fills_a_wave(b):
+    """The launch plan keeps about one CTA an SM (PLAN_CTAS of the H100's
+    132; two where the LUT is smaller than a probe's codes) busy where the
+    batch has that many (query, probe) pairs, shares each LUT load among as
+    many probes as that allows, and is a G the kernel takes (a warp or more
+    of its 256 threads a probe)."""
+    for nprobe, cap, m, ks, packed in ((32, 512, 16, 256, False), (32, 1024, 32, 16, True),
+                                       (8, 512, 16, 256, False), (16, 16384, 8, 256, False)):
+        g = ap.probe_plan(b, nprobe, cap, m, ks, packed)
+        aim = ap.PLAN_CTAS if 4 * m * ks >= cap * (m // 2 if packed else m) else 2 * ap.PLAN_CTAS
+        ctas = b * -(-nprobe // g)
+        assert ctas >= min(ap.PLAN_CTAS, b * nprobe)
+        assert g in (1, 2, 4, 8) and g <= nprobe
+        assert ap.probe_smem(m, ks) <= MAX_SMEM_BYTES
+        if g > 1:  # fewer probes a CTA would not raise the CTAs past the aim
+            assert b * -(-nprobe // g) >= aim
+        if g < min(nprobe, ap.MAX_PROBES):  # more would fall short of it
+            assert b * -(-nprobe // (2 * g)) < aim
+    # the main paths' plans (scripts/ab_adc_probe_torch.py): pq16 shares its
+    # 16 KB LUT between two probes at B=8, pq32x4 its 2 KB one not at all
+    if b == 8:
+        assert ap.probe_plan(8, 32, 512, 16, 256, False) == 2
+        assert ap.probe_plan(8, 32, 1024, 32, 16, True) == 1
+    if b == 256:
+        assert ap.probe_plan(256, 32, 512, 16, 256, False) == 8
+
+
+def test_probe_plan_refuses_a_lut_that_cannot_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        ap.probe_plan(8, 32, 512, 64, 1024, False)  # 256 KB of LUT
+    ap.probe_plan(8, 32, 512, 56, 1024, False)  # 224 KB + the barrier fits
+    lut = torch.zeros((1, 64, 1024))
+    sr = torch.zeros((1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared-memory"):
+        ap.adc_probe_scores(lut, sr, sr, torch.zeros((256, 64), dtype=torch.uint8),
+                            torch.zeros(256), nprobe=1, probe_cap=256, m=64, ks=1024)
 
 
 def test_kernel_input_checks(f):

@@ -434,11 +434,95 @@ def test_adc_kernels_match_plain_versions(m, ks, metric, cuda_device):
             got = fn(*args, **kw)
             torch.cuda.synchronize()
             assert torch.equal(got, ref(*args, **kw))
-    assert ap.LAUNCHES == {"adc_probe_scores": 2, "adc_probe_scores_rankseg": 2}
+    assert ap.LAUNCHES == {"adc_probe_scores": 2, "adc_probe_scores_rankseg": 2, "adc_probe_scores_v1": 0}
     # 'auto' over a whole code array launches the full-corpus ADC kernel K6
     fa.reset_launches()
     full = pq.adc_scan(codes if not packed else pq.unpack_u4(codes), lut)
     assert fa.LAUNCHES["adc_scan_u8"] == 1 and full.shape == (32, n_rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 16, 17, 256])
+@pytest.mark.parametrize("m, ks", [(16, 256), (8, 256), (32, 16)], ids=["u8-pq16", "u8-m8", "u4-pq32x4"])
+def test_adc_probe_kernel_equals_plain_on_the_skewed_store(m, ks, b, cuda_device):
+    """K9/K10 against the plain version on chip_smoke's skewed store (empty
+    lists, a 12,000-row list, probe_cap 16,384): L2 and IP, starts as
+    stored and shifted off the 16-row units, without and with base (rows
+    strided) and row_allow; the first design against the plain version too."""
+    import chip_smoke
+
+    arrays, cap, centers = _chip_skewed_store(96, torch.float32)
+    gen = torch.Generator(device=cuda_device).manual_seed(m * b + ks)
+    packed = ks <= 16
+    n_rows = arrays.row_ids.shape[0]
+    codes = torch.randint(0, ks, (n_rows, m), generator=gen, device=cuda_device).to(torch.uint8)
+    if packed:
+        codes = pq.pack_u4(codes)
+    books = pq.books_from_centroids(torch.randn(m, ks, 96 // m, generator=gen, device=cuda_device))
+    allow = torch.rand(n_rows, generator=gen, device=cuda_device) < 0.1
+    kw = dict(nprobe=16, probe_cap=cap, m=m, ks=ks, packed_u4=packed)
+    ap.reset_launches()
+    for metric, lut_fn in ((Metric.L2, pq.pq_lut_q_l2), (Metric.INNER_PRODUCT, pq.pq_lut_ip)):
+        tcorr = torch.randn(n_rows, generator=gen, device=cuda_device)
+        if metric == Metric.INNER_PRODUCT:
+            tcorr = torch.zeros_like(tcorr)
+        q = torch.randn(b, 96, generator=gen, device=cuda_device)
+        starts, lives = chip_smoke.probe_tables(q, centers, arrays, 16, metric)
+        base = torch.randn(b, 32, generator=gen, device=cuda_device)[:, :16]  # strided rows
+        for shift in (0, 3):
+            args = (lut_fn(q, books).contiguous(), (starts + shift).contiguous(),
+                    torch.clamp(lives - shift, min=0).contiguous(), codes, tcorr)
+            chip_smoke.check_adc_kernels(ap, args, kw, f"{metric.value} shift {shift}", base, allow)
+            v1 = ap.adc_probe_scores_v1(*args, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(v1, ap.adc_probe_scores_ref(*args, **kw))
+    assert ap.LAUNCHES == {"adc_probe_scores": 8, "adc_probe_scores_rankseg": 8, "adc_probe_scores_v1": 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 256])
+def test_adc_probe_every_launch_plan_equals_plain(b, cuda_device):
+    """Every plan the A/B sweeps (1, 2, 4 or 8 probes a CTA) gives the
+    plain version's bits."""
+    import chip_smoke
+
+    arrays, cap, centers = _chip_skewed_store(96, torch.float32)
+    gen = torch.Generator(device=cuda_device).manual_seed(b)
+    n_rows = arrays.row_ids.shape[0]
+    codes = torch.randint(0, 256, (n_rows, 16), generator=gen, device=cuda_device).to(torch.uint8)
+    books = pq.books_from_centroids(torch.randn(16, 256, 6, generator=gen, device=cuda_device))
+    q = torch.randn(b, 96, generator=gen, device=cuda_device)
+    starts, lives = chip_smoke.probe_tables(q, centers, arrays, 16, Metric.L2)
+    args = (pq.pq_lut_q_l2(q, books).contiguous(), starts, lives, codes,
+            torch.randn(n_rows, generator=gen, device=cuda_device))
+    kw = dict(nprobe=16, probe_cap=cap, m=16, ks=256, packed_u4=False)
+    base = torch.randn(b, 16, generator=gen, device=cuda_device)
+    allow = torch.rand(n_rows, generator=gen, device=cuda_device) < 0.5
+    assert chip_smoke.check_adc_plans(ap, args, kw, base, allow, f"B={b}") == 4
+
+
+@pytest.mark.cuda
+def test_ivfpq_search_on_card_makes_no_extra_pass(cuda_device):
+    """On a CUDA index the coarse term and the allow mask are K10's
+    epilogue: a filtered search launches one K10 and no operator writes a
+    [B, nprobe * probe_cap] tensor but the kernel's output and the top-C
+    sort."""
+    import chip_smoke
+
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((6000, 32)).astype(np.float32)
+    idx = IVFPQIndex(32, Metric.L2, IVFPQConfig(nlist=32, nprobe=6, m=8, ks=256, rerank_c=512,
+                                                 pq_iters=5), device=cuda_device)
+    idx.insert_batch(list(range(len(x))), x)
+    idx.optimize()
+    q = x[:8] + 0.1 * rng.standard_normal((8, 32)).astype(np.float32)
+    allow = list(range(0, len(x), 3))
+    idx.batch_search(q, 10, allow_ids=allow)  # packs and encodes
+    slots = 8 * 6 * tivf.probe_cap_for(idx._store.max_length)
+    ap.reset_launches()
+    ops = chip_smoke.big_ops(lambda: idx.batch_search(q, 10, allow_ids=allow), slots)
+    assert ops <= {"empty", "sort"}, ops
+    assert ap.LAUNCHES == {"adc_probe_scores": 0, "adc_probe_scores_rankseg": 1, "adc_probe_scores_v1": 0}
 
 
 @pytest.mark.cuda

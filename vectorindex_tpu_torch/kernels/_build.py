@@ -106,8 +106,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vi_ivf_probe_topc.restype = ctypes.c_int
     lib.vi_ivf_probe_topc_v1.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p]
     lib.vi_ivf_probe_topc_v1.restype = ctypes.c_int
-    lib.vi_adc_probe_scores.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, p]
+    lib.vi_adc_probe_scores.argtypes = [p] * 7 + [i] * 9 + [p, p]
     lib.vi_adc_probe_scores.restype = ctypes.c_int
+    lib.vi_adc_probe_scores_v1.argtypes = [p] * 5 + [i] * 7 + [p, p]
+    lib.vi_adc_probe_scores_v1.restype = ctypes.c_int
     lib.vi_adc_scan_v1.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p, p]
     lib.vi_adc_scan_v1.restype = ctypes.c_int
     lib.vi_adc_scan_qlanes.argtypes = [p, p] + [i] * 13 + [p, p]

@@ -104,10 +104,7 @@
 
 #include <cmath>
 #include <cstdint>
-#include <map>
-#include <mutex>
 #include <type_traits>
-#include <utility>
 
 #include "adc_sum.cuh"
 #include "class_top3.cuh"
@@ -629,27 +626,6 @@ __global__ void __launch_bounds__(32 * kScanWarps, 1)
     }
   }
   if (issuer) bulk_wait_all<false>();
-}
-
-// Lets `kernel` take `smem` bytes of dynamic shared memory. The attribute
-// is set once per (device, kernel) and raised only when a launch needs more,
-// so a launch makes no CUDA runtime call here after the first.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  static std::mutex mu;
-  static std::map<std::pair<int, const void*>, size_t> granted;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const auto key = std::make_pair(dev, reinterpret_cast<const void*>(kernel));
-  std::lock_guard<std::mutex> lock(mu);
-  const auto it = granted.find(key);
-  if (it != granted.end() && it->second >= smem) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err == cudaSuccess) granted[key] = smem;
-  return err;
 }
 
 // Widest load the rows allow: 16 or 8 bytes at a time, else 1.

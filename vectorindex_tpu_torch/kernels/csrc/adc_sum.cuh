@@ -6,13 +6,17 @@
 // cannot contract): the plain PyTorch versions do the same adds in the same
 // order, so every kernel agrees with its plain version, and K8 with K6, bit
 // for bit. Codes are u8 [n, m] or packed u4 [n, m / 2] with subspace 2i in
-// the low nibble of byte i (ops/dtypes.pack_u4).
+// the low nibble of byte i (ops/dtypes.pack_u4). allow_smem, the launchers'
+// once-per-kernel shared-memory attribute, is shared here too.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace {
 
@@ -55,6 +59,27 @@ __device__ __forceinline__ void load_chunk(const uint8_t* __restrict__ p, int cn
   }
   w[0] = w[1] = w[2] = w[3] = 0u;
   for (int i = 0; i < cnt; ++i) w[i >> 2] |= static_cast<uint32_t>(__ldg(p + i)) << (8 * (i & 3));
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory. The attribute
+// is set once per (device, kernel) and raised only when a launch needs more,
+// so a launch makes no CUDA runtime call here after the first.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> granted;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_pair(dev, reinterpret_cast<const void*>(kernel));
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = granted.find(key);
+  if (it != granted.end() && it->second >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess) granted[key] = smem;
+  return err;
 }
 
 }  // namespace
