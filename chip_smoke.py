@@ -44,6 +44,27 @@ just after:
         against a mask over K6's plain output, recall@10 against brute
         force (>= 0.95 after rerank512).
 
+  IVF-PQ host tier: the pq16 index above with host_rerank=True: batch_search
+        at B=8 (K10) and B=256 (K9), serve_session().search and
+        batch_search_stream over 8 batches; the device view holds no
+        vectors; ids equal the device tier's at the same C (rerank_c=512) up
+        to ties, distances within ops/rerank.host_rerank_dist_tol.
+  hostpq: bench.py's bench_hostpq at its defaults: 10,000,000 x 96 clustered
+        unit rows (bench/synth.clustered_corpus's recipe drawn on the card
+        from a seeded torch.Generator), a trained quantizer (nlist=4096,
+        minibatch k-means on 524,288 rows, 40 iterations), CSR metadata with
+        no vectors, residual pq16 (10 iterations on 131,072 rows); a
+        HostRerankSession over a CSRReader of the f32 corpus in host RAM
+        (the native rerank) at B=64, nprobe=8, rerank_c=1024, k=10,
+        lookahead 6: per-call search, the stream of 16 batches and 4 recall
+        batches launch K9 once a batch, rerank natively every batch, and the
+        stream equals search; the same session through the plain versions
+        gives equal bits; the numpy rerank the same ids; recall@10 >= 0.95
+        against exact f32 brute force over all rows; device bytes a row
+        <= 64. Build seconds by stage, per-call ms, pipelined QPS, the
+        candidate stage (events), the ids' copy to the host, the native
+        rerank and the host CPU are printed.
+
   wide flat: a bf16 FlatIndex at d = 3,072 (capacity 2^17, 120,000 rows) past
         the tensor-core CTA: batch_search at B=8 and 64 through K1/K2 on the
         CUDA cores (scan_fused.scan_design "fma"), recall@10 = 1.0, no strict
@@ -81,6 +102,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -117,6 +139,27 @@ PQ_CONFIGS = {
     "pq16": dict(m=16, ks=256, spill_eps=0.0, recall_min=0.85),
     "pq32x4": dict(m=32, ks=16, spill_eps=0.2, recall_min=0.90),
 }
+#: the pq16 index's host-rerank tier (IVFPQConfig(host_rerank=True) through
+#: dataclasses.replace): batch_search at B=8 (K10) and B=256 (K9),
+#: serve_session().search and batch_search_stream over PQ_HOST_BATCHES
+#: batches of B=8, against the device tier at the same C
+PQ_HOST_BATCHES = 8
+
+#: host-rerank tier at capacity: bench.py's bench_hostpq defaults
+#: (bench.py:1194-1290): bench/synth.clustered_corpus(10M, 96, nlist=4096,
+#: seed=31, spread 0.15, unit rows), a trained quantizer (minibatch k-means on
+#: 524,288 sampled rows, 40 iterations, chunked assignment), CSR metadata
+#: with no vectors, residual pq16 (pq_train on 131,072 rows, 10 iterations);
+#: B=64, nprobe=8, rerank_c=1024, k=10, lookahead 6; 256 evaluation queries
+#: and 16 stream batches of bench.py's _noisy_queries at noise 0.05
+HOSTPQ_ROWS, HOSTPQ_DIM, HOSTPQ_NLIST, HOSTPQ_SEED, HOSTPQ_SPREAD = 10_000_000, 96, 4096, 31, 0.15
+HOSTPQ_KM_SAMPLE, HOSTPQ_KM_ITERS, HOSTPQ_KM_BATCH = 524_288, 40, 65_536
+HOSTPQ_M, HOSTPQ_KS, HOSTPQ_PQ_SAMPLE, HOSTPQ_PQ_ITERS = 16, 256, 131_072, 10
+HOSTPQ_BATCH, HOSTPQ_NPROBE, HOSTPQ_RERANK_C, HOSTPQ_LOOKAHEAD = 64, 8, 1024, 6
+HOSTPQ_EVAL, HOSTPQ_STREAM, HOSTPQ_NOISE = 256, 16, 0.05
+HOSTPQ_RECALL_MIN = 0.95  # the TPU bench's hostpq line reads 0.9766 (another quantizer)
+HOSTPQ_DEVICE_BYTES_MAX = 64  # a device byte budget a row far under the f32 row's 384
+
 #: K9/K10 kernel-vs-plain cases over the skewed IVF store: batches on both
 #: sides of K10's B <= 16 and of the plans' probes a CTA, an 8-byte code
 #: row (m=8) beside pq16 and pq32x4, starts shifted off the 16-row units
@@ -1227,9 +1270,87 @@ def phase_pq_times(ap, name, idx, batches, bigq, pool, errs):
     return t
 
 
+def same_host_results(got, want, k, what, tol):
+    """Host-tier rows against device-tier rows: ids equal up to ties of the
+    device tier's distances, squared scores within `tol` (the host rerank's
+    f32 sums run in another order than the device's)."""
+    from vectorindex_tpu_torch.utils.parity import ids_match_up_to_ties
+
+    gi = np.array([[r.id for r in row] for row in got])
+    wi = np.array([[r.id for r in row] for row in want])
+    gd = np.array([[r.score for r in row] for row in got], dtype=np.float64) ** 2
+    wd = np.array([[r.score for r in row] for row in want], dtype=np.float64) ** 2
+    require(gi.shape == (len(got), k) and wi.shape == gi.shape, f"{what}: expected {k} results per query")
+    require(np.abs(gd - wd).max() <= tol, f"{what}: distances differ by {np.abs(gd - wd).max()} > {tol}")
+    require(ids_match_up_to_ties(gi, wi, wd, k), f"{what}: ids differ from the device tier's")
+    return int((gi == wi).all(axis=1).sum())
+
+
+def phase_pq_host_tier(ap, idx, evalq, bigq):
+    """The pq16 index's host-rerank tier (the index's own entry points):
+    the device tier's results first, then with host_rerank=True
+    batch_search at B=8 (K10) and B=256 (K9), serve_session().search and
+    batch_search_stream over PQ_HOST_BATCHES batches, the launch and rerank
+    counts set to 0 just before and read just after. The host tier's rows
+    (from the store's packed host mirror) must equal the device tier's at
+    the same C up to ties, distances within host_rerank_dist_tol."""
+    from vectorindex_tpu_torch.ops import rerank as rr
+
+    batches = [evalq[i * SMALL_BATCH : (i + 1) * SMALL_BATCH] for i in range(PQ_HOST_BATCHES)]
+    device_cfg = idx.config
+    want = [idx.batch_search(b, MAIN_K) for b in batches]
+    want_big = idx.batch_search(bigq, MAIN_K)
+    idx.config = dataclasses.replace(device_cfg, host_rerank=True)
+    ap.reset_launches()
+    rr.reset_rerank_counts()
+    walls = {"B=8": [], f"B={PQ_BIG_BATCH}": []}
+    got = []
+    for b in batches:
+        t0 = time.perf_counter()
+        got.append(idx.batch_search(b, MAIN_K))
+        walls["B=8"].append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    got_big = idx.batch_search(bigq, MAIN_K)
+    walls[f"B={PQ_BIG_BATCH}"].append(time.perf_counter() - t0)
+    sess = idx.serve_session(lookahead=3)
+    _, sess_ids = sess.search(batches[0], MAIN_K)
+    streamed = list(idx.batch_search_stream(batches, MAIN_K, lookahead=3))
+    launches, impl = dict(ap.LAUNCHES), dict(rr.RERANK_IMPL)
+    n_small = 2 * PQ_HOST_BATCHES + 1
+    require(launches == {"adc_probe_scores": 1, "adc_probe_scores_rankseg": n_small,
+                         "adc_probe_scores_v1": 0},
+            f"pq16 host tier: launches {launches}, expected K9 once and K10 {n_small} times")
+    # the index's reader is its packed host mirror, keyed by CSR row: numpy
+    require(impl == {"native": 0, "numpy": n_small + 1, "device": 0},
+            f"pq16 host tier: rerank paths {impl}")
+    arrays, _, _ = idx._sync_pq()
+    require(arrays.vecs is None and arrays.sqnorms is None and sess.arrays.vecs is None,
+            "pq16 host tier: the device view holds vectors")
+    q_all = np.concatenate([evalq[: PQ_HOST_BATCHES * SMALL_BATCH], bigq])
+    tol = rr.host_rerank_dist_tol(PQ_DIM, float((q_all * q_all).sum(1).max()) + 1.0)  # unit rows
+    exact = sum(same_host_results(g, w, MAIN_K, f"pq16 host tier B=8 #{i}", tol)
+                for i, (g, w) in enumerate(zip(got, want)))
+    exact_big = same_host_results(got_big, want_big, MAIN_K, f"pq16 host tier B={PQ_BIG_BATCH}", tol)
+    for i, (s_rows, g) in enumerate(zip(streamed, got)):
+        require([[r.id for r in row] for row in s_rows] == [[r.id for r in row] for row in g],
+                f"pq16 host tier: stream batch {i} differs from batch_search")
+    require(sess_ids.tolist() == [[idx._idmap.lookup(r.id) for r in row] for row in got[0]],
+            "pq16 host tier: serve_session().search differs from batch_search")
+    idx.config = device_cfg
+    med = {key: 1e3 * float(np.median(v)) for key, v in walls.items()}
+    log(f"pq16 host tier (host_rerank=True, rerank_c={PQ_RERANK_C}): launches {launches}, rerank "
+        f"paths {impl}; device view vecs None; ids equal the device tier's up to ties "
+        f"({exact}/{PQ_HOST_BATCHES * SMALL_BATCH} B=8 rows and {exact_big}/{PQ_BIG_BATCH} B="
+        f"{PQ_BIG_BATCH} rows exactly), distances within {tol:.3g}; stream of {PQ_HOST_BATCHES} "
+        f"and serve_session equal batch_search; walls B=8 median {med['B=8']:.4g} ms, B="
+        f"{PQ_BIG_BATCH} {med[f'B={PQ_BIG_BATCH}']:.4g} ms")
+    return launches, med
+
+
 def phase_pq(ap):
     """Both IVF-PQ configurations over one corpus → (launches summed over
-    both main-path runs, pq16 times, pq32x4 times, build and recall figures)."""
+    both main-path runs and pq16's host tier, pq16 times, pq32x4 times,
+    build and recall figures)."""
     errs = phase_pq_compare(ap)
     t0 = time.perf_counter()
     x, W = lowdim_corpus(PQ_ROWS, PQ_DIM, dz=16, seed=31)
@@ -1246,6 +1367,11 @@ def phase_pq(ap):
                                                                   evalq, truth)
         for k, c in run_launches.items():
             launches[k] = launches.get(k, 0) + c
+        if name == "pq16":
+            host_launches, builds[name]["host_tier_ms"] = phase_pq_host_tier(ap, idx, evalq[:PQ_EVAL],
+                                                                             evalq)
+            for k, c in host_launches.items():
+                launches[k] += c
         times[name] = phase_pq_times(ap, name, idx, batches, evalq, pool, errs)
         del idx
         torch.cuda.empty_cache()
@@ -1841,6 +1967,347 @@ def phase_adc(fa):
     return errs, launches, times, build
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the host-rerank tier at capacity (bench.py's bench_hostpq)
+# ---------------------------------------------------------------------------
+
+
+def clustered_corpus_dev(n: int, d: int, nlist: int, seed: int, spread: float,
+                         chunk: int = 1_000_000) -> torch.Tensor:
+    """bench/synth.clustered_corpus's recipe on the card, from a seeded
+    torch.Generator (not numpy's draws; numpy takes ~3 min at 10M rows):
+    centers N(0, 1) [nlist, d], uniform assignments, rows centers[assign] +
+    spread·N(0, 1), scaled to unit norm → [n, d] f32 on DEVICE."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    centers = torch.randn(nlist, d, generator=gen, device=DEVICE)
+    assign = torch.randint(0, nlist, (n,), generator=gen, device=DEVICE)
+    x = torch.empty((n, d), device=DEVICE)
+    for s in range(0, n, chunk):
+        blk = torch.randn(min(chunk, n - s), d, generator=gen, device=DEVICE)
+        blk.mul_(spread).add_(centers[assign[s : s + chunk]])
+        x[s : s + chunk] = blk / blk.norm(dim=1, keepdim=True).clamp_min(1e-30)
+    return x
+
+
+def noisy_queries(x: np.ndarray, nq: int, seed: int, noise: float = HOSTPQ_NOISE) -> np.ndarray:
+    """bench.py's _noisy_queries: held-out queries near corpus rows."""
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(x.shape[0], nq, replace=False)
+    return (x[idx] + noise * rng.standard_normal((nq, x.shape[1])).astype(np.float32)).astype(np.float32)
+
+
+def pack_csr(assign: torch.Tensor, nlist: int):
+    """bench/synth.pack_ivf(with_vecs=False) on the card: rows sorted by
+    list, each list's region a whole number of BLK rows, GUARD_BLOCKS dead
+    blocks after the last → (IVFListArrays with no vectors, order [n]
+    original row of each live packed row, rows [n] its packed row, list of
+    each, probe_cap)."""
+    from vectorindex_tpu_torch.kernels.ivf_probe import BLK, GUARD_BLOCKS
+    from vectorindex_tpu_torch.ops.ivf import IVFListArrays
+
+    n = assign.shape[0]
+    lengths = torch.bincount(assign.long(), minlength=nlist)
+    caps = (lengths.clamp_min(1) + BLK - 1) // BLK * BLK
+    starts = torch.cumsum(caps, 0) - caps
+    total = int(caps.sum()) + GUARD_BLOCKS * BLK
+    lists, order = torch.sort(assign.long(), stable=True)
+    first = torch.cumsum(lengths, 0) - lengths
+    rows = starts[lists] + torch.arange(n, device=assign.device) - first[lists]
+    row_ids = torch.full((total,), -1, dtype=torch.int32, device=assign.device)
+    row_ids[rows] = order.to(torch.int32)
+    probe_cap = -(-max(int(lengths.max()), 1) // BLK) * BLK
+    arrays = IVFListArrays(vecs=None, row_ids=row_ids, sqnorms=None,
+                           starts=starts.to(torch.int32), lengths=lengths.to(torch.int32))
+    return arrays, order, rows, lists, probe_cap
+
+
+def hostpq_build(gpu: str):
+    """The capacity index of bench_hostpq, built on the card → (state dict,
+    host corpus, eval queries, truth (ids, k-th distance), stage seconds)."""
+    from vectorindex_tpu_torch.ops import kmeans as km
+    from vectorindex_tpu_torch.ops import pq
+    from vectorindex_tpu_torch.ops import rng as vrng
+
+    n, d = HOSTPQ_ROWS, HOSTPQ_DIM
+    secs = {}
+
+    def stage(name, t0):
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    x_dev = clustered_corpus_dev(n, d, HOSTPQ_NLIST, HOSTPQ_SEED, HOSTPQ_SPREAD)
+    stage("corpus_on_card", t0)
+    t0 = time.perf_counter()
+    x = x_dev.cpu().numpy()  # the host tier's f32 corpus, original row order
+    secs["corpus_to_host"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    samp = torch.from_numpy(np.random.default_rng(42).choice(n, HOSTPQ_KM_SAMPLE, replace=False))
+    res = km.kmeans(x_dev[samp.to(DEVICE)], km.KMeansConfig(
+        k=HOSTPQ_NLIST, iters=HOSTPQ_KM_ITERS, algo="minibatch", batch_size=HOSTPQ_KM_BATCH, seed=42))
+    centers = res.centroids
+    del res
+    stage("kmeans_train", t0)
+    t0 = time.perf_counter()
+    assign, _ = km.assign_clusters_chunked(x_dev, centers, chunk=65_536)
+    stage("assign", t0)
+    t0 = time.perf_counter()
+    arrays, order, rows, lists, probe_cap = pack_csr(assign, HOSTPQ_NLIST)
+    stage("pack", t0)
+    t0 = time.perf_counter()
+    psamp = torch.from_numpy(np.random.default_rng(7).choice(n, HOSTPQ_PQ_SAMPLE, replace=False))
+    psamp = psamp.to(DEVICE)
+    books = pq.pq_train_residual(vrng.make_generator(7, 0, device=DEVICE), x_dev[psamp], centers,
+                                 assign[psamp], m=HOSTPQ_M, ks=HOSTPQ_KS, iters=HOSTPQ_PQ_ITERS)
+    stage("pq_train", t0)
+    t0 = time.perf_counter()
+    total = arrays.row_ids.shape[0]
+    codes = torch.zeros((total, HOSTPQ_M), dtype=torch.uint8, device=DEVICE)
+    tcorr = torch.zeros(total, device=DEVICE)
+    for s in range(0, n, 1_000_000):
+        lst = lists[s : s + 1_000_000]
+        c = pq.pq_encode_residual(x_dev[order[s : s + 1_000_000]], centers, lst, books, chunk=65_536)
+        codes[rows[s : s + 1_000_000]] = c
+        tcorr[rows[s : s + 1_000_000]] = pq.pq_row_corrections(c, lst, centers, books)
+    stage("pq_encode", t0)
+    evalq = noisy_queries(x, HOSTPQ_EVAL, seed=9)
+    t0 = time.perf_counter()
+    truth = chunked_truth(x_dev, evalq, MAIN_K)
+    stage("truth", t0)
+    lengths = arrays.lengths.cpu().numpy()
+    log(f"hostpq build ({gpu}): {n}x{d} corpus drawn on the card (seeded torch.Generator), "
+        f"nlist={HOSTPQ_NLIST} lists max {lengths.max()} mean {lengths.mean():.1f} "
+        f"empty {(lengths == 0).sum()}, {total} slots, probe_cap {probe_cap}; seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    del x_dev, samp, psamp, assign, order, rows, lists
+    state = dict(centroids=centers, arrays=arrays, codes=codes, tcorr=tcorr, books=books,
+                 probe_cap=probe_cap)
+    return state, x, evalq, truth, secs
+
+
+def chunked_truth(x_dev, q: np.ndarray, k: int, chunk: int = 1_000_000):
+    """Exact f32 brute force over all rows of x_dev in row chunks on the
+    card, a running top-k merge → (ids [B, k], k-th distance [B])."""
+    qd = torch.from_numpy(q).to(x_dev.device)
+    qn = (qd * qd).sum(dim=1, keepdim=True)
+    best_d = torch.full((q.shape[0], 0), float("inf"), device=x_dev.device)
+    best_i = torch.zeros((q.shape[0], 0), dtype=torch.long, device=x_dev.device)
+    for s in range(0, x_dev.shape[0], chunk):
+        xc = x_dev[s : s + chunk]
+        dist = (xc * xc).sum(dim=1)[None, :] - 2.0 * (qd @ xc.T) + qn
+        cd, ci = torch.sort(dist, dim=1, stable=True)
+        md = torch.cat([best_d, cd[:, :k]], dim=1)
+        mi = torch.cat([best_i, ci[:, :k] + s], dim=1)
+        md, sel = torch.sort(md, dim=1, stable=True)
+        best_d, best_i = md[:, :k], torch.gather(mi, 1, sel[:, :k])
+    return best_i, best_d[:, k - 1]
+
+
+@contextlib.contextmanager
+def plain_calls(module, names):
+    """Count the calls of a module's plain versions `names` while inside."""
+    calls = dict.fromkeys(names, 0)
+    saved = {name: getattr(module, name) for name in names}
+
+    def counted(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            return saved[name](*a, **kw)
+        return call
+
+    for name in names:
+        setattr(module, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def host_cpu() -> str:
+    """The host CPU's model (lscpu), architecture and cores."""
+    import platform
+
+    from vectorindex_tpu_torch.ops.rerank import host_threads
+
+    model = "model not reported"
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        model = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                      if ln.startswith("Model name")), model)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return (f"{model} ({platform.machine()}), {os.cpu_count()} cores, {host_threads()} usable by "
+            "this process")
+
+
+def phase_hostpq(ap, gpu: str):
+    """The capacity tier of bench_hostpq through HostRerankSession: the f32
+    corpus in host RAM behind a CSRReader (native rerank), codes on the
+    card. Drives per-call search, the pipelined stream and the recall
+    batches with the counts set to 0 just before and read just after, then
+    checks launches, plain versions, stream order, the rerank path, recall
+    and device bytes per row, and times the stages."""
+    import gc
+
+    from vectorindex_tpu_torch.models.serve import HostRerankSession
+    from vectorindex_tpu_torch.ops import pq
+    from vectorindex_tpu_torch.ops import rerank as rr
+    from vectorindex_tpu_torch.ops.ivf import ivf_select
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_bytes = torch.cuda.memory_allocated()
+    state, x, evalq, (truth_ids, kth), secs = hostpq_build(gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev_bytes = torch.cuda.memory_allocated() - base_bytes - truth_ids.numel() * 8 - kth.numel() * 4
+    n = HOSTPQ_ROWS
+    require(dev_bytes / n <= HOSTPQ_DEVICE_BYTES_MAX,
+            f"hostpq: {dev_bytes / n:.2f} device bytes a row > {HOSTPQ_DEVICE_BYTES_MAX}")
+    t0 = time.perf_counter()
+    float(np.asarray(x[:, 0], dtype=np.float64).sum())  # one strided pass touches every page
+    secs["prefault"] = time.perf_counter() - t0
+    reader = rr.CSRReader(x, state["arrays"].row_ids.cpu().numpy())
+    require(reader.vecs is x and rr.native_rerank_available(x), "hostpq: the reader copied the corpus")
+    sess = HostRerankSession(
+        state["centroids"], state["arrays"], state["codes"], state["tcorr"], state["books"], reader,
+        nprobe=HOSTPQ_NPROBE, probe_cap=state["probe_cap"], rerank_c=HOSTPQ_RERANK_C,
+        metric=Metric.L2, lookahead=HOSTPQ_LOOKAHEAD, device=DEVICE)
+    b = HOSTPQ_BATCH
+    qstream = noisy_queries(x, HOSTPQ_STREAM * b, seed=12)
+    stream_batches = [qstream[i * b : (i + 1) * b] for i in range(HOSTPQ_STREAM)]
+    eval_batches = [evalq[i : i + b] for i in range(0, HOSTPQ_EVAL, b)]
+    rr.load_hostops()  # built before the timed run
+
+    ap.reset_launches()
+    rr.reset_rerank_counts()
+    with plain_calls(ap, ("adc_probe_scores_ref", "adc_probe_scores_rankseg_ref")) as plain:
+        sess.search(stream_batches[0], MAIN_K)  # warm
+        t_stream = []
+        for _ in range(2):  # the second pass finds the pinned blocks cached
+            t0 = time.perf_counter()
+            streamed = list(sess.stream(stream_batches, MAIN_K))
+            t_stream.append(time.perf_counter() - t0)
+        per_call, lat = [], []
+        for qb in stream_batches:
+            t0 = time.perf_counter()
+            per_call.append(sess.search(qb, MAIN_K))
+            lat.append(time.perf_counter() - t0)
+        found = [sess.search(qb, MAIN_K) for qb in eval_batches]
+    launches, impl, plain = dict(ap.LAUNCHES), dict(rr.RERANK_IMPL), dict(plain)
+    n_batches = 1 + 3 * HOSTPQ_STREAM + len(eval_batches)
+    log(f"hostpq main path ({gpu}): {n_batches} batches of B={b}: launches {launches}, rerank paths "
+        f"{impl}, plain-version calls {plain}")
+    require(launches == {"adc_probe_scores": n_batches, "adc_probe_scores_rankseg": 0,
+                         "adc_probe_scores_v1": 0}, "hostpq: expected K9 once a batch and nothing else")
+    require(not any(plain.values()), "hostpq: a plain version ran on the main path")
+    require(impl == {"native": n_batches, "numpy": 0, "device": 0},
+            f"hostpq: expected the native rerank on every batch, got {impl}")
+    for i, ((sd, si), (wd, wi)) in enumerate(zip(streamed, per_call)):
+        require(np.array_equal(si, wi) and np.array_equal(sd, wd),
+                f"hostpq: stream batch {i} differs from search")
+
+    # recall against exact f32 brute force over all rows
+    got = torch.from_numpy(np.concatenate([f[1] for f in found])).to(DEVICE).long()
+    d_got = torch.from_numpy(np.concatenate([f[0] for f in found])).to(DEVICE)
+    hits = d_got <= kth[:, None] + RECALL_RTOL * kth.abs()[:, None]
+    rec = float(hits.float().mean())
+    set_rec = float((got[:, :, None] == truth_ids[:, None, :]).any(dim=2).float().mean())
+    require(rec >= HOSTPQ_RECALL_MIN, f"hostpq: recall@{MAIN_K} {rec} < {HOSTPQ_RECALL_MIN}")
+
+    # the same session through the kernels' plain versions: equal ids, equal bits
+    with plain_versions(ap, PQ_KERNELS):
+        for qb, (wd, wi) in zip(eval_batches[:2], found[:2]):
+            pd, pi = sess.search(qb, MAIN_K)
+            require(np.array_equal(pi, wi) and np.array_equal(pd, wd),
+                    "hostpq: the plain versions give other results")
+    # K9 bit for bit on this store's own tensors (with and without base and allow)
+    qd = torch.from_numpy(eval_batches[0]).to(DEVICE)
+    base, lists = ivf_select(qd, state["centroids"], nprobe=HOSTPQ_NPROBE, metric=Metric.L2)
+    lists = lists.long()
+    args = (pq.pq_lut_q_l2(qd, state["books"]).contiguous(),
+            state["arrays"].starts[lists].contiguous(), state["arrays"].lengths[lists].contiguous(),
+            state["codes"], state["tcorr"])
+    kw = dict(nprobe=HOSTPQ_NPROBE, probe_cap=state["probe_cap"], m=HOSTPQ_M, ks=HOSTPQ_KS,
+              packed_u4=False)
+    allow = torch.rand(state["codes"].shape[0], generator=torch.Generator(device=DEVICE).manual_seed(3),
+                       device=DEVICE) < 0.5
+    errs = check_adc_kernels(ap, args, kw, "the hostpq store's tensors", base.float(), allow)
+
+    # the numpy rerank on one batch against the native one, under their
+    # contract (ops/rerank.host_rerank_dist_tol): distances within tol, ids
+    # equal except where neighbouring native distances lie within tol; one
+    # rank past k shows a swap across rank k
+    from vectorindex_tpu_torch.utils.parity import ids_match_up_to_ties
+
+    q0 = eval_batches[0]
+    _, _, iids = sess.probe_candidates(q0, MAIN_K)
+    iids_np = iids.cpu().numpy()
+    xg = reader.gather_ids(iids_np.reshape(-1)).reshape(b, -1, HOSTPQ_DIM)
+    nd, ni = rr.rerank_gathered_host(q0, xg, iids_np, k=MAIN_K + 1, metric=Metric.L2)
+    wd, wi = rr.rerank_ids_host(x, iids_np, q0, k=MAIN_K + 1, metric=Metric.L2)
+    require(np.array_equal(wi[:, :MAIN_K], found[0][1]), "hostpq: the native rerank is not repeatable")
+    tol = rr.host_rerank_dist_tol(HOSTPQ_DIM, float((q0 * q0).sum(1).max() + (xg * xg).sum(2).max()))
+    require(np.abs(nd - wd).max() <= tol, f"hostpq: numpy and native distances differ > {tol}")
+    require(ids_match_up_to_ties(ni, wi, wd, MAIN_K, rtol=0.0, atol=tol),
+            "hostpq: the numpy rerank gives other ids than the native one")
+    same_rows = int((ni[:, :MAIN_K] == wi[:, :MAIN_K]).all(axis=1).sum())
+
+    # stage times
+    fn, cargs = sess.candidates_closure(MAIN_K)
+    cand_ms = time_ms(lambda: fn(qd, *cargs), 20)
+    cand_dev_ms = device_ms(lambda: fn(qd, *cargs), 20)
+    d2h = []
+    for _ in range(7):
+        _, _, ids_dev = fn(qd, *cargs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids_dev.cpu()
+        d2h.append(time.perf_counter() - t0)
+    rerank = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        sess.rerank_host(iids_np, q0, MAIN_K)
+        rerank.append(time.perf_counter() - t0)
+    k9 = {"ms": time_ms(lambda: ap.adc_probe_scores(*args, **kw, base=base.float()), 50),
+          "device_ms": device_ms(lambda: ap.adc_probe_scores(*args, **kw, base=base.float()), 20,
+                                 "adc_probe"),
+          "plain_ms": time_ms(lambda: ap.adc_probe_scores_ref(*args, **kw, base=base.float()), 3,
+                              warmup=1),
+          "bound": adc_bound(args, state["probe_cap"], HOSTPQ_M, False)}
+    figs = dict(
+        device_bytes_per_row=dev_bytes / n, host_bytes_per_row=x.strides[0],
+        per_call_ms=1e3 * float(np.median(lat)), pipelined_qps=HOSTPQ_STREAM * b / t_stream[-1],
+        candidates_ms=cand_ms, candidates_device_ms=cand_dev_ms, d2h_ms=1e3 * float(np.median(d2h)),
+        rerank_ms=1e3 * float(np.median(rerank)), rerank_threads=rr.host_threads(),
+        recall=rec, set_recall=set_rec, build_s=secs, k9=k9, c=iids_np.shape[1],
+    )
+    log(f"hostpq ({gpu}; host {host_cpu()}): recall@{MAIN_K} {rec} (set {set_rec}) over "
+        f"{HOSTPQ_EVAL} queries; device {dev_bytes} bytes = {dev_bytes / n:.3f} B a row "
+        f"(absolute {torch.cuda.memory_allocated()}), host {x.strides[0]} B a row; per call B={b} "
+        f"median {figs['per_call_ms']:.4g} ms over {len(lat)}; stream of {HOSTPQ_STREAM} "
+        f"(lookahead {HOSTPQ_LOOKAHEAD}) {t_stream[0] * 1e3:.4g} then {t_stream[1] * 1e3:.4g} ms = "
+        f"{figs['pipelined_qps']:.1f} QPS; candidate stage {cand_ms:.4g} ms (events, "
+        f"C={iids_np.shape[1]}), of it {cand_dev_ms:.4g} ms device time (profiler); ids D2H "
+        f"{figs['d2h_ms']:.4g} ms; native rerank {figs['rerank_ms']:.4g} ms on "
+        f"{figs['rerank_threads']} threads; K9 at B={b} nprobe={HOSTPQ_NPROBE} cap="
+        f"{state['probe_cap']}: {k9['ms']:.4g} ms (events), device {k9['device_ms']:.5g} ms, plain "
+        f"{k9['plain_ms']:.4g} ms, bound {k9['bound'][0]:.4g} ms ({k9['bound'][1]})")
+    log(f"hostpq: stream equals per call batch by batch; the plain versions give equal ids and bits; "
+        f"K9 equals its plain version bit for bit on the store's tensors; the numpy rerank gives "
+        f"the native ids up to ties ({same_rows}/{b} rows exactly), distances within {tol:.3g} "
+        f"(largest difference {np.abs(nd - wd).max():.3g})")
+    del sess, state, reader, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    figs["phase_s"] = time.perf_counter() - t_phase
+    log(f"hostpq: phase {figs['phase_s']:.1f} s")
+    return launches, errs, figs
+
+
 def flat_bound(n: int, d: int, b: int, itemsize: int, kernel: str):
     """(bound_ms, bound_by) of K1/K2 (K11: K1's) over the flat main path's
     corpus: rows, bias and q read once, the candidates or counts written."""
@@ -1892,6 +2359,13 @@ def main() -> int:
     adc_errs, adc_launches, adc_times, adc_figs = phase_adc(fa)
     errs.update(adc_errs)
     launches.update(adc_launches)
+    torch.cuda.empty_cache()
+
+    host_launches, host_errs, hostpq = phase_hostpq(ap, gpu)
+    for name, c in host_launches.items():
+        launches[name] += c
+    for name, e in host_errs.items():
+        errs[name] = max(errs[name], e)
 
     big = times[MAIN_BATCH]
     kernels = []
@@ -1917,6 +2391,11 @@ def main() -> int:
                         "lookup_floor_ms": lookup_floor_ms(pt[name + "_lookups"], clock),
                         "first_design_ms": pt[name + "_v1"], "device_ms": pt[name + "_dev"],
                         "first_design_device_ms": pt[name + "_v1_dev"]})
+        if name == "adc_probe_scores":  # K9 also at the hostpq shape (B=64, nprobe=8, 10M rows)
+            k9 = hostpq["k9"]
+            kernels[-1]["hostpq"] = {"ms": k9["ms"], "device_ms": k9["device_ms"],
+                                     "plain_ms": k9["plain_ms"], "bound_ms": k9["bound"][0],
+                                     "bound_by": k9["bound"][1]}
     for name in ADC_KERNELS:  # K6/K7 at B=64, K8 at B=256; each timed in turns with its first design
         bms, by = adc_times[name + "_bound"]
         kernels.append({"name": name, "ms": adc_times[name], "plain_ms": adc_times[name + "_plain"],
@@ -1957,6 +2436,12 @@ def main() -> int:
         f"{build_s['insert_s']:.2f} s, optimize {build_s['optimize_s']:.2f} s; ivfpq "
         + "; ".join(f"{name} recall@{MAIN_K} {b['recall']}, insert {b['insert_s']:.2f} s, optimize "
                     f"{b['optimize_s']:.2f} s" for name, b in pq_builds.items())
+        + f"; pq16 host tier walls {pq_builds['pq16']['host_tier_ms']}; hostpq 10M recall@{MAIN_K} "
+        f"{hostpq['recall']}, {hostpq['device_bytes_per_row']:.3f} device B a row, per call "
+        f"{hostpq['per_call_ms']:.4g} ms, stream {hostpq['pipelined_qps']:.1f} QPS, candidates "
+        f"{hostpq['candidates_ms']:.4g} ms, ids D2H {hostpq['d2h_ms']:.4g} ms, native rerank "
+        f"{hostpq['rerank_ms']:.4g} ms ({hostpq['rerank_threads']} threads), phase "
+        f"{hostpq['phase_s']:.1f} s"
         + f"; flat range_search {1e3 * range_s:.4g} ms; adc recall@{MAIN_K} {adc_figs['recall']}, "
         f"rerank512 B={ADC_BATCH} {adc_times['search rerank512'][1]:.1f} QPS, pq_train "
         f"{adc_figs['train_s']:.2f} s, pq_encode {adc_figs['encode_s']:.3f} s")

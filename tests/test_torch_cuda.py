@@ -21,6 +21,8 @@ index on the host, rtol=2e-4, atol=2e-5 (f32 sums in another order; bf16
 products are exact in f32).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,7 @@ from vectorindex_tpu_torch.kernels import scan_fused as sf
 from vectorindex_tpu_torch.models.ivf import IVFConfig, IVFIndex, IVFPQConfig, IVFPQIndex
 from vectorindex_tpu_torch.ops import ivf as tivf
 from vectorindex_tpu_torch.ops import pq, scoring
+from vectorindex_tpu_torch.ops import rerank as rr
 from vectorindex_tpu_torch.ops.topk import INVALID_ID, topk
 from vectorindex_tpu_torch.utils.config import Metric
 from vectorindex_tpu_torch.utils import parity
@@ -790,3 +793,83 @@ def test_bf16_flat_index_past_the_fma_limit_takes_the_strict_path(cuda_device):
     assert not any(sf.LAUNCHES.values())
     assert TELEM.snapshot()["counters"]["kernel.scan_strict.calls"] == 1
     _assert_exact_top_k(got, dist, tol)
+
+
+def _host_tier(device, n=6000, d=32, seed=9):
+    """A trained IVFPQIndex(host_rerank=True) on `device` and its corpus."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    idx = IVFPQIndex(d, Metric.L2, IVFPQConfig(nlist=32, nprobe=6, m=8, ks=256, rerank_c=512,
+                                                pq_iters=5, host_rerank=True), device=device)
+    idx.insert_batch(list(range(n)), x)
+    idx.optimize()
+    return idx, x
+
+
+@pytest.mark.cuda
+def test_host_tier_stream_reuses_pinned_buffers_and_equals_per_call(cuda_device, monkeypatch):
+    """A CUDA session over a CSRReader (the native rerank): its stream over
+    more batches than the pinned pool holds (lookahead 2: 3 buffers, 9
+    batches) equals search() batch by batch; K10 runs at B=8 and K9 at
+    B=24, and every batch is counted under RERANK_IMPL["native"]."""
+    idx, x = _host_tier(cuda_device)
+    base = idx.serve_session(lookahead=2)
+    assert base.arrays.vecs is None and idx._store._dev is None
+    rid = base.arrays.row_ids.cpu().numpy()
+    slot_vecs = np.zeros((idx._next_slot, x.shape[1]), np.float32)
+    for slot, v in idx._vectors.items():
+        slot_vecs[slot] = v
+    sess = dataclasses.replace(base, reader=rr.CSRReader(slot_vecs, rid))
+    rng = np.random.default_rng(3)
+    batches = [x[rng.choice(len(x), b, replace=False)] + 0.05 for b in (8, 24, 8, 8, 24, 8, 8, 24, 8)]
+    made = []
+    real_empty = torch.empty
+
+    def counted_empty(*a, **kw):
+        if kw.get("pin_memory"):
+            made.append(a)
+        return real_empty(*a, **kw)
+
+    monkeypatch.setattr(ap.torch, "empty", counted_empty)
+    rr.reset_rerank_counts()
+    ap.reset_launches()
+    streamed = list(sess.stream(batches, 10))
+    assert ap.LAUNCHES["adc_probe_scores_rankseg"] == 6 and ap.LAUNCHES["adc_probe_scores"] == 3
+    assert rr.RERANK_IMPL == {"native": 9, "numpy": 0, "device": 0}
+    assert len(made) == 3  # lookahead + 1 buffers, each reused (9 batches)
+    for (sd, si), b in zip(streamed, batches):
+        wd, wi = sess.search(b, 10)
+        np.testing.assert_array_equal(si, wi)
+        np.testing.assert_array_equal(sd, wd)
+    host = IVFPQIndex.from_state({
+        "dimension": 32, "metric": "l2", "storage_dtype": "float32",
+        "config": idx.config.__dict__, "vectors": idx._vectors, "metadata": idx._metadata,
+        "ids": list(idx._idmap.items()), "free": idx._free, "next_slot": idx._next_slot,
+        "centroids": idx._centroids, "lists": idx._store._lists_ids, "slot_list": idx._slot_list,
+        "slot_spill": idx._slot_spill, "books": idx._books.centroids.cpu().numpy(),
+    }, device="cpu")
+    got, want = idx.batch_search(batches[1], 10), host.batch_search(batches[1], 11)
+    wd = np.array([[r.score**2 for r in row] for row in want])
+    assert ids_match_up_to_ties([[r.id for r in row] for row in got],
+                                [[r.id for r in row] for row in want], wd, 10)
+
+
+@pytest.mark.cuda
+def test_host_tier_index_on_card_keeps_vectors_off_the_device(cuda_device):
+    """batch_search (filtered too), serve_session and batch_search_stream
+    on a CUDA host-tier index: the device view has no vectors, the store
+    never uploads them, and the stream equals per-call batch_search."""
+    idx, x = _host_tier(cuda_device)
+    q = x[:8] + 0.05
+    allow = list(range(0, len(x), 3))
+    ap.reset_launches()
+    res = idx.batch_search(q, 10, allow_ids=allow)
+    assert ap.LAUNCHES["adc_probe_scores_rankseg"] == 1
+    assert all(r.id in set(allow) for row in res for r in row)
+    arrays, _, _ = idx._sync_pq()
+    assert arrays.vecs is None and arrays.sqnorms is None and idx._store._dev is None
+    batches = [q, x[100:124] + 0.05, q]
+    streamed = list(idx.batch_search_stream(batches, 10, lookahead=2))
+    assert [[[r.id for r in row] for row in s] for s in streamed] == [
+        [[r.id for r in row] for row in idx.batch_search(b, 10)] for b in batches]
+    assert idx._store._dev is None

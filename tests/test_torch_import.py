@@ -58,6 +58,8 @@ def test_every_module_imports_without_jax_or_nvcc(tmp_path):
         "vectorindex_tpu_torch.ops.range_query",
         "vectorindex_tpu_torch.ops.reservoir",
         "vectorindex_tpu_torch.ops.rng",
+        "vectorindex_tpu_torch.ops.rerank",
+        "vectorindex_tpu_torch.models.serve",
         "vectorindex_tpu_torch.ops.scan",
         "vectorindex_tpu_torch.persistence.json_snapshot",
         "vectorindex_tpu_torch.utils.telemetry",
@@ -99,6 +101,36 @@ def test_build_cache_is_outside_the_package_and_keyed_by_source(tmp_path, monkey
     assert _build.library_path() != first
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
+
+
+def test_hostops_builds_under_build_from_the_ports_own_source(tmp_path, monkeypatch):
+    """The native host rerank is built from the port's own copy of
+    hostops.cpp into build/hostops/<hash of source, flags and CPU>/, never
+    into the package; a failed build raises with the compiler's output."""
+    from vectorindex_tpu_torch.ops import rerank as rr
+
+    assert rr.HOSTOPS_SRC.is_relative_to(PORT) and rr.HOSTOPS_SRC.exists()
+    ref = ROOT / "vectorindex_tpu" / "persistence" / "native" / "hostops.cpp"
+    strip = lambda t: [ln for ln in t.splitlines() if not ln.startswith("//")]  # noqa: E731
+    assert strip(rr.HOSTOPS_SRC.read_text()) == strip(ref.read_text())  # the same code
+    path = rr.hostops_path()
+    assert path.is_relative_to(ROOT / "build" / "hostops") and not path.is_relative_to(PORT)
+    assert "-march=native" in rr.GXX_FLAGS
+    src = tmp_path / "hostops.cpp"
+    src.write_text("this is not C++\n")
+    monkeypatch.setattr(rr, "HOSTOPS_SRC", src)
+    monkeypatch.setattr(rr, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(rr, "_lib", None)
+    assert rr.hostops_path() != path
+    monkeypatch.setattr(rr, "_cpu_key", lambda: "another cpu")
+    assert rr.hostops_path() != path
+    with pytest.raises(RuntimeError, match="(?s)g\\+\\+ failed.*error: "):
+        rr.load_hostops()
+    assert list((tmp_path / "build").rglob("*.so")) == []  # nothing half-built is left
+    monkeypatch.setattr(rr.subprocess, "run", lambda *a, **k: (_ for _ in ()).throw(
+        FileNotFoundError("g++")))
+    with pytest.raises(RuntimeError, match="needs g\\+\\+"):
+        rr.load_hostops()
 
 
 def test_missing_nvcc_is_a_clear_error(monkeypatch):

@@ -9,6 +9,9 @@ package's, on the same seeded numpy inputs.
     bit (both are copies of the same f32 rows and numpy's einsum).
   - ivf_search_flat and rerank_exact_topk: ids equal; distances within
     rtol=atol=1e-4 (f32 dot products summed in another order).
+  - build_centroid_graph: equal; ivf_select_beam: ids equal up to ties of
+    the JAX distances (utils/parity), distances within rtol=atol=1e-4 (the
+    JAX beam scores at XLA's default f32 matmul precision).
 """
 
 import jax.numpy as jnp
@@ -21,6 +24,7 @@ from vectorindex_tpu.utils.config import Metric as JMetric
 from vectorindex_tpu_torch.ops import ivf as tivf
 from vectorindex_tpu_torch.ops.topk import INVALID_ID
 from vectorindex_tpu_torch.utils.config import Metric
+from vectorindex_tpu_torch.utils.parity import ids_match_up_to_ties
 
 torch.set_num_threads(1)
 
@@ -222,3 +226,28 @@ def test_probe_cap_and_reserve_constants():
     for n in (0, 1, 255, 256, 257, 1000, 4097):
         assert tivf.probe_cap_for(n) == jivf.probe_cap_for(n)
         assert tivf.IVFListStore._cap_for(n) == jivf.IVFListStore._cap_for(n)
+
+
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT], ids=lambda m: m.value)
+def test_ivf_select_beam_matches_jax_and_approximates_exhaustive(metric):
+    """tests/test_ivf.py:248-260 on both packages: the centroid kNN graph
+    and the beam selection over it equal the JAX package's, and the beam
+    finds ≥ 85% of the exhaustive top-nprobe."""
+    rng = np.random.default_rng(7)
+    cents = rng.standard_normal((512, 32)).astype(np.float32)
+    q = rng.standard_normal((8, 32)).astype(np.float32)
+    jg = _np(jivf.build_centroid_graph(jnp.asarray(cents)))
+    g = tivf.build_centroid_graph(T(cents))
+    np.testing.assert_array_equal(g.numpy(), jg)
+    assert g.shape == (512, 16) and g.dtype == torch.int32
+    assert not (g.numpy() == np.arange(512)[:, None]).any()  # no self edges
+    jd, ji = jivf.ivf_select_beam(jnp.asarray(q), jnp.asarray(cents), jnp.asarray(jg), nprobe=8,
+                                  metric=JMetric(metric.value))
+    bd, bi = tivf.ivf_select_beam(T(q), T(cents), g, nprobe=8, metric=metric)
+    np.testing.assert_allclose(bd.numpy(), _np(jd), rtol=1e-4, atol=1e-4)
+    assert ids_match_up_to_ties(bi.numpy(), _np(ji), _np(jd), 8)
+    _, ei = tivf.ivf_select(T(q), T(cents), nprobe=8)
+    bi, ei = bi.numpy(), ei.numpy()
+    assert np.mean([len(set(bi[b]) & set(ei[b])) / 8 for b in range(8)]) >= 0.85
+    small = tivf.build_centroid_graph(T(cents[:5]), degree=16)  # degree clamps to kc - 1
+    np.testing.assert_array_equal(small.numpy(), _np(jivf.build_centroid_graph(jnp.asarray(cents[:5]))))

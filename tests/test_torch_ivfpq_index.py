@@ -247,7 +247,7 @@ def test_spill_copies_crud_and_dedup():
         assert len(ids) == K and len(set(ids)) == K
 
 
-def test_config_errors_and_unported_tier():
+def test_config_errors_and_host_tier_entry_points():
     with pytest.raises(IndexError) as info:
         IVFPQIndex(15, config=IVFPQConfig(m=4), device="cpu")
     assert info.value.kind == IndexErrorKind.INVALID_CONFIGURATION
@@ -262,10 +262,14 @@ def test_config_errors_and_unported_tier():
                                             host_rerank=True), device="cpu")
     host.insert_batch(list(range(600)), x[:600])
     host.optimize()
-    for call in (lambda: host.batch_search(x[:2], 3), host.serve_session,
-                 lambda: list(host.batch_search_stream([x[:2]], 3))):
-        with pytest.raises(NotImplementedError, match="host-rerank"):
-            call()
+    # the host-rerank tier searches, opens a session and streams
+    res = host.batch_search(x[:2], 3)
+    assert [row[0].id for row in res] == [0, 1]
+    sess = host.serve_session()
+    assert sess.arrays.vecs is None
+    assert sess.search(x[:2], 3)[1][:, 0].tolist() == [host._idmap.lookup(i) for i in (0, 1)]
+    streamed = list(host.batch_search_stream([x[:2]], 3))
+    assert [[r.id for r in row] for row in streamed[0]] == [[r.id for r in row] for row in res]
     plain = IVFPQIndex(D, config=IVFPQConfig(nlist=4, m=4, ks=16), device="cpu")
     with pytest.raises(ValueError, match="host-rerank tier"):
         plain.serve_session()

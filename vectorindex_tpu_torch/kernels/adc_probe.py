@@ -37,15 +37,20 @@ raises on CPU tensors.
 `ivf_search_pq_probe` is the counterpart of `ivf_search_pq_pallas`: select
 lists, query LUT, K9/K10 with base term and allow mask in, position top-C,
 ids, dedup, exact f32 rerank, strict (score, id) top-k.
-`pq_probe_candidates` is its candidate half. The host-memory rerank tier
-(`ivf_search_pq_hostrerank`, `_stream`) is not ported yet (ROADMAP.md
-Queue 1 item 6).
+`pq_probe_candidates` is its candidate half, and the device half of the
+host-memory rerank tier: `ivf_search_pq_hostrerank` (per call) and
+`ivf_search_pq_hostrerank_stream` (pipelined) land only the [B, C] candidate
+ids (or CSR rows) on the host and rerank them there from a VectorReader
+(ops/rerank); the f32 corpus never reaches the card.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from vectorindex_tpu_torch.kernels.ivf_probe import BLK
@@ -53,6 +58,13 @@ from vectorindex_tpu_torch.kernels.scan_fused import MAX_SMEM_BYTES
 from vectorindex_tpu_torch.ops import pq as pq_ops
 from vectorindex_tpu_torch.ops.dedup import dedup_mask
 from vectorindex_tpu_torch.ops.ivf import _gram_rows, ivf_select
+from vectorindex_tpu_torch.ops.rerank import (
+    load_hostops,
+    native_rerank_available,
+    rerank_gathered,
+    rerank_gathered_host,
+    rerank_ids_host,
+)
 from vectorindex_tpu_torch.ops.topk import INVALID_DIST, INVALID_ID, topk
 from vectorindex_tpu_torch.utils.config import Metric
 
@@ -317,6 +329,13 @@ def _probed_adc(q, centroids, arrays, codes, tcorr, books, nprobe, probe_cap, me
     return dist, start_rows
 
 
+def candidate_count(rerank_c: int, k: int, nprobe: int, nlist: int, probe_cap: int) -> int:
+    """C, the ADC candidates a query keeps for the rerank: max(rerank_c,
+    4·min(k, P), 128), at most P = min(nprobe, nlist)·probe_cap."""
+    p = min(nprobe, nlist) * probe_cap
+    return min(max(rerank_c, 4 * min(k, p), 128), p)
+
+
 def _top_c(dist, start_rows, c, probe_cap, row_ids, dedup):
     """Position top-c of the probed distances (lowest position first on
     ties) → (distances, CSR rows clipped, internal ids INVALID where
@@ -374,9 +393,8 @@ def ivf_search_pq_probe(
     dist, start_rows = _probed_adc(q, centroids, arrays, codes, tcorr, books, nprobe, probe_cap,
                                    metric, packed_u4, row_allow, disabled_lists,
                                    "ivf_search_pq_probe")
-    p = dist.shape[1]
-    kk = min(k, p)
-    c = min(max(rerank_c, 4 * kk, 128), p)
+    kk = min(k, dist.shape[1])
+    c = candidate_count(rerank_c, k, nprobe, centroids.shape[0], probe_cap)
     cd, rows, iids, missing = _top_c(dist, start_rows, c, probe_cap, arrays.row_ids, dedup)
     if rerank_c:
         # exact rerank of the ADC top-C against the stored vectors
@@ -432,3 +450,235 @@ def pq_probe_candidates(
     cd, rows, iids, missing = _top_c(dist, start_rows, min(c, dist.shape[1]), probe_cap,
                                      arrays.row_ids, dedup)
     return cd, torch.where(missing, 0, rows), iids
+
+
+# ---------------------------------------------------------------------------
+# the host-memory rerank tier (VectorReader seam)
+# ---------------------------------------------------------------------------
+
+
+def _host_queries(q) -> np.ndarray:
+    if isinstance(q, torch.Tensor):
+        q = q.detach().cpu().numpy()
+    return np.ascontiguousarray(q, dtype=np.float32)
+
+
+def _upload(qnp: np.ndarray, device: torch.device) -> Tensor:
+    """Queries to the device without waiting for its queue: from pinned
+    memory (the caching host allocator keeps the block until the copy is
+    done), where a pageable upload would synchronise the stream."""
+    q = torch.from_numpy(qnp)
+    if device.type != "cuda":
+        return q.to(device)
+    return q.pin_memory().to(device, non_blocking=True)
+
+
+def _rows_of(g: np.ndarray, d: int, b: int, c: int) -> np.ndarray:
+    """Gathered [B·C, d'] rows → [B, C, d], without the columns past d a
+    padded reader serves."""
+    if g.shape[-1] > d:
+        g = np.ascontiguousarray(g[:, :d])
+    return g.reshape(b, c, g.shape[-1])
+
+
+def rerank_by_ids(reader, iids: np.ndarray, qnp: np.ndarray, *, k: int, metric: Metric):
+    """The host rerank of candidate ids [B, C] from an id-keyed reader
+    (`gather_ids`): the native fused rerank where the reader's `vecs` is
+    id-indexed and its layout admits it, else gather_ids +
+    rerank_gathered_host."""
+    if getattr(reader, "vecs_id_indexed", False):
+        out = rerank_ids_host(reader.vecs, iids, qnp, k=k, metric=metric)
+        if out is not None:
+            return out
+    xg = _rows_of(reader.gather_ids(iids.reshape(-1)), qnp.shape[1], *iids.shape)
+    return rerank_gathered_host(qnp, xg, iids, k=k, metric=metric)
+
+
+def ivf_search_pq_hostrerank(
+    q,  # [B, d] queries (numpy or tensor)
+    centroids: Tensor,
+    arrays,  # ops.ivf.IVFListArrays; vecs/sqnorms may be None
+    codes: Tensor,
+    tcorr: Tensor,
+    books: pq_ops.PQCodebooks,
+    reader,  # ops.rerank.VectorReader: the full-precision source
+    *,
+    nprobe: int,
+    probe_cap: int,
+    k: int,
+    rerank_c: int = 128,
+    metric: Metric = Metric.L2,
+    packed_u4: bool = False,
+    row_allow: Optional[Tensor] = None,
+    disabled_lists: Optional[Tensor] = None,
+    dedup: bool = False,  # needed under spill, as on the device tier
+    host_rerank: bool = True,
+):
+    """IVF-PQ search with the exact-rerank source outside device memory
+    (reference VectorReader seam, ExactRerank.swift:81-96) → (dist [B, k],
+    internal ids [B, k] int32).
+
+    (1) pq_probe_candidates on the card (K9/K10): the C best ADC
+    candidates, C = candidate_count(...); (2) their ids (an id-keyed reader,
+    `gather_ids`) or CSR rows (a rows-keyed one) to the host; (3) the exact
+    f32 rerank and strict (score, id) top-k on the host, numpy arrays out:
+    the native fused rerank where the reader's `vecs` is id-indexed and its
+    layout admits it, else the reader's gather + rerank_gathered_host.
+    host_rerank=False ships the gathered rows back and reranks on the
+    device (rerank_gathered), tensors out."""
+    qnp = _host_queries(q)
+    dev = centroids.device
+    qd = _upload(qnp, dev)
+    b, d = qnp.shape
+    c = candidate_count(rerank_c, k, nprobe, centroids.shape[0], probe_cap)
+    cd, rows, iids = pq_probe_candidates(
+        qd, centroids, arrays, codes, tcorr, books, nprobe=nprobe, probe_cap=probe_cap, c=c,
+        metric=metric, packed_u4=packed_u4, row_allow=row_allow,
+        disabled_lists=disabled_lists, dedup=dedup)
+    if host_rerank and hasattr(reader, "gather_ids"):
+        # the ids are both the gather key and the missing / dedup sentinel:
+        # one [B, C] int32 array crosses the link
+        return rerank_by_ids(reader, iids.cpu().numpy(), qnp, k=k, metric=metric)
+    xg = _rows_of(reader.gather(rows.cpu().numpy().reshape(-1)), d, b, iids.shape[1])
+    if host_rerank:
+        return rerank_gathered_host(qnp, xg, iids.cpu().numpy(), k=k, metric=metric)
+    return rerank_gathered(qd, torch.from_numpy(xg).to(dev), cd, iids, k=k, metric=metric)
+
+
+class _Landed(NamedTuple):
+    views: tuple  # host tensors the device tensors were copied into
+    event: Optional[torch.cuda.Event]  # recorded after the copies (CUDA only)
+    buf: Optional[Tensor]  # the pinned buffer holding the views
+
+
+class PinnedLanding:
+    """A pool of pinned host buffers that candidate tensors land in.
+
+    `land` enqueues non-blocking copies of int32 device tensors into a free
+    buffer on the current stream and records an event after them; `wait`
+    blocks on that event only and gives numpy views; `release` returns the
+    buffer once the host is done with the views. A buffer is never reused
+    before its batch has been released. CPU tensors land as themselves, with
+    no copy and no event."""
+
+    def __init__(self, slots: int):
+        self._free = deque([None] * slots)
+
+    def land(self, tensors) -> _Landed:
+        if tensors[0].device.type != "cuda":
+            return _Landed(tuple(tensors), None, None)
+        if not self._free:
+            raise RuntimeError("every pinned buffer is in flight: release a batch first")
+        n = sum(t.numel() for t in tensors)
+        buf = self._free.popleft()
+        if buf is None or buf.numel() < n:
+            buf = torch.empty(n, dtype=torch.int32, pin_memory=True)
+        views, off = [], 0
+        for t in tensors:
+            v = buf[off : off + t.numel()].view(t.shape)
+            v.copy_(t, non_blocking=True)
+            views.append(v)
+            off += t.numel()
+        event = torch.cuda.Event()
+        event.record()
+        return _Landed(tuple(views), event, buf)
+
+    @staticmethod
+    def wait(landed: _Landed) -> tuple:
+        if landed.event is not None:
+            landed.event.synchronize()
+        return tuple(v.numpy() for v in landed.views)
+
+    def release(self, landed: _Landed) -> None:
+        if landed.buf is not None:
+            self._free.append(landed.buf)
+
+
+def ivf_search_pq_hostrerank_stream(
+    q_batches,  # iterable of [B, d] query batches (numpy or tensors)
+    centroids: Tensor,
+    arrays,
+    codes: Tensor,
+    tcorr: Tensor,
+    books: pq_ops.PQCodebooks,
+    reader,
+    *,
+    nprobe: int,
+    probe_cap: int,
+    k: int,
+    rerank_c: int = 128,
+    metric: Metric = Metric.L2,
+    packed_u4: bool = False,
+    row_allow: Optional[Tensor] = None,
+    disabled_lists: Optional[Tensor] = None,
+    dedup: bool = False,
+    host_rerank: bool = True,
+    lookahead: int = 3,
+):
+    """Pipelined host-rerank serving: yields ivf_search_pq_hostrerank's
+    (dist, ids) per batch, in order, with up to `lookahead` batches in
+    flight (reference gather tiles pipelined against scoring,
+    ExactRerank.swift:21-64).
+
+    dispatch(batch) enqueues the candidate stage on the current stream and
+    the copy of its ids (and, for a rows-keyed reader or the device rerank,
+    its CSR rows) into a pinned buffer (PinnedLanding, lookahead + 1 of
+    them), with an event after the copy; finish(batch) waits on that event
+    only, then reranks. Batches drain before the next dispatch, so at most
+    `lookahead` are in flight. The native rerank reads the corpus in
+    finish(); for the numpy paths one worker thread lands the ids or rows
+    and gathers, so the gather of one batch overlaps the rerank of the one
+    before. On CPU tensors the same code runs synchronously."""
+    use_ids = host_rerank and hasattr(reader, "gather_ids")
+    native = (use_ids and getattr(reader, "vecs_id_indexed", False)
+              and native_rerank_available(reader.vecs))
+    if native:
+        load_hostops()  # built now, not inside the first batch; a failed build raises
+    depth = max(lookahead, 1)
+    landing = PinnedLanding(depth + 1)
+    fetcher = None if native else ThreadPoolExecutor(max_workers=1)
+    dev = centroids.device
+
+    def gather(landed, b, c, d):  # the worker: the first landed array keys the gather
+        keys = landing.wait(landed)[0].reshape(-1)
+        return _rows_of(reader.gather_ids(keys) if use_ids else reader.gather(keys), d, b, c)
+
+    def dispatch(qb):
+        qnp = _host_queries(qb)
+        qd = _upload(qnp, dev)
+        b, d = qnp.shape
+        c = candidate_count(rerank_c, k, nprobe, centroids.shape[0], probe_cap)
+        cd, rows, iids = pq_probe_candidates(
+            qd, centroids, arrays, codes, tcorr, books, nprobe=nprobe, probe_cap=probe_cap,
+            c=c, metric=metric, packed_u4=packed_u4, row_allow=row_allow,
+            disabled_lists=disabled_lists, dedup=dedup)
+        c = iids.shape[1]
+        # a rows-keyed host rerank lands its ids beside the rows
+        keys = (iids,) if use_ids else (rows.to(torch.int32),) + ((iids,) if host_rerank else ())
+        landed = landing.land(keys)
+        fut = None if native else fetcher.submit(gather, landed, b, c, d)
+        return qnp, qd, cd, iids, landed, fut
+
+    def finish(pend):
+        qnp, qd, cd, iids, landed, fut = pend
+        try:
+            if native:
+                return rerank_by_ids(reader, landing.wait(landed)[0], qnp, k=k, metric=metric)
+            xg = fut.result()
+            if host_rerank:
+                return rerank_gathered_host(qnp, xg, landing.wait(landed)[-1], k=k, metric=metric)
+            return rerank_gathered(qd, torch.from_numpy(xg).to(dev), cd, iids, k=k, metric=metric)
+        finally:
+            landing.release(landed)
+
+    pending = deque()
+    try:
+        for qb in q_batches:
+            if len(pending) >= depth:  # drain first: at most `lookahead` in flight
+                yield finish(pending.popleft())
+            pending.append(dispatch(qb))
+        while pending:
+            yield finish(pending.popleft())
+    finally:
+        if fetcher is not None:
+            fetcher.shutdown(wait=True, cancel_futures=True)

@@ -19,11 +19,14 @@ IVFPQIndex adds residual product quantization on top (IVF-PQ): the lists
 hold PQ codes of the residuals x − c_list beside the vectors, and a trained
 index searches through kernels/adc_probe.ivf_search_pq_probe (K9/K10 on a
 CUDA index, their plain versions on a CPU index) with the exact f32 rerank
-of the ADC top-C from the device-resident vectors.
+of the ADC top-C from the device-resident vectors. With
+IVFPQConfig(host_rerank=True) (the host-memory tier) the device holds the
+codes and CSR metadata only: kernels/adc_probe.ivf_search_pq_hostrerank
+brings the top-C candidates' CSR rows to the host and reranks them from the
+store's packed host mirror; `serve_session` and `batch_search_stream` serve
+it through models/serve.HostRerankSession.
 
-Not ported yet: the IVF-PQ host-memory rerank tier (IVFPQConfig.host_rerank,
-serve_session, batch_search_stream over it; ROADMAP.md Queue 1 item 6) and the
-durable container (item 9).
+Not ported yet: the durable container (ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -35,7 +38,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vectorindex_tpu_torch.kernels.adc_probe import ivf_search_pq_probe
+from vectorindex_tpu_torch.kernels.adc_probe import (
+    candidate_count,
+    ivf_search_pq_hostrerank,
+    ivf_search_pq_probe,
+)
 from vectorindex_tpu_torch.kernels.ivf_probe import ivf_search_flat_probe
 from vectorindex_tpu_torch.models.base import (
     FilterFn,
@@ -45,12 +52,14 @@ from vectorindex_tpu_torch.models.base import (
     VectorID,
     VectorIndex,
 )
+from vectorindex_tpu_torch.models.serve import HostRerankSession
 from vectorindex_tpu_torch.ops import kmeans as km
 from vectorindex_tpu_torch.ops import pq as pq_ops
 from vectorindex_tpu_torch.ops import rng as vrng
 from vectorindex_tpu_torch.ops.dtypes import pack_u4
 from vectorindex_tpu_torch.ops.filtering import slot_mask_np
 from vectorindex_tpu_torch.ops.idmap import IDMap
+from vectorindex_tpu_torch.ops.rerank import ArrayReader
 from vectorindex_tpu_torch.ops.ivf import IVFListStore, nearest_two, probe_cap_for
 from vectorindex_tpu_torch.ops.scan import scan_topk_strict
 from vectorindex_tpu_torch.ops.topk import INVALID_ID
@@ -383,8 +392,9 @@ class IVFIndex(VectorIndex):
         smask = slot_mask_np(max(self._next_slot, 1), self._idmap, allow_ids, deny_ids)
         if smask is None:
             return None
-        self._store.sync_device(self.storage_dtype)  # ensure packed layout
-        rid = self._store._packed["row_ids"]
+        # the packed layout only: a sync would put the host-rerank tier's
+        # vectors on the device
+        rid = self._store.packed()["row_ids"]
         ra = np.zeros(rid.shape[0], dtype=bool)
         live = rid >= 0
         ra[live] = smask[rid[live]]
@@ -571,12 +581,6 @@ class IVFIndex(VectorIndex):
 # IVF-PQ
 # ---------------------------------------------------------------------------
 
-_HOST_RERANK = (
-    "the IVF-PQ host-memory rerank tier is not ported yet "
-    "(ROADMAP.md Queue 1 item 6, the host-rerank tier)"
-)
-
-
 @dataclass(frozen=True)
 class IVFPQConfig(IVFConfig):
     """IVF-PQ knobs on top of IVFConfig (reference IVFAppendOpts.format
@@ -587,8 +591,8 @@ class IVFPQConfig(IVFConfig):
     pq_iters: int = 15
     rerank: bool = True  # exact rerank of the ADC candidates (#40)
     rerank_c: int = 64  # ADC candidates fed to the rerank
-    # host-memory rerank tier (vectors in host RAM, only the top-C rows
-    # cross to the rerank): not ported yet, searches raise
+    # host-memory rerank tier: the vectors stay in host RAM and only the
+    # top-C candidates' rows are read, on the host, for the rerank
     host_rerank: bool = False
     # boundary multi-assignment ("list spill", ops.ivf.spill_assign): rows
     # whose 2nd-nearest centroid is within (1+eps)·d1 are also encoded into
@@ -637,6 +641,7 @@ class IVFPQIndex(IVFIndex):
         self._books: Optional[pq_ops.PQCodebooks] = None
         self._pq_cache: Optional[dict] = None  # codes of the packed layout
         self._slot_spill: dict[int, int] = {}  # slot -> spill list id
+        self._host_reader_cache: Optional[tuple] = None  # (packed vecs, its reader)
 
     @classmethod
     def from_state(cls, state: dict, device="cuda") -> "IVFPQIndex":
@@ -843,18 +848,23 @@ class IVFPQIndex(IVFIndex):
             batch=q.shape[0], lists_routed=q.shape[0] * nprobe,
             codes_scanned=q.shape[0] * nprobe * cap,
             bytes_read={"codes": q.shape[0] * nprobe * cap * code_bytes},
-            flags={"u4"} if u4 else set(),
+            flags={f for f, on in (("u4", u4), ("host_rerank", self.config.host_rerank)) if on},
         )
         with TELEM.timer("scan_adc", stats):
-            dist, ids = self._pq_dispatch(q, kk, arrays, codes, tcorr, cap, nprobe,
+            dist, ids = self._pq_dispatch(q, kk, arrays, codes, tcorr, cap, nprobe, stats,
                                           row_allow, disabled)
         TELEM.record_kernel("adc_probe", rows=stats.codes_scanned,
                             bytes=stats.bytes_read["codes"])
         TELEM.record_query(stats)
+        return self._results(dist, ids, k, filter)
 
+    def _results(self, dist: np.ndarray, ids: np.ndarray, k: int,
+                 filter: Optional[FilterFn] = None) -> list[list[SearchResult]]:
+        """Rows of SearchResult from internal (dist, ids), each row cut at
+        its first missing slot and at k hits that pass `filter`."""
         scores = self._public_score(dist)
         out: list[list[SearchResult]] = []
-        for b in range(q.shape[0]):
+        for b in range(ids.shape[0]):
             row: list[SearchResult] = []
             for j in range(ids.shape[1]):
                 slot = int(ids[b, j])
@@ -871,13 +881,35 @@ class IVFPQIndex(IVFIndex):
             out.append(row)
         return out
 
-    def _pq_dispatch(self, q, kk, arrays, codes, tcorr, cap, nprobe, row_allow, disabled):
-        """One query batch through the device route → (dist, ids) as numpy:
-        ivf_search_pq_probe, the counterpart of the TPU's route, on every
-        device (K9/K10 on a CUDA index, their plain versions on a CPU
-        index). The host-rerank tier is not ported yet."""
+    def _host_reader(self) -> ArrayReader:
+        """VectorReader over the store's packed host mirror (f32, CSR row
+        order), cached by the array's identity: in-place appends write into
+        the same array, a repack replaces it and so the reader."""
+        pv = self._store.packed()["vecs"]
+        cache = self._host_reader_cache
+        if cache is None or cache[0] is not pv:
+            cache = (pv, ArrayReader(pv))
+            self._host_reader_cache = cache
+        return cache[1]
+
+    def _pq_dispatch(self, q, kk, arrays, codes, tcorr, cap, nprobe, stats, row_allow, disabled):
+        """One query batch → (dist, ids) as numpy, on every device through
+        the TPU's route (K9/K10 on a CUDA index, their plain versions on a
+        CPU index): on the host-rerank tier ivf_search_pq_hostrerank (the
+        candidates' rows read from the host mirror, reranked on the host),
+        else ivf_search_pq_probe (reranked from the device's vectors)."""
         if self.config.host_rerank and self.config.rerank:
-            raise NotImplementedError(f"IVFPQIndex search with host_rerank: {_HOST_RERANK}")
+            dist, ids = ivf_search_pq_hostrerank(
+                q, self._centroids_dev, arrays, codes, tcorr, self._books, self._host_reader(),
+                nprobe=nprobe, probe_cap=cap, k=kk, rerank_c=self.config.rerank_c,
+                metric=self.metric, packed_u4=self.config.ks <= 16, row_allow=row_allow,
+                disabled_lists=disabled, dedup=self._spill,
+            )
+            n_gather = q.shape[0] * candidate_count(self.config.rerank_c, kk, nprobe,
+                                                    self.config.nlist, cap)
+            TELEM.add_bytes("vecs", n_gather * self.dimension * 4)
+            stats.candidates_kept = n_gather
+            return dist, ids
         dist, ids = ivf_search_pq_probe(
             torch.from_numpy(q).to(self.device), self._centroids_dev, arrays, codes, tcorr,
             self._books, nprobe=nprobe, probe_cap=cap, k=kk, metric=self.metric,
@@ -887,26 +919,56 @@ class IVFPQIndex(IVFIndex):
         )
         return dist.cpu().numpy(), ids.cpu().numpy()
 
-    def serve_session(self, *, lookahead: int = 3, allow_ids=None, deny_ids=None):
-        """The long-lived serving session of the host-rerank tier: not
-        ported yet."""
+    def serve_session(self, *, lookahead: int = 3, allow_ids=None,
+                      deny_ids=None) -> HostRerankSession:
+        """Long-lived serving session of the host-rerank tier over the
+        current index state (reference IVFIndex.swift:413: serving flows
+        through the index). Snapshot semantics: the state is synced when
+        the session is made; after a mutation, make a new session."""
         if not (self.config.host_rerank and self.config.rerank):
             raise ValueError(
                 "serve_session requires the host-rerank tier "
                 "(IVFPQConfig(rerank=True, host_rerank=True))"
             )
-        raise NotImplementedError(f"IVFPQIndex.serve_session: {_HOST_RERANK}")
+        if not (self.trained and self.pq_trained):
+            raise ValueError("serve_session requires a trained index (optimize())")
+        row_allow = self._row_allow_mask(allow_ids, deny_ids)
+        arrays, codes, tcorr = self._sync_pq()
+        return HostRerankSession(
+            centroids=self._centroids_dev, arrays=arrays, codes=codes, tcorr=tcorr,
+            books=self._books, reader=self._host_reader(),
+            nprobe=min(self.config.nprobe, self.config.nlist),
+            probe_cap=probe_cap_for(self._store.max_length), rerank_c=self.config.rerank_c,
+            metric=self.metric, packed_u4=self.config.ks <= 16, dedup=self._spill,
+            row_allow=row_allow, lookahead=lookahead, device=self.device,
+        )
 
     def batch_search_stream(self, q_batches, k: int, *, lookahead: int = 3,
                             allow_ids=None, deny_ids=None):
         """Serve a stream of query batches, yielding batch_search's rows per
-        batch, in order. Off the host-rerank tier every batch is one
-        batch_search call; the pipelined host tier is not ported yet."""
-        del lookahead
-        if self.config.host_rerank and self.config.rerank and self.trained and self.pq_trained:
-            raise NotImplementedError(f"IVFPQIndex.batch_search_stream: {_HOST_RERANK}")
-        for qb in q_batches:
-            yield self.batch_search(qb, k, allow_ids=allow_ids, deny_ids=deny_ids)
+        batch, in order. On a trained host-rerank tier the batches are
+        pipelined through serve_session().stream (up to `lookahead` in
+        flight); elsewhere every batch is one batch_search call (its search
+        is already one device dispatch)."""
+        if not (self.config.host_rerank and self.config.rerank
+                and self.trained and self.pq_trained):
+            for qb in q_batches:
+                yield self.batch_search(qb, k, allow_ids=allow_ids, deny_ids=deny_ids)
+            return
+        sess = self.serve_session(lookahead=lookahead, allow_ids=allow_ids, deny_ids=deny_ids)
+
+        def checked(batches):
+            for qb in batches:
+                q = np.asarray(qb, dtype=np.float32)
+                if q.ndim == 1:
+                    q = q[None, :]
+                if q.shape[1] != self.dimension:
+                    raise dimension_mismatch(self.dimension, q.shape[1],
+                                             "ivfpq.batch_search_stream")
+                yield q
+
+        for dist, ids in sess.stream(checked(q_batches), min(k, self.count)):
+            yield self._results(dist, ids, k)
 
     def statistics(self) -> IndexStats:
         st = super().statistics()

@@ -11,6 +11,7 @@ from vectorindex_tpu_torch.ops import (  # noqa: F401
     kmeans,
     pq,
     range_query,
+    rerank,
     reservoir,
     rng,
     scan,

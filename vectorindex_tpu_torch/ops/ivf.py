@@ -17,9 +17,9 @@ IVFSelect.swift:78, IVFAppend.swift:220-712, ExactRerank.swift:655).
     of kernels/ivf_probe.ivf_search_flat_probe.
   - `spill_assign`: boundary multi-assignment for IVF-PQ, on a stable
     top-2 (`nearest_two`).
-
-Not ported yet: `build_centroid_graph`, `ivf_select_beam` (ROADMAP.md
-Queue 1 item 6).
+  - `build_centroid_graph` and `ivf_select_beam`: beam-search selection
+    over a kNN graph of the centroids (reference ivf_select_beam_f32,
+    IVFSelect.swift:166), for very many lists.
 """
 
 from __future__ import annotations
@@ -283,13 +283,18 @@ class IVFListStore:
                 dst.index_copy_(0, rows, self._upload(src, dtype if name == "vecs" else None))
         return view._replace(lengths=self._upload(self._packed["lengths"]))
 
+    def packed(self) -> dict:
+        """The host packed mirror (CSR arrays by name), repacked first if a
+        change left it stale. Uploads nothing."""
+        if self._dirty or self._packed is None:
+            self._repack()
+        return self._packed
+
     def sync_device(self, storage_dtype=torch.float32, with_vecs: bool = True) -> IVFListArrays:
         """Device view of the packed lists. After in-place appends the
         existing tensors are patched in place with index_copy_ (one call per
         array for all pending rows) instead of re-uploaded."""
-        if self._dirty or self._packed is None:
-            self._repack()
-        p = self._packed
+        p = self.packed()
         if not with_vecs:
             if self._dev_meta is None:
                 self._dev_meta = IVFListArrays(
@@ -351,6 +356,97 @@ class IVFListStore:
             else np.zeros((0, self.dim), np.float32)
         )
         return ids, vecs
+
+
+# ---------------------------------------------------------------------------
+# #29 variant — beam selection over a centroid kNN graph
+# ---------------------------------------------------------------------------
+
+
+def build_centroid_graph(centroids: Tensor, degree: int = 16) -> Tensor:
+    """kNN graph over the centroids → [kc, min(degree, kc − 1)] int32
+    neighbour ids, nearest first by (L2², id), self excluded (the routing
+    structure of ivf_select_beam)."""
+    d2 = scoring.l2sqr_block(centroids, centroids)
+    d2.fill_diagonal_(INVALID_DIST)
+    _, nbrs = topk(d2, min(degree, centroids.shape[0] - 1), strict_ties=True)
+    return nbrs
+
+
+def _dist_rows(q: Tensor, rows: Tensor, vecs: Tensor, sqn: Tensor) -> Tensor:
+    """L2²(q_b, vecs[rows[b, j]]) → [B, W]; rows < 0 read row 0 (the caller
+    masks them)."""
+    safe = rows.clamp_min(0).long()
+    g = _gram_rows(q, vecs[safe])
+    return torch.clamp_min((q.float() ** 2).sum(dim=-1)[:, None] + sqn[safe] - 2.0 * g, 0.0)
+
+
+def _graph_beam(q, vecs, sqn, nbrs, entry, *, ef: int, iters: int) -> Tuple[Tensor, Tensor]:
+    """Batched bounded best-first search over a fixed-degree graph (the JAX
+    package's ops/graph.beam_search with one expansion an iteration;
+    reference efSearch_core, HNSWTraversal.swift:221-280) → (L2² [B, ef]
+    ascending, ids [B, ef], INVALID_ID padded). Each iteration expands the
+    best unexpanded beam slot, scores its neighbours not yet visited, in the
+    beam or repeated, and keeps the top-ef of beam ∪ neighbours by
+    (distance, id)."""
+    b, m = q.shape[0], nbrs.shape[1]
+    dev = q.device
+    beam_d = torch.full((b, ef), INVALID_DIST, device=dev)
+    beam_i = torch.full((b, ef), INVALID_ID, dtype=torch.int32, device=dev)
+    beam_x = torch.zeros((b, ef), dtype=torch.int32, device=dev)  # expanded flags
+    beam_d[:, 0] = _dist_rows(q, entry[:, None], vecs, sqn)[:, 0]
+    beam_i[:, 0] = entry
+    visited = torch.full((b, iters), INVALID_ID, dtype=torch.int32, device=dev)
+    earlier = torch.ones((m, m), dtype=torch.bool, device=dev).tril(-1)
+    for t in range(iters):
+        unexp = (beam_x == 0) & (beam_i != INVALID_ID)
+        slot = torch.argsort((~unexp).to(torch.int8), dim=1, stable=True)[:, :1]
+        has = unexp.any(dim=1, keepdim=True)
+        cur = torch.where(has, torch.gather(beam_i, 1, slot), 0)
+        beam_x.scatter_(1, slot, torch.where(has, 1, torch.gather(beam_x, 1, slot)))
+        visited[:, t] = torch.where(has, cur, INVALID_ID)[:, 0]
+        nb = nbrs[cur[:, 0].long()]  # [B, M]
+        valid = (nb >= 0) & has
+        valid &= ~(nb[:, :, None] == visited[:, None, :]).any(dim=-1)
+        valid &= ~(nb[:, :, None] == beam_i[:, None, :]).any(dim=-1)
+        valid &= ~((nb[:, :, None] == nb[:, None, :]) & earlier).any(dim=-1)
+        nd = torch.where(valid, _dist_rows(q, nb, vecs, sqn), INVALID_DIST)
+        all_i = torch.cat([beam_i, torch.where(valid, nb, INVALID_ID)], dim=1)
+        all_d = torch.cat([beam_d, nd], dim=1)
+        all_x = torch.cat([beam_x, torch.zeros_like(nb)], dim=1)
+        # two-key (distance, id) order: by id, then stably by distance
+        order = torch.argsort(all_i, dim=1, stable=True)
+        order = torch.gather(order, 1, torch.argsort(torch.gather(all_d, 1, order), dim=1,
+                                                     stable=True))[:, :ef]
+        beam_d, beam_i, beam_x = (torch.gather(a, 1, order) for a in (all_d, all_i, all_x))
+    return beam_d, beam_i
+
+
+def ivf_select_beam(
+    q: Tensor,
+    centroids: Tensor,
+    centroid_graph: Tensor,  # [kc, degree] from build_centroid_graph
+    *,
+    nprobe: int,
+    beam_width: int = 32,
+    iters: int = 4,
+    metric: Metric = Metric.L2,
+) -> Tuple[Tensor, Tensor]:
+    """Beam-search centroid selection (reference ivf_select_beam_f32,
+    IVFSelect.swift:166) → (L2² [B, nprobe], list ids [B, nprobe] int32):
+    instead of scoring all kc centroids, walk the centroid graph from the
+    best of a strided sample of 4·beam_width seeds (scored by `metric`).
+    Approaches the exhaustive ivf_select as beam_width·iters·degree
+    approaches kc."""
+    kc = centroids.shape[0]
+    stride = max(kc // (beam_width * 4), 1)
+    seeds = torch.arange(0, kc, stride, device=centroids.device)[: beam_width * 4]
+    _, best = topk(scoring.distance_block(q, centroids[seeds], metric), 1, strict_ties=True)
+    entry = seeds[best[:, 0].long()].to(torch.int32)
+    bd, bi = _graph_beam(q.float(), centroids.float(), scoring.squared_norms(centroids),
+                         centroid_graph, entry, ef=max(beam_width, nprobe),
+                         iters=iters * beam_width)
+    return bd[:, :nprobe], bi[:, :nprobe]
 
 
 # ---------------------------------------------------------------------------
