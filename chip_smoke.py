@@ -65,6 +65,23 @@ just after:
         candidate stage (events), the ids' copy to the host, the native
         rerank and the host CPU are printed.
 
+  HNSW: bench.py's bench_hnsw: HNSWIndex over lowdim_corpus(100,000, 128,
+        dz=16, seed=41) at HNSWConfig() defaults (m=16, ef_construction=200,
+        ef_search=64) on the card: build (timed), batch_search at B=256 (4
+        batches, recall@10 >= 0.97 against brute force) and B=8, a warm
+        device_search at B=256 under torch.cuda.set_sync_debug_mode("error")
+        (no host synchronisation) with its launches and device busy time
+        from torch.profiler, batch_search_stream over 8 batches equal to
+        batch_search, allow_ids over 10% of the ids (every result allowed,
+        recall >= 0.95 over the allowed rows) and over 50 (the exact scan:
+        brute force up to ties), 1% removed (none returned, recall >= 0.97);
+        then 20,000 x 32 integer-valued rows built on the card and on the
+        host at L2, IP (graphs equal field by field, search ids equal) and
+        cosine (recall within 0.02). HNSW has no hand-written kernel.
+  k-means: IVFIndex.optimize's Lloyd (k-means|| seeding, nlist=1024) over
+        262,144 x 128 rows and pq_train (pq16) over 131,072 x 96, each
+        trained twice from one seed on the card: equal bits.
+
   wide flat: a bf16 FlatIndex at d = 3,072 (capacity 2^17, 120,000 rows) past
         the tensor-core CTA: batch_search at B=8 and 64 through K1/K2 on the
         CUDA cores (scan_fused.scan_design "fma"), recall@10 = 1.0, no strict
@@ -159,6 +176,29 @@ HOSTPQ_BATCH, HOSTPQ_NPROBE, HOSTPQ_RERANK_C, HOSTPQ_LOOKAHEAD = 64, 8, 1024, 6
 HOSTPQ_EVAL, HOSTPQ_STREAM, HOSTPQ_NOISE = 256, 16, 0.05
 HOSTPQ_RECALL_MIN = 0.95  # the TPU bench's hostpq line reads 0.9766 (another quantizer)
 HOSTPQ_DEVICE_BYTES_MAX = 64  # a device byte budget a row far under the f32 row's 384
+
+#: HNSW main path: bench.py's bench_hnsw (bench.py:1409-1432): L2 over
+#: lowdim_corpus(100,000, 128, dz=16, seed=41), HNSWConfig() defaults (m=16,
+#: ef_construction=200, ef_search=64, build_chunk=1024, build_expand=8),
+#: lowdim_queries(W, ...) at k=10: HNSW_BATCHES batches of B=256, B=8 calls,
+#: a stream of HNSW_STREAM batches of 256 with lookahead 3
+HNSW_ROWS, HNSW_DIM, HNSW_DZ, HNSW_SEED = 100_000, 128, 16, 41
+HNSW_BATCH, HNSW_BATCHES, HNSW_SMALL_CALLS, HNSW_STREAM, HNSW_LOOKAHEAD = 256, 4, 16, 8, 3
+HNSW_RECALL_MIN, HNSW_FILTER_RECALL_MIN = 0.97, 0.95  # the TPU bench's hnsw line reads 0.9938
+#: allow_ids filters: 10% of the ids (the ef-scaled beam), 50 ids (the exact
+#: scan); the share of ids removed before the tombstone search
+HNSW_ALLOW_FRAC, HNSW_ALLOW_FEW, HNSW_REMOVE_FRAC = 0.10, 50, 0.01
+#: the card against the host: integer-valued rows (every f32 product and sum
+#: exact, every sort two-key), built on both devices at each metric
+HNSW_INT_ROWS, HNSW_INT_DIM, HNSW_INT_QUERIES = 20_000, 32, 256
+HNSW_INT_CONFIG = dict(m=8, ef_construction=48, build_chunk=256)
+#: cosine normalises the rows, so its two builds are held to recall@10 within this
+HNSW_INT_COSINE_GAP = 0.02
+#: k-means replayed from its seed on the card: IVFIndex.optimize's Lloyd at
+#: nlist=1024 over 262,144 x 128 rows, and pq_train (pq16, 10 iterations)
+#: over 131,072 x 96 rows, each trained twice
+KM_ROWS, KM_DIM, KM_NLIST, KM_PQ_ROWS, KM_PQ_DIM, KM_PQ_M, KM_PQ_ITERS = (
+    262_144, 128, 1024, 131_072, 96, 16, 10)
 
 #: K9/K10 kernel-vs-plain cases over the skewed IVF store: batches on both
 #: sides of K10's B <= 16 and of the plans' probes a CTA, an 8-byte code
@@ -2307,6 +2347,269 @@ def phase_hostpq(ap, gpu: str):
     log(f"hostpq: phase {figs['phase_s']:.1f} s")
     return launches, errs, figs
 
+# ---------------------------------------------------------------------------
+# phase 12: HNSW (no hand-written kernel: its search is plain torch)
+# ---------------------------------------------------------------------------
+
+
+def hnsw_graph_fields(idx) -> dict:
+    """Every field that defines an HNSW graph, as numpy."""
+    return {"levels": idx._levels.copy(), "lookup0": idx._lookup0.copy(), "entry": idx._entry,
+            "layers": [(np.asarray(l.node_ids), l.nbrs[: l.count].copy()) for l in idx._layers]}
+
+
+def same_graph(a: dict, b: dict) -> bool:
+    return (a["entry"] == b["entry"] and np.array_equal(a["levels"], b["levels"])
+            and np.array_equal(a["lookup0"], b["lookup0"]) and len(a["layers"]) == len(b["layers"])
+            and all(np.array_equal(na, nb_) and np.array_equal(ea, eb)
+                    for (na, ea), (nb_, eb) in zip(a["layers"], b["layers"])))
+
+
+def result_ids(rows, k: int) -> np.ndarray:
+    out = np.full((len(rows), k), -1, dtype=np.int64)
+    for i, row in enumerate(rows):
+        out[i, : len(row)] = [r.id for r in row]
+    return out
+
+
+def masked_truth(x_dev, sq_dev, q: np.ndarray, k: int, live: np.ndarray):
+    """brute_force over the rows where `live` holds (the others at +inf)."""
+    dist, _, _ = brute_force(x_dev, sq_dev, q, k)
+    dist[:, torch.from_numpy(~live).to(dist.device)] = float("inf")
+    sd, order = torch.sort(dist, dim=1, stable=True)
+    return dist, sd[:, k - 1], order[:, :k]
+
+
+def search_profile(fn) -> tuple[int, float]:
+    """(CUDA kernel launches, device busy ms) of one fn() call, from
+    torch.profiler (copies and memsets are not launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    launches = sum(1 for e in dev if not e.name.startswith(("Memcpy", "Memset")))
+    busy = sum(e.device_time_total for e in dev) / 1e3
+    require(launches > 0 and busy > 0, "the profiler saw no device work in device_search")
+    return launches, busy
+
+
+def hnsw_int_builds(metric, x: np.ndarray, q: np.ndarray, k: int):
+    """Build one index on the card and one on the host over the same
+    integer-valued rows → (graphs equal, ids equal, recall card, recall
+    host, build s card, build s host)."""
+    from vectorindex_tpu_torch.models.hnsw import HNSWConfig, HNSWIndex
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        idx = HNSWIndex(x.shape[1], metric, HNSWConfig(**HNSW_INT_CONFIG), device=device)
+        t0 = time.perf_counter()
+        idx.insert_batch(list(range(x.shape[0])), x)
+        idx.statistics()
+        torch.cuda.synchronize()
+        out[device] = (idx, time.perf_counter() - t0)
+    (gi, tg), (ci, tc) = out["cuda"], out["cpu"]
+    ids_g = result_ids(gi.batch_search(q, k), k)
+    ids_c = result_ids(ci.batch_search(q, k), k)
+    return same_graph(hnsw_graph_fields(gi), hnsw_graph_fields(ci)), np.array_equal(ids_g, ids_c), \
+        ids_g, ids_c, tg, tc
+
+
+def phase_hnsw(gpu: str):
+    """HNSWIndex on the card at bench_hnsw's shape: build, searches (B=256,
+    B=8, the stream, filters, tombstones), device_search free of host
+    synchronisation, the card against the host on integer-valued rows."""
+    from vectorindex_tpu_torch.models.hnsw import HNSWConfig, HNSWIndex
+    from vectorindex_tpu_torch.utils.config import Metric
+    from vectorindex_tpu_torch.utils.parity import ids_match_up_to_ties
+
+    t_phase = time.perf_counter()
+    figs = {}
+    k, bsz = MAIN_K, HNSW_BATCH
+    x, W = lowdim_corpus(HNSW_ROWS, HNSW_DIM, dz=HNSW_DZ, seed=HNSW_SEED)
+    qs = lowdim_queries(W, bsz * (HNSW_BATCHES + HNSW_STREAM))
+    idx = HNSWIndex(HNSW_DIM, Metric.L2, HNSWConfig(), device="cuda")
+    t0 = time.perf_counter()
+    idx.insert_batch(list(range(HNSW_ROWS)), x)
+    st = idx.statistics()
+    torch.cuda.synchronize()
+    figs["build_s"] = time.perf_counter() - t0
+    figs["max_level"], figs["avg_degree_l0"] = st.details["max_level"], st.details["avg_degree_l0"]
+    log(f"hnsw: built {HNSW_ROWS} x {HNSW_DIM} in {figs['build_s']:.2f} s (levels "
+        f"{[l.count for l in idx._layers]}, mean level-0 degree {figs['avg_degree_l0']:.2f})")
+    x_dev = torch.from_numpy(x).cuda()
+    sq_dev = (x_dev * x_dev).sum(dim=1)
+
+    # B=256 batches: recall and walls
+    walls, recalls = [], []
+    for i in range(HNSW_BATCHES):
+        qb = qs[i * bsz : (i + 1) * bsz]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = idx.batch_search(qb, k)
+        walls.append(1e3 * (time.perf_counter() - t0))
+        dist, kth, truth = brute_force(x_dev, sq_dev, qb, k)
+        recalls.append(recall(res, dist, kth, truth, k)[0])
+    figs["recall"] = float(np.mean(recalls))
+    figs["b256_ms"] = float(np.median(walls[1:]))
+    figs["qps"] = bsz / figs["b256_ms"] * 1e3
+    require(figs["recall"] >= HNSW_RECALL_MIN, f"hnsw recall@{k} {figs['recall']} < {HNSW_RECALL_MIN}")
+    small = []
+    for i in range(HNSW_SMALL_CALLS):
+        qb = qs[i * SMALL_BATCH : (i + 1) * SMALL_BATCH]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = idx.batch_search(qb, k)
+        small.append(1e3 * (time.perf_counter() - t0))
+    dist, kth, truth = brute_force(x_dev, sq_dev, qs[:SMALL_BATCH], k)
+    figs["b8_recall"] = recall(idx.batch_search(qs[:SMALL_BATCH], k), dist, kth, truth, k)[0]
+    figs["b8_ms"] = float(np.median(small[1:]))
+    log(f"hnsw: recall@{k} {figs['recall']} at B={bsz} (per batch {recalls}), {figs['b8_recall']} "
+        f"at B={SMALL_BATCH}; walls B={bsz} {walls} ms (median {figs['b256_ms']:.4g}, "
+        f"{figs['qps']:.1f} QPS), B={SMALL_BATCH} median {figs['b8_ms']:.4g} ms")
+
+    # device_search: no host synchronisation, its launches and busy time
+    q_dev = torch.from_numpy(qs[:bsz]).cuda()
+    warm = idx.device_search(q_dev, k)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = idx.device_search(q_dev, k)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    require(all(torch.equal(a, b) for a, b in zip(warm, got)), "device_search is not repeatable")
+    figs["launches"], figs["busy_ms"] = search_profile(lambda: idx.device_search(q_dev, k))
+    figs["device_search_ms"] = time_ms(lambda: idx.device_search(q_dev, k), 5)
+    log(f"hnsw: device_search B={bsz} ran under set_sync_debug_mode('error'); "
+        f"{figs['launches']} CUDA launches, device busy {figs['busy_ms']:.4g} ms of "
+        f"{figs['device_search_ms']:.4g} ms by events (idle share "
+        f"{1 - figs['busy_ms'] / figs['device_search_ms']:.3f})")
+
+    # the stream against per-call search, batch by batch
+    batches = [qs[(HNSW_BATCHES + i) * bsz : (HNSW_BATCHES + i + 1) * bsz]
+               for i in range(HNSW_STREAM)]
+    list(idx.batch_search_stream(batches[:2], k, lookahead=HNSW_LOOKAHEAD))  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamed = list(idx.batch_search_stream(batches, k, lookahead=HNSW_LOOKAHEAD))
+    stream_s = time.perf_counter() - t0
+    figs["stream_qps"] = HNSW_STREAM * bsz / stream_s
+    for qb, rows_s in zip(batches, streamed):
+        rows_p = idx.batch_search(qb, k)
+        require([[(r.id, r.score) for r in row] for row in rows_s]
+                == [[(r.id, r.score) for r in row] for row in rows_p],
+                "batch_search_stream differs from batch_search")
+    log(f"hnsw: stream of {HNSW_STREAM} x {bsz} (lookahead {HNSW_LOOKAHEAD}) equals batch_search; "
+        f"{figs['stream_qps']:.1f} QPS")
+
+    # filters and tombstones
+    rng = np.random.default_rng(HNSW_SEED)
+    qb = qs[:bsz]
+    allow = rng.choice(HNSW_ROWS, int(HNSW_ALLOW_FRAC * HNSW_ROWS), replace=False)
+    live = np.zeros(HNSW_ROWS, dtype=bool)
+    live[allow] = True
+    res = idx.batch_search(qb, k, allow_ids=set(allow.tolist()))
+    require(all(live[r.id] for row in res for r in row), "allow_ids let another id through")
+    dist, kth, truth = masked_truth(x_dev, sq_dev, qb, k, live)
+    figs["allow10_recall"] = recall(res, dist, kth, truth, k)[0]
+    require(figs["allow10_recall"] >= HNSW_FILTER_RECALL_MIN,
+            f"hnsw allow_ids 10% recall {figs['allow10_recall']} < {HNSW_FILTER_RECALL_MIN}")
+    few = allow[:HNSW_ALLOW_FEW]
+    live_few = np.zeros(HNSW_ROWS, dtype=bool)
+    live_few[few] = True
+    res = idx.batch_search(qb, k, allow_ids=set(few.tolist()))
+    dist, _, truth = masked_truth(x_dev, sq_dev, qb, k, live_few)
+    sd = torch.sort(dist, dim=1, stable=True).values[:, : k + 1].cpu().numpy()
+    require(ids_match_up_to_ties(result_ids(res, k), truth.cpu().numpy(), sd, k),
+            "the exact-scan filter regime differs from brute force")
+    removed = rng.choice(HNSW_ROWS, int(HNSW_REMOVE_FRAC * HNSW_ROWS), replace=False)
+    for i in removed.tolist():
+        idx.remove(i)
+    alive = np.ones(HNSW_ROWS, dtype=bool)
+    alive[removed] = False
+    res = idx.batch_search(qb, k)
+    require(all(alive[r.id] for row in res for r in row), "a removed id was returned")
+    dist, kth, truth = masked_truth(x_dev, sq_dev, qb, k, alive)
+    figs["removed_recall"] = recall(res, dist, kth, truth, k)[0]
+    require(figs["removed_recall"] >= HNSW_RECALL_MIN,
+            f"hnsw recall after removals {figs['removed_recall']} < {HNSW_RECALL_MIN}")
+    log(f"hnsw: allow_ids 10% recall@{k} {figs['allow10_recall']} (every result allowed), "
+        f"{HNSW_ALLOW_FEW} ids equal brute force up to ties; {removed.size} removed: none returned, "
+        f"recall@{k} {figs['removed_recall']}")
+    del idx, x_dev, sq_dev
+    torch.cuda.empty_cache()
+
+    # the card against the host on integer-valued rows
+    rng = np.random.default_rng(HNSW_SEED + 1)
+    xi = rng.integers(-8, 9, (HNSW_INT_ROWS, HNSW_INT_DIM)).astype(np.float32)
+    qi = rng.integers(-8, 9, (HNSW_INT_QUERIES, HNSW_INT_DIM)).astype(np.float32)
+    figs["int_builds_s"] = {}
+    for metric in (Metric.L2, Metric.INNER_PRODUCT, Metric.COSINE):
+        graph_eq, ids_eq, ids_g, ids_c, tg, tc = hnsw_int_builds(metric, xi, qi, k)
+        figs["int_builds_s"][metric.value] = (tg, tc)
+        if metric == Metric.COSINE:  # normalisation breaks exactness: recall only
+            xn = xi / np.linalg.norm(xi, axis=1, keepdims=True)
+            qn = qi / np.linalg.norm(qi, axis=1, keepdims=True)
+            truth = np.argsort(-(qn @ xn.T), axis=1, kind="stable")[:, :k]
+            rec = [float(np.mean([len(set(a) & set(t)) / k for a, t in zip(ids, truth)]))
+                   for ids in (ids_g, ids_c)]
+            require(abs(rec[0] - rec[1]) <= HNSW_INT_COSINE_GAP, f"hnsw cosine integer recall {rec}")
+            log(f"hnsw card vs host cosine: graphs equal {graph_eq}, ids equal {ids_eq}, recall@{k} "
+                f"card {rec[0]} host {rec[1]}; builds {tg:.2f} s / {tc:.2f} s")
+        else:
+            require(graph_eq, f"hnsw {metric.value}: the card's graph differs from the host's")
+            require(ids_eq, f"hnsw {metric.value}: the card's ids differ from the host's")
+            log(f"hnsw card vs host {metric.value}: graphs equal field by field, search ids equal; "
+                f"builds {tg:.2f} s / {tc:.2f} s")
+    figs["phase_s"] = time.perf_counter() - t_phase
+    log(f"hnsw: phase {figs['phase_s']:.1f} s")
+    return figs
+
+
+def phase_kmeans_replay():
+    """K-means on the card replayed from its seed: IVFIndex.optimize's
+    Lloyd and pq_train, each trained twice, must give the same bits."""
+    from vectorindex_tpu_torch.models.ivf import IVFConfig
+    from vectorindex_tpu_torch.ops import kmeans as km
+    from vectorindex_tpu_torch.ops import pq
+    from vectorindex_tpu_torch.ops import rng as vrng
+
+    x, _ = lowdim_corpus(KM_ROWS, KM_DIM, seed=SEED)
+    xd = torch.from_numpy(x).cuda()
+    cfg = km.KMeansConfig(k=KM_NLIST, iters=IVFConfig().train_iters, algo="lloyd",
+                          seed=IVFConfig().seed)
+    runs, secs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res = km.kmeans(xd, cfg)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        runs.append(res)
+    require(torch.equal(runs[0].centroids, runs[1].centroids)
+            and torch.equal(runs[0].assignments, runs[1].assignments),
+            "k-means on the card gave other centroids from the same seed")
+    xp, _ = lowdim_corpus(KM_PQ_ROWS, KM_PQ_DIM, seed=SEED + 1)
+    xpd = torch.from_numpy(xp).cuda()
+    books, pq_secs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        books.append(pq.pq_train(vrng.make_generator(SEED, 1, device="cuda"), xpd, m=KM_PQ_M,
+                                 ks=256, iters=KM_PQ_ITERS).centroids)
+        torch.cuda.synchronize()
+        pq_secs.append(time.perf_counter() - t0)
+    require(torch.equal(books[0], books[1]), "pq_train on the card gave other codebooks from the same seed")
+    figs = {"kmeans_s": secs, "kmeans_iters": runs[0].iterations, "pq_train_s": pq_secs}
+    log(f"k-means replay: Lloyd nlist={KM_NLIST} over {KM_ROWS} x {KM_DIM} ({runs[0].iterations} "
+        f"iterations) and pq_train pq{KM_PQ_M} over {KM_PQ_ROWS} x {KM_PQ_DIM}, each twice: equal "
+        f"bits; seconds {secs}, {pq_secs}")
+    return figs
+
+
 
 def flat_bound(n: int, d: int, b: int, itemsize: int, kernel: str):
     """(bound_ms, bound_by) of K1/K2 (K11: K1's) over the flat main path's
@@ -2366,6 +2669,15 @@ def main() -> int:
         launches[name] += c
     for name, e in host_errs.items():
         errs[name] = max(errs[name], e)
+
+    hnsw = phase_hnsw(gpu)
+    replay = phase_kmeans_replay()
+    log(f"hnsw: gpu {gpu}; build {hnsw['build_s']:.2f} s (100k x 128, defaults), recall@{MAIN_K} "
+        f"{hnsw['recall']}, B={HNSW_BATCH} wall {hnsw['b256_ms']:.4g} ms ({hnsw['qps']:.1f} QPS), "
+        f"B={SMALL_BATCH} wall {hnsw['b8_ms']:.4g} ms, stream {hnsw['stream_qps']:.1f} QPS, "
+        f"device_search {hnsw['launches']} launches, device busy {hnsw['busy_ms']:.4g} ms of "
+        f"{hnsw['device_search_ms']:.4g} ms; k-means replay {replay['kmeans_s']} s, pq_train "
+        f"{replay['pq_train_s']} s")
 
     big = times[MAIN_BATCH]
     kernels = []

@@ -873,3 +873,80 @@ def test_host_tier_index_on_card_keeps_vectors_off_the_device(cuda_device):
     assert [[[r.id for r in row] for row in s] for s in streamed] == [
         [[r.id for r in row] for row in idx.batch_search(b, 10)] for b in batches]
     assert idx._store._dev is None
+
+
+# ---------------------------------------------------------------------------
+# HNSW (plain torch on the card) and k-means replayed from its seed
+# ---------------------------------------------------------------------------
+
+
+def _hnsw_pair(metric, device, n=3000, d=32):
+    from vectorindex_tpu_torch.models.hnsw import HNSWConfig, HNSWIndex
+
+    x = np.random.default_rng(5).integers(-8, 9, (n, d)).astype(np.float32)
+    idx = HNSWIndex(d, metric, HNSWConfig(m=8, ef_construction=48, build_chunk=256), device=device)
+    idx.insert_batch(list(range(n)), x)
+    idx.statistics()
+    return idx, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT], ids=lambda m: m.value)
+def test_hnsw_integer_build_on_card_equals_host(metric, cuda_device):
+    """Integer-valued rows: every product and sum is exact and every sort
+    two-key, so the card's graph and search equal the host's exactly."""
+    card, x = _hnsw_pair(metric, cuda_device)
+    host, _ = _hnsw_pair(metric, "cpu")
+    assert card._entry == host._entry
+    np.testing.assert_array_equal(card._levels, host._levels)
+    np.testing.assert_array_equal(card._lookup0, host._lookup0)
+    for a, b in zip(card._layers, host._layers, strict=True):
+        assert a.node_ids == b.node_ids
+        np.testing.assert_array_equal(a.nbrs[: a.count], b.nbrs[: b.count])
+    q = np.random.default_rng(6).integers(-8, 9, (32, x.shape[1])).astype(np.float32)
+    assert [[r.id for r in row] for row in card.batch_search(q, 10)] == [
+        [r.id for r in row] for row in host.batch_search(q, 10)]
+
+
+@pytest.mark.cuda
+def test_hnsw_device_search_has_no_host_sync(cuda_device):
+    """Once warm, with the queries on the card, device_search enqueues all
+    its work: torch.cuda.set_sync_debug_mode("error") raises on any host
+    synchronisation."""
+    card, x = _hnsw_pair(Metric.L2, cuda_device)
+    q = torch.from_numpy(x[:64] + 0.5).to(cuda_device)
+    warm = card.device_search(q, 10)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = card.device_search(q, 10)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert all(torch.equal(a, b) for a, b in zip(warm, got))
+
+
+@pytest.mark.cuda
+def test_kmeans_and_pq_train_replay_on_card(cuda_device):
+    """Trained twice from one seed on the card, k-means (k-means‖ seeding,
+    k > 256) and pq_train give the same bits; the segment sum equals the
+    CPU's index_add_ (each cluster's rows added in row order)."""
+    from vectorindex_tpu_torch.ops import kmeans as km
+    from vectorindex_tpu_torch.ops import rng as vrng
+
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(40_000, 32, generator=gen, device=cuda_device)
+    cfg = km.KMeansConfig(k=300, iters=8, seed=3)
+    a, b = km.kmeans(x, cfg), km.kmeans(x, cfg)
+    assert torch.equal(a.centroids, b.centroids) and torch.equal(a.assignments, b.assignments)
+    books = [pq.pq_train(vrng.make_generator(3, 1, device=cuda_device), x, m=8, ks=64,
+                         iters=5).centroids for _ in range(2)]
+    assert torch.equal(books[0], books[1])
+    sums, counts = km._segment_mean(x, a.assignments, 300)
+    want = torch.zeros(300, 32).index_add_(0, a.assignments.cpu().long(), x.cpu())
+    assert torch.equal(sums.cpu(), want)
+    assert torch.equal(counts.cpu(), torch.bincount(a.assignments.cpu().long(), minlength=300).float())
+    w = torch.rand(100_000, generator=gen, device=cuda_device)
+    picks = [vrng.weighted_pick(torch.Generator(device=cuda_device).manual_seed(1), w, (4096,))
+             for _ in range(2)]
+    assert torch.equal(picks[0], picks[1])

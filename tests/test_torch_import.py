@@ -49,6 +49,8 @@ def test_every_module_imports_without_jax_or_nvcc(tmp_path):
         "vectorindex_tpu_torch.kernels._build",
         "vectorindex_tpu_torch.models.flat",
         "vectorindex_tpu_torch.models.ivf",
+        "vectorindex_tpu_torch.models.hnsw",
+        "vectorindex_tpu_torch.ops.graph",
         "vectorindex_tpu_torch.ops.ivf",
         "vectorindex_tpu_torch.ops.ivf_pq",
         "vectorindex_tpu_torch.ops.pq",

@@ -125,6 +125,18 @@ def test_empty_cluster_repair_and_streaming():
     assert _max_center_gap(centers, km.kmeans_stream_finalize(state).numpy()) < 0.3
 
 
+def test_inverse_cdf_pick_follows_the_weights():
+    """weighted_pick's draw on CUDA (an inverse CDF summed in a fixed
+    order), run here on CPU tensors: zero weights are never drawn, draws
+    follow the weights, and a generator replays its draws."""
+    w = torch.tensor([0.0, 1.0, 0.0, 3.0, 0.0])
+    picks = vrng.inverse_cdf_pick(_gen(3), w, 4000)
+    assert picks.dtype == torch.int64 and set(picks.tolist()) == {1, 3}
+    assert abs(float((picks == 3).float().mean()) - 0.75) < 0.03
+    assert torch.equal(picks, vrng.inverse_cdf_pick(_gen(3), w, 4000))
+    assert set(vrng.inverse_cdf_pick(_gen(4), torch.ones(3), 60).tolist()) == {0, 1, 2}
+
+
 def test_rng_streams():
     a, b = _gen(42, 0), _gen(42, 0)
     assert torch.equal(vrng.gaussian(a, (5,)), vrng.gaussian(b, (5,)))

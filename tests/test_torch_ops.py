@@ -60,6 +60,27 @@ def test_distance_block_matches_jax(metric, dtype):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
+def test_from_distance_and_pairwise_distance_match_jax(metric):
+    """As tests/test_scoring.py:83: from_distance inverts as_distance, and
+    distances rank as the scores do; pairwise_distance is distance_block."""
+    q, x = _data(4, n=16, d=24, b=4)
+    (jq, jx), (tq, tx) = _both(q, x, "float32")
+    s = scoring.score_block(tq, tx, metric)
+    d = scoring.as_distance(s, metric)
+    back = scoring.from_distance(d, metric)
+    np.testing.assert_allclose(back.numpy(), s.numpy(), rtol=1e-6, atol=1e-6)
+    want = np.asarray(jscoring.from_distance(jscoring.as_distance(
+        jscoring.score_block(jq, jx, _jm(metric)), _jm(metric)), _jm(metric)))
+    np.testing.assert_allclose(back.numpy(), want, rtol=RTOL, atol=ATOL)
+    if metric.is_similarity:
+        assert np.all(np.argsort(d.numpy(), axis=-1) == np.argsort(-s.numpy(), axis=-1))
+    want = np.asarray(jscoring.pairwise_distance(jq, jx, _jm(metric)))
+    got = scoring.pairwise_distance(tq, tx, metric).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(got, scoring.distance_block(tq, tx, metric).numpy())
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_norm_cache_and_direct_l2(dtype):
     q, x = _data(2, dtype=dtype)

@@ -5,6 +5,7 @@ from vectorindex_tpu_torch.ops import (  # noqa: F401
     dedup,
     dtypes,
     filtering,
+    graph,
     idmap,
     ivf,
     ivf_pq,

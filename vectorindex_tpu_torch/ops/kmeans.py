@@ -7,10 +7,13 @@ Plain torch on tensors of any device; the JAX package has no kernel here.
 
   - Assignment is one f32 Gram product + argmin per row chunk, so the
     [n, k] distance matrix is never materialised beyond [chunk, k].
-  - Segment sums use `index_add_` (the JAX package's one-hot matmul would
-    materialise [n, k]). On CUDA, `index_add_` adds floats with atomics in
-    no fixed order, so centroids can differ in their last bits from run to
-    run; on the CPU they are deterministic.
+  - Segment sums add each cluster's rows in ascending row order, so a seed
+    gives the same centroids bit for bit in every run. On the CPU that is
+    `index_add_`; on CUDA (where `index_add_` adds floats by atomics in no
+    fixed order) the rows are stably sorted by assignment and each segment
+    is summed by `torch.segment_reduce`. The JAX package's one-hot matmul
+    would materialise [n, k] (scripts/ab_kmeans_segment_torch.py times both
+    CUDA designs).
   - The JAX package's `lax.scan`s are Python loops; Lloyd stops at the same
     rule as its masked scan (stop once an iteration does not improve the
     inertia by more than tol·|previous|, keeping the previous centroids).
@@ -68,12 +71,18 @@ def assign_clusters_chunked(
 
 
 def _segment_mean(x: Tensor, assign: Tensor, k: int) -> Tuple[Tensor, Tensor]:
-    """Per-cluster (sums [k, d] f32, counts [k] f32) with index_add_."""
+    """Per-cluster (sums [k, d] f32, counts [k] f32), each cluster's rows
+    added in ascending row order: index_add_ on the CPU; on CUDA a stable
+    sort by assignment, then a sum per segment, with no float atomics."""
     idx = assign.long()
+    counts = torch.bincount(idx, minlength=k)
+    if x.is_cuda:
+        rows = x.float()[torch.argsort(idx, stable=True)]
+        sums = torch.segment_reduce(rows, "sum", lengths=counts, axis=0, unsafe=True)
+        return sums, counts.float()
     sums = torch.zeros((k, x.shape[1]), dtype=torch.float32, device=x.device)
     sums.index_add_(0, idx, x.float())
-    counts = torch.bincount(idx, minlength=k).float()
-    return sums, counts
+    return sums, counts.float()
 
 
 def inertia(x: Tensor, centroids: Tensor) -> Tensor:

@@ -67,14 +67,33 @@ def weighted_pick(
     """Indices drawn with replacement, proportionally to non-negative
     weights (reference weightedPick, S2_RNGDtype.swift:309); zero-weight
     entries are never picked unless every weight is zero, when the draw is
-    uniform. Returns int64 of `shape`, with no host synchronisation."""
+    uniform. Returns int64 of `shape`, with no host synchronisation. A
+    generator draws the same indices in every run (on CUDA by an inverse
+    CDF summed in a fixed order)."""
     w = torch.clamp_min(weights.float(), 0.0)
     w = w + (w.sum() <= 0).float()  # all-zero weights: draw uniformly
     count = 1
     for s in shape:
         count *= s
-    picks = torch.multinomial(w, max(count, 1), replacement=True, generator=gen)
+    if w.is_cuda:
+        # on CUDA, torch.multinomial's draws of more than one index differ
+        # between two runs from one seed (scripts/ab_kmeans_segment_torch.py)
+        picks = inverse_cdf_pick(gen, w, max(count, 1))
+    else:
+        picks = torch.multinomial(w, max(count, 1), replacement=True, generator=gen)
     return picks[:count].reshape(shape)
+
+
+def inverse_cdf_pick(gen: torch.Generator, w: Tensor, count: int) -> Tensor:
+    """`count` indices drawn with replacement proportionally to the
+    non-negative weights w (not all zero), by an inverse CDF whose sums run
+    in a fixed order: the cumsum of a 2-row tensor takes PyTorch's row scan
+    (a 1-D one on CUDA takes cub's device-wide scan, which may associate
+    its float sums differently from run to run). Zero-weight entries are
+    never drawn."""
+    cdf = torch.cumsum(torch.stack([w, torch.zeros_like(w)]), dim=1)[0]
+    u = torch.rand(count, generator=gen, device=w.device) * cdf[-1]
+    return torch.clamp_max(torch.searchsorted(cdf, u, right=True), w.numel() - 1)
 
 
 def gaussian(gen: torch.Generator, shape: Tuple[int, ...], dtype=torch.float32) -> Tensor:

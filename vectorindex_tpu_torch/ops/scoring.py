@@ -93,13 +93,18 @@ def inv_norms(x: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _gram(q: Tensor, x: Tensor) -> Tensor:
-    """Q @ Xᵀ at full f32. [B,d]·[N,d] → [B,N]."""
-    if q.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+def check_full_f32(t: Tensor) -> None:
+    """Raise where a CUDA f32 product would run in TF32."""
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             "f32 Gram products need torch.backends.cuda.matmul.allow_tf32 = "
             "False (TF32 keeps ~3 decimal digits)"
         )
+
+
+def _gram(q: Tensor, x: Tensor) -> Tensor:
+    """Q @ Xᵀ at full f32. [B,d]·[N,d] → [B,N]."""
+    check_full_f32(q)
     return q.float() @ x.float().T
 
 
@@ -230,6 +235,17 @@ def as_distance(scores: Tensor, metric: Metric) -> Tensor:
     return scores
 
 
+def from_distance(dist: Tensor, metric: Metric) -> Tensor:
+    """Invert `as_distance` back to the metric's native score. For L2 the
+    public API also applies sqrt (reference HNSWIndex.swift:158); that
+    happens at the index layer, not here."""
+    if metric == Metric.INNER_PRODUCT:
+        return -dist
+    if metric == Metric.COSINE:
+        return 1.0 - dist
+    return dist
+
+
 def distance_block(
     q: Tensor,
     x: Tensor,
@@ -240,3 +256,9 @@ def distance_block(
 ) -> Tensor:
     """score_block + as_distance: ascending-is-better [B,N] distances."""
     return as_distance(score_block(q, x, metric, norms, q_norms, opts), metric)
+
+
+def pairwise_distance(a: Tensor, b: Tensor, metric: Metric) -> Tensor:
+    """distance_block for small pairwise blocks (construction paths;
+    reference DistanceUtils.swift:12)."""
+    return distance_block(a, b, metric)
