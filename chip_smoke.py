@@ -87,6 +87,23 @@ just after:
         CUDA cores (scan_fused.scan_design "fma"), recall@10 = 1.0, no strict
         fallback; then d = 8,192 through the strict path.
 
+  persist: each main-path index, before it is freed, saved into a temporary
+        directory (removed at the end) and restored on the card: the flat
+        1M x 128 bf16 index by save_container / load_container (bf16 kept; B=8
+        and B=256 through K1/K2 equal to the live index bit for bit, no strict
+        fallback); the IVF index through enable_durable, 1,000 journaled
+        inserts, 100 removes, 100 vector and 100 metadata updates,
+        close_durable with no checkpoint (a crash) and load_durable (count,
+        ids, dtype; B=8 K3 and B=256 K4 equal), then a checkpoint (generation
+        up by one) and load_index (equal again); pq16 and pq32x4 + spill
+        through enable_durable / load_durable (codebooks' bits equal; B=8 K10
+        and pq16's B=256 K9 equal; k distinct ids a row); HNSW by
+        save_container / load_container (no build step, graph equal field by
+        field, B=256 ids and distances equal). load_index returns each file's
+        class. The restored indices' launches count on the kernels' lines;
+        save, load and first-result seconds, file sizes and journaled
+        mutations a second are printed beside the card.
+
 The flat path also runs FlatIndex.range_search on its index (a few queries,
 one filtered), checked against brute force. K6, K7 and K8 are also timed in
 their first designs (kernels/adc.adc_scan_u8_v1, adc_scan_u4_v1,
@@ -1387,7 +1404,7 @@ def phase_pq_host_tier(ap, idx, evalq, bigq):
     return launches, med
 
 
-def phase_pq(ap):
+def phase_pq(ap, ps):
     """Both IVF-PQ configurations over one corpus → (launches summed over
     both main-path runs and pq16's host tier, pq16 times, pq32x4 times,
     build and recall figures)."""
@@ -1413,6 +1430,7 @@ def phase_pq(ap):
             for k, c in host_launches.items():
                 launches[k] += c
         times[name] = phase_pq_times(ap, name, idx, batches, evalq, pool, errs)
+        phase_persist_pq(ap, name, idx, batches, evalq, ps)
         del idx
         torch.cuda.empty_cache()
     return errs, launches, times, builds
@@ -2419,7 +2437,7 @@ def hnsw_int_builds(metric, x: np.ndarray, q: np.ndarray, k: int):
         ids_g, ids_c, tg, tc
 
 
-def phase_hnsw(gpu: str):
+def phase_hnsw(gpu: str, ps):
     """HNSWIndex on the card at bench_hnsw's shape: build, searches (B=256,
     B=8, the stream, filters, tombstones), device_search free of host
     synchronisation, the card against the host on integer-valued rows."""
@@ -2541,6 +2559,7 @@ def phase_hnsw(gpu: str):
     log(f"hnsw: allow_ids 10% recall@{k} {figs['allow10_recall']} (every result allowed), "
         f"{HNSW_ALLOW_FEW} ids equal brute force up to ties; {removed.size} removed: none returned, "
         f"recall@{k} {figs['removed_recall']}")
+    phase_persist_hnsw(idx, qb, ps, figs["build_s"])
     del idx, x_dev, sq_dev
     torch.cuda.empty_cache()
 
@@ -2611,6 +2630,284 @@ def phase_kmeans_replay():
 
 
 
+# ---------------------------------------------------------------------------
+# phase 14: persistence (binary containers, the durable IVF journal)
+# ---------------------------------------------------------------------------
+
+#: mutations journaled through the durable IVF container before the crash
+#: stand-in (close_durable with no checkpoint), then before the checkpoint
+PERSIST_INSERTS, PERSIST_REMOVES, PERSIST_UPDATES, PERSIST_META = 1000, 100, 100, 100
+PERSIST_CHECKPOINT_INSERTS = 100
+
+
+class Persist:
+    """phase_persist's state: the directory its files go to (removed by
+    close()), the figures of each index and its kernels' launches."""
+
+    def __init__(self):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_persist_")
+        self.figs: dict = {}
+        self.launches: dict = {}
+
+    def path(self, name: str) -> str:
+        return os.path.join(self.dir, name)
+
+    def count(self, module, names) -> None:
+        for name in names:
+            self.launches[name] = self.launches.get(name, 0) + module.LAUNCHES[name]
+
+    def close(self) -> None:
+        import shutil
+
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def same_rows(got, want, what: str) -> None:
+    """A restored index's results equal its live self's: ids and scores."""
+    require([[(r.id, r.score) for r in row] for row in got]
+            == [[(r.id, r.score) for r in row] for row in want],
+            f"{what}: the restored index's results differ from the live index's")
+
+
+def timed_load(load, first):
+    """(index, load s, s from the load's start to first()'s result, result)."""
+    t0 = time.perf_counter()
+    idx = load()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    res = first(idx)
+    return idx, load_s, time.perf_counter() - t0, res
+
+
+def phase_persist_flat(sf, idx, batches, ps: Persist) -> None:
+    """The flat main path's 1M x 128 bf16 index: save_container,
+    load_container (the device mirror pre-warmed from the norm cache), B=8
+    and B=256 through K1/K2 equal to the live index bit for bit, no strict
+    fallback; load_index returns a FlatIndex. The save is split on the host
+    clock: the id map's JSON, the CRC's rate over the rows (a save checks
+    each section twice), and the rest (the copy into the mapping, msync)."""
+    from vectorindex_tpu_torch.models import FlatIndex, load_index
+    from vectorindex_tpu_torch.persistence import container
+    from vectorindex_tpu_torch.utils.telemetry import TELEM
+
+    small, big = batches[-1], batches[0]
+    want_small, want_big = idx.batch_search(small, MAIN_K), idx.batch_search(big, MAIN_K)
+    path = ps.path("flat.vx")
+    t0 = time.perf_counter()
+    idx.save_container(path)
+    f = {"save_s": time.perf_counter() - t0, "gb": os.path.getsize(path) / 1e9}
+    rows = idx._vectors[: idx._next_slot]
+    t0 = time.perf_counter()
+    container.load_library().vc_crc32(rows.ctypes.data, rows.nbytes)
+    f["crc_gb_s"] = rows.nbytes / (time.perf_counter() - t0) / 1e9
+    t0 = time.perf_counter()
+    idx._idmap.to_blob()
+    f["idmap_json_s"] = time.perf_counter() - t0
+    f["save_rest_s"] = f["save_s"] - f["idmap_json_s"] - 2 * rows.nbytes / 1e9 / f["crc_gb_s"]
+    TELEM.reset()
+    TELEM.enable()
+    sf.reset_launches()
+    loaded, f["load_s"], f["first_s"], got_small = timed_load(
+        lambda: FlatIndex.load_container(path, idx.device), lambda i: i.batch_search(small, MAIN_K))
+    got_big = loaded.batch_search(big, MAIN_K)
+    TELEM.disable()
+    ps.count(sf, ("bin_candidates", "count_below"))
+    fallback = TELEM.snapshot()["counters"].get("flat.verify_fallback", 0)
+    require(loaded.storage_dtype == torch.bfloat16, f"flat reloads as {loaded.storage_dtype}")
+    require(sf.LAUNCHES["bin_candidates"] > 0 and sf.LAUNCHES["count_below"] > 0,
+            f"the reloaded flat index did not run K1/K2: {sf.LAUNCHES}")
+    require(fallback == 0, f"{fallback} queries of the reloaded flat index fell back")
+    same_rows(got_small, want_small, f"flat B={len(small)}")
+    same_rows(got_big, want_big, f"flat B={len(big)}")
+    del loaded
+    require(type(load_index(path, idx.device)) is FlatIndex, "load_index of a flat container")
+    os.remove(path)
+    ps.figs["flat"] = f
+    log(f"persist flat: {MAIN_ROWS} x {MAIN_DIM} bf16: save {f['save_s']:.3f} s (id map JSON "
+        f"{f['idmap_json_s']:.3f} s, two CRC passes at {f['crc_gb_s']:.3f} GB/s, the rest "
+        f"{f['save_rest_s']:.3f} s), {f['gb']:.3f} GB, "
+        f"load {f['load_s']:.3f} s, first result (B={len(small)}) {f['first_s']:.3f} s after the "
+        f"load began; B={len(small)}/{len(big)} ids and scores equal the live index's, K1/K2 "
+        f"launches {dict((n, sf.LAUNCHES[n]) for n in ('bin_candidates', 'count_below'))}, no "
+        f"strict fallback; load_index -> FlatIndex")
+
+
+def phase_persist_ivf(kp, idx, batches, bigq, ps: Persist) -> None:
+    """The IVF main path's 1M x 128 bf16 index: enable_durable, journaled
+    inserts, removes, vector and metadata updates, close_durable with no
+    checkpoint (a crash), load_durable: count, ids and storage dtype equal,
+    B=8 (K3) and B=256 (K4) equal to the live index; then durable again, a
+    checkpoint (the generation up by one), load_index again: equal again."""
+    from vectorindex_tpu_torch.models import IVFIndex, load_index
+    from vectorindex_tpu_torch.persistence.container import Container
+
+    path, f = ps.path("ivf.vx"), {}
+    q8 = batches[0]
+    t0 = time.perf_counter()
+    idx.enable_durable(path)
+    f["save_s"], f["gb"] = time.perf_counter() - t0, os.path.getsize(path) / 1e9
+    rng = np.random.default_rng(SEED)
+    live_ids = rng.permutation(IVF_ROWS)
+    base = np.stack([idx._vectors[idx._idmap.lookup(int(i))]
+                     for i in live_ids[:PERSIST_INSERTS + PERSIST_UPDATES]])
+    moved = base + 0.05 * rng.standard_normal(base.shape, dtype=np.float32)
+    moved /= np.linalg.norm(moved, axis=1, keepdims=True)
+    removed = live_ids[-PERSIST_REMOVES:].tolist()
+    updated = live_ids[PERSIST_INSERTS: PERSIST_INSERTS + PERSIST_UPDATES].tolist()
+    tagged = live_ids[-PERSIST_REMOVES - PERSIST_META: -PERSIST_REMOVES].tolist()
+    n_mut = PERSIST_INSERTS + PERSIST_REMOVES + PERSIST_UPDATES + PERSIST_META
+    t0 = time.perf_counter()
+    idx.insert_batch(list(range(IVF_ROWS, IVF_ROWS + PERSIST_INSERTS)), moved[:PERSIST_INSERTS])
+    for i in removed:
+        idx.remove(i)
+    for i, v in zip(updated, moved[PERSIST_INSERTS:]):
+        idx.update(i, vector=v)
+    for i in tagged:
+        idx.update(i, metadata={"tag": i})
+    f["journal_s"] = time.perf_counter() - t0
+    f["mutations_per_s"] = n_mut / f["journal_s"]
+    idx.close_durable()  # no checkpoint: the journal alone carries the mutations
+    want8, want256 = idx.batch_search(q8, MAIN_K), idx.batch_search(bigq, MAIN_K)
+    kp.reset_launches()
+    loaded, f["load_s"], f["first_s"], got8 = timed_load(
+        lambda: IVFIndex.load_durable(path, idx.device), lambda i: i.batch_search(q8, MAIN_K))
+    got256 = loaded.batch_search(bigq, MAIN_K)
+    ps.count(kp, ("ivf_probe_topc", "ivf_probe_scores"))
+    require(kp.LAUNCHES["ivf_probe_topc"] > 0 and kp.LAUNCHES["ivf_probe_scores"] > 0,
+            f"the reloaded IVF index did not run K3 and K4: {kp.LAUNCHES}")
+    require(loaded.count == idx.count == IVF_ROWS + PERSIST_INSERTS - PERSIST_REMOVES,
+            f"ivf reloads {loaded.count} rows, live {idx.count}")
+    require(dict(loaded._idmap.items()) == dict(idx._idmap.items()), "ivf reloads other ids")
+    require(loaded.storage_dtype == torch.bfloat16, f"ivf reloads as {loaded.storage_dtype}")
+    require(all(loaded._metadata.get(loaded._idmap.lookup(i)) == {"tag": i} for i in tagged),
+            "a journaled metadata update was lost")
+    same_rows(got8, want8, f"ivf journal B={len(q8)}")
+    same_rows(got256, want256, f"ivf journal B={len(bigq)}")
+    del loaded
+
+    idx.enable_durable(path)
+    gen = idx._durable.generation
+    idx.insert_batch(list(range(IVF_ROWS + PERSIST_INSERTS,
+                                IVF_ROWS + PERSIST_INSERTS + PERSIST_CHECKPOINT_INSERTS)),
+                     moved[:PERSIST_CHECKPOINT_INSERTS] * -1.0)
+    t0 = time.perf_counter()
+    idx.checkpoint()
+    f["checkpoint_s"] = time.perf_counter() - t0
+    idx.close_durable()
+    with Container.open(path) as c:
+        require(c.generation == gen + 1, f"checkpoint: generation {c.generation}, expected {gen + 1}")
+    want8, want256 = idx.batch_search(q8, MAIN_K), idx.batch_search(bigq, MAIN_K)
+    loaded, f["load2_s"], _, got8 = timed_load(
+        lambda: load_index(path, idx.device), lambda i: i.batch_search(q8, MAIN_K))
+    require(type(loaded) is IVFIndex, f"load_index of a durable IVF container gave {type(loaded)}")
+    same_rows(got8, want8, f"ivf checkpoint B={len(q8)}")
+    same_rows(loaded.batch_search(bigq, MAIN_K), want256, f"ivf checkpoint B={len(bigq)}")
+    del loaded
+    os.remove(path)
+    ps.figs["ivf"] = f
+    log(f"persist ivf: {IVF_ROWS} x {IVF_DIM} bf16 nlist={IVF_NLIST}: enable_durable (save) "
+        f"{f['save_s']:.3f} s, {f['gb']:.3f} GB; journaled {PERSIST_INSERTS} inserts, "
+        f"{PERSIST_REMOVES} removes, {PERSIST_UPDATES} vector and {PERSIST_META} metadata updates "
+        f"in {f['journal_s']:.3f} s ({f['mutations_per_s']:.1f} mutations/s); close without a "
+        f"checkpoint, load_durable {f['load_s']:.3f} s, first result {f['first_s']:.3f} s; count, "
+        f"ids, dtype and B={len(q8)} (K3) / B={len(bigq)} (K4) equal the live index's; "
+        f"checkpoint {f['checkpoint_s']:.3f} s (generation {gen} -> {gen + 1}), load_index "
+        f"{f['load2_s']:.3f} s: equal again")
+
+
+def phase_persist_pq(ap, name, idx, batches, bigq, ps: Persist) -> None:
+    """An IVF-PQ main-path index: enable_durable, close_durable,
+    load_durable (pq16) or load_index (pq32x4): the codebooks' bits equal,
+    B=8 (K10) and, for pq16, B=256 (K9) equal to the live index; spill_eps
+    kept and every row k distinct ids (pq32x4)."""
+    from vectorindex_tpu_torch.models import IVFIndex, IVFPQIndex, load_index
+
+    path, f = ps.path(f"{name}.vx"), {}
+    q8 = batches[0]
+    t0 = time.perf_counter()
+    idx.enable_durable(path)
+    f["save_s"], f["gb"] = time.perf_counter() - t0, os.path.getsize(path) / 1e9
+    idx.close_durable()
+    want8 = idx.batch_search(q8, MAIN_K)
+    want_big = idx.batch_search(bigq, MAIN_K) if name == "pq16" else None
+    load = ((lambda: IVFIndex.load_durable(path, idx.device)) if name == "pq16"
+            else (lambda: load_index(path, idx.device)))
+    ap.reset_launches()
+    loaded, f["load_s"], f["first_s"], got8 = timed_load(load, lambda i: i.batch_search(q8, MAIN_K))
+    require(type(loaded) is IVFPQIndex and loaded.config == idx.config,
+            f"{name} reloads as {type(loaded).__name__} {loaded.config}")
+    require(torch.equal(loaded._books.centroids, idx._books.centroids)
+            and torch.equal(loaded._books.sqnorms, idx._books.sqnorms), f"{name}: codebooks differ")
+    same_rows(got8, want8, f"{name} B={len(q8)}")
+    kernels = ["adc_probe_scores_rankseg"]
+    if name == "pq16":
+        same_rows(loaded.batch_search(bigq, MAIN_K), want_big, f"{name} B={len(bigq)}")
+        kernels.append("adc_probe_scores")
+    ps.count(ap, kernels)
+    require(all(ap.LAUNCHES[k] > 0 for k in kernels), f"{name}: the reloaded index ran {ap.LAUNCHES}")
+    require(all(len({r.id for r in row}) == len(row) == MAIN_K for row in got8),
+            f"{name}: a reloaded row holds a duplicate id or fewer than k")
+    del loaded
+    os.remove(path)
+    ps.figs[name] = f
+    log(f"persist {name}: {PQ_ROWS} x {PQ_DIM} spill_eps={idx.config.spill_eps}: save "
+        f"{f['save_s']:.3f} s, {f['gb']:.3f} GB, load {f['load_s']:.3f} s, first result (encode + "
+        f"B={len(q8)}) {f['first_s']:.3f} s; codebooks equal bits, results equal the live index's "
+        f"through {kernels}, every row {MAIN_K} distinct ids")
+
+
+def phase_persist_hnsw(idx, q, ps: Persist, build_s: float) -> None:
+    """The HNSW main path's 100k x 128 index (1% removed): save_container,
+    load_container with no build step, the graph equal field by field, a
+    B=256 search equal in ids and distances; load_index returns an
+    HNSWIndex."""
+    from vectorindex_tpu_torch.models import HNSWIndex, load_index
+
+    path, f = ps.path("hnsw.vx"), {"build_s": build_s}
+    want = idx.batch_search(q, MAIN_K)
+    graph = hnsw_graph_fields(idx)
+    t0 = time.perf_counter()
+    idx.save_container(path)
+    f["save_s"], f["gb"] = time.perf_counter() - t0, os.path.getsize(path) / 1e9
+    builds = []
+    build_chunk = HNSWIndex._build_chunk
+    HNSWIndex._build_chunk = lambda self, slots: builds.append(len(slots))
+    try:
+        loaded, f["load_s"], f["first_s"], got = timed_load(
+            lambda: HNSWIndex.load_container(path, idx.device), lambda i: i.batch_search(q, MAIN_K))
+    finally:
+        HNSWIndex._build_chunk = build_chunk
+    require(not builds and not loaded._pending, f"hnsw load ran a build step: {builds}")
+    require(same_graph(hnsw_graph_fields(loaded), graph), "hnsw: the reloaded graph differs")
+    same_rows(got, want, f"hnsw B={len(q)}")
+    del loaded
+    require(type(load_index(path, idx.device)) is HNSWIndex, "load_index of an HNSW container")
+    os.remove(path)
+    ps.figs["hnsw"] = f
+    log(f"persist hnsw: {HNSW_ROWS} x {HNSW_DIM}: save {f['save_s']:.3f} s, {f['gb']:.4f} GB, load "
+        f"{f['load_s']:.3f} s (build {build_s:.2f} s), first result (B={len(q)}) {f['first_s']:.3f} "
+        f"s; no build step, graph equal field by field, ids and distances equal")
+
+
+def persist_summary(ps: Persist, gpu: str) -> str:
+    """One line of the phase's figures beside the card."""
+    parts = []
+    for name in ("flat", "ivf", "pq16", "pq32x4", "hnsw"):
+        f = ps.figs[name]
+        parts.append(f"{name} save {f['save_s']:.3f} s load {f['load_s']:.3f} s {f['gb']:.4f} GB "
+                     f"first result {f['first_s']:.3f} s")
+    ivf, hnsw, flat = ps.figs["ivf"], ps.figs["hnsw"], ps.figs["flat"]
+    parts[0] += (f" (id map JSON {flat['idmap_json_s']:.3f} s, CRC {flat['crc_gb_s']:.3f} GB/s, "
+                 f"the rest {flat['save_rest_s']:.3f} s)")
+    return (f"persist: gpu {gpu}; " + "; ".join(parts)
+            + f"; journaled {ivf['mutations_per_s']:.1f} mutations/s; load_durable at "
+            f"{IVF_ROWS} rows {ivf['load_s']:.3f} s (after a checkpoint, load_index "
+            f"{ivf['load2_s']:.3f} s); hnsw load {hnsw['load_s']:.3f} s against build "
+            f"{hnsw['build_s']:.2f} s; launches {ps.launches}")
+
+
 def flat_bound(n: int, d: int, b: int, itemsize: int, kernel: str):
     """(bound_ms, bound_by) of K1/K2 (K11: K1's) over the flat main path's
     corpus: rows, bias and q read once, the candidates or counts written."""
@@ -2623,6 +2920,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    ps = Persist()
+    try:
+        return run(ps)
+    finally:
+        ps.close()
+
+
+def run(ps: Persist) -> int:
     from vectorindex_tpu_torch.kernels import _build, adc as fa, adc_probe as ap, ivf_probe as kp
     from vectorindex_tpu_torch.kernels import scan_fused as sf
     from vectorindex_tpu_torch.ops.topk import topk
@@ -2640,6 +2945,7 @@ def main() -> int:
     times = phase_times(sf, topk, idx, batches, errs)
     launches["bin_candidates_tree"], tree_times = phase_tree(sf, topk, idx, batches, errs)
     range_s = phase_flat_range(idx, batches)
+    phase_persist_flat(sf, idx, batches, ps)
     n_flat, itemsize = idx.capacity, 2
     del idx, batches
     torch.cuda.empty_cache()
@@ -2651,10 +2957,11 @@ def main() -> int:
     ivf_idx, ivf_batches, bigq, ivf_launches, build_s = phase_ivf_main(kp)
     ivf_times = phase_ivf_times(kp, ivf_idx, ivf_batches, bigq, errs)
     launches.update(ivf_launches)
+    phase_persist_ivf(kp, ivf_idx, ivf_batches, bigq, ps)
     del ivf_idx, ivf_batches, bigq
     torch.cuda.empty_cache()
 
-    pq_errs, pq_launches, pq_times, pq_builds = phase_pq(ap)
+    pq_errs, pq_launches, pq_times, pq_builds = phase_pq(ap, ps)
     errs.update(pq_errs)
     launches.update(pq_launches)
     torch.cuda.empty_cache()
@@ -2670,8 +2977,11 @@ def main() -> int:
     for name, e in host_errs.items():
         errs[name] = max(errs[name], e)
 
-    hnsw = phase_hnsw(gpu)
+    hnsw = phase_hnsw(gpu, ps)
     replay = phase_kmeans_replay()
+    log(persist_summary(ps, gpu))
+    for name, c in ps.launches.items():  # phase_persist's runs on the restored indices
+        launches[name] += c
     log(f"hnsw: gpu {gpu}; build {hnsw['build_s']:.2f} s (100k x 128, defaults), recall@{MAIN_K} "
         f"{hnsw['recall']}, B={HNSW_BATCH} wall {hnsw['b256_ms']:.4g} ms ({hnsw['qps']:.1f} QPS), "
         f"B={SMALL_BATCH} wall {hnsw['b8_ms']:.4g} ms, stream {hnsw['stream_qps']:.1f} QPS, "

@@ -950,3 +950,64 @@ def test_kmeans_and_pq_train_replay_on_card(cuda_device):
     picks = [vrng.weighted_pick(torch.Generator(device=cuda_device).manual_seed(1), w, (4096,))
              for _ in range(2)]
     assert torch.equal(picks[0], picks[1])
+
+
+@pytest.mark.cuda
+def test_flat_bf16_container_reloads_on_card_through_k1_k2(cuda_device, monkeypatch, tmp_path):
+    """A bf16 flat index saved and loaded on the card keeps bf16 and gives
+    the live index's ids and scores bit for bit, through K1/K2 with no
+    strict fallback."""
+    monkeypatch.setattr(tflat, "LARGE_SCAN_THRESHOLD", 1024)
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((3000, 32)).astype(np.float32)
+    q = x[:16] + 0.05 * rng.standard_normal((16, 32)).astype(np.float32)
+    live = tflat.FlatIndex(32, Metric.L2, storage_dtype=torch.bfloat16, device=cuda_device)
+    live.insert_batch(list(range(len(x))), x)
+    live.remove(7)
+    p = str(tmp_path / "flat.vx")
+    live.save_container(p)
+    loaded = tflat.FlatIndex.load_container(p, device=cuda_device)
+    assert loaded.storage_dtype == torch.bfloat16 and loaded._dev is not None
+    want = live.batch_search(q, 10)
+    TELEM.reset()
+    TELEM.enable()
+    sf.reset_launches()
+    try:
+        got = loaded.batch_search(q, 10)
+    finally:
+        TELEM.disable()
+    assert sf.LAUNCHES["bin_candidates"] == 1 and sf.LAUNCHES["count_below"] == 1
+    assert TELEM.snapshot()["counters"].get("flat.verify_fallback", 0) == 0
+    assert [[r.id for r in row] for row in got] == [[r.id for r in row] for row in want]
+    assert [[r.score for r in row] for row in got] == [[r.score for r in row] for row in want]
+
+
+@pytest.mark.cuda
+def test_durable_ivf_reloads_on_card_through_k3_k4(cuda_device, tmp_path):
+    """load_durable of a journaled bf16 IVF index on the card equals the
+    live index: ids and scores at B=8 (K3) and B=32 (K4)."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((4000, 32)).astype(np.float32)
+    live = IVFIndex(32, config=IVFConfig(nlist=16, nprobe=4), storage_dtype=torch.bfloat16,
+                    device=cuda_device)
+    live.insert_batch(list(range(3500)), x[:3500])
+    live.optimize()
+    p = str(tmp_path / "ivf.vx")
+    live.enable_durable(p)
+    live.insert_batch(list(range(3500, 4000)), x[3500:])
+    for i in range(0, 400, 9):
+        live.remove(i)
+    for i in range(401, 600, 11):
+        live.update(i, vector=x[i] + 0.3)
+    live.update(2, metadata={"m": 2})
+    live.close_durable()
+    loaded = IVFIndex.load_durable(p, device=cuda_device)
+    assert loaded.storage_dtype == torch.bfloat16 and loaded.count == live.count
+    for b, kernel in ((8, "ivf_probe_topc"), (32, "ivf_probe_scores")):
+        q = x[1000: 1000 + b] + 0.05
+        want = live.batch_search(q, 10)
+        kp.reset_launches()
+        got = loaded.batch_search(q, 10)
+        assert kp.LAUNCHES[kernel] >= 1
+        assert [[r.id for r in row] for row in got] == [[r.id for r in row] for row in want]
+        assert [[r.score for r in row] for row in got] == [[r.score for r in row] for row in want]

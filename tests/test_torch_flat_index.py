@@ -172,7 +172,7 @@ def test_crud_compact_and_statistics_match_jax():
         assert ts.details[key] == js.details[key]
 
 
-def test_errors():
+def test_errors(tmp_path):
     t = tflat.FlatIndex(4, device="cpu")
     t.insert("a", np.ones(4))
     cases = [
@@ -191,10 +191,12 @@ def test_errors():
         with pytest.raises(IndexError) as info:
             call()
         assert info.value.kind == kind
-    for call in (lambda: t.save_container("x"),
-                 lambda: tflat.FlatIndex.load_container("x", device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    t.save(str(tmp_path / "t.json"))
+    for path, kind in ((tmp_path / "missing.vx", IndexErrorKind.IO_ERROR),
+                       (tmp_path / "t.json", IndexErrorKind.CORRUPT_DATA)):  # no INDEXTPU magic
+        with pytest.raises(IndexError) as info:
+            tflat.FlatIndex.load_container(str(path), device="cpu")
+        assert info.value.kind == kind
     assert t.search(np.ones(4), 0) == [] and tflat.FlatIndex(4, device="cpu").search(np.ones(4), 3) == []
 
 

@@ -448,10 +448,10 @@ def test_save_load_keeps_every_config_field(tmp_path):
     assert (old.config.ef_construction, old.config.build_chunk, old.config.build_expand) == (
         jold.config.ef_construction, jold.config.build_chunk, jold.config.build_expand
     ) == (100, 1024, 8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        p.save_container(str(tmp_path / "c.vidx"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        HNSWIndex.load_container(str(tmp_path / "c.vidx"))
+    p.save_container(str(tmp_path / "c.vidx"))  # the container keeps them too, and the graph
+    back = HNSWIndex.load_container(str(tmp_path / "c.vidx"), device="cpu")
+    assert back.config == p.config
+    _assert_same_graph(back, p)
 
 
 def test_config_and_defaults_match_jax():

@@ -20,11 +20,13 @@ names = sorted(m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ 
 for name in names:
     importlib.import_module(name)
 from vectorindex_tpu_torch.kernels import _build
+from vectorindex_tpu_torch.persistence import container
 print(json.dumps({
     "modules": names,
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "reference": sorted(m for m in sys.modules if m.split(".")[0] == "vectorindex_tpu"),
-    "library_loaded": _build._lib is not None,
+    "ml_dtypes": sorted(m for m in sys.modules if m.split(".")[0] == "ml_dtypes"),
+    "library_loaded": _build._lib is not None or container._lib is not None,
 }))
 """
 
@@ -39,8 +41,8 @@ def test_every_module_imports_without_jax_or_nvcc(tmp_path):
     )
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got["jax"] == [] and got["reference"] == []
-    assert not got["library_loaded"]  # building waits for the first launch
+    assert got["jax"] == [] and got["reference"] == [] and got["ml_dtypes"] == []
+    assert not got["library_loaded"]  # building waits for the first launch or open
     expected = {
         "vectorindex_tpu_torch.kernels.scan_fused",
         "vectorindex_tpu_torch.kernels.ivf_probe",
@@ -64,6 +66,9 @@ def test_every_module_imports_without_jax_or_nvcc(tmp_path):
         "vectorindex_tpu_torch.models.serve",
         "vectorindex_tpu_torch.ops.scan",
         "vectorindex_tpu_torch.persistence.json_snapshot",
+        "vectorindex_tpu_torch.persistence.container",
+        "vectorindex_tpu_torch.persistence.container_index",
+        "vectorindex_tpu_torch.persistence.durable",
         "vectorindex_tpu_torch.utils.telemetry",
     }
     assert expected <= set(got["modules"])
@@ -73,6 +78,7 @@ def test_port_sources_use_no_jax_no_compile_no_fallback():
     banned = [
         re.compile(r"^\s*(import|from)\s+jax\b", re.M),
         re.compile(r"^\s*(import|from)\s+vectorindex_tpu(\.|\s)", re.M),
+        re.compile(r"^\s*(import|from)\s+ml_dtypes\b", re.M),
         re.compile(r"torch\.compile"),
     ]
     # no except around a kernel launch: a CUDA tensor launches or raises

@@ -233,7 +233,7 @@ def test_filter_oversampling_and_persistence(tmp_path):
     assert [r.id for r in idx.search(x[9], k=5)] == [r.id for r in idx2.search(x[9], k=5)]
 
 
-def test_errors_and_unported_parts():
+def test_errors_and_unported_parts(tmp_path):
     with pytest.raises(IndexError) as info:
         IVFIndex(8, metric=Metric.MANHATTAN, device="cpu")
     assert info.value.kind == IndexErrorKind.UNSUPPORTED_METRIC
@@ -251,10 +251,14 @@ def test_errors_and_unported_parts():
         with pytest.raises(IndexError) as info:
             call()
         assert info.value.kind == kind
-    for call in (lambda: idx.enable_durable("x"), idx.checkpoint, idx.close_durable,
-                 lambda: IVFIndex.load_durable("x", device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
+    idx.checkpoint()  # not durable: nothing to do
+    idx.close_durable()
+    for call in (lambda: idx.enable_durable(str(tmp_path / "no_dir" / "i.vx")),
+                 lambda: IVFIndex.load_durable(str(tmp_path / "missing.vx"), device="cpu")):
+        with pytest.raises(IndexError) as info:
             call()
+        assert info.value.kind == IndexErrorKind.IO_ERROR
+    assert idx._durable is None
     assert idx.search(np.ones(8), 0) == []
     assert IVFIndex(8, device="cpu").search(np.ones(8), 3) == []
 

@@ -10,15 +10,18 @@ layout and public names so each module has an obvious counterpart:
                plain PyTorch version used for CPU tensors
   models/      FlatIndex, IVFIndex, IVFPQIndex, HNSWIndex, JournalFilter,
                the index protocol, HostRerankSession (models/serve)
-  persistence/ JSON snapshots (byte-compatible with the JAX package) and the
-               native host-ops source (native/hostops.cpp)
+  persistence/ JSON snapshots, the binary container (native/container.cpp)
+               with the Flat/HNSW layouts and the durable IVF journal, all
+               in the JAX package's formats; the native host-ops source
+               (native/hostops.cpp)
   utils/       config, structured errors, telemetry
 
 Nothing here imports jax or vectorindex_tpu. The port so far covers exact flat
 search and range queries, IVF-Flat, IVF-PQ with the device-resident rerank
-and with the host-memory rerank tier, the full-corpus ADC scans, and HNSW
-(chunked build, fused search, filters, the serving stream); ROADMAP.md lists
-what is still to port.
+and with the host-memory rerank tier, the full-corpus ADC scans, HNSW
+(chunked build, fused search, filters, the serving stream), and persistence
+(JSON snapshots, binary containers, the durable IVF container, load_index);
+ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.1.0"

@@ -19,6 +19,9 @@ FlatIndexOptimized.swift:20-420 and FlatIndex.swift).
     d = 2,400, CUDA cores up to 7,264); wider rows take the strict path.
   - range_search is one distance block and a compaction
     (ops/range_query.range_scan).
+  - save_container / load_container write and read the binary container
+    (persistence/container_index); META keeps storage_dtype and capacity,
+    and the persisted norm cache pre-warms the device mirror.
 """
 
 from __future__ import annotations
@@ -42,6 +45,10 @@ from vectorindex_tpu_torch.ops.idmap import IDMap
 from vectorindex_tpu_torch.ops.range_query import range_scan
 from vectorindex_tpu_torch.ops.scan import pad_queries, scan_topk_strict
 from vectorindex_tpu_torch.ops.topk import INVALID_ID
+from vectorindex_tpu_torch.persistence.container_index import (
+    load_flat_container,
+    save_flat_container,
+)
 from vectorindex_tpu_torch.persistence.json_snapshot import (
     PersistedIndex,
     PersistedRecord,
@@ -187,17 +194,22 @@ class FlatIndex(VectorIndex):
             )
         return v
 
-    def _sync_device(self):
+    def _sqnorms(self) -> np.ndarray:
+        """||x||^2 [cap] f32 of the f32 host rows (the norm cache)."""
+        return np.einsum("nd,nd->n", self._vectors, self._vectors, dtype=np.float32)
+
+    def _sync_device(self, sqnorms: Optional[np.ndarray] = None):
         """(vectors [cap, d] storage dtype, ||x||^2 [cap] f32, 1/||x|| [cap]
         f32, valid [cap] bool) on the device. Norms come from the f32 host
-        vectors, as in the JAX package."""
+        vectors, as in the JAX package, or from `sqnorms` [cap], a persisted
+        norm cache of the same rows (load_flat_container pre-warms with it)."""
         if self._dev is None:
             # copy=True: on the CPU the tensors must not alias the host mirrors
             vecs = torch.from_numpy(self._vectors).to(
                 self.device, self.storage_dtype, copy=True
             )
             sqn = torch.from_numpy(
-                np.einsum("nd,nd->n", self._vectors, self._vectors, dtype=np.float32)
+                self._sqnorms() if sqnorms is None else sqnorms
             ).to(self.device)
             inv = torch.where(
                 sqn > 0, torch.rsqrt(torch.clamp_min(sqn, 1e-30)), 0.0
@@ -489,21 +501,22 @@ class FlatIndex(VectorIndex):
         )
 
     # ------------------------------------------------------------------
-    # persistence (JSON tier — reference Persistence.swift)
+    # persistence: the binary container (CRC'd mmap sections,
+    # persistence/container_index) and the JSON tier (reference
+    # Persistence.swift)
     # ------------------------------------------------------------------
 
     def save_container(self, path: str) -> None:
-        raise NotImplementedError(
-            "FlatIndex.save_container is not ported yet (ROADMAP.md Queue 1: "
-            "container persistence)"
-        )
+        """Binary-container tier: the f32 rows, validity, the norm cache,
+        the id map and metadata as sections; META keeps storage_dtype and
+        capacity, so a load searches exactly as this index does."""
+        save_flat_container(self, path)
 
     @classmethod
     def load_container(cls, path: str, device="cuda") -> "FlatIndex":
-        raise NotImplementedError(
-            "FlatIndex.load_container is not ported yet (ROADMAP.md Queue 1: "
-            "container persistence)"
-        )
+        """Load a container written by save_container (either package's);
+        the device mirror is pre-warmed from the persisted norm cache."""
+        return load_flat_container(path, device=device)
 
     def save(self, path: str) -> None:
         records = [

@@ -25,6 +25,8 @@ HNSWIndex.swift — configuration :14-27, insert :438-516, entry promotion
   - Save writes every HNSWConfig field (the JAX package writes five, so a
     graph built at another build_chunk reloads differently there); load
     reads a missing key as the JAX load does and rebuilds by reinsertion.
+    save_container / load_container keep the graph itself (tables, levels,
+    entry point, R², layer backings) in the binary container: no rebuild.
 
 HNSW runs no hand-written kernel: the JAX package has no Pallas kernel here
 (its search is XLA), and the port's is plain torch.
@@ -52,6 +54,10 @@ from vectorindex_tpu_torch.ops import graph as gops
 from vectorindex_tpu_torch.ops.filtering import slot_mask_np
 from vectorindex_tpu_torch.ops.idmap import IDMap
 from vectorindex_tpu_torch.ops.topk import INVALID_DIST, INVALID_ID, topk
+from vectorindex_tpu_torch.persistence.container_index import (
+    load_hnsw_container,
+    save_hnsw_container,
+)
 from vectorindex_tpu_torch.persistence.json_snapshot import (
     PersistedIndex,
     PersistedRecord,
@@ -1248,17 +1254,16 @@ class HNSWIndex(VectorIndex):
                                            config=asdict(self.config)))
 
     def save_container(self, path: str) -> None:
-        raise NotImplementedError(
-            "HNSWIndex.save_container is not ported yet (ROADMAP.md Queue 1 item 9: "
-            "persistence)"
-        )
+        """Binary-container tier: the graph itself (per-layer neighbor and
+        node tables, levels, entry point, R²) beside the rows, so a load
+        restores it without reinsertion (persistence/container_index)."""
+        save_hnsw_container(self, path)
 
     @classmethod
     def load_container(cls, path: str, device="cuda") -> "HNSWIndex":
-        raise NotImplementedError(
-            "HNSWIndex.load_container is not ported yet (ROADMAP.md Queue 1 item 9: "
-            "persistence)"
-        )
+        """Load a container written by save_container (either package's):
+        the graph is read from its sections; no construction step runs."""
+        return load_hnsw_container(path, device=device)
 
     @classmethod
     def load(cls, path: str, device="cuda") -> "HNSWIndex":

@@ -26,7 +26,11 @@ brings the top-C candidates' CSR rows to the host and reranks them from the
 store's packed host mirror; `serve_session` and `batch_search_stream` serve
 it through models/serve.HostRerankSession.
 
-Not ported yet: the durable container (ROADMAP.md Queue 1 item 9).
+Durable mode (enable_durable / checkpoint / close_durable / load_durable,
+persistence/durable): the index writes a checkpoint container and journals
+every later insert, remove and update through the container's WAL, at the
+points where the JAX index does; load_durable rebuilds the lists in bulk and
+replays the journal.
 """
 
 from __future__ import annotations
@@ -63,6 +67,8 @@ from vectorindex_tpu_torch.ops.rerank import ArrayReader
 from vectorindex_tpu_torch.ops.ivf import IVFListStore, nearest_two, probe_cap_for
 from vectorindex_tpu_torch.ops.scan import scan_topk_strict
 from vectorindex_tpu_torch.ops.topk import INVALID_ID
+from vectorindex_tpu_torch.persistence import durable
+from vectorindex_tpu_torch.persistence.container import Container
 from vectorindex_tpu_torch.persistence.json_snapshot import (
     PersistedIndex,
     PersistedRecord,
@@ -79,7 +85,6 @@ from vectorindex_tpu_torch.utils.errors import (
 from vectorindex_tpu_torch.utils.telemetry import TELEM, QueryStats
 
 _STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_DURABLE = "the durable container is not ported yet (ROADMAP.md Queue 1 item 9)"
 
 
 @dataclass(frozen=True)
@@ -135,6 +140,9 @@ class IVFIndex(VectorIndex):
         self._store = IVFListStore(config.nlist, dimension, device=self.device)
         self._slot_list: dict[int, int] = {}  # slot -> list id
         self._rerank_f32_cache = None
+        # durable mode: the open container whose WAL journals each mutation
+        self._durable: Optional[Container] = None
+        self._durable_path: Optional[str] = None
 
     @classmethod
     def from_state(cls, state: dict, device="cuda") -> "IVFIndex":
@@ -236,10 +244,19 @@ class IVFIndex(VectorIndex):
         self._vectors[slot] = v
         self._metadata[slot] = metadata
         self._idmap.append(id, slot)
+        lst = -1
         if self.trained:
             lst = int(self._assign_lists(v[None, :])[0])
             self._store.append(lst, slot, v)
             self._slot_list[slot] = lst
+        self._journal(durable.REC_INSERT, slot, lst, v, id, metadata)
+
+    def _journal(self, kind: int, slot: int, lst: int, vec, ext_id, metadata=None) -> None:
+        """Append one mutation record to the durable journal (no-op unless
+        enable_durable is on)."""
+        if self._durable is not None:
+            durable.append_journal(self._durable, kind, slot, lst, vec, ext_id=ext_id,
+                                   metadata=metadata)
 
     def insert_batch(self, ids, vectors, metadatas=None) -> None:
         vectors = np.asarray(vectors, dtype=np.float32)
@@ -255,11 +272,16 @@ class IVFIndex(VectorIndex):
             self._metadata[slot] = None if metadatas is None else metadatas[i]
             self._idmap.append(id_, slot)
             slots.append(slot)
+        lists = None
         if self.trained:
             lists = self._assign_lists(vectors)
             self._store.append_batch(lists, slots, vectors)
             for s, l in zip(slots, lists):
                 self._slot_list[s] = int(l)
+        if self._durable is not None:
+            for i, (id_, s) in enumerate(zip(ids, slots)):
+                self._journal(durable.REC_INSERT, s, -1 if lists is None else int(lists[i]),
+                              vectors[i], id_, None if metadatas is None else metadatas[i])
 
     def remove(self, id: VectorID) -> None:
         slot = self._idmap.erase(id)
@@ -269,6 +291,7 @@ class IVFIndex(VectorIndex):
         lst = self._slot_list.pop(slot, None)
         if lst is not None:
             self._store.remove(lst, slot)
+        self._journal(durable.REC_REMOVE, slot, -1 if lst is None else lst, None, id)
 
     def update(self, id: VectorID, vector=None, metadata: Metadata = None) -> None:
         slot = self._idmap.lookup(id)
@@ -278,12 +301,16 @@ class IVFIndex(VectorIndex):
             old = self._slot_list.pop(slot, None)
             if old is not None:
                 self._store.remove(old, slot)
+            lst = -1
             if self.trained:
                 lst = int(self._assign_lists(v[None, :])[0])
                 self._store.append(lst, slot, v)
                 self._slot_list[slot] = lst
+            self._journal(durable.REC_UPDATE, slot, lst, v, id, metadata)
         if metadata is not None:
             self._metadata[slot] = metadata
+            if vector is None:
+                self._journal(durable.REC_META, slot, -1, None, id, metadata)
 
     def contains(self, id: VectorID) -> bool:
         return id in self._idmap
@@ -560,21 +587,43 @@ class IVFIndex(VectorIndex):
 
     # ------------------------------------------------------------------
     # durable binary container (reference enableKernel30Storage,
-    # IVFIndex.swift:103-144): not ported yet
+    # IVFIndex.swift:103-144; canonical format SURVEY.md §5.4)
     # ------------------------------------------------------------------
 
     def enable_durable(self, path: str) -> None:
-        raise NotImplementedError(f"IVFIndex.enable_durable: {_DURABLE}")
+        """Write a checkpoint container at `path` and journal every later
+        mutation through its WAL (crash-consistent). The WAL holds about
+        65k journaled mutations (durable.JOURNAL_CAPACITY); checkpoint()
+        empties it, and an append past it raises."""
+        self.close_durable()
+        durable.save_ivf_container(self, path)
+        self._durable = Container.open(path, writable=True)
+        self._durable_path = path
 
     def checkpoint(self) -> None:
-        raise NotImplementedError(f"IVFIndex.checkpoint: {_DURABLE}")
+        """Rewrite the container from the current state, with an empty
+        journal; the generation goes up by one."""
+        if self._durable is None:
+            return
+        gen = self._durable.generation
+        self._durable.close()
+        self._durable = None
+        durable.save_ivf_checkpoint(self, self._durable_path)
+        self._durable = Container.open(self._durable_path, writable=True)
+        for _ in range(gen):
+            self._durable.bump_generation()
 
     def close_durable(self) -> None:
-        raise NotImplementedError(f"IVFIndex.close_durable: {_DURABLE}")
+        if self._durable is not None:
+            self._durable.close()
+            self._durable = None
 
     @classmethod
     def load_durable(cls, path: str, device="cuda") -> "IVFIndex":
-        raise NotImplementedError(f"IVFIndex.load_durable: {_DURABLE}")
+        """Restore from a container: the checkpoint, the WAL replay and the
+        journal's mutations (reference open + mmap_wal_replay + IDMap blob
+        restore). Returns an IVFIndex or IVFPQIndex, as the container holds."""
+        return durable.load_ivf_container(path, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -704,13 +753,25 @@ class IVFPQIndex(IVFIndex):
             blk = slots[s : s + chunk]
             self._append_spill(blk, np.stack([self._vectors[sl] for sl in blk]))
 
+    def _refuse_durable_spill(self) -> None:
+        """A spill index journals no insert: the reference's refusal, kept
+        (its insert record names one list)."""
+        if self._spill and self._durable is not None:
+            raise (
+                ErrorBuilder(IndexErrorKind.INVALID_CONFIGURATION)
+                .message("spill_eps with durable journaling is unsupported")
+                .build()
+            )
+
     def insert(self, id: VectorID, vector, metadata: Metadata = None) -> None:
+        self._refuse_durable_spill()
         super().insert(id, vector, metadata)
         if self._spill and self.trained:
             slot = self._idmap.lookup(id)
             self._append_spill([slot], self._vectors[slot][None, :])
 
     def insert_batch(self, ids, vectors, metadatas=None) -> None:
+        self._refuse_durable_spill()
         super().insert_batch(ids, vectors, metadatas)
         if self._spill and self.trained:
             self._append_spill([self._idmap.lookup(i) for i in ids],
