@@ -85,7 +85,37 @@ just after:
   wide flat: a bf16 FlatIndex at d = 3,072 (capacity 2^17, 120,000 rows) past
         the tensor-core CTA: batch_search at B=8 and 64 through K1/K2 on the
         CUDA cores (scan_fused.scan_design "fma"), recall@10 = 1.0, no strict
-        fallback; then d = 8,192 through the strict path.
+        fallback.
+
+  api (phase_api_*): the verified route (ops/scan.scan_topk_verified): a
+        bf16 FlatIndex of 131,072 x 8,192 rows (capacity 2^17, past every
+        kernel design) and a manhattan f32 FlatIndex over the flat main
+        path's 1M x 128 rows, each at B=8 and 64: telemetry names the path
+        models/flat selects by B x capacity (scan_verified from
+        VERIFIED_MIN_BLOCK = 2^22 on, so scan_strict for the bf16 index at
+        B=8), no K1/K2 launch, no strict fallback, recall@10 = 1.0 against f64
+        brute force, the verified and the strict selection timed on the
+        same tensors (events and host clock), the manhattan call's peak
+        memory under its bound; MIPS: the main rows augmented explicitly to
+        padded_dim(128) = 256 in a bf16 L2 FlatIndex (K1/K2 at d = 256,
+        held to their plain versions and timed), ids equal to an
+        inner-product FlatIndex's up to ties, mips_hybrid_score_block equal
+        to mips_virtual_to_l2_scores bit for bit; the acceleration seam on
+        the flat 1M, IVF 1M and HNSW 100k indices: get_index_structure,
+        get_batch_candidates at B=8 rescored in f64 on the card,
+        finalize_results equal to batch_search (IVF: and to the exact
+        search of the probed lists) up to ties.
+  sharded (phase_sharded_*; one process, a mesh of devices, no
+        torch.distributed): ShardedFlatIndex over the main rows on the
+        visible cards and on 4 shards of cuda:0 (equal bits, ids equal to
+        the unsharded index's up to ties at B=8 and 256, the time split
+        into the shards' scoring and top-k and the gather and merge);
+        partition_store of the IVF index over 4 shards and
+        sharded_ivf_search (ids equal to the probed-list search);
+        sharded_ivf_pq_search over pq16 (recall@10 >= 0.85 at nprobe 32);
+        ShardedHNSWIndex over the HNSW rows on 4 shards (recall@10 >= 0.97
+        at efS 64, save / load_index equal, 500 tail inserts without a
+        rebuild and 1% removed: recall over the live rows >= 0.97).
 
   persist: each main-path index, before it is freed, saved into a temporary
         directory (removed at the end) and restored on the card: the flat
@@ -244,10 +274,9 @@ ADC_KERNELS = ("adc_scan_u8", "adc_scan_u4", "adc_topk_fused")
 FLAT_RANGE_QUERIES, FLAT_RANGE_HITS = 4, 50
 #: flat rows too wide for the tensor-core CTA (d > 2,400): a bf16 index of
 #: capacity 2^17 at d = 3,072 (an embedding width users serve) whose K1/K2
-#: run on the CUDA cores, searched at B=8 and 64; then d = 8,192, past the
-#: FMA design (d > 7,264), which takes the strict path
+#: run on the CUDA cores, searched at B=8 and 64 (d = 8,192, past the FMA
+#: design, is phase_api's verified route)
 FLAT_WIDE_DIM, FLAT_WIDE_ROWS, FLAT_WIDE_BATCHES, FLAT_WIDE_CAPACITY = 3072, 120_000, (8, 64), 1 << 17
-FLAT_STRICT_DIM, FLAT_STRICT_ROWS = 8192, 20_000
 
 #: the H100 SXM's published peaks (NVIDIA's data sheet): bytes/s of HBM3,
 #: bf16 tensor-core and f32 CUDA-core FLOP/s
@@ -1404,10 +1433,10 @@ def phase_pq_host_tier(ap, idx, evalq, bigq):
     return launches, med
 
 
-def phase_pq(ap, ps):
-    """Both IVF-PQ configurations over one corpus → (launches summed over
-    both main-path runs and pq16's host tier, pq16 times, pq32x4 times,
-    build and recall figures)."""
+def phase_pq(ap, ps, api):
+    """Both IVF-PQ configurations over one corpus → (errors, launches summed
+    over both main-path runs, pq16's host tier's launches, times, build and
+    recall figures); pq16 is also searched sharded (phase_sharded_pq)."""
     errs = phase_pq_compare(ap)
     t0 = time.perf_counter()
     x, W = lowdim_corpus(PQ_ROWS, PQ_DIM, dz=16, seed=31)
@@ -1425,15 +1454,16 @@ def phase_pq(ap, ps):
         for k, c in run_launches.items():
             launches[k] = launches.get(k, 0) + c
         if name == "pq16":
-            host_launches, builds[name]["host_tier_ms"] = phase_pq_host_tier(ap, idx, evalq[:PQ_EVAL],
+            tier_launches, builds[name]["host_tier_ms"] = phase_pq_host_tier(ap, idx, evalq[:PQ_EVAL],
                                                                              evalq)
-            for k, c in host_launches.items():
-                launches[k] += c
         times[name] = phase_pq_times(ap, name, idx, batches, evalq, pool, errs)
+        if name == "pq16":
+            with api.timed("sharded pq16"):
+                phase_sharded_pq(idx, evalq[:PQ_EVAL], truth, api)
         phase_persist_pq(ap, name, idx, batches, evalq, ps)
         del idx
         torch.cuda.empty_cache()
-    return errs, launches, times, builds
+    return errs, launches, tier_launches, times, builds
 
 
 # ---------------------------------------------------------------------------
@@ -1529,8 +1559,7 @@ def phase_flat_wide(sf, topk):
     live), batch_search at B=8 and 64 through K1/K2 on the FMA design, no
     strict fallback, recall@10 = 1.0; K1 and K2 against their plain versions
     on the index's tensors (any f32 sum order is within the utils/parity
-    rule; K1 <-> K2 bit identity on its own) and timed at B=64. Then an index
-    at d = FLAT_STRICT_DIM through scan_strict, recall@10 = 1.0."""
+    rule; K1 <-> K2 bit identity on its own) and timed at B=64."""
     from vectorindex_tpu_torch.utils.config import Metric
 
     t0 = time.perf_counter()
@@ -1582,21 +1611,6 @@ def phase_flat_wide(sf, topk):
         + ", ".join(f"{key}={val[0] if isinstance(val, tuple) else val:.4g}" for key, val in t.items())
         + " ms")
     del idx, x, sqn, valid, qk, bias
-    torch.cuda.empty_cache()
-
-    idx, queries, x_dev = wide_index(FLAT_STRICT_DIM, FLAT_STRICT_ROWS, SMALL_BATCH, SEED + 4)
-    require(sf.scan_design(FLAT_STRICT_DIM, torch.bfloat16) == "strict", "d=8192 found a kernel design")
-    res, designs, counters = search_counted(sf, idx, queries)
-    require(not any(sf.LAUNCHES.values()) and counters.get("kernel.scan_strict.calls") == 1
-            and "kernel.scan_fused.calls" not in counters,
-            f"d={FLAT_STRICT_DIM}: batch_search did not take scan_strict alone: {counters}")
-    dist, kth, truth = brute_force(x_dev, (x_dev * x_dev).sum(dim=1), queries, MAIN_K)
-    r_tie, _ = recall(res, dist, kth, truth, MAIN_K)
-    log(f"wide: d={FLAT_STRICT_DIM} bf16 ({FLAT_STRICT_ROWS} rows, capacity {idx.capacity}) B="
-        f"{SMALL_BATCH}: scan_design -> strict, kernel.scan_strict recorded, no K1/K2 launch, "
-        f"recall@{MAIN_K}={r_tie}")
-    require(r_tie == 1.0, f"d={FLAT_STRICT_DIM}: recall@{MAIN_K} {r_tie} < 1")
-    del idx, x_dev, dist
     torch.cuda.empty_cache()
     return launches, t, {"bin_candidates": k1, "count_below": k2}
 
@@ -2437,10 +2451,12 @@ def hnsw_int_builds(metric, x: np.ndarray, q: np.ndarray, k: int):
         ids_g, ids_c, tg, tc
 
 
-def phase_hnsw(gpu: str, ps):
+def phase_hnsw(gpu: str, ps, api):
     """HNSWIndex on the card at bench_hnsw's shape: build, searches (B=256,
     B=8, the stream, filters, tombstones), device_search free of host
-    synchronisation, the card against the host on integer-valued rows."""
+    synchronisation, the acceleration seam (phase_api_hnsw), the sharded
+    index over the same rows (phase_sharded_hnsw), the card against the
+    host on integer-valued rows."""
     from vectorindex_tpu_torch.models.hnsw import HNSWConfig, HNSWIndex
     from vectorindex_tpu_torch.utils.config import Metric
     from vectorindex_tpu_torch.utils.parity import ids_match_up_to_ties
@@ -2524,6 +2540,8 @@ def phase_hnsw(gpu: str, ps):
                 "batch_search_stream differs from batch_search")
     log(f"hnsw: stream of {HNSW_STREAM} x {bsz} (lookahead {HNSW_LOOKAHEAD}) equals batch_search; "
         f"{figs['stream_qps']:.1f} QPS")
+    with api.timed("api hnsw"):
+        phase_api_hnsw(idx, qs[:SMALL_BATCH], api)
 
     # filters and tombstones
     rng = np.random.default_rng(HNSW_SEED)
@@ -2560,7 +2578,10 @@ def phase_hnsw(gpu: str, ps):
         f"{HNSW_ALLOW_FEW} ids equal brute force up to ties; {removed.size} removed: none returned, "
         f"recall@{k} {figs['removed_recall']}")
     phase_persist_hnsw(idx, qb, ps, figs["build_s"])
-    del idx, x_dev, sq_dev
+    del idx
+    with api.timed("sharded hnsw"):
+        phase_sharded_hnsw(x, W, qb, x_dev, sq_dev, ps, api)
+    del x_dev, sq_dev
     torch.cuda.empty_cache()
 
     # the card against the host on integer-valued rows
@@ -2908,6 +2929,579 @@ def persist_summary(ps: Persist, gpu: str) -> str:
             f"{hnsw['build_s']:.2f} s; launches {ps.launches}")
 
 
+# ---------------------------------------------------------------------------
+# phase_api: the verified flat route, MIPS through an L2 index, the
+# acceleration seam; phase_sharded: sharding over a mesh of devices held by
+# one process. Each part runs while the index it reuses is alive.
+# ---------------------------------------------------------------------------
+
+#: the verified route (ops/scan.scan_topk_verified): a bf16 index at
+#: d = 8,192, past the FMA design, all 2^17 slots live (the capacity of
+#: LARGE_SCAN_THRESHOLD), and the flat main path's rows as a manhattan f32
+#: index (capacity 2^20); both searched at B=8 and B=64 (the bf16 index at
+#: B=8 is below VERIFIED_MIN_BLOCK: the strict side of the selection)
+VERIFIED_DIM, VERIFIED_ROWS, VERIFIED_BATCHES = 8192, 1 << 17, (8, 64)
+#: sharding: shards of one card beside the mesh of the visible cards
+SHARDS_ON_ONE_CARD = 4
+SHARDED_PQ_RECALL_MIN = 0.85  # PERF.md §2's pq16 limit at nprobe=32
+#: sharded HNSW: the HNSW main path's config (bench_hnsw's defaults) and the
+#: rows inserted after the bulk build (the tail buffer)
+HNSW_SHARDED_CONFIG: dict = {}  # HNSWConfig()
+SHARDED_HNSW_TAIL = 500
+
+
+class Api:
+    """phase_api / phase_sharded's figures and their kernels' launches by
+    path ("mips", "accel"), each run's counted from 0 just before it and
+    read just after."""
+
+    def __init__(self):
+        self.figs: dict = {}
+        self.launches: dict = {}
+        self.seconds: dict = {}
+
+    def count(self, path: str, module, names) -> None:
+        counts = self.launches.setdefault(path, {})
+        for name in names:
+            counts[name] = counts.get(name, 0) + module.LAUNCHES[name]
+
+    @contextlib.contextmanager
+    def timed(self, name: str):
+        """Host-clock seconds of one part, kept under `name` ("api ..." or
+        "sharded ...")."""
+        t0 = time.perf_counter()
+        yield
+        self.seconds[name] = time.perf_counter() - t0
+
+
+def counters_of(fn):
+    """(fn(), telemetry counters of the call)."""
+    from vectorindex_tpu_torch.utils.telemetry import TELEM
+
+    TELEM.reset()
+    TELEM.enable()
+    try:
+        out = fn()
+    finally:
+        TELEM.disable()
+    return out, TELEM.snapshot()["counters"]
+
+
+def walls(fn, n: int = 3) -> float:
+    """Median host-clock seconds of fn() after a synchronize, ended by one."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return float(np.median(out))
+
+
+def card_mesh(shards: int):
+    """`shards` shards of the first card (a mesh may repeat a device)."""
+    from vectorindex_tpu_torch.parallel import make_mesh
+
+    return make_mesh(shards, devices=[torch.device(DEVICE)] * shards)
+
+
+def rows_ids(res) -> np.ndarray:
+    return np.array([[r.id for r in row] for row in res])
+
+
+def verified_route(sf, idx, q: np.ndarray, truth, label: str, peak_bound=None) -> dict:
+    """batch_search through the selection models/flat picks past K1/K2 at
+    this B x capacity (scan_topk_verified from VERIFIED_MIN_BLOCK on, else
+    scan_topk_strict; no K1/K2 launch, no strict fallback, recall@10 = 1.0
+    against `truth` = (dist, kth, ids)), then the verified and the strict
+    selection on the index's own tensors at this B: CUDA events and
+    host-clock seconds; with peak_bound, the verified call's peak device
+    memory above its inputs must stay under it."""
+    from vectorindex_tpu_torch.models.flat import VERIFIED_MIN_BLOCK
+    from vectorindex_tpu_torch.ops.scan import scan_topk_strict, scan_topk_verified
+
+    path = "scan_verified" if len(q) * idx.capacity >= VERIFIED_MIN_BLOCK else "scan_strict"
+    sf.reset_launches()
+    res, counters = counters_of(lambda: idx.batch_search(q, MAIN_K))
+    calls = {k for k, v in counters.items() if k.startswith("kernel.") and k.endswith(".calls") and v}
+    require(not any(sf.LAUNCHES.values()) and calls == {f"kernel.{path}.calls"}
+            and counters.get("flat.verify_fallback", 0) == 0,
+            f"{label}: batch_search did not take {path} alone: {counters}")
+    dist, kth, ids = truth
+    r_tie, r_set = recall(res, dist, kth, ids, MAIN_K)
+    require(r_tie == 1.0, f"{label}: recall@{MAIN_K} {r_tie} < 1")
+    vecs, sqn, inv, valid = idx._sync_device()
+    if not idx._free and idx._next_slot >= idx.capacity:
+        valid = None  # every slot live: the index passes no mask
+    qt = torch.from_numpy(q).to(DEVICE)
+    f = {"recall": r_tie, "set_recall": r_set, "path": path}
+    for name, fn in (("verified", scan_topk_verified), ("strict", scan_topk_strict)):
+        call = functools.partial(fn, qt, vecs, sqn, inv, valid, metric=idx.metric, k=MAIN_K)
+        f[name + "_ms"] = time_ms(call, 3, warmup=1)
+        f[name + "_wall_s"] = walls(call)
+    if peak_bound is not None:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        scan_topk_verified(qt, vecs, sqn, inv, valid, metric=idx.metric, k=MAIN_K)
+        torch.cuda.synchronize()
+        f["peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        require(f["peak_mb"] <= peak_bound / 2**20,
+                f"{label}: the verified scan held {f['peak_mb']:.1f} MiB > {peak_bound / 2**20:.1f}")
+    log(f"api verified {label} B={len(q)}: {path}, no K1/K2 launch, no strict fallback, "
+        f"recall@{MAIN_K}={r_tie} (set {r_set}); scan_topk_verified {f['verified_ms']:.4g} ms "
+        f"(wall {f['verified_wall_s']:.4g} s) against scan_topk_strict {f['strict_ms']:.4g} ms "
+        f"(wall {f['strict_wall_s']:.4g} s)"
+        + (f"; verified peak {f['peak_mb']:.1f} MiB" if "peak_mb" in f else ""))
+    return f
+
+
+def phase_api_verified_wide(sf, api: Api) -> None:
+    """The verified route past every kernel design: a bf16 FlatIndex of
+    VERIFIED_ROWS x VERIFIED_DIM seeded gaussian rows (bf16 values, drawn on
+    the card), every slot live, searched at B=8 and 64 against f64 brute
+    force."""
+    from vectorindex_tpu_torch.models.flat import FlatIndex
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    t_phase = time.perf_counter()
+    require(sf.scan_design(VERIFIED_DIM, torch.bfloat16) == "strict",
+            f"d={VERIFIED_DIM} found a kernel design")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    nq = sum(VERIFIED_BATCHES)
+    data = torch.randn((VERIFIED_ROWS + nq, VERIFIED_DIM), generator=gen, device=DEVICE)
+    data[VERIFIED_ROWS:] = data[:nq] + 0.1 * torch.randn((nq, VERIFIED_DIM), generator=gen,
+                                                         device=DEVICE)
+    data = data.bfloat16().float()
+    x, queries = data[:VERIFIED_ROWS].cpu().numpy(), data[VERIFIED_ROWS:].cpu().numpy()
+    idx = FlatIndex(VERIFIED_DIM, Metric.L2, capacity=VERIFIED_ROWS, storage_dtype=torch.bfloat16,
+                    device=DEVICE)
+    t0 = time.perf_counter()
+    idx.insert_batch(list(range(VERIFIED_ROWS)), x)
+    idx._sync_device()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del x
+    x_dev = data[:VERIFIED_ROWS].double()
+    sq_dev = (x_dev * x_dev).sum(dim=1)
+    del data
+    log(f"api verified wide: bf16 FlatIndex {VERIFIED_ROWS} x {VERIFIED_DIM}, capacity "
+        f"{idx.capacity} ({VERIFIED_ROWS * VERIFIED_DIM * 2 / 2**30:.2f} GiB on the card), built "
+        f"in {build_s:.2f} s; scan_design -> strict")
+    figs, start = {}, 0
+    for b in VERIFIED_BATCHES:
+        q = queries[start : start + b]
+        start += b
+        figs[b] = verified_route(sf, idx, q, brute_force(x_dev, sq_dev, q, MAIN_K),
+                                 f"d={VERIFIED_DIM} bf16")
+    del idx, x_dev, sq_dev
+    torch.cuda.empty_cache()
+    api.figs["verified_wide"] = figs
+    log(f"api verified wide: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_api_flat(sf, topk, idx, batches, api: Api, errs) -> None:
+    """On the flat main path's rows (the 1M x 128 bf16 index and its host
+    rows): the verified route over a manhattan f32 index; MIPS, the rows
+    augmented to padded_dim(128) = 256 in a bf16 L2 FlatIndex (K1/K2 at
+    d = 256, no strict fallback), its ids equal to an inner-product
+    FlatIndex's up to ties, hybrid scores equal to the virtual form's bits;
+    the acceleration seam: structure, candidates at B=8 rescored exactly on
+    the card, finalize_results equal to batch_search up to ties."""
+    from vectorindex_tpu_torch.models import accel
+    from vectorindex_tpu_torch.models.flat import FlatIndex
+    from vectorindex_tpu_torch.ops import mips, scoring
+    from vectorindex_tpu_torch.ops.scoring import _BROADCAST_ELEMS
+    from vectorindex_tpu_torch.utils.config import Metric
+    from vectorindex_tpu_torch.utils.parity import ids_match_up_to_ties
+
+    t_phase = time.perf_counter()
+    rows = idx._vectors[: idx.count]  # the f32 host mirror (bf16 values)
+    small, big = batches[-1], batches[0]
+    x_dev = torch.from_numpy(rows).to(DEVICE)
+
+    # -- the verified route: manhattan over the 1M rows (f64 brute force) --
+    man = FlatIndex(MAIN_DIM, Metric.MANHATTAN, device=DEVICE)
+    man.insert_batch(list(range(len(rows))), rows)
+    x64 = x_dev.double()
+    figs = {}
+    for b in VERIFIED_BATCHES:
+        q = big[:b] if b > SMALL_BATCH else small
+        dist = torch.cdist(torch.from_numpy(q).to(DEVICE).double(), x64, p=1)
+        sd, order = torch.sort(dist, dim=1, stable=True)
+        # the distance block is held twice (its chunks and their
+        # concatenation); each chunk's difference and its abs are one
+        # _BROADCAST_ELEMS intermediate each
+        bound_bytes = 2 * b * man.capacity * 4 + 3 * _BROADCAST_ELEMS * 4
+        figs[b] = verified_route(sf, man, q, (dist, sd[:, MAIN_K - 1], order[:, :MAIN_K]),
+                                 f"manhattan {len(rows)} x {MAIN_DIM} f32", peak_bound=bound_bytes)
+    del man, x64, dist, sd, order
+    api.figs["verified_manhattan"] = figs
+
+    # -- MIPS: explicit augmentation into a bf16 L2 index --
+    dim = mips.padded_dim(MAIN_DIM)
+    r2 = float(np.einsum("nd,nd->n", rows, rows).max())
+    xa = mips.mips_materialize_augmentation(x_dev, r2, dim).cpu().numpy()
+    mi = FlatIndex(dim, Metric.L2, storage_dtype=torch.bfloat16, device=DEVICE)
+    mi.insert_batch(list(range(len(rows))), xa)
+    del xa
+    ip = FlatIndex(MAIN_DIM, Metric.INNER_PRODUCT, storage_dtype=torch.bfloat16, device=DEVICE)
+    ip.insert_batch(list(range(len(rows))), rows)
+    m = {"launches": {"bin_candidates": 0, "count_below": 0}}
+    for q in (small, big):
+        qa = mips.mips_augment_query(torch.from_numpy(q), dim).numpy()
+        sf.reset_launches()
+        res, counters = counters_of(lambda: mi.batch_search(qa, MAIN_K))
+        require(counters.get("flat.verify_fallback", 0) == 0
+                and counters.get("kernel.scan_fused.calls") == 1
+                and sf.DESIGN_LAUNCHES["mma"]["bin_candidates"] > 0,
+                f"mips B={len(q)}: K1/K2 (tensor cores) did not run alone: {counters}")
+        for name in m["launches"]:
+            m["launches"][name] += sf.LAUNCHES[name]
+        api.count("mips", sf, ("bin_candidates", "count_below"))
+        want = ip.batch_search(q, MAIN_K + 1)
+        wd = -np.array([[r.score for r in row] for row in want], dtype=np.float64)
+        require(ids_match_up_to_ties(rows_ids(res), rows_ids(want), wd, MAIN_K),
+                f"mips B={len(q)}: ids differ from the inner-product index's")
+    # K1/K2 at d = 256 on the MIPS index's tensors, against their plain versions
+    x, sqn, _, valid = mi._sync_device()
+    qk, bias, cs, _ = sf.kernel_inputs(
+        mips.mips_augment_query(torch.from_numpy(big), dim).to(DEVICE), sqn, valid, Metric.L2)
+    k1, k2, tau = check_against_plain(sf, topk, qk, x, bias, cs, Metric.L2)
+    errs["bin_candidates"] = max(errs["bin_candidates"], k1)
+    errs["count_below"] = max(errs["count_below"], k2)
+    args = (qk, x, bias, cs)
+    m["bin_candidates_ms"] = time_ms(lambda: sf.bin_candidates(*args, metric=Metric.L2), 10)
+    m["count_below_ms"] = time_ms(lambda: sf.count_below(*args, tau, metric=Metric.L2), 10)
+    for name in ("bin_candidates", "count_below"):
+        m[name + "_bound"] = flat_bound(x.shape[0], dim, len(big), 2, name)
+    q8 = torch.from_numpy(small).to(DEVICE)
+    hybrid = mips.mips_hybrid_score_block(q8, x_dev, r2)
+    virtual = mips.mips_virtual_to_l2_scores(scoring.inner_product_block(q8, x_dev),
+                                             scoring.squared_norms(q8), r2)
+    require(torch.equal(hybrid, virtual), "mips: hybrid scores differ from the virtual form's")
+    explicit = scoring.distance_block(mips.mips_augment_query(q8, dim),
+                                      mips.mips_materialize_augmentation(x_dev, r2, dim), Metric.L2)
+    require(torch.allclose(hybrid, explicit, rtol=2e-4, atol=2e-3),
+            "mips: hybrid scores differ from the explicit augmentation's")
+    del mi, ip, x, sqn, valid, qk, bias, hybrid, virtual, explicit
+    api.figs["mips"] = m
+    log(f"api mips: {len(rows)} x {MAIN_DIM} -> {dim} (R^2 {r2:.4g}) bf16 L2 FlatIndex: K1/K2 launches "
+        f"{m['launches']} at B={SMALL_BATCH} and {MAIN_BATCH}, no strict fallback, ids equal the "
+        f"inner-product index's up to ties; K1/K2 within the tensor-core rule of their plain "
+        f"versions at d={dim} (K1 max_abs_err {k1:.3g}, K2 count diff {k2}); B={MAIN_BATCH} K1 "
+        f"{m['bin_candidates_ms']:.4g} ms (bound {m['bin_candidates_bound'][0]:.4g}), K2 "
+        f"{m['count_below_ms']:.4g} ms (bound {m['count_below_bound'][0]:.4g}); hybrid == virtual "
+        f"bit for bit, within 2e-4 of the explicit augmentation")
+
+    # -- the acceleration seam on the flat index --
+    st = accel.get_index_structure(idx)
+    require((st.count, st.dimension, st.metric) == (idx.count, MAIN_DIM, "l2"), "accel flat structure")
+    cands = accel.get_batch_candidates(idx, small)
+    xc = torch.from_numpy(cands[0].vectors).to(DEVICE).double()
+    q64 = torch.from_numpy(small).to(DEVICE).double()
+    exact = ((q64 * q64).sum(1, keepdim=True) - 2.0 * q64 @ xc.T + (xc * xc).sum(1)[None]).cpu().numpy()
+    sf.reset_launches()
+    native = idx.batch_search(small, MAIN_K)
+    api.count("accel", sf, ("bin_candidates", "count_below"))
+    got = [accel.finalize_results(idx, c.internal_ids, exact[b], MAIN_K) for b, c in enumerate(cands)]
+    ref = np.sort(exact, axis=1)[:, : MAIN_K + 1]
+    require(ids_match_up_to_ties(rows_ids(got), rows_ids(native), ref, MAIN_K),
+            "accel flat: finalize_results differs from batch_search")
+    del x_dev, xc, cands, exact
+    torch.cuda.empty_cache()
+    log(f"api accel flat: structure {st}, B={SMALL_BATCH} candidates ({len(rows)} rows each) "
+        f"rescored in f64 on the card; finalize_results equals batch_search up to ties; phase_api "
+        f"flat {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_sharded_flat(idx, batches, api: Api) -> None:
+    """ShardedFlatIndex over the flat main path's rows on two meshes: the
+    visible cards and SHARDS_ON_ONE_CARD shards of the first card; at B=8 and
+    B=256 both give equal bits, and ids equal to the unsharded index's up to
+    ties. Then where a sharded search's time goes at B=256: the shards'
+    scoring and per-block top-k against the gather and merge."""
+    from vectorindex_tpu_torch.models.sharded import ShardedFlatIndex
+    from vectorindex_tpu_torch.ops import scoring
+    from vectorindex_tpu_torch.ops.topk import topk_padded
+    from vectorindex_tpu_torch.parallel import make_mesh, sharded_search as ss
+    from vectorindex_tpu_torch.utils.config import Metric
+    from vectorindex_tpu_torch.utils.parity import ids_match_up_to_ties
+
+    t_phase = time.perf_counter()
+    rows = idx._vectors[: idx.count]
+    small, big = batches[-1], batches[0]
+    cards = make_mesh() if DEVICE == "cuda" else make_mesh(devices=[DEVICE])
+    meshes = {"cards": cards, "one card": card_mesh(SHARDS_ON_ONE_CARD)}
+    out, f = {}, {}
+    for name, mesh in meshes.items():
+        sh = ShardedFlatIndex(MAIN_DIM, Metric.L2, storage_dtype=torch.bfloat16,
+                              devices=list(mesh.devices.flat))
+        sh.insert_batch(list(range(len(rows))), rows)
+        out[name] = {len(q): sh.batch_search(q, MAIN_K) for q in (small, big)}
+        for q in (small, big):
+            f[f"{name} B={len(q)} wall_s"] = walls(lambda: sh.batch_search(q, MAIN_K))
+            log(f"sharded flat wall: {name} ({mesh.size} shards) B={len(q)} "
+                f"{f[f'{name} B={len(q)} wall_s']:.4g} s")
+        if name == "one card":
+            vecs, sqn, _, valid = sh._sync_device()
+            qt = torch.from_numpy(big).to(DEVICE)
+            f["search_ms"] = time_ms(lambda: ss.sharded_flat_search(
+                mesh, qt, vecs, valid, MAIN_K, Metric.L2, x_sqnorms=sqn), 3, warmup=1)
+            parts = [ss._shard_topk(qt, vecs.shards[s], valid.shards[s], sqn.shards[s], None,
+                                    Metric.L2, MAIN_K, s * vecs.shards[0].shape[0])
+                     for s in range(mesh.size)]
+            f["shards_ms"] = time_ms(lambda: [ss._shard_topk(
+                qt, vecs.shards[s], valid.shards[s], sqn.shards[s], None, Metric.L2, MAIN_K,
+                s * vecs.shards[0].shape[0]) for s in range(mesh.size)], 3, warmup=1)
+            f["merge_ms"] = time_ms(lambda: ss.gather_merge(parts, mesh.first, MAIN_K), 10)
+            nb = min(ss.SCAN_BLOCK, vecs.shards[0].shape[0])
+            blk = vecs.shards[0][:nb]
+            norms = scoring.NormCache(sq=sqn.shards[0][:nb])
+            d = scoring.distance_block(qt, blk, Metric.L2, norms=norms)
+            ok = valid.shards[0][:nb][None, :]
+            ids = torch.arange(nb, dtype=torch.int32, device=DEVICE)[None, :]
+            f["block_score_ms"] = time_ms(
+                lambda: scoring.distance_block(qt, blk, Metric.L2, norms=norms), 10)
+            f["block_topk_ms"] = time_ms(
+                lambda: topk_padded(d, ok, MAIN_K, ids=ids, strict_ties=False), 10)
+            f["blocks"], f["block_rows"] = sum(-(-t.shape[0] // nb) for t in vecs.shards), nb
+            del vecs, sqn, valid, parts, d, blk, norms, ok
+        del sh
+        torch.cuda.empty_cache()
+    for q in (small, big):
+        a, b = out["cards"][len(q)], out["one card"][len(q)]
+        require([[(r.id, r.score) for r in row] for row in a] == [[(r.id, r.score) for r in row]
+                                                                  for row in b],
+                f"sharded flat B={len(q)}: the two meshes differ")
+        want = idx.batch_search(q, MAIN_K + 1)
+        wd = np.array([[r.score for r in row] for row in want], dtype=np.float64) ** 2
+        require(ids_match_up_to_ties(rows_ids(a), rows_ids(want), wd, MAIN_K),
+                f"sharded flat B={len(q)}: ids differ from the unsharded index's")
+    api.figs["sharded_flat"] = f
+    log(f"sharded flat: ShardedFlatIndex {len(rows)} x {MAIN_DIM} bf16 over {meshes['cards'].size} visible "
+        f"card(s) and {SHARDS_ON_ONE_CARD} shards of cuda:0: equal bits at B={SMALL_BATCH} and "
+        f"{MAIN_BATCH}, ids equal the unsharded index's up to ties; "
+        f"B={MAIN_BATCH} on {SHARDS_ON_ONE_CARD} shards: search {f['search_ms']:.4g} ms = "
+        f"shards {f['shards_ms']:.4g} ({f['blocks']} blocks of {f['block_rows']} rows: score "
+        f"{f['block_score_ms']:.4g} + top-k {f['block_topk_ms']:.4g} each) + gather and merge "
+        f"{f['merge_ms']:.4g} ms; phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_api_ivf(kp, idx, batches, api: Api) -> None:
+    """The acceleration seam on the IVF 1M index: structure, the probed
+    candidates of a B=8 batch rescored exactly on the card, finalize_results
+    equal to the exact search of the probed lists and to batch_search (K3)
+    up to ties."""
+    from vectorindex_tpu_torch.models import accel
+    from vectorindex_tpu_torch.utils.parity import ids_match_up_to_ties
+
+    t0 = time.perf_counter()
+    q = batches[0]
+    st = accel.get_index_structure(idx)
+    require(st.trained and st.centroids.shape == (IVF_NLIST, IVF_DIM)
+            and int(st.list_lengths.sum()) == idx.count, "accel ivf structure")
+    cands = accel.get_batch_candidates(idx, q)
+    got = []
+    for b, c in enumerate(cands):
+        xc = torch.from_numpy(c.vectors).to(DEVICE).double()
+        qb = torch.from_numpy(q[b]).to(DEVICE).double()
+        d = ((xc - qb) ** 2).sum(1).cpu().numpy()
+        got.append(accel.finalize_results(idx, c.internal_ids, d, MAIN_K))
+    rd, ri = ivf_reference(idx, q, MAIN_K, idx.config.nprobe)
+    require(ids_match_up_to_ties(rows_ids(got), ri, rd, MAIN_K),
+            "accel ivf: finalize_results differs from the probed-list search")
+    kp.reset_launches()
+    native = idx.batch_search(q, MAIN_K)
+    require(kp.LAUNCHES["ivf_probe_topc"] == 1, f"accel ivf: batch_search did not run K3: {kp.LAUNCHES}")
+    api.count("accel", kp, ("ivf_probe_topc",))
+    require(ids_match_up_to_ties(rows_ids(got), rows_ids(native), rd, MAIN_K),
+            "accel ivf: finalize_results differs from batch_search")
+    log(f"api accel ivf: structure (nlist {st.nlist}, nprobe {st.nprobe}, "
+        f"{int(st.list_lengths.sum())} rows); B={SMALL_BATCH} candidates "
+        f"{[c.count for c in cands]} rescored in f64; finalize_results equals the probed-list "
+        f"search and batch_search (K3) up to ties; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_sharded_ivf(idx, batches, bigq, api: Api) -> None:
+    """partition_store of the IVF 1M index's lists over SHARDS_ON_ONE_CARD
+    shards of the first card, sharded_ivf_search at B=8 and B=256: ids equal
+    the exact search of the probed lists up to ties."""
+    from vectorindex_tpu_torch.ops import ivf as tivf
+    from vectorindex_tpu_torch.parallel import partition_store, sharded_ivf_search
+    from vectorindex_tpu_torch.utils.parity import ATOL, RTOL, ids_match_up_to_ties
+
+    t0 = time.perf_counter()
+    mesh = card_mesh(SHARDS_ON_ONE_CARD)
+    arrays = partition_store(idx._store, mesh)
+    rows = [int(t.sum()) for t in arrays.lengths]
+    cap = tivf.probe_cap_for(idx._store.max_length)
+    f = {"partition_s": time.perf_counter() - t0, "rows_per_shard": rows}
+    for q in (batches[0], bigq):
+        search = functools.partial(sharded_ivf_search, mesh, torch.from_numpy(q).to(DEVICE),
+                                   idx._centroids_dev, arrays, nprobe=IVF_NPROBE, probe_cap=cap,
+                                   k=MAIN_K)
+        d, i = search()
+        rd, ri = ivf_reference(idx, q, MAIN_K, IVF_NPROBE)
+        require(ids_match_up_to_ties(i.cpu().numpy(), ri, rd, MAIN_K),
+                f"sharded ivf B={len(q)}: ids differ from the probed-list search")
+        require(np.allclose(d.cpu().numpy(), rd[:, :MAIN_K], rtol=RTOL, atol=ATOL),
+                f"sharded ivf B={len(q)}: distances differ")
+        f[f"B={len(q)} ms"] = time_ms(search, 3, warmup=1)
+    del arrays
+    torch.cuda.empty_cache()
+    api.figs["sharded_ivf"] = f
+    log(f"sharded ivf: partition_store over {SHARDS_ON_ONE_CARD} shards of cuda:0 "
+        f"({f['partition_s']:.2f} s; rows a shard {rows}), sharded_ivf_search at nprobe "
+        f"{IVF_NPROBE} equal to the probed-list search up to ties at B={SMALL_BATCH} and "
+        f"{IVF_BIG_BATCH}; " + ", ".join(f"{k} {v:.4g}" for k, v in f.items() if k.endswith("ms"))
+        + f" ms; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_sharded_pq(idx, evalq, truth, api: Api) -> None:
+    """sharded_ivf_pq_search over the pq16 index's lists and codes on
+    SHARDS_ON_ONE_CARD shards of the first card (each shard reranks its own
+    ADC top-512 exactly), nprobe 32: recall@10 >= SHARDED_PQ_RECALL_MIN."""
+    from vectorindex_tpu_torch.ops import ivf as tivf
+    from vectorindex_tpu_torch.parallel import partition_store, sharded_ivf_pq_search
+
+    t0 = time.perf_counter()
+    mesh = card_mesh(SHARDS_ON_ONE_CARD)
+    _, codes, _ = idx._sync_pq()
+    arrays = partition_store(idx._store, mesh, codes=codes)
+    search = functools.partial(
+        sharded_ivf_pq_search, mesh, centroids=idx._centroids_dev, arrays=arrays, books=idx._books,
+        nprobe=PQ_NPROBE, probe_cap=tivf.probe_cap_for(idx._store.max_length), k=MAIN_K,
+        rerank_c=PQ_RERANK_C, packed_u4=idx.config.ks <= 16)
+    ids = [search(q=torch.from_numpy(evalq[s : s + SMALL_BATCH]).to(DEVICE))[1]
+           for s in range(0, len(evalq), SMALL_BATCH)]
+    dist, kth, truth_ids = truth
+    r_tie, r_set = recall_ids(torch.cat(ids), dist, kth, truth_ids, MAIN_K)
+    q8 = torch.from_numpy(evalq[:SMALL_BATCH]).to(DEVICE)
+    ms = time_ms(lambda: search(q=q8), 3, warmup=1)
+    del arrays
+    torch.cuda.empty_cache()
+    require(r_tie >= SHARDED_PQ_RECALL_MIN,
+            f"sharded ivf-pq recall@{MAIN_K} {r_tie} < {SHARDED_PQ_RECALL_MIN}")
+    api.figs["sharded_pq"] = {"recall": r_tie, "b8_ms": ms}
+    log(f"sharded ivf-pq: pq16 over {SHARDS_ON_ONE_CARD} shards of cuda:0, nprobe {PQ_NPROBE}, "
+        f"per-shard rerank of {PQ_RERANK_C}: recall@{MAIN_K}={r_tie} (set {r_set}) over "
+        f"{len(evalq)} queries; B={SMALL_BATCH} {ms:.4g} ms; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_api_hnsw(idx, q: np.ndarray, api: Api) -> None:
+    """The acceleration seam on the HNSW 100k index: structure, candidates
+    at B=8 (the ef_search beam) rescored exactly on the card,
+    finalize_results equal to batch_search up to ties."""
+    from vectorindex_tpu_torch.models import accel
+    from vectorindex_tpu_torch.utils.parity import ids_match_up_to_ties
+
+    t0 = time.perf_counter()
+    st = accel.get_index_structure(idx)
+    require(st.max_level == len(idx._layers) - 1 and st.entry_point == idx._entry
+            and st.levels[0]["neighbors"].shape[0] == idx._layers[0].count, "accel hnsw structure")
+    cands = accel.get_batch_candidates(idx, q)
+    got, ref = [], []
+    for b, c in enumerate(cands):
+        xc = torch.from_numpy(c.vectors).to(DEVICE).double()
+        d = ((xc - torch.from_numpy(q[b]).to(DEVICE).double()) ** 2).sum(1).cpu().numpy()
+        got.append(accel.finalize_results(idx, c.internal_ids, d, MAIN_K))
+        ref.append(np.sort(d)[: MAIN_K + 1])
+    native = idx.batch_search(q, MAIN_K)
+    require(ids_match_up_to_ties(rows_ids(got), rows_ids(native), np.stack(ref), MAIN_K),
+            "accel hnsw: finalize_results differs from batch_search")
+    log(f"api accel hnsw: structure (levels {len(st.levels)}, entry {st.entry_point}, m {st.m}); "
+        f"B={len(q)} candidates {[c.count for c in cands]} rescored in f64; finalize_results "
+        f"equals batch_search up to ties; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_sharded_hnsw(x: np.ndarray, W: np.ndarray, q: np.ndarray, x_dev, sq_dev, ps,
+                       api: Api) -> None:
+    """ShardedHNSWIndex over the HNSW main path's rows on SHARDS_ON_ONE_CARD
+    shards of the first card at HNSWConfig() (efS 64): recall@10 >=
+    HNSW_RECALL_MIN at B=256; save / load_index gives equal ids and scores;
+    then SHARDED_HNSW_TAIL inserts (the tail buffer: no rebuild) and 1%
+    removed: none returned, recall over the live rows still >=
+    HNSW_RECALL_MIN."""
+    from vectorindex_tpu_torch.models import load_index
+    from vectorindex_tpu_torch.models.hnsw import HNSWConfig
+    from vectorindex_tpu_torch.models.sharded import ShardedHNSWIndex
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    t_phase = time.perf_counter()
+    k = MAIN_K
+    idx = ShardedHNSWIndex(HNSW_DIM, Metric.L2, HNSWConfig(**HNSW_SHARDED_CONFIG),
+                           devices=list(card_mesh(SHARDS_ON_ONE_CARD).devices.flat))
+    idx.insert_batch(list(range(len(x))), x)
+    t0 = time.perf_counter()
+    idx.statistics()  # the bulk build
+    torch.cuda.synchronize()
+    f = {"build_s": time.perf_counter() - t0}
+    res = idx.batch_search(q, k)
+    dist, kth, truth = brute_force(x_dev, sq_dev, q, k)
+    f["recall"] = recall(res, dist, kth, truth, k)[0]
+    require(f["recall"] >= HNSW_RECALL_MIN, f"sharded hnsw recall@{k} {f['recall']} < {HNSW_RECALL_MIN}")
+    f["b256_wall_s"] = walls(lambda: idx.batch_search(q, k))
+    path = ps.path("sharded_hnsw.json")
+    t0 = time.perf_counter()
+    idx.save(path)
+    loaded = load_index(path, device=DEVICE)
+    got = loaded.batch_search(q, k)
+    f["reload_s"] = time.perf_counter() - t0
+    require(type(loaded) is ShardedHNSWIndex and loaded.n_shards == SHARDS_ON_ONE_CARD,
+            "load_index of a sharded_hnsw snapshot")
+    same_rows(got, res, f"sharded hnsw B={len(q)}")
+    del loaded
+    os.remove(path)
+
+    rng = np.random.default_rng(HNSW_SEED + 2)
+    tail = rng.standard_normal((SHARDED_HNSW_TAIL, W.shape[0]), dtype=np.float32) @ W
+    tail += 0.05 * rng.standard_normal(tail.shape, dtype=np.float32)
+    tail /= np.linalg.norm(tail, axis=1, keepdims=True)
+    built = idx._built_rows
+    idx.insert_batch(list(range(len(x), len(x) + len(tail))), tail)
+    removed = rng.choice(len(x), int(HNSW_REMOVE_FRAC * len(x)), replace=False)
+    for i in removed.tolist():
+        idx.remove(i)
+    qt = np.concatenate([q[: len(q) - SMALL_BATCH], tail[:SMALL_BATCH]])  # tail rows find themselves
+    res = idx.batch_search(qt, k)
+    require(idx._built_rows == built, "sharded hnsw: the tail rebuilt a shard")
+    require([row[0].id for row in res[-SMALL_BATCH:]] == list(range(len(x), len(x) + SMALL_BATCH)),
+            "sharded hnsw: a tail row did not find itself")
+    alive = np.ones(len(x) + len(tail), dtype=bool)
+    alive[removed] = False
+    require(all(alive[r.id] for row in res for r in row), "sharded hnsw: a removed id was returned")
+    x_all = torch.cat([x_dev, torch.from_numpy(tail).to(DEVICE)])
+    dist, kth, truth = masked_truth(x_all, (x_all * x_all).sum(dim=1), qt, k, alive)
+    f["tail_recall"] = recall(res, dist, kth, truth, k)[0]
+    require(f["tail_recall"] >= HNSW_RECALL_MIN,
+            f"sharded hnsw recall after the tail and removals {f['tail_recall']} < {HNSW_RECALL_MIN}")
+    del idx, x_all, dist
+    torch.cuda.empty_cache()
+    api.figs["sharded_hnsw"] = f
+    log(f"sharded hnsw: {len(x)} x {HNSW_DIM} over {SHARDS_ON_ONE_CARD} shards of cuda:0 "
+        f"(HNSWConfig() defaults): build {f['build_s']:.2f} s, recall@{k} {f['recall']} at B="
+        f"{len(q)} (wall {f['b256_wall_s']:.4g} s); save + load_index + first search "
+        f"{f['reload_s']:.2f} s, equal ids and scores; {SHARDED_HNSW_TAIL} tail inserts (no "
+        f"rebuild, each found first) and {removed.size} removed (none returned): recall@{k} "
+        f"{f['tail_recall']}; phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def api_summary(api: Api, gpu: str) -> str:
+    """One line: phase_api's and phase_sharded's seconds (each part's and
+    their sums), the verified route against the strict path (events ms)
+    and the parts' kernel launches."""
+    parts = [f"phase_{kind} {sum(v for k, v in api.seconds.items() if k.startswith(kind)):.1f} s ("
+             + ", ".join(f"{k[len(kind) + 1:]} {v:.1f}" for k, v in api.seconds.items()
+                         if k.startswith(kind)) + ")" for kind in ("api", "sharded")]
+    for label in ("verified_wide", "verified_manhattan"):
+        for b, f in api.figs.get(label, {}).items():
+            parts.append(f"{label} B={b} ({f['path']}) verified {f['verified_ms']:.4g} ms / "
+                         f"strict {f['strict_ms']:.4g} ms")
+    return f"api: gpu {gpu}; " + "; ".join(parts) + f"; launches {api.launches}"
+
+
 def flat_bound(n: int, d: int, b: int, itemsize: int, kernel: str):
     """(bound_ms, bound_by) of K1/K2 (K11: K1's) over the flat main path's
     corpus: rows, bias and q read once, the candidates or counts written."""
@@ -2945,6 +3539,11 @@ def run(ps: Persist) -> int:
     times = phase_times(sf, topk, idx, batches, errs)
     launches["bin_candidates_tree"], tree_times = phase_tree(sf, topk, idx, batches, errs)
     range_s = phase_flat_range(idx, batches)
+    api = Api()
+    with api.timed("api flat"):
+        phase_api_flat(sf, topk, idx, batches, api, errs)
+    with api.timed("sharded flat"):
+        phase_sharded_flat(idx, batches, api)
     phase_persist_flat(sf, idx, batches, ps)
     n_flat, itemsize = idx.capacity, 2
     del idx, batches
@@ -2952,16 +3551,22 @@ def run(ps: Persist) -> int:
     wide_launches, wide_times, wide_errs = phase_flat_wide(sf, topk)
     for name, e in wide_errs.items():
         errs[name] = max(errs[name], e)
+    with api.timed("api verified wide"):
+        phase_api_verified_wide(sf, api)
 
     errs.update(phase_ivf_compare(kp))
     ivf_idx, ivf_batches, bigq, ivf_launches, build_s = phase_ivf_main(kp)
     ivf_times = phase_ivf_times(kp, ivf_idx, ivf_batches, bigq, errs)
     launches.update(ivf_launches)
+    with api.timed("api ivf"):
+        phase_api_ivf(kp, ivf_idx, ivf_batches, api)
+    with api.timed("sharded ivf"):
+        phase_sharded_ivf(ivf_idx, ivf_batches, bigq, api)
     phase_persist_ivf(kp, ivf_idx, ivf_batches, bigq, ps)
     del ivf_idx, ivf_batches, bigq
     torch.cuda.empty_cache()
 
-    pq_errs, pq_launches, pq_times, pq_builds = phase_pq(ap, ps)
+    pq_errs, pq_launches, tier_launches, pq_times, pq_builds = phase_pq(ap, ps, api)
     errs.update(pq_errs)
     launches.update(pq_launches)
     torch.cuda.empty_cache()
@@ -2972,16 +3577,13 @@ def run(ps: Persist) -> int:
     torch.cuda.empty_cache()
 
     host_launches, host_errs, hostpq = phase_hostpq(ap, gpu)
-    for name, c in host_launches.items():
-        launches[name] += c
     for name, e in host_errs.items():
         errs[name] = max(errs[name], e)
 
-    hnsw = phase_hnsw(gpu, ps)
+    hnsw = phase_hnsw(gpu, ps, api)
     replay = phase_kmeans_replay()
     log(persist_summary(ps, gpu))
-    for name, c in ps.launches.items():  # phase_persist's runs on the restored indices
-        launches[name] += c
+    log(api_summary(api, gpu))
     log(f"hnsw: gpu {gpu}; build {hnsw['build_s']:.2f} s (100k x 128, defaults), recall@{MAIN_K} "
         f"{hnsw['recall']}, B={HNSW_BATCH} wall {hnsw['b256_ms']:.4g} ms ({hnsw['qps']:.1f} QPS), "
         f"B={SMALL_BATCH} wall {hnsw['b8_ms']:.4g} ms, stream {hnsw['stream_qps']:.1f} QPS, "
@@ -2995,6 +3597,10 @@ def run(ps: Persist) -> int:
         bms, by = flat_bound(n_flat, MAIN_DIM, MAIN_BATCH, itemsize, name)
         kernels.append({"name": name, "ms": big[name], "plain_ms": big[name + "_plain"],
                         "bound_ms": bms, "bound_by": by})
+    m = api.figs["mips"]
+    for k in kernels:  # K1/K2 also at d = 256 on phase_api's MIPS index, B=256
+        k["mips"] = {"ms": m[k["name"] + "_ms"], "bound_ms": m[k["name"] + "_bound"][0],
+                     "bound_by": m[k["name"] + "_bound"][1]}
     bms, by = flat_bound(n_flat, MAIN_DIM, MAIN_BATCH, itemsize, "bin_candidates")
     kernels.append({"name": "bin_candidates_tree", "ms": tree_times[TREE_TILES[0]]["ms"],
                     "plain_ms": tree_times[TREE_TILES[0]]["plain_ms"], "bound_ms": bms,
@@ -3032,12 +3638,18 @@ def run(ps: Persist) -> int:
     # call computes a per-class top-3, a count below tau, distances (or
     # LUT-gather sums) over per-query probed row lists, or reads packed u4
     library = {"adc_scan_u8": adc_times["adc_scan_u8_library"]}
+    # `launches` is the kernel's main path's own count; the other paths'
+    # runs, each counted from 0 just before it, stand under "paths"
+    other = {"pq_host_tier": tier_launches, "hostpq": host_launches, "persist": ps.launches,
+             **api.launches}
     for k in kernels:
         k.update(route="cuda", source=SOURCES[k["name"]], replaces=REPLACES[k["name"]],
                  launches=launches[k["name"]], max_abs_err=errs[k["name"]],
-                 library_ms=library.get(k["name"]))
+                 library_ms=library.get(k["name"]),
+                 paths={p: c[k["name"]] for p, c in other.items() if c.get(k["name"])})
         k.setdefault("lookup_floor_ms", None)
-    require(all(k["launches"] > 0 for k in kernels), f"a kernel did not run on its path: {launches}")
+    require(all(k["launches"] > 0 for k in kernels),
+            f"a kernel did not run on its main path: {launches}")
     log(f"gpu: {gpu}; flat batch_search B={MAIN_BATCH}: {big['qps']:.1f} QPS; wide bf16 d="
         f"{FLAT_WIDE_DIM} K1/K2 on the FMA design (launches {wide_launches}) "
         f"{wide_times['bin_candidates']:.4g} / {wide_times['count_below']:.4g} ms at B="

@@ -781,7 +781,11 @@ def test_wide_bf16_flat_index_runs_k1_k2_on_the_cuda_cores(cuda_device):
 
 @pytest.mark.cuda
 def test_bf16_flat_index_past_the_fma_limit_takes_the_strict_path(cuda_device):
-    idx, q, dist, tol = _wide_flat(7300, cuda_device, rows=600, nq=3, round_q=False)
+    """Past d = 7,264 no kernel design fits: at capacity 2^17 and B=32
+    (B x capacity = VERIFIED_MIN_BLOCK) the index takes the verified scan
+    (ops/scan.scan_topk_verified), no K1/K2 launch, and no query needs the
+    strict path."""
+    idx, q, dist, tol = _wide_flat(7300, cuda_device, rows=600, nq=32, round_q=False)
     assert sf.scan_design(7300, torch.bfloat16) == "strict"
     sf.reset_launches()
     TELEM.reset()
@@ -791,7 +795,9 @@ def test_bf16_flat_index_past_the_fma_limit_takes_the_strict_path(cuda_device):
     finally:
         TELEM.disable()
     assert not any(sf.LAUNCHES.values())
-    assert TELEM.snapshot()["counters"]["kernel.scan_strict.calls"] == 1
+    counters = TELEM.snapshot()["counters"]
+    assert counters["kernel.scan_verified.calls"] == 1
+    assert counters.get("flat.verify_fallback", 0) == 0
     _assert_exact_top_k(got, dist, tol)
 
 
@@ -1011,3 +1017,76 @@ def test_durable_ivf_reloads_on_card_through_k3_k4(cuda_device, tmp_path):
         assert kp.LAUNCHES[kernel] >= 1
         assert [[r.id for r in row] for row in got] == [[r.id for r in row] for row in want]
         assert [[r.score for r in row] for row in got] == [[r.score for r in row] for row in want]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.MANHATTAN, Metric.L2], ids=lambda m: m.value)
+def test_verified_route_on_card_matches_cpu(metric, cuda_device):
+    """At capacity 2^17 and B=32 (B x capacity = VERIFIED_MIN_BLOCK),
+    manhattan (and L2 with k above the fused cap) take
+    ops/scan.scan_topk_verified: on the card with no strict fallback, and
+    equal to the same index on the CPU up to ties (utils/parity)."""
+    rng = np.random.default_rng(77)
+    x = rng.standard_normal((3000, 32)).astype(np.float32)
+    q = x[:32] + 0.1 * rng.standard_normal((32, 32)).astype(np.float32)
+    k = 10 if metric == Metric.MANHATTAN else 2 * sf.C + 1
+    got = {}
+    for dev in ("cpu", cuda_device):
+        idx = tflat.FlatIndex(32, metric, capacity=1 << 17, device=dev)
+        idx.insert_batch(list(range(len(x))), x)
+        TELEM.reset()
+        TELEM.enable()
+        try:
+            got[str(dev)] = idx.batch_search(q, k)
+        finally:
+            TELEM.disable()
+        counters = TELEM.snapshot()["counters"]
+        assert counters["kernel.scan_verified.calls"] == 1
+        assert counters.get("flat.verify_fallback", 0) == 0
+    cpu, card = got["cpu"], got[str(cuda_device)]
+    wd = np.array([[r.score for r in row] for row in cpu], dtype=np.float64)
+    wd = wd * wd if metric == Metric.L2 else wd
+    gd = np.array([[r.score for r in row] for row in card], dtype=np.float64)
+    np.testing.assert_allclose(gd * gd if metric == Metric.L2 else gd, wd, rtol=RTOL, atol=ATOL)
+    assert ids_match_up_to_ties([[r.id for r in row] for row in card],
+                                [[r.id for r in row] for row in cpu], wd, k)
+
+
+@pytest.mark.cuda
+def test_four_shards_on_one_card_match_the_unsharded_search(cuda_device):
+    """ShardedFlatIndex over 4 shards of cuda:0 equals the mesh of the
+    visible cards bit for bit (each shard scores blocks of the same shape),
+    and the unsharded FlatIndex up to ties."""
+    from vectorindex_tpu_torch.models.sharded import ShardedFlatIndex
+
+    rng = np.random.default_rng(78)
+    x = rng.standard_normal((150_000, 64)).astype(np.float32)
+    q = x[:16] + 0.1 * rng.standard_normal((16, 64)).astype(np.float32)
+    four = ShardedFlatIndex(64, n_devices=4, devices=[cuda_device] * 4)
+    one = ShardedFlatIndex(64, n_devices=1, device="cuda")
+    flat = tflat.FlatIndex(64, device=cuda_device)
+    for idx in (four, one, flat):
+        idx.insert_batch(list(range(len(x))), x)
+    assert four.n_shards == 4 and four.capacity == 1 << 18
+    a, b, c = (idx.batch_search(q, 10) for idx in (four, one, flat))
+    assert [[(r.id, r.score) for r in row] for row in a] == [[(r.id, r.score) for r in row]
+                                                             for row in b]
+    wd = np.array([[r.score**2 for r in row] for row in c])
+    np.testing.assert_allclose([[r.score**2 for r in row] for row in a], wd, rtol=RTOL, atol=ATOL)
+    assert ids_match_up_to_ties([[r.id for r in row] for row in a],
+                                [[r.id for r in row] for row in c], wd, 10)
+
+
+@pytest.mark.cuda
+def test_typed_refuses_a_cuda_tensor(cuda_device):
+    """models/typed refuses a tensor on the card with the failed
+    conversion's error; it never moves it to the host silently."""
+    from vectorindex_tpu_torch.models.typed import as_matrix, as_vector
+    from vectorindex_tpu_torch.utils.errors import IndexError, IndexErrorKind
+
+    t = torch.ones(8, device=cuda_device)
+    for fn in (as_vector, as_matrix):
+        with pytest.raises(IndexError) as ei:
+            fn(t, 8)
+        assert ei.value.kind == IndexErrorKind.INVALID_VECTOR
+    assert as_vector(t.cpu(), 8).shape == (8,)

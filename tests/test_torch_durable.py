@@ -30,6 +30,7 @@ from vectorindex_tpu_torch.models import (
     IVFIndex,
     IVFPQConfig,
     IVFPQIndex,
+    ShardedFlatIndex,
     load_index,
 )
 from vectorindex_tpu_torch.persistence import durable
@@ -390,9 +391,9 @@ def test_durable_container_crosses_packages(tmp_path, kind):
 
 
 def test_load_index_dispatches_every_format(tmp_path):
-    """JSON snapshots of flat, hnsw, ivf and ivfpq and binary containers by
-    their META; a META that does not parse is CORRUPT_DATA; a sharded
-    snapshot is not ported yet."""
+    """JSON snapshots of flat, hnsw, ivf, ivfpq and sharded_flat and binary
+    containers by their META; a META that does not parse is CORRUPT_DATA;
+    an unknown snapshot type is INVALID_CONFIGURATION."""
     x = _data(300)
     flat = FlatIndex(16, device=CPU)
     hnsw = HNSWIndex(16, config=HNSWConfig(m=4, ef_construction=24, build_chunk=32), device=CPU)
@@ -421,9 +422,13 @@ def test_load_index_dispatches_every_format(tmp_path):
     with pytest.raises(IndexError) as ei:
         load_index(bad, device=CPU)
     assert ei.value.kind == IndexErrorKind.CORRUPT_DATA
-    sharded = tmp_path / "sharded.json"
-    sharded.write_text(json.dumps({"type": "sharded_flat", "records": []}))
+    sharded = ShardedFlatIndex(16, n_devices=2, device=CPU)
+    sharded.insert_batch(list(range(300)), x)
+    sharded.save(str(tmp_path / "sharded.json"))
+    got = load_index(str(tmp_path / "sharded.json"), device=CPU)
+    assert type(got) is ShardedFlatIndex and got.count == 300
+    unknown = tmp_path / "unknown.json"
+    unknown.write_text(json.dumps({"type": "sharded_ivf", "records": []}))
     with pytest.raises(IndexError) as ei:
-        load_index(str(sharded), device=CPU)
+        load_index(str(unknown), device=CPU)
     assert ei.value.kind == IndexErrorKind.INVALID_CONFIGURATION
-    assert "Queue 1 item 10" in str(ei.value)

@@ -4,7 +4,8 @@ package's, on the same seeded inserts, removes, updates and compaction.
 Both routes are covered: the strict path below LARGE_SCAN_THRESHOLD, and the
 fused path above it, with the threshold lowered to 1024 in both packages and
 the JAX side forced onto its Pallas kernels (interpret mode), as
-tests/test_scan_fused.py does. Tolerance for distances: rtol=2e-4,
+tests/test_scan_fused.py does; above it manhattan/chebyshev and rows too wide
+for the kernels take the verified two-phase scan in both packages. Tolerance for distances: rtol=2e-4,
 atol=2e-5 on the internal ascending distance (squared L2, -IP, 1-cosine);
 f32 sums in another order, and bf16 products are exact in f32. Ids must be
 equal, except at a rank whose JAX distance lies within that tolerance of a
@@ -36,11 +37,13 @@ DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, to
 @pytest.fixture(params=["strict", "fused"])
 def route(request, monkeypatch):
     """strict: default threshold (the index stays below it); fused: both
-    packages take the fused kernels at capacity >= 1024."""
+    packages take the fused kernels at capacity >= 1024 (the port its
+    verified scan from B x capacity >= 1024)."""
     if request.param == "fused":
         monkeypatch.setenv("VECTORINDEX_TPU_FORCE_PALLAS_SCAN", "1")
         monkeypatch.setattr(jflat, "LARGE_SCAN_THRESHOLD", 1024)
         monkeypatch.setattr(tflat, "LARGE_SCAN_THRESHOLD", 1024)
+        monkeypatch.setattr(tflat, "VERIFIED_MIN_BLOCK", 1024)
     return request.param
 
 
@@ -115,6 +118,9 @@ def test_search_matches_jax(metric, dtype, route):
 
 @pytest.mark.parametrize("metric", [Metric.MANHATTAN, Metric.CHEBYSHEV], ids=lambda m: m.value)
 def test_broadcast_metrics_take_strict_at_any_size(metric, route):
+    """manhattan/chebyshev never reach the fused kernels: the strict path
+    below the threshold, the verified scan (ops/scan.scan_topk_verified)
+    above it, as in the JAX package."""
     j, t = _pair(metric, "float32")
     q = _populate(j)
     _populate(t)
@@ -126,7 +132,9 @@ def test_broadcast_metrics_take_strict_at_any_size(metric, route):
         TELEM.disable()
     _assert_same(got, j.batch_search(q, K + 1), metric)
     counters = TELEM.snapshot()["counters"]
-    assert counters["kernel.scan_strict.calls"] == 1 and "kernel.scan_fused.calls" not in counters
+    path = "scan_strict" if route == "strict" else "scan_verified"
+    assert counters[f"kernel.{path}.calls"] == 1 and "kernel.scan_fused.calls" not in counters
+    assert counters.get("flat.verify_fallback", 0) == 0
 
 
 def test_filters_match_jax(route):
@@ -282,12 +290,15 @@ def test_fallback_splices_strict_results(monkeypatch):
 
 
 
-@pytest.mark.parametrize("dim, kernel", [(7264, "scan_fused"), (7265, "scan_strict")])
+@pytest.mark.parametrize("dim, kernel", [(7264, "scan_fused"), (7265, "scan_verified")])
 def test_rows_too_wide_for_the_kernels_take_the_strict_path(dim, kernel, monkeypatch):
     """Above the fused threshold a bf16 index runs K1+K2 while a kernel
-    design fits (scan_fused.scan_design) and the strict path past d = 7,264;
-    either way the top-k is exact, and telemetry names the path that ran."""
+    design fits (scan_fused.scan_design) and the verified scan past
+    d = 7,264 (ops/scan.scan_topk_verified, which re-runs only the queries
+    it cannot prove exact through the strict path); either way the top-k is
+    exact, and telemetry names the path that ran."""
     monkeypatch.setattr(tflat, "LARGE_SCAN_THRESHOLD", 1024)
+    monkeypatch.setattr(tflat, "VERIFIED_MIN_BLOCK", 1024)
     rng = np.random.default_rng(41)
     x = rng.standard_normal((300, dim)).astype(np.float32)
     q = rng.standard_normal((3, dim)).astype(np.float32)

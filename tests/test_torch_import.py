@@ -70,6 +70,17 @@ def test_every_module_imports_without_jax_or_nvcc(tmp_path):
         "vectorindex_tpu_torch.persistence.container_index",
         "vectorindex_tpu_torch.persistence.durable",
         "vectorindex_tpu_torch.utils.telemetry",
+        "vectorindex_tpu_torch.utils.debug",
+        "vectorindex_tpu_torch.ops.mips",
+        "vectorindex_tpu_torch.ops.layout",
+        "vectorindex_tpu_torch.models.typed",
+        "vectorindex_tpu_torch.models.accel",
+        "vectorindex_tpu_torch.models.sharded",
+        "vectorindex_tpu_torch.parallel",
+        "vectorindex_tpu_torch.parallel.mesh",
+        "vectorindex_tpu_torch.parallel.sharded_search",
+        "vectorindex_tpu_torch.parallel.sharded_ivf",
+        "vectorindex_tpu_torch.parallel.sharded_hnsw",
     }
     assert expected <= set(got["modules"])
 
@@ -91,6 +102,10 @@ def test_port_sources_use_no_jax_no_compile_no_fallback():
         text = path.read_text()
         for pattern in banned:
             assert not pattern.search(text), f"{path.name}: {pattern.pattern}"
+    # sharding is one process holding a list of devices
+    distributed = re.compile(r"(import|from)\s+torch\.distributed|torch\.distributed\.\w+\(")
+    for path in [*sorted((PORT / "parallel").glob("*.py")), PORT / "models" / "sharded.py"]:
+        assert not distributed.search(path.read_text()), path.name
     for path in launching:
         assert not re.search(r"^\s*except\b", path.read_text(), re.M), path.name
 

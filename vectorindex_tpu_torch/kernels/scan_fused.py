@@ -277,8 +277,9 @@ def scan_design(d: int, dtype: torch.dtype) -> str:
     "mma" (tensor cores) for bf16 while the smallest tensor-core CTA fits in
     shared memory (d <= 2,400), "fma" (CUDA cores) for f32 and for bf16 past
     that while the FMA query block fits (d <= 7,264), else "strict": no
-    kernel fits and the caller takes ops/scan.scan_topk_strict (the
-    kernels' _grid raises there). K1 and K2 both take their design from
+    kernel fits, and models/flat takes ops/scan.scan_topk_verified at
+    large capacity, scan_topk_strict below it (the kernels' _grid raises
+    there). K1 and K2 both take their design from
     here: the exactness proof needs K2 to recompute K1's floats bit for bit,
     so they must never run two designs on one corpus. (K11 stays on the
     tensor cores.)"""

@@ -1,5 +1,6 @@
-"""Index families of the port (the exact flat index, IVF-Flat, IVF-PQ and
-HNSW) and `load_index`, which opens any index either package persisted."""
+"""Index families of the port (the exact flat index, IVF-Flat, IVF-PQ,
+HNSW and their sharded forms), the acceleration seam (`accel`) and
+`load_index`, which opens any index either package persisted."""
 
 from vectorindex_tpu_torch.models.base import (  # noqa: F401
     IndexStats,
@@ -15,6 +16,11 @@ from vectorindex_tpu_torch.models.ivf import (  # noqa: F401
     IVFPQConfig,
     IVFPQIndex,
 )
+from vectorindex_tpu_torch.models.sharded import (  # noqa: F401
+    ShardedFlatIndex,
+    ShardedHNSWIndex,
+)
+from vectorindex_tpu_torch.models import accel  # noqa: F401
 from vectorindex_tpu_torch.persistence.json_snapshot import (  # noqa: F401
     PersistedIndex,
     PersistedRecord,
@@ -26,9 +32,9 @@ from vectorindex_tpu_torch.utils.errors import ErrorBuilder, IndexErrorKind
 
 def load_index(path: str, device="cuda"):
     """Open any persisted index, dispatching on format and `type`: JSON
-    snapshots (flat / hnsw / ivf / ivfpq) and binary INDEXTPU containers
-    (flat / hnsw through the container tier, ivf / ivfpq through the durable
-    loader). Sharded snapshots are not ported yet."""
+    snapshots (flat / hnsw / ivf / ivfpq / sharded_flat / sharded_hnsw) and
+    binary INDEXTPU containers (flat / hnsw through the container tier,
+    ivf / ivfpq through the durable loader)."""
     import json
 
     with open(path, "rb") as f:
@@ -37,13 +43,12 @@ def load_index(path: str, device="cuda"):
         return _load_container_index(path, device)
     with open(path) as f:
         t = json.load(f).get("type")
-    cls = {c.TYPE: c for c in (FlatIndex, HNSWIndex, IVFIndex, IVFPQIndex)}.get(t)
+    cls = {c.TYPE: c for c in (FlatIndex, ShardedFlatIndex, ShardedHNSWIndex, HNSWIndex,
+                               IVFIndex, IVFPQIndex)}.get(t)
     if cls is None:
-        sharded = isinstance(t, str) and t.startswith("sharded_")
         raise (
             ErrorBuilder(IndexErrorKind.INVALID_CONFIGURATION)
-            .message(f"snapshot type {t!r} is not ported yet (ROADMAP.md Queue 1 item 10: "
-                     "sharding)" if sharded else f"unknown snapshot type {t!r}")
+            .message(f"unknown snapshot type {t!r}")
             .build()
         )
     return cls.load(path, device=device)

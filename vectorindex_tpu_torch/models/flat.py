@@ -10,13 +10,22 @@ FlatIndexOptimized.swift:20-420 and FlatIndex.swift).
   - Removal = tombstone in the validity mask + free-list slot reuse;
     compact() repacks (reference FlatIndexOptimized.swift:91-114).
   - Storage is torch.float32 or torch.bfloat16 on the device.
-  - Search routing is the JAX package's: at capacity >= LARGE_SCAN_THRESHOLD
-    with L2/IP/cosine and k <= 2*C, the fused kernels K1+K2
-    (kernels/scan_fused), then the strict path for queries they cannot prove
-    exact; otherwise the strict path (ops/scan.scan_topk_strict). Both give
-    the exact top-k under the (score, id) contract. The fused pair runs in
-    the design scan_fused.scan_design picks (tensor cores on bf16 up to
-    d = 2,400, CUDA cores up to 7,264); wider rows take the strict path.
+  - Search routing follows the JAX package's: at capacity >=
+    LARGE_SCAN_THRESHOLD with L2/IP/cosine and k <= 2*C, the fused kernels
+    K1+K2 (kernels/scan_fused); at that capacity otherwise
+    (manhattan/chebyshev, larger k, rows wider than any kernel design) the
+    verified two-phase selection (ops/scan.scan_topk_verified), but only
+    when the [B, capacity] block has VERIFIED_MIN_BLOCK elements (on a
+    smaller block its fixed cost outweighs the sort it saves, and the
+    strict path runs); the strict path (ops/scan.scan_topk_strict) re-runs
+    the queries the fused pair or the verified scan cannot prove exact
+    (K2's count; a tie at the c-th candidate). Below the threshold the
+    strict path is the whole search. All give the exact top-k under the
+    (score, id) contract. The fused pair runs in the design
+    scan_fused.scan_design picks (tensor cores on bf16 up to d = 2,400,
+    CUDA cores up to 7,264).
+  - utils/debug.enable() checks the search's distances for NaN and -inf
+    before the results are built.
   - range_search is one distance block and a compaction
     (ops/range_query.range_scan).
   - save_container / load_container write and read the binary container
@@ -43,7 +52,7 @@ from vectorindex_tpu_torch.models.base import (
 from vectorindex_tpu_torch.ops.filtering import slot_mask_np
 from vectorindex_tpu_torch.ops.idmap import IDMap
 from vectorindex_tpu_torch.ops.range_query import range_scan
-from vectorindex_tpu_torch.ops.scan import pad_queries, scan_topk_strict
+from vectorindex_tpu_torch.ops.scan import pad_queries, scan_topk_strict, scan_topk_verified
 from vectorindex_tpu_torch.ops.topk import INVALID_ID
 from vectorindex_tpu_torch.persistence.container_index import (
     load_flat_container,
@@ -55,6 +64,7 @@ from vectorindex_tpu_torch.persistence.json_snapshot import (
     load_snapshot,
     save_snapshot,
 )
+from vectorindex_tpu_torch.utils import debug
 from vectorindex_tpu_torch.utils.config import Metric
 from vectorindex_tpu_torch.utils.errors import (
     ErrorBuilder,
@@ -69,6 +79,15 @@ MIN_CAPACITY = 1024
 #: capacity from which batch_search takes the fused kernels (read at call
 #: time, so tests can lower it)
 LARGE_SCAN_THRESHOLD = 1 << 17
+
+#: least B x capacity for which the verified scan replaces the strict path
+#: past that capacity. Both score the same [B, capacity] block; the verified
+#: scan trades the strict path's stable sort of it for torch.topk and a
+#: fixed tail of small operations, which costs more than the sort on a
+#: small block. On an H100 80GB HBM3 at 700 W the strict path was faster at
+#: 2^20 and the verified scan at 2^22 and past, on bf16 131,072 x 8,192 L2
+#: and f32 1,048,576 x 128 manhattan rows (scripts/ab_verified_scan_torch.py)
+VERIFIED_MIN_BLOCK = 1 << 22
 
 _FUSED_METRICS = (Metric.L2, Metric.INNER_PRODUCT, Metric.COSINE)
 _STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -357,12 +376,14 @@ class FlatIndex(VectorIndex):
         kk = min(k, self.capacity)
         qt = torch.from_numpy(q).to(self.device)
         stats = QueryStats(batch=q.shape[0], rows_scored=q.shape[0] * self.count)
+        large = self.capacity >= LARGE_SCAN_THRESHOLD
         fused = (
-            self.capacity >= LARGE_SCAN_THRESHOLD
+            large
             and self.metric in _FUSED_METRICS
             and kk <= 2 * scan_fused.C
             and scan_fused.scan_design(self.dimension, self.storage_dtype) != "strict"
         )
+        exact = None
         with TELEM.timer("score_flat", stats):
             if fused:
                 # capacity is a power of two >= MIN_CAPACITY, so a multiple
@@ -371,17 +392,25 @@ class FlatIndex(VectorIndex):
                     qt, vecs, sqn, all_valid if valid is None else valid,
                     metric=self.metric, k=kk,
                 )
-                exact = exact.cpu().numpy()
+                kernel = "scan_fused"
+            elif large and q.shape[0] * self.capacity >= VERIFIED_MIN_BLOCK:
+                dist, ids, exact = scan_topk_verified(
+                    qt, vecs, sqn, inv, valid, metric=self.metric, k=kk
+                )
+                kernel = "scan_verified"
             else:
                 dist, ids = scan_topk_strict(
                     qt, vecs, sqn, inv, valid, metric=self.metric, k=kk
                 )
-        kernel = "scan_fused" if fused else "scan_strict"
+                kernel = "scan_strict"
+            if exact is not None:
+                exact = exact.cpu().numpy()
         dist = dist.cpu().numpy()
         ids = ids.cpu().numpy()
-        if fused and not exact.all():
-            # rerun only the queries the count pass could not prove exact
-            # through the always-exact strict path and splice the results
+        if exact is not None and not exact.all():
+            # rerun only the queries the fused count or the verified tie
+            # check could not prove exact through the always-exact strict
+            # path and splice the results
             flagged = np.nonzero(~exact)[0]
             TELEM.inc("flat.verify_fallback", len(flagged))
             stats.flags.add("verify_fallback")
@@ -402,6 +431,7 @@ class FlatIndex(VectorIndex):
             kernel, rows=stats.rows_scored, bytes=stats.bytes_read["vecs"]
         )
         TELEM.record_query(stats)
+        debug.check_search_output("FlatIndex.batch_search", dist)
         return self._results(dist, ids, k)
 
     def _results(self, dist: np.ndarray, ids: np.ndarray, k: int):

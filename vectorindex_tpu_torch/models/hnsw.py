@@ -64,6 +64,7 @@ from vectorindex_tpu_torch.persistence.json_snapshot import (
     load_snapshot,
     save_snapshot,
 )
+from vectorindex_tpu_torch.utils import debug
 from vectorindex_tpu_torch.utils.config import Metric
 from vectorindex_tpu_torch.utils.errors import (
     ErrorBuilder,
@@ -1142,6 +1143,7 @@ class HNSWIndex(VectorIndex):
             stats.bytes_read["vecs"] = gvecs_bytes
             TELEM.add_bytes("vecs", gvecs_bytes)
             TELEM.record_kernel("hnsw_fused_search", rows=stats.rows_scored, bytes=gvecs_bytes)
+            debug.check_search_output("HNSWIndex.batch_search", kscore)
             with TELEM.timer("merge", stats):
                 out = self.assemble_results(kslot, kscore, kok)
             TELEM.record_query(stats)
@@ -1159,6 +1161,7 @@ class HNSWIndex(VectorIndex):
         # exclude tombstones (allow-bitset, reference :112-119) + final top-k
         ids = beam.ids.cpu().numpy()
         dists = beam.dists.cpu().numpy()
+        debug.check_search_output("HNSWIndex.batch_search", dists)
         okb = (ids != INVALID_ID) & (ids >= 0)
         safe = np.where(okb, ids, 0)
         allow = np.where(okb, self._valid[safe], False)

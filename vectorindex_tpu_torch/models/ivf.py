@@ -75,6 +75,7 @@ from vectorindex_tpu_torch.persistence.json_snapshot import (
     load_snapshot,
     save_snapshot,
 )
+from vectorindex_tpu_torch.utils import debug
 from vectorindex_tpu_torch.utils.config import Metric
 from vectorindex_tpu_torch.utils.errors import (
     ErrorBuilder,
@@ -493,6 +494,7 @@ class IVFIndex(VectorIndex):
                 dist, ids = dist.cpu().numpy(), ids.cpu().numpy()
             TELEM.record_kernel("ivf_probe", rows=stats.rows_scored)
             TELEM.record_query(stats)
+        debug.check_search_output("IVFIndex.batch_search", dist)
 
         scores = self._public_score(dist)
         out: list[list[SearchResult]] = []
@@ -917,6 +919,7 @@ class IVFPQIndex(IVFIndex):
         TELEM.record_kernel("adc_probe", rows=stats.codes_scanned,
                             bytes=stats.bytes_read["codes"])
         TELEM.record_query(stats)
+        debug.check_search_output("IVFPQIndex.batch_search", dist)
         return self._results(dist, ids, k, filter)
 
     def _results(self, dist: np.ndarray, ids: np.ndarray, k: int,

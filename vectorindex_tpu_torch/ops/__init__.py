@@ -10,6 +10,8 @@ from vectorindex_tpu_torch.ops import (  # noqa: F401
     ivf,
     ivf_pq,
     kmeans,
+    layout,
+    mips,
     pq,
     range_query,
     rerank,
