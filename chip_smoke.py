@@ -81,6 +81,22 @@ just after:
   k-means: IVFIndex.optimize's Lloyd (k-means|| seeding, nlist=1024) over
         262,144 x 128 rows and pq_train (pq16) over 131,072 x 96, each
         trained twice from one seed on the card: equal bits.
+  bench (phase_bench, last): the port's benchmark CLI,
+        vectorindex_tpu_torch.bench.__main__.main, in this process: the
+        flat, IVF (nlist=1024, nprobe=32) and IVF-PQ (pq16) suites over
+        datagen.generate's 1,000,000 x 128 unit f32 rows, 256 queries in one
+        batch (K1/K2 on the f32 FMA design, K4, K9 launched; every
+        BenchResult field present and finite; flat recall 1.0 under the tie
+        rule against an independent brute force, the harness's truth equal
+        to it up to ties; K1/K2 held bit for bit to their plain versions on
+        the suite's own f32 index and timed; the IVF and IVF-PQ suites'
+        indices searched again through K4 / K9 and through their plain
+        versions: equal results); the nprobe=8,32 sweep over
+        generate_clustered's rows (recall does not fall as nprobe rises);
+        the microbench at B=256 over 20 query slices beside its byte bound;
+        and `python -m vectorindex_tpu_torch.bench` with no --device in a
+        subprocess (131,072 rows, 64 queries, --vb): exit 0, its envelope
+        names the card. JSON lands in build/bench/.
 
   wide flat: a bf16 FlatIndex at d = 3,072 (capacity 2^17, 120,000 rows) past
         the tensor-core CTA: batch_search at B=8 and 64 through K1/K2 on the
@@ -833,29 +849,6 @@ def phase_ivf_compare(kp):
 # ---------------------------------------------------------------------------
 
 
-def lowdim_corpus(n: int, d: int, dz: int = 16, noise: float = 0.05, seed: int = 42):
-    """(x [n, d], W [dz, d]): unit-norm rows of intrinsic dimension dz, the
-    SIFT-like corpus of the repo's IVF benchmark (numpy only)."""
-    rng = np.random.default_rng(seed)
-    W = (rng.standard_normal((dz, d), dtype=np.float32) / np.sqrt(dz)).astype(np.float32)
-    z = rng.standard_normal((n, dz), dtype=np.float32)
-    x = rng.standard_normal((n, d), dtype=np.float32)
-    x *= noise
-    x += z @ W
-    norms = np.sqrt(np.einsum("nd,nd->n", x, x))
-    x /= np.maximum(norms, 1e-30)[:, None]
-    return x, W
-
-
-def lowdim_queries(W: np.ndarray, nq: int, noise: float = 0.05, seed: int = 9) -> np.ndarray:
-    rng = np.random.default_rng(seed)
-    dz, d = W.shape
-    q = rng.standard_normal((nq, dz), dtype=np.float32) @ W
-    q += noise * rng.standard_normal((nq, d), dtype=np.float32)
-    q /= np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-30)
-    return q.astype(np.float32)
-
-
 def ivf_reference(idx, q: np.ndarray, k: int, nprobe: int, row_allow=None):
     """Exact search of the probed lists over an f32 copy of the index's
     store on the card (ops/ivf.ivf_search_flat, the gather path) → (dist
@@ -887,6 +880,7 @@ def check_ivf_batch(idx, res, q, k, nprobe, what, allow_ids=None):
 
 
 def phase_ivf_main(kp):
+    from vectorindex_tpu_torch.bench.synth import lowdim_corpus, lowdim_queries
     from vectorindex_tpu_torch.models.ivf import IVFConfig, IVFIndex
     from vectorindex_tpu_torch.utils.config import Metric
 
@@ -1437,6 +1431,8 @@ def phase_pq(ap, ps, api):
     """Both IVF-PQ configurations over one corpus → (errors, launches summed
     over both main-path runs, pq16's host tier's launches, times, build and
     recall figures); pq16 is also searched sharded (phase_sharded_pq)."""
+    from vectorindex_tpu_torch.bench.synth import lowdim_corpus, lowdim_queries
+
     errs = phase_pq_compare(ap)
     t0 = time.perf_counter()
     x, W = lowdim_corpus(PQ_ROWS, PQ_DIM, dz=16, seed=31)
@@ -1717,6 +1713,7 @@ def phase_adc_compare(fa):
 def adc_build():
     """bench_adc's corpus, PQ8x8 books and codes, the pq16x4 books and packed
     codes of the same corpus, and the f32 rows for the rerank → dict."""
+    from vectorindex_tpu_torch.bench.synth import lowdim_corpus, lowdim_queries
     from vectorindex_tpu_torch.ops import pq
     from vectorindex_tpu_torch.ops import rng as vrng
 
@@ -2047,7 +2044,8 @@ def phase_adc(fa):
 def clustered_corpus_dev(n: int, d: int, nlist: int, seed: int, spread: float,
                          chunk: int = 1_000_000) -> torch.Tensor:
     """bench/synth.clustered_corpus's recipe on the card, from a seeded
-    torch.Generator (not numpy's draws; numpy takes ~3 min at 10M rows):
+    torch.Generator (not numpy's draws, so not that function's bytes; numpy
+    takes ~3 min at 10M rows):
     centers N(0, 1) [nlist, d], uniform assignments, rows centers[assign] +
     spread·N(0, 1), scaled to unit norm → [n, d] f32 on DEVICE."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -2068,34 +2066,10 @@ def noisy_queries(x: np.ndarray, nq: int, seed: int, noise: float = HOSTPQ_NOISE
     return (x[idx] + noise * rng.standard_normal((nq, x.shape[1])).astype(np.float32)).astype(np.float32)
 
 
-def pack_csr(assign: torch.Tensor, nlist: int):
-    """bench/synth.pack_ivf(with_vecs=False) on the card: rows sorted by
-    list, each list's region a whole number of BLK rows, GUARD_BLOCKS dead
-    blocks after the last → (IVFListArrays with no vectors, order [n]
-    original row of each live packed row, rows [n] its packed row, list of
-    each, probe_cap)."""
-    from vectorindex_tpu_torch.kernels.ivf_probe import BLK, GUARD_BLOCKS
-    from vectorindex_tpu_torch.ops.ivf import IVFListArrays
-
-    n = assign.shape[0]
-    lengths = torch.bincount(assign.long(), minlength=nlist)
-    caps = (lengths.clamp_min(1) + BLK - 1) // BLK * BLK
-    starts = torch.cumsum(caps, 0) - caps
-    total = int(caps.sum()) + GUARD_BLOCKS * BLK
-    lists, order = torch.sort(assign.long(), stable=True)
-    first = torch.cumsum(lengths, 0) - lengths
-    rows = starts[lists] + torch.arange(n, device=assign.device) - first[lists]
-    row_ids = torch.full((total,), -1, dtype=torch.int32, device=assign.device)
-    row_ids[rows] = order.to(torch.int32)
-    probe_cap = -(-max(int(lengths.max()), 1) // BLK) * BLK
-    arrays = IVFListArrays(vecs=None, row_ids=row_ids, sqnorms=None,
-                           starts=starts.to(torch.int32), lengths=lengths.to(torch.int32))
-    return arrays, order, rows, lists, probe_cap
-
-
 def hostpq_build(gpu: str):
     """The capacity index of bench_hostpq, built on the card → (state dict,
     host corpus, eval queries, truth (ids, k-th distance), stage seconds)."""
+    from vectorindex_tpu_torch.bench import synth
     from vectorindex_tpu_torch.ops import kmeans as km
     from vectorindex_tpu_torch.ops import pq
     from vectorindex_tpu_torch.ops import rng as vrng
@@ -2124,7 +2098,13 @@ def hostpq_build(gpu: str):
     assign, _ = km.assign_clusters_chunked(x_dev, centers, chunk=65_536)
     stage("assign", t0)
     t0 = time.perf_counter()
-    arrays, order, rows, lists, probe_cap = pack_csr(assign, HOSTPQ_NLIST)
+    # bench/synth.pack_ivf's CSR layout (packed on the host, uploaded), no vectors;
+    # each live packed row's corpus row (order), its packed row and its list
+    arrays, order, probe_cap = synth.pack_ivf(None, assign, HOSTPQ_NLIST, with_vecs=False,
+                                              device=DEVICE)
+    order = torch.from_numpy(order).to(DEVICE).long()
+    rows = torch.nonzero(arrays.row_ids >= 0).squeeze(1)
+    lists = torch.repeat_interleave(torch.arange(HOSTPQ_NLIST, device=DEVICE), arrays.lengths.long())
     stage("pack", t0)
     t0 = time.perf_counter()
     psamp = torch.from_numpy(np.random.default_rng(7).choice(n, HOSTPQ_PQ_SAMPLE, replace=False))
@@ -2159,7 +2139,9 @@ def hostpq_build(gpu: str):
 
 def chunked_truth(x_dev, q: np.ndarray, k: int, chunk: int = 1_000_000):
     """Exact f32 brute force over all rows of x_dev in row chunks on the
-    card, a running top-k merge → (ids [B, k], k-th distance [B])."""
+    card, a running top-k merge → (ids [B, k], k-th distance [B]). Kept
+    beside bench/synth.exact_truth_chunked, which returns the ids alone:
+    the tie rule of recall_ids needs the k-th distance."""
     qd = torch.from_numpy(q).to(x_dev.device)
     qn = (qd * qd).sum(dim=1, keepdim=True)
     best_d = torch.full((q.shape[0], 0), float("inf"), device=x_dev.device)
@@ -2457,6 +2439,7 @@ def phase_hnsw(gpu: str, ps, api):
     synchronisation, the acceleration seam (phase_api_hnsw), the sharded
     index over the same rows (phase_sharded_hnsw), the card against the
     host on integer-valued rows."""
+    from vectorindex_tpu_torch.bench.synth import lowdim_corpus, lowdim_queries
     from vectorindex_tpu_torch.models.hnsw import HNSWConfig, HNSWIndex
     from vectorindex_tpu_torch.utils.config import Metric
     from vectorindex_tpu_torch.utils.parity import ids_match_up_to_ties
@@ -2614,6 +2597,7 @@ def phase_hnsw(gpu: str, ps, api):
 def phase_kmeans_replay():
     """K-means on the card replayed from its seed: IVFIndex.optimize's
     Lloyd and pq_train, each trained twice, must give the same bits."""
+    from vectorindex_tpu_torch.bench.synth import lowdim_corpus
     from vectorindex_tpu_torch.models.ivf import IVFConfig
     from vectorindex_tpu_torch.ops import kmeans as km
     from vectorindex_tpu_torch.ops import pq
@@ -3502,6 +3486,252 @@ def api_summary(api: Api, gpu: str) -> str:
     return f"api: gpu {gpu}; " + "; ".join(parts) + f"; launches {api.launches}"
 
 
+# ---------------------------------------------------------------------------
+# phase_bench: the port's benchmark CLI (python -m vectorindex_tpu_torch.bench)
+# ---------------------------------------------------------------------------
+
+#: the CLI at SIFT1M's shape: the flat, IVF (nlist=1024, nprobe=32) and IVF-PQ
+#: (pq16) suites over datagen.generate's 1M x 128 unit rows, 256 queries in
+#: one batch of 256 (K1/K2 on the f32 FMA design, K4, K9); the nprobe sweep
+#: over generate_clustered's rows; the microbench at B=256 over 20 query
+#: slices; the `-m` entry point with no --device at 131,072 rows, 64 queries
+BENCH_ROWS, BENCH_DIM, BENCH_QUERIES, BENCH_NLIST, BENCH_NPROBE, BENCH_PQ_M = (
+    1_000_000, 128, 256, 1024, 32, 16)
+BENCH_SWEEP, BENCH_MICRO_TRIALS, BENCH_SUB_ROWS, BENCH_SUB_QUERIES = "nprobe=8,32", 20, 131_072, 64
+#: the kernels each suite of the CLI must launch
+BENCH_KERNELS = {"bin_candidates": "flat", "count_below": "flat", "ivf_probe_scores": "ivf",
+                 "adc_probe_scores": "ivfpq"}
+
+
+def kernel_modules():
+    from vectorindex_tpu_torch.kernels import adc, adc_probe, ivf_probe, scan_fused
+
+    return scan_fused, ivf_probe, adc_probe, adc
+
+
+def all_launches() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    out = {}
+    for mod in kernel_modules():
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def launches_of(fn):
+    """(fn(), every kernel's launches in the call), the counts set to 0
+    just before and read just after."""
+    for mod in kernel_modules():
+        mod.reset_launches()
+    out = fn()
+    return out, all_launches()
+
+
+@contextlib.contextmanager
+def bench_capture(cli, harness):
+    """While inside, record what the CLI's suites pass through the harness:
+    each suite's index by name, and in call order each suite's corpus and
+    queries (brute_force_topk's arguments), truth and results (recall_at_k's)."""
+    seen = {"index": {}, "truth_args": [], "truth": [], "results": []}
+    saved = cli.bench_index, harness.brute_force_topk, harness.recall_at_k
+
+    def bench_index(make_index, name, *a, **kw):
+        def made():
+            seen["index"][name] = make_index()
+            return seen["index"][name]
+        return saved[0](made, name, *a, **kw)
+
+    def brute_force_topk(x, q, *a, **kw):
+        seen["truth_args"].append((x, q))
+        return saved[1](x, q, *a, **kw)
+
+    def recall_at_k(results, truth, *a, **kw):
+        seen["results"].append(results)
+        seen["truth"].append(truth)
+        return saved[2](results, truth, *a, **kw)
+
+    cli.bench_index, harness.brute_force_topk, harness.recall_at_k = (
+        bench_index, brute_force_topk, recall_at_k)
+    try:
+        yield seen
+    finally:
+        cli.bench_index, harness.brute_force_topk, harness.recall_at_k = saved
+
+
+def check_bench_flat(sf, topk, seen, payload, errs) -> dict:
+    """The flat suite's results at the tie rule of PERF.md §2 against an
+    independent brute force (recall 1.0; the harness's truth equal to it up
+    to ties), then K1/K2 on the suite's own f32 index and queries: against
+    their plain versions (bit for bit on f32), timed, with their bounds."""
+    from vectorindex_tpu_torch.utils.config import Metric
+    from vectorindex_tpu_torch.utils.parity import ids_match_up_to_ties
+
+    x, q = seen["truth_args"][0]
+    x_dev = torch.from_numpy(x).to(DEVICE)
+    sq_dev = (x_dev * x_dev).sum(dim=1)
+    dist, kth, truth = brute_force(x_dev, sq_dev, q, MAIN_K)
+    got = torch.tensor([[int(r.id[1:]) for r in row] for row in seen["results"][0]],
+                       device=dist.device)
+    r_tie, r_set = recall_ids(got, dist, kth, truth, MAIN_K)
+    sd = torch.sort(dist, dim=1, stable=True)[0][:, : MAIN_K + 1].cpu().numpy()
+    require(ids_match_up_to_ties(seen["truth"][0], truth.cpu().numpy(), sd, MAIN_K),
+            "bench: the harness's truth differs from the brute force beyond ties")
+    misses = int(round((1.0 - payload[0]["recall_avg"]) * len(q) * MAIN_K))
+    require(r_tie == 1.0, f"bench flat: recall@{MAIN_K} {r_tie} < 1 under the tie rule")
+    log(f"bench flat: recall@{MAIN_K} {r_tie} under the tie rule (set recall {r_set}; the "
+        f"harness's recall_avg {payload[0]['recall_avg']}, {misses} misses, each a tie of the "
+        "truth's k-th distance)")
+    del x_dev, sq_dev, dist
+
+    idx = seen["index"]["flat"]
+    xk, sqn, _, valid = idx._sync_device()
+    require(xk.dtype == torch.float32 and sf.scan_design(xk.shape[1], xk.dtype) == "fma",
+            "bench flat: the f32 index does not take the FMA design")
+    qk, bias, cs, _ = sf.kernel_inputs(torch.from_numpy(q).to(DEVICE), sqn, valid, Metric.L2)
+    k1, k2, tau = check_against_plain(sf, topk, qk, xk, bias, cs, Metric.L2)
+    errs["bin_candidates"] = max(errs["bin_candidates"], k1)
+    errs["count_below"] = max(errs["count_below"], k2)
+    args = (qk, xk, bias, cs)
+    t = {
+        "bin_candidates": time_ms(lambda: sf.bin_candidates(*args, metric=Metric.L2), 10),
+        "count_below": time_ms(lambda: sf.count_below(*args, tau, metric=Metric.L2), 10),
+        "bin_candidates_plain": time_ms(lambda: sf.bin_candidates_ref(*args, metric=Metric.L2), 3),
+        "count_below_plain": time_ms(lambda: sf.count_below_ref(*args, tau, metric=Metric.L2), 3),
+    }
+    for name in ("bin_candidates", "count_below"):
+        t[name + "_bound"] = flat_bound(xk.shape[0], xk.shape[1], qk.shape[0], 4, name)
+    log(f"bench flat: K1/K2 on the f32 FMA design (B={qk.shape[0]}, n={xk.shape[0]}, "
+        f"d={xk.shape[1]}) equal to their plain versions bit for bit (K1 max_abs_err {k1:.3g}, K2 "
+        f"count diff {k2}); " + ", ".join(
+            f"{key}={val[0] if isinstance(val, tuple) else val:.4g}" for key, val in t.items())
+        + " ms")
+    return {"recall_tie": r_tie, "recall_set": r_set, "misses": misses, **t}
+
+
+def check_bench_probes(kp, ap, seen) -> None:
+    """The IVF and IVF-PQ suites' own indices searched again at their
+    queries, through K4 / K9 and through the kernels' plain versions: the
+    same results (the kernels equal their plain versions bit for bit)."""
+    for i, (name, module, kernel) in enumerate(
+            (("ivf", kp, "ivf_probe_scores"), ("ivfpq", ap, "adc_probe_scores")), start=1):
+        idx, q = seen["index"][name], seen["truth_args"][i][1]
+        got = idx.batch_search(q, MAIN_K)
+        with plain_versions(module, [kernel]):
+            want = idx.batch_search(q, MAIN_K)
+        same_results(got, want, MAIN_K, f"bench {name}")
+        log(f"bench {name}: B={len(q)} through {kernel} equal to the search through its plain "
+            "version")
+
+
+def phase_bench(sf, kp, ap, topk, gpu: str, errs) -> dict:
+    """The port's benchmark CLI on the card: (a) main() over the flat, IVF
+    and IVF-PQ suites at 1M x 128 in this process (K1, K2, K4, K9 launched;
+    every BenchResult field present and finite; flat recall 1.0 under the
+    tie rule), (b) the nprobe sweep (recall does not fall as nprobe rises),
+    (c) the microbench beside its byte bound, (d) `python -m
+    vectorindex_tpu_torch.bench` with no --device in a subprocess (exit 0,
+    its envelope names the card)."""
+    from vectorindex_tpu_torch.bench import __main__ as cli
+    from vectorindex_tpu_torch.bench import harness
+    from vectorindex_tpu_torch.utils.telemetry import TELEM
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "bench")
+    os.makedirs(out_dir, exist_ok=True)
+    shape = ["--n", str(BENCH_ROWS), "--d", str(BENCH_DIM), "--k", str(MAIN_K),
+             "--queries", str(BENCH_QUERIES), "--ivf-nlist", str(BENCH_NLIST), "--device", DEVICE]
+    figs = {}
+
+    # (a) the suites, in process
+    path = os.path.join(out_dir, "suites.json")
+    with bench_capture(cli, harness) as seen:
+        TELEM.reset()
+        TELEM.enable()
+        t0 = time.perf_counter()
+        try:
+            payload, launches = launches_of(lambda: cli.main(
+                [*shape, "--index", "flat,ivf,ivfpq", "--batch", str(BENCH_QUERIES),
+                 "--ivf-nprobe", str(BENCH_NPROBE), "--pq-m", str(BENCH_PQ_M), "--out", path]))
+        finally:
+            TELEM.disable()
+        figs["suites_s"] = time.perf_counter() - t0
+        designs = {d: dict(c) for d, c in sf.DESIGN_LAUNCHES.items()}
+        for name, suite in BENCH_KERNELS.items():
+            require(launches[name] > 0, f"bench {suite}: {name} was not launched: {launches}")
+        require(designs["mma"]["bin_candidates"] == 0 and designs["fma"]["bin_candidates"] > 0,
+                f"bench flat: K1/K2 did not run on the f32 FMA design: {designs}")
+        fields = [f.name for f in dataclasses.fields(harness.BenchResult)]
+        require([r["index"] for r in payload] == ["flat", "ivf", "ivfpq"]
+                and all(list(r) == fields for r in payload), f"bench: malformed suites {payload}")
+        for r in payload:
+            nums = [v for key, v in r.items() if key not in ("index", "metric", "params")]
+            require(all(np.isfinite(v) for v in [*nums, *r["params"].values()]),
+                    f"bench {r['index']}: a field is not finite: {r}")
+        with open(path) as f:
+            require(json.load(f) == payload, "bench: --out holds another payload")
+        figs["fallback"] = TELEM.snapshot()["counters"].get("flat.verify_fallback", 0)
+        figs["flat"] = check_bench_flat(sf, topk, seen, payload, errs)
+        check_bench_probes(kp, ap, seen)
+        del seen
+    figs["suites"] = payload
+    figs["launches"] = launches
+    torch.cuda.empty_cache()
+    log(f"bench suites ({gpu}): main() over flat,ivf,ivfpq at {BENCH_ROWS}x{BENCH_DIM}, B="
+        f"{BENCH_QUERIES}, in {figs['suites_s']:.1f} s; launches {launches}; K1/K2 by design "
+        f"{designs}; strict fallback {figs['fallback']} queries; " + "; ".join(
+            f"{r['index']} build {r['build_seconds']} s, optimize {r['optimize_seconds']} s, "
+            f"search_avg_ms {r['search_avg_ms']}, qps {r['qps']}, recall_avg {r['recall_avg']}"
+            for r in payload))
+
+    # (b) the nprobe sweep over clustered rows
+    path = os.path.join(out_dir, "sweep.json")
+    t0 = time.perf_counter()
+    points, sweep_launches = launches_of(lambda: cli.main(
+        [*shape, "--index", "ivf", "--sweep", BENCH_SWEEP, "--out", path]))
+    figs["sweep_s"] = time.perf_counter() - t0
+    knob, values = BENCH_SWEEP.split("=")
+    require([p[knob] for p in points] == [int(v) for v in values.split(",")],
+            f"bench sweep: points {points}")
+    require(sweep_launches["ivf_probe_scores"] > 0, f"bench sweep: K4 not launched: {sweep_launches}")
+    require(all(b["recall_at_k"] >= a["recall_at_k"] for a, b in zip(points, points[1:])),
+            f"bench sweep: recall falls as nprobe rises: {points}")
+    figs["sweep"], figs["sweep_launches"] = points, sweep_launches
+    log(f"bench sweep ({gpu}): {BENCH_SWEEP} over generate_clustered {BENCH_ROWS}x{BENCH_DIM}, "
+        f"B={BENCH_QUERIES}, in {figs['sweep_s']:.1f} s: {points}; launches {sweep_launches}")
+    torch.cuda.empty_cache()
+
+    # (c) the microbench
+    path = os.path.join(out_dir, "microbench.json")
+    micro = cli.main(["--microbench", "--n", str(BENCH_ROWS), "--d", str(BENCH_DIM), "--batch",
+                      str(BENCH_QUERIES), "--trials", str(BENCH_MICRO_TRIALS), "--device", DEVICE,
+                      "--out", path])
+    require(micro["ms_per_pass"] > 0 and np.isfinite(micro["corpus_gb_per_s"])
+            and micro["bound_ms"] > 0, f"bench microbench: {micro}")
+    figs["micro"] = micro
+    log(f"bench microbench ({gpu}): l2sqr_block B={micro['batch']} over {micro['n']}x{micro['d']} "
+        f"bf16: {micro['ms_per_pass']} ms a pass, {micro['corpus_gb_per_s']} GB/s, "
+        f"{micro['row_queries_per_s']} row-queries/s; byte bound {micro['bound_ms']:.4g} ms")
+    torch.cuda.empty_cache()
+
+    # (d) the -m entry point, on the card by default
+    cmd = [sys.executable, "-m", "vectorindex_tpu_torch.bench", "--index", "flat", "--n",
+           str(BENCH_SUB_ROWS), "--d", str(BENCH_DIM), "--queries", str(BENCH_SUB_QUERIES), "--vb"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+    figs["subprocess_s"] = time.perf_counter() - t0
+    require(proc.returncode == 0, f"bench -m: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    run = json.loads(proc.stdout)
+    host = run["host"]
+    require(host.get("gpu") == gpu and torch.cuda.get_device_name(0) in host["devices"][0],
+            f"bench -m: the envelope does not name the card: {host}")
+    figs["sub"] = run["results"][0]
+    log(f"bench -m ({gpu}): `{' '.join(cmd[1:])}` exit 0 in {figs['subprocess_s']:.1f} s; host "
+        f"{host['devices']}, {host.get('gpu')}, torch {host['torch']} CUDA {host['cuda']}; flat qps "
+        f"{figs['sub']['qps']}, recall_avg {figs['sub']['recall_avg']}")
+    figs["phase_s"] = time.perf_counter() - t_phase
+    return figs
+
+
 def flat_bound(n: int, d: int, b: int, itemsize: int, kernel: str):
     """(bound_ms, bound_by) of K1/K2 (K11: K1's) over the flat main path's
     corpus: rows, bias and q read once, the candidates or counts written."""
@@ -3582,6 +3812,7 @@ def run(ps: Persist) -> int:
 
     hnsw = phase_hnsw(gpu, ps, api)
     replay = phase_kmeans_replay()
+    bench = phase_bench(sf, kp, ap, topk, gpu, errs)
     log(persist_summary(ps, gpu))
     log(api_summary(api, gpu))
     log(f"hnsw: gpu {gpu}; build {hnsw['build_s']:.2f} s (100k x 128, defaults), recall@{MAIN_K} "
@@ -3590,6 +3821,17 @@ def run(ps: Persist) -> int:
         f"device_search {hnsw['launches']} launches, device busy {hnsw['busy_ms']:.4g} ms of "
         f"{hnsw['device_search_ms']:.4g} ms; k-means replay {replay['kmeans_s']} s, pq_train "
         f"{replay['pq_train_s']} s")
+    micro = bench["micro"]
+    log(f"bench: gpu {gpu}; python -m vectorindex_tpu_torch.bench at {BENCH_ROWS}x{BENCH_DIM}, B="
+        f"{BENCH_QUERIES}: " + "; ".join(
+            f"{r['index']} build {r['build_seconds']} s, optimize {r['optimize_seconds']} s, "
+            f"search_avg_ms {r['search_avg_ms']}, qps {r['qps']}, recall_avg {r['recall_avg']}"
+            for r in bench["suites"])
+        + f"; flat recall {bench['flat']['recall_tie']} under the tie rule; sweep " + ", ".join(
+            f"nprobe {p['nprobe']} recall {p['recall_at_k']} qps {p['qps']}" for p in bench["sweep"])
+        + f"; microbench {micro['ms_per_pass']} ms a pass ({micro['corpus_gb_per_s']} GB/s, byte "
+        f"bound {micro['bound_ms']:.4g} ms); -m subprocess {bench['subprocess_s']:.1f} s; phase "
+        f"{bench['phase_s']:.1f} s")
 
     big = times[MAIN_BATCH]
     kernels = []
@@ -3598,9 +3840,15 @@ def run(ps: Persist) -> int:
         kernels.append({"name": name, "ms": big[name], "plain_ms": big[name + "_plain"],
                         "bound_ms": bms, "bound_by": by})
     m = api.figs["mips"]
+    bf = bench["flat"]
     for k in kernels:  # K1/K2 also at d = 256 on phase_api's MIPS index, B=256
         k["mips"] = {"ms": m[k["name"] + "_ms"], "bound_ms": m[k["name"] + "_bound"][0],
                      "bound_by": m[k["name"] + "_bound"][1]}
+        # and on the f32 FMA design over the bench CLI's flat 1M x 128 index, B=256
+        k["bench_f32"] = {"ms": bf[k["name"]], "plain_ms": bf[k["name"] + "_plain"],
+                          "bound_ms": bf[k["name"] + "_bound"][0],
+                          "bound_by": bf[k["name"] + "_bound"][1],
+                          "launches": bench["launches"][k["name"]]}
     bms, by = flat_bound(n_flat, MAIN_DIM, MAIN_BATCH, itemsize, "bin_candidates")
     kernels.append({"name": "bin_candidates_tree", "ms": tree_times[TREE_TILES[0]]["ms"],
                     "plain_ms": tree_times[TREE_TILES[0]]["plain_ms"], "bound_ms": bms,
@@ -3641,7 +3889,7 @@ def run(ps: Persist) -> int:
     # `launches` is the kernel's main path's own count; the other paths'
     # runs, each counted from 0 just before it, stand under "paths"
     other = {"pq_host_tier": tier_launches, "hostpq": host_launches, "persist": ps.launches,
-             **api.launches}
+             **api.launches, "bench": bench["launches"], "bench_sweep": bench["sweep_launches"]}
     for k in kernels:
         k.update(route="cuda", source=SOURCES[k["name"]], replaces=REPLACES[k["name"]],
                  launches=launches[k["name"]], max_abs_err=errs[k["name"]],

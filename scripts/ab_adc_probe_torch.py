@@ -51,9 +51,9 @@ sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (  # noqa: E402
     PQ_BIG_BATCH, PQ_CONFIGS, PQ_DIM, PQ_NLIST, PQ_NPROBE, PQ_NPROBE_LOW, PQ_RERANK_C, PQ_ROWS,
-    SMALL_BATCH, adc_bound, gpu_name_and_power, lookup_floor_ms, lowdim_corpus, lowdim_queries,
-    sm_clock_under, time_ms,
+    SMALL_BATCH, adc_bound, gpu_name_and_power, lookup_floor_ms, sm_clock_under, time_ms,
 )
+from vectorindex_tpu_torch.bench.synth import lowdim_corpus, lowdim_queries  # noqa: E402
 
 #: kernels of csrc/adc_probe.cu by their names in ptxas and profiler output
 KERNELS = ("adc_probe_group_kernel", "adc_probe_kernel")

@@ -48,8 +48,9 @@ sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (  # noqa: E402
     IVF_BIG_BATCH, IVF_DIM, IVF_NLIST, IVF_NPROBE, IVF_ROWS, SMALL_BATCH, gpu_name_and_power,
-    lowdim_corpus, lowdim_queries, probe_tables, time_ms,
+    probe_tables, time_ms,
 )
+from vectorindex_tpu_torch.bench.synth import lowdim_corpus, lowdim_queries  # noqa: E402
 
 #: kernels of csrc/ivf_probe.cu by their names in ptxas and profiler output
 KERNELS = ("probe_scores_grouped_kernel", "probe_scores_kernel", "topc_kernel",

@@ -42,7 +42,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import KM_DIM, KM_NLIST, KM_ROWS, SEED, gpu_name_and_power, lowdim_corpus, time_ms  # noqa: E402,E501
+from chip_smoke import KM_DIM, KM_NLIST, KM_ROWS, SEED, gpu_name_and_power, time_ms  # noqa: E402
+from vectorindex_tpu_torch.bench.synth import lowdim_corpus  # noqa: E402
 from vectorindex_tpu_torch.models.ivf import IVFConfig  # noqa: E402
 from vectorindex_tpu_torch.ops import kmeans as km  # noqa: E402
 from vectorindex_tpu_torch.ops import rng as vrng  # noqa: E402

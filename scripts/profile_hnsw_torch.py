@@ -39,8 +39,9 @@ sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (  # noqa: E402
     HNSW_BATCH, HNSW_DIM, HNSW_DZ, HNSW_LOOKAHEAD, HNSW_ROWS, HNSW_SEED, HNSW_STREAM, MAIN_K,
-    SMALL_BATCH, gpu_name_and_power, lowdim_corpus, lowdim_queries, time_ms,
+    SMALL_BATCH, gpu_name_and_power, time_ms,
 )
+from vectorindex_tpu_torch.bench.synth import lowdim_corpus, lowdim_queries  # noqa: E402
 from vectorindex_tpu_torch.models.hnsw import HNSWConfig, HNSWIndex  # noqa: E402
 from vectorindex_tpu_torch.utils.config import Metric  # noqa: E402
 

@@ -40,8 +40,9 @@ from chip_smoke import (  # noqa: E402
     ADC_BATCH, ADC_RERANK, IVF_BIG_BATCH, IVF_DIM, IVF_LARGE_K, IVF_NLIST, IVF_NPROBE, IVF_NPROBE_LOW,
     IVF_ROWS, MAIN_BATCH, MAIN_DIM, MAIN_K, MAIN_ROWS, PQ_BIG_BATCH, PQ_CONFIGS, PQ_DIM, PQ_NLIST,
     PQ_NPROBE, PQ_NPROBE_LOW, PQ_RERANK_C, PQ_ROWS, SMALL_BATCH, adc_build, adc_search,
-    gpu_name_and_power, lowdim_corpus, lowdim_queries, make_data,
+    gpu_name_and_power, make_data,
 )
+from vectorindex_tpu_torch.bench.synth import lowdim_corpus, lowdim_queries  # noqa: E402
 
 
 #: device-time groups by kernel name (first match wins)

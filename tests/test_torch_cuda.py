@@ -1090,3 +1090,63 @@ def test_typed_refuses_a_cuda_tensor(cuda_device):
             fn(t, 8)
         assert ei.value.kind == IndexErrorKind.INVALID_VECTOR
     assert as_vector(t.cpu(), 8).shape == (8,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_vecs", [True, False], ids=["vecs", "meta"])
+def test_bench_pack_ivf_on_the_card_equals_the_host(with_vecs, cuda_device):
+    """bench/synth.pack_ivf on cuda gives the CPU call's layout bit for bit."""
+    from vectorindex_tpu_torch.bench import synth
+
+    x, _, assign = synth.clustered_corpus(20_000, 64, 32, seed=5)
+    a_dev, o_dev, cap_dev = synth.pack_ivf(x, assign, 32, with_vecs=with_vecs, device=cuda_device)
+    a_cpu, o_cpu, cap_cpu = synth.pack_ivf(x, assign, 32, with_vecs=with_vecs, device="cpu")
+    assert cap_dev == cap_cpu and a_dev.row_ids.is_cuda
+    np.testing.assert_array_equal(o_dev, o_cpu)
+    for name in ("vecs", "row_ids", "sqnorms", "starts", "lengths"):
+        got, want = getattr(a_dev, name), getattr(a_cpu, name)
+        assert (got is None) == (want is None) == (name in ("vecs", "sqnorms") and not with_vecs)
+        if got is not None:
+            assert torch.equal(got.cpu(), want), name
+
+
+@pytest.mark.cuda
+def test_bench_truth_on_the_card_equals_the_host(cuda_device):
+    """exact_truth_chunked on cuda (a row chunk that does not divide n)
+    equals its CPU call up to ties of the f64 distances, and exact_truth."""
+    from vectorindex_tpu_torch.bench import datagen, synth
+
+    x = datagen.generate(50_001, 64, seed=6)
+    q = datagen.queries_from(x, 32, noise=0.1, seed=7)
+    got = synth.exact_truth_chunked(q, x, 10, row_chunk=16_384, device=cuda_device)
+    want = synth.exact_truth_chunked(q, x, 10, row_chunk=16_384, device="cpu")
+    ref = np.sort(((q[:, None, :].astype(np.float64) - x[None].astype(np.float64)) ** 2).sum(-1),
+                  axis=1)[:, :11]
+    assert ids_match_up_to_ties(got, want, ref, 10)
+    assert ids_match_up_to_ties(synth.exact_truth(q, x, 10, device=cuda_device), got, ref, 10)
+
+
+@pytest.mark.cuda
+def test_bench_time_loop_on_the_card(cuda_device):
+    """time_loop times by CUDA events: positive times, outputs equal to a
+    direct loop over the same slices on the card."""
+    from vectorindex_tpu_torch.bench import timing
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    qpool = torch.randn(4 * 64, 128, generator=gen, device=cuda_device)
+    x = torch.randn(100_000, 128, generator=gen, device=cuda_device)
+
+    def fn(q, x):
+        g = q @ x.T
+        return g.sum(), torch.argmax(g, dim=1).sum()
+
+    sec, out, samples = timing.time_loop(fn, qpool, 64, 4, args=(x,), return_samples=True,
+                                         device=cuda_device)
+    assert sec > 0 and all(s > 0 for s in samples)
+    want = [fn(qpool[i * 64 : (i + 1) * 64], x) for i in range(4)]
+    assert out[1] == sum(int(w[1]) for w in want)
+    s0 = want[0][0]
+    for w in want[1:]:
+        s0 = s0 + w[0]
+    assert out[0] == s0.cpu().numpy()
+    assert timing.time_host(lambda: fn(qpool[:64], x)[0].item(), device=cuda_device) > 0

@@ -81,6 +81,13 @@ def test_every_module_imports_without_jax_or_nvcc(tmp_path):
         "vectorindex_tpu_torch.parallel.sharded_search",
         "vectorindex_tpu_torch.parallel.sharded_ivf",
         "vectorindex_tpu_torch.parallel.sharded_hnsw",
+        "vectorindex_tpu_torch.bench",
+        "vectorindex_tpu_torch.bench.__main__",
+        "vectorindex_tpu_torch.bench.cache",
+        "vectorindex_tpu_torch.bench.datagen",
+        "vectorindex_tpu_torch.bench.harness",
+        "vectorindex_tpu_torch.bench.synth",
+        "vectorindex_tpu_torch.bench.timing",
     }
     assert expected <= set(got["modules"])
 

@@ -20,13 +20,16 @@ layout and public names so each module has an obvious counterpart:
                in the JAX package's formats; the native host-ops source
                (native/hostops.cpp)
   utils/       config, structured errors, telemetry, debug checks
+  bench/       the benchmark harness and its CLI (`python -m
+               vectorindex_tpu_torch.bench`): seeded corpora, the artifact
+               cache, bulk index builders, exact truth and timing
 
 Nothing here imports jax or vectorindex_tpu. The port covers the JAX
 package's API: exact flat search (fused kernels, the verified two-phase
 scan) and range queries, IVF-Flat, IVF-PQ with the device-resident rerank
 and with the host-memory rerank tier, the full-corpus ADC scans, HNSW,
-persistence, MIPS, the acceleration seam and sharding; ROADMAP.md lists
-what is still to port (the benchmark).
+persistence, MIPS, the acceleration seam, sharding and the benchmark
+harness.
 """
 
 __version__ = "0.1.0"
