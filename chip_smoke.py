@@ -103,6 +103,14 @@ just after:
         CUDA cores (scan_fused.scan_design "fma"), recall@10 = 1.0, no strict
         fallback.
 
+  f32 wide (phase_flat_f32_wide): 2^20 x 768 f32 rows (3.2 GB, drawn on the
+        card from a seed) through scan_topk_fused at B=256 and B=8: K1/K2 on
+        the FMA design (each row streamed in k chunks), every query exact,
+        recall@10 = 1.0 under the tie rule against a chunked f32 brute force,
+        K1/K2 equal to their first design bit for bit and to their plain
+        versions by the parity rule (cuBLAS sums a d = 768 product in another
+        order), timed in turns with the first design beside their bounds.
+
   api (phase_api_*): the verified route (ops/scan.scan_topk_verified): a
         bf16 FlatIndex of 131,072 x 8,192 rows (capacity 2^17, past every
         kernel design) and a manhattan f32 FlatIndex over the flat main
@@ -150,6 +158,15 @@ just after:
         save, load and first-result seconds, file sizes and journaled
         mutations a second are printed beside the card.
 
+Wherever K1/K2 run on the FMA design (the f32 kernel-vs-plain cases, the
+wide bf16 index, the bench CLI's f32 index, the f32 rows at d = 768) they
+are also held bit for bit to their first design (kernels/scan_fused
+bin_candidates_fma_v1, count_below_fma_v1), which never runs on a main path,
+and timed in turns with it by CUDA events and the profiler's device time;
+the bench CLI's flat batch wall is split once into K1, K2, other device time
+and host. After the build, every FMA-design kernel's registers are printed
+and a kernel with local memory (a spill) fails the run.
+
 The flat path also runs FlatIndex.range_search on its index (a few queries,
 one filtered), checked against brute force. K6, K7 and K8 are also timed in
 their first designs (kernels/adc.adc_scan_u8_v1, adc_scan_u4_v1,
@@ -183,6 +200,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -293,6 +311,9 @@ FLAT_RANGE_QUERIES, FLAT_RANGE_HITS = 4, 50
 #: run on the CUDA cores, searched at B=8 and 64 (d = 8,192, past the FMA
 #: design, is phase_api's verified route)
 FLAT_WIDE_DIM, FLAT_WIDE_ROWS, FLAT_WIDE_BATCHES, FLAT_WIDE_CAPACITY = 3072, 120_000, (8, 64), 1 << 17
+#: f32 rows at an embedding width (BERT-base, all-mpnet-base-v2: 768), 2^20
+#: of them (3.2 GB): K1/K2's FMA design streams each row in k chunks
+FLAT_F32_WIDE_ROWS, FLAT_F32_WIDE_DIM, FLAT_F32_WIDE_BATCHES = 1 << 20, 768, (256, 8)
 
 #: the H100 SXM's published peaks (NVIDIA's data sheet): bytes/s of HBM3,
 #: bf16 tensor-core and f32 CUDA-core FLOP/s
@@ -437,9 +458,11 @@ def check_against_plain(sf, topk, qk, x, bias, cs, metric, kk=MAIN_K, exact=None
     """K1 and K2 against their plain versions on the same inputs on the card.
 
     f32 corpora: both sides sum each dot product as one f32 FMA chain over d
-    in order (the kernels' row_distances; cuBLAS's f32 GEMM with TF32 off for
-    the plain versions), so they agree bit for bit. bf16 corpora: the
-    kernels sum on the tensor cores; on integer-valued data (exact=True)
+    in order (the FMA design's fma_chunk; cuBLAS's f32 GEMM with TF32 off for
+    the plain versions), so they agree bit for bit; on the FMA design K1 and
+    K2 also equal their first design (the _v1 wrappers) bit for bit. bf16
+    corpora: the kernels sum on the tensor cores (or, past d = 2,400, in the
+    FMA design, in another order than cuBLAS); on integer-valued data (exact=True)
     every partial sum is exact and they agree bit for bit; otherwise the
     tensor-core rule holds (check_candidates, check_counts) and K1 <-> K2
     bit identity is checked on its own (check_identity). Returns (K1
@@ -463,6 +486,15 @@ def check_against_plain(sf, topk, qk, x, bias, cs, metric, kk=MAIN_K, exact=None
     k2_err = check_counts(sf, qk, x, bias, cs, tau, klt, kle, metric, exact)
     if not exact:
         check_identity(sf, qk, x, bias, cs, metric, kd)
+    if sf.scan_design(x.shape[1], x.dtype) == "fma":
+        # the FMA design computes its first design's floats: equal bit for bit
+        vd, vi = sf.bin_candidates_fma_v1(qk, x, bias, cs, metric=metric)
+        vlt, vle = sf.count_below_fma_v1(qk, x, bias, cs, tau, metric=metric)
+        torch.cuda.synchronize()
+        require(torch.equal(kd, vd) and torch.equal(ki, vi),
+                "K1: the FMA design differs from its first design")
+        require(torch.equal(klt, vlt) and torch.equal(kle, vle),
+                "K2: the FMA design's counts differ from its first design's")
     return k1_err, k2_err, tau
 
 
@@ -1597,18 +1629,96 @@ def phase_flat_wide(sf, topk):
                                        sqn, valid, Metric.L2)
     k1, k2, tau = check_against_plain(sf, topk, qk, x, bias, cs, Metric.L2)
     args = (qk, x, bias, cs)
-    t["bin_candidates"] = time_ms(lambda: sf.bin_candidates(*args, metric=Metric.L2), 10)
-    t["count_below"] = time_ms(lambda: sf.count_below(*args, tau, metric=Metric.L2), 10)
+    t.update(fma_turns(sf, qk, x, bias, cs, tau, Metric.L2, 10, 5))
     t["bin_candidates_plain"] = time_ms(lambda: sf.bin_candidates_ref(*args, metric=Metric.L2), 3)
     t["count_below_plain"] = time_ms(lambda: sf.count_below_ref(*args, tau, metric=Metric.L2), 3)
-    t["bound"] = flat_bound(x.shape[0], FLAT_WIDE_DIM, qk.shape[0], 2, "bin_candidates")
+    for name in ("bin_candidates", "count_below"):
+        # the card's bound (the tensor cores' rate), and the f32 pipe's own
+        # floor, which bounds any CUDA-core design
+        t[name + "_bound"] = flat_bound(x.shape[0], FLAT_WIDE_DIM, qk.shape[0], 2, name)
+        t[name + "_f32_pipe"] = flat_bound(x.shape[0], FLAT_WIDE_DIM, qk.shape[0], 2, name,
+                                           F32_FLOPS)[0]
     log(f"wide: K1/K2 (FMA design, B={qk.shape[0]}, n={x.shape[0]}, d={FLAT_WIDE_DIM} bf16) within "
-        f"the parity rule of their plain versions (K1 max_abs_err {k1:.3g}, K2 count diff {k2}); "
-        + ", ".join(f"{key}={val[0] if isinstance(val, tuple) else val:.4g}" for key, val in t.items())
-        + " ms")
+        f"the parity rule of their plain versions (K1 max_abs_err {k1:.3g}, K2 count diff {k2}) and "
+        f"equal to their first design bit for bit; {fma_log(t)}; plain "
+        f"{t['bin_candidates_plain']:.4g} / {t['count_below_plain']:.4g} ms; bound "
+        f"{t['bin_candidates_bound'][0]:.4g} / {t['count_below_bound'][0]:.4g} ms "
+        f"({t['bin_candidates_bound'][1]}), the f32 pipe's floor "
+        f"{t['bin_candidates_f32_pipe']:.4g} ms; search "
+        + ", ".join(f"{key} {val:.4g} ms" for key, val in t.items() if key.startswith("search")))
     del idx, x, sqn, valid, qk, bias
     torch.cuda.empty_cache()
     return launches, t, {"bin_candidates": k1, "count_below": k2}
+
+
+def phase_flat_f32_wide(sf, topk, errs) -> dict:
+    """f32 rows at an embedding width (FLAT_F32_WIDE_ROWS x FLAT_F32_WIDE_DIM,
+    3.2 GB, drawn on the card from a seed; queries near some rows) through
+    scan_topk_fused at B=256 and B=8: K1/K2 on the FMA design (k chunks of
+    each row in the ring), every query proved exact (no strict fallback),
+    recall@10 = 1.0 under the tie rule against a chunked f32 brute force on
+    the card; K1/K2 equal to their first design bit for bit and to their
+    plain versions by the parity rule (cuBLAS's d = 768 product sums in
+    another order), and timed in turns with the first design beside their
+    bounds."""
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    t_phase = time.perf_counter()
+    n, d = FLAT_F32_WIDE_ROWS, FLAT_F32_WIDE_DIM
+    require(sf.scan_design(d, torch.float32) == "fma", "f32 wide: not on the FMA design")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + d)
+    x = torch.randn(n, d, generator=gen, device=DEVICE)
+    nq = sum(FLAT_F32_WIDE_BATCHES)
+    pick = torch.randint(0, n, (nq,), generator=gen, device=DEVICE)
+    queries = (x[pick] + 0.1 * torch.randn(nq, d, generator=gen, device=DEVICE)).cpu().numpy()
+    xp, sqp, vp = sf.pad_corpus(x, None, None)
+    out, start = {}, 0
+    for b in FLAT_F32_WIDE_BATCHES:
+        q = queries[start : start + b]
+        start += b
+        qd = torch.from_numpy(q).to(DEVICE)
+        sf.reset_launches()
+        dist, ids, exact = sf.scan_topk_fused(qd, xp, sqp, vp, metric=Metric.L2, k=MAIN_K)
+        torch.cuda.synchronize()
+        designs = {k: dict(c) for k, c in sf.DESIGN_LAUNCHES.items()}
+        require(designs["mma"] == {"bin_candidates": 0, "count_below": 0}
+                and all(c > 0 for c in designs["fma"].values()),
+                f"f32 wide B={b}: K1/K2 did not run on the FMA design: {designs}")
+        require(bool(exact.all()), f"f32 wide B={b}: {int((~exact).sum())} queries need the strict path")
+        truth, kth = chunked_truth(x, q, MAIN_K, chunk=1 << 18)
+        xg = x[ids.long()]  # [b, k, d]: the returned rows' distances in f32
+        d_got = (xg * xg).sum(dim=2) - 2.0 * (xg @ qd[:, :, None])[..., 0] + (qd * qd).sum(dim=1, keepdim=True)
+        hits = d_got <= kth[:, None] + RECALL_RTOL * kth.abs()[:, None]
+        r_tie = float(hits.float().mean())
+        r_set = float((ids.long()[:, :, None] == truth[:, None, :]).any(dim=2).float().mean())
+        require(r_tie == 1.0, f"f32 wide B={b}: recall@{MAIN_K} {r_tie} < 1 under the tie rule")
+        qk, bias, cs, _ = sf.kernel_inputs(qd, sqp, vp, Metric.L2)
+        # cuBLAS sums a d = 768 product in another order than one k-order
+        # FMA chain: the plain versions by the parity rule, the first design
+        # bit for bit
+        k1, k2, tau = check_against_plain(sf, topk, qk, xp, bias, cs, Metric.L2, exact=False)
+        errs["bin_candidates"] = max(errs["bin_candidates"], k1)
+        errs["count_below"] = max(errs["count_below"], k2)
+        args = (qk, xp, bias, cs)
+        t = fma_turns(sf, qk, xp, bias, cs, tau, Metric.L2, 5, 3)
+        t["bin_candidates_plain"] = time_ms(lambda: sf.bin_candidates_ref(*args, metric=Metric.L2), 2, 1)
+        t["count_below_plain"] = time_ms(lambda: sf.count_below_ref(*args, tau, metric=Metric.L2), 2, 1)
+        for name in ("bin_candidates", "count_below"):
+            t[name + "_bound"] = flat_bound(n, d, b, 4, name)
+        t["launches"] = designs["fma"]
+        log(f"f32 wide: {n}x{d} f32, B={b} through scan_topk_fused: K1/K2 launches by design "
+            f"{designs}, every query exact, recall@{MAIN_K}={r_tie} under the tie rule (set recall "
+            f"{r_set}); K1/K2 equal to their first design bit for bit, within the parity rule of "
+            f"their plain versions (K1 max_abs_err {k1:.3g}, K2 count diff {k2}); "
+            f"{fma_log(t)}; plain {t['bin_candidates_plain']:.4g} / {t['count_below_plain']:.4g} ms; "
+            f"bound {t['bin_candidates_bound'][0]:.4g} / {t['count_below_bound'][0]:.4g} ms "
+            f"({t['bin_candidates_bound'][1]})")
+        out[b] = t
+    del x, xp, sqp, vp
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"f32 wide: phase {out['phase_s']:.1f} s")
+    return out
 
 
 def device_ms(fn, calls: int, match: str = "", tries: int = 3) -> float:
@@ -1637,6 +1747,55 @@ def device_ms(fn, calls: int, match: str = "", tries: int = 3) -> float:
 # ---------------------------------------------------------------------------
 # phase 10: the full-corpus ADC kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+
+def fma_turns(sf, qk, x, bias, cs, tau, metric, iters: int, calls: int) -> dict:
+    """K1 and K2 in the FMA design and in its first design, on the same
+    inputs, timed in two rounds of turns (new, first; then first, new) by
+    CUDA events (mean of `iters` launches) and by the profiler's device time
+    per call (`calls` launches; every kernel of the call, the split merge
+    included) -> {name: ms, name_dev: ms, name_v1: ms, name_v1_dev: ms}
+    (means of the two rounds), the rounds' spread and the plans."""
+    pairs = {
+        "bin_candidates": (lambda: sf.bin_candidates(qk, x, bias, cs, metric=metric),
+                           lambda: sf.bin_candidates_fma_v1(qk, x, bias, cs, metric=metric)),
+        "count_below": (lambda: sf.count_below(qk, x, bias, cs, tau, metric=metric),
+                        lambda: sf.count_below_fma_v1(qk, x, bias, cs, tau, metric=metric)),
+    }
+    out = {}
+    for name, (new, old) in pairs.items():
+        ev = {"": [], "_v1": []}
+        dev = {"": [], "_v1": []}
+        for order in (("", "_v1"), ("_v1", "")):
+            for tag in order:
+                fn = new if tag == "" else old
+                ev[tag].append(time_ms(fn, iters))
+                dev[tag].append(device_ms(fn, calls))
+        for tag in ("", "_v1"):
+            out[name + tag] = float(np.mean(ev[tag]))
+            out[name + tag + "_dev"] = float(np.mean(dev[tag]))
+            out[name + tag + "_rounds"] = ev[tag] + dev[tag]
+        out[name + "_plan"] = sf.fma_plan(qk.shape[0], x.shape[0], x.shape[1], x.dtype,
+                                          name)._asdict()
+    return out
+
+
+def fma_shape(t: dict, name: str, bound_ms: tuple, launches=None) -> dict:
+    """One FMA shape's figures of kernel `name` for the kernels line."""
+    fig = {"ms": t[name], "device_ms": t[name + "_dev"], "first_design_ms": t[name + "_v1"],
+           "first_design_device_ms": t[name + "_v1_dev"], "plain_ms": t.get(name + "_plain"),
+           "bound_ms": bound_ms[0], "bound_by": bound_ms[1], "plan": t[name + "_plan"]}
+    if launches is not None:
+        fig["launches"] = launches
+    return fig
+
+
+def fma_log(t: dict) -> str:
+    return "; ".join(
+        f"{name} {t[name]:.4g} ms (device {t[name + '_dev']:.4g}), first design "
+        f"{t[name + '_v1']:.4g} ms (device {t[name + '_v1_dev']:.4g}; rounds new "
+        f"{[round(v, 4) for v in t[name + '_rounds']]}, first {[round(v, 4) for v in t[name + '_v1_rounds']]})"
+        for name in ("bin_candidates", "count_below"))
 
 
 def check_k8(fa, codes, lut, k, k6, errs, what):
@@ -3586,25 +3745,92 @@ def check_bench_flat(sf, topk, seen, payload, errs) -> dict:
     xk, sqn, _, valid = idx._sync_device()
     require(xk.dtype == torch.float32 and sf.scan_design(xk.shape[1], xk.dtype) == "fma",
             "bench flat: the f32 index does not take the FMA design")
-    qk, bias, cs, _ = sf.kernel_inputs(torch.from_numpy(q).to(DEVICE), sqn, valid, Metric.L2)
-    k1, k2, tau = check_against_plain(sf, topk, qk, xk, bias, cs, Metric.L2)
-    errs["bin_candidates"] = max(errs["bin_candidates"], k1)
-    errs["count_below"] = max(errs["count_below"], k2)
-    args = (qk, xk, bias, cs)
-    t = {
-        "bin_candidates": time_ms(lambda: sf.bin_candidates(*args, metric=Metric.L2), 10),
-        "count_below": time_ms(lambda: sf.count_below(*args, tau, metric=Metric.L2), 10),
-        "bin_candidates_plain": time_ms(lambda: sf.bin_candidates_ref(*args, metric=Metric.L2), 3),
-        "count_below_plain": time_ms(lambda: sf.count_below_ref(*args, tau, metric=Metric.L2), 3),
-    }
-    for name in ("bin_candidates", "count_below"):
-        t[name + "_bound"] = flat_bound(xk.shape[0], xk.shape[1], qk.shape[0], 4, name)
-    log(f"bench flat: K1/K2 on the f32 FMA design (B={qk.shape[0]}, n={xk.shape[0]}, "
-        f"d={xk.shape[1]}) equal to their plain versions bit for bit (K1 max_abs_err {k1:.3g}, K2 "
-        f"count diff {k2}); " + ", ".join(
-            f"{key}={val[0] if isinstance(val, tuple) else val:.4g}" for key, val in t.items())
-        + " ms")
-    return {"recall_tie": r_tie, "recall_set": r_set, "misses": misses, **t}
+    out = {"recall_tie": r_tie, "recall_set": r_set, "misses": misses}
+    qd = torch.from_numpy(q).to(DEVICE)
+    for b in (len(q), SMALL_BATCH):  # the suite's batch, and a serving batch of its queries
+        qk, bias, cs, _ = sf.kernel_inputs(qd[:b], sqn, valid, Metric.L2)
+        k1, k2, tau = check_against_plain(sf, topk, qk, xk, bias, cs, Metric.L2)
+        errs["bin_candidates"] = max(errs["bin_candidates"], k1)
+        errs["count_below"] = max(errs["count_below"], k2)
+        args = (qk, xk, bias, cs)
+        t = fma_turns(sf, qk, xk, bias, cs, tau, Metric.L2, 10, 5)
+        t["bin_candidates_plain"] = time_ms(lambda: sf.bin_candidates_ref(*args, metric=Metric.L2), 3)
+        t["count_below_plain"] = time_ms(lambda: sf.count_below_ref(*args, tau, metric=Metric.L2), 3)
+        for name in ("bin_candidates", "count_below"):
+            t[name + "_bound"] = flat_bound(xk.shape[0], xk.shape[1], b, 4, name)
+        log(f"bench flat: K1/K2 on the f32 FMA design (B={b}, n={xk.shape[0]}, d={xk.shape[1]}) "
+            f"equal to their plain versions and their first design bit for bit (K1 max_abs_err "
+            f"{k1:.3g}, K2 count diff {k2}); {fma_log(t)}; plain {t['bin_candidates_plain']:.4g} / "
+            f"{t['count_below_plain']:.4g} ms; bound {t['bin_candidates_bound'][0]:.4g} / "
+            f"{t['count_below_bound'][0]:.4g} ms ({t['bin_candidates_bound'][1]})")
+        out[b] = t
+    out["split"] = flat_wall_split(idx, q)
+    s = out["split"]
+    log(f"bench flat: one batch_search of B={len(q)} over the suite's index: wall {s['wall_ms']:.4g} "
+        f"ms (median of 5) = K1 {s['k1_ms']:.4g} (scan and split merge) + K2 {s['k2_ms']:.4g} + "
+        f"other device {s['other_device_ms']:.4g} ({s['other_launches']:.0f} launches) + host "
+        f"{s['host_ms']:.4g} ms (the wall less the device's busy time; device times by the profiler, "
+        f"a search's mean over the {s['searches_recorded']} of 5 it recorded)")
+    return out
+
+
+#: the FMA-design kernel's mode (0: K1, 2: K2) in its profiler name,
+#: demangled ("scan_fma_kernel<float, 0, 0, 8, 8>") or mangled
+FMA_MODE_RE = re.compile(
+    r"scan_fma_kernel(?:<[^,>]*, *\d+, *(\d+)|I(?:f|13__nv_bfloat16)Li\d+ELi(\d+)E)")
+
+
+def flat_wall_split(idx, q: np.ndarray, calls: int = 5, tries: int = 3) -> dict:
+    """A warm batch_search of q on a flat f32 index: its wall (host clock,
+    synchronised; median of `calls`) split into K1 (the FMA scan and its
+    split merge), K2, the other device work (the profiler's device time over
+    `calls` calls, divided by the K1 scans it recorded: a search launches
+    one, and a session may miss a call's kernels; a session that records
+    none is repeated, up to `tries`) and the host (the wall less the
+    device's busy time: issue and Python)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    idx.batch_search(q, MAIN_K)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        idx.batch_search(q, MAIN_K)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall = float(np.median(walls))
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                idx.batch_search(q, MAIN_K)
+            torch.cuda.synchronize()
+        k1 = k2 = other = 0.0
+        searches = launches = 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+                continue
+            ms = e.self_device_time_total / 1e3
+            m = FMA_MODE_RE.search(e.key)
+            mode = m and (m.group(1) or m.group(2))
+            if mode == "0":
+                k1 += ms
+                searches += e.count
+            elif "merge_splits_kernel" in e.key:
+                k1 += ms
+            elif mode:
+                k2 += ms
+            else:
+                other += ms
+                launches += e.count
+        if searches and k2 > 0:
+            break
+    require(searches and k2 > 0, "bench flat: the profiler shows no FMA-design K1/K2 kernel in "
+            f"batch_search: {[e.key[:80] for e in prof.key_averages()][:20]}")
+    k1, k2, other = k1 / searches, k2 / searches, other / searches
+    return {"wall_ms": wall, "k1_ms": k1, "k2_ms": k2, "other_device_ms": other,
+            "other_launches": launches / searches, "searches_recorded": searches,
+            "host_ms": wall - (k1 + k2 + other)}
 
 
 def check_bench_probes(kp, ap, seen) -> None:
@@ -3732,12 +3958,16 @@ def phase_bench(sf, kp, ap, topk, gpu: str, errs) -> dict:
     return figs
 
 
-def flat_bound(n: int, d: int, b: int, itemsize: int, kernel: str):
-    """(bound_ms, bound_by) of K1/K2 (K11: K1's) over the flat main path's
-    corpus: rows, bias and q read once, the candidates or counts written."""
+def flat_bound(n: int, d: int, b: int, itemsize: int, kernel: str, peak=None):
+    """(bound_ms, bound_by) of K1/K2 (K11: K1's) over a flat corpus: rows,
+    bias and q read once, the candidates or counts written; the operations
+    at `peak` FLOP/s (default: the tensor cores for bf16 rows, the f32 pipe
+    for f32; the FMA design on bf16 rows runs on the f32 pipe)."""
     nbytes = n * (d * itemsize + 4) + b * d * 4
     nbytes += b * 3 * 256 * 8 if kernel == "bin_candidates" else b * 12
-    return bound(nbytes, 2.0 * b * n * d, BF16_FLOPS if itemsize == 2 else F32_FLOPS)
+    if peak is None:
+        peak = BF16_FLOPS if itemsize == 2 else F32_FLOPS
+    return bound(nbytes, 2.0 * b * n * d, peak)
 
 
 def main() -> int:
@@ -3763,6 +3993,10 @@ def run(ps: Persist) -> int:
     t0 = time.perf_counter()
     _build.load()
     log(f"build: nvcc and load in {time.perf_counter() - t0:.1f} s -> {_build.library_path()}")
+    attrs = sf.fma_attributes()
+    require(all(local == 0 for _, local in attrs.values()), f"an FMA-design kernel spills: {attrs}")
+    log("build: FMA-design kernels' registers (no local memory): " + ", ".join(
+        f"{k[0]} {k[1]} {k[2]} {k[3]}x{k[3]} {regs}" for k, (regs, _) in sorted(attrs.items())))
 
     errs = phase_compare(sf, topk)
     idx, batches, launches = phase_main(sf)
@@ -3783,6 +4017,7 @@ def run(ps: Persist) -> int:
         errs[name] = max(errs[name], e)
     with api.timed("api verified wide"):
         phase_api_verified_wide(sf, api)
+    f32_wide = phase_flat_f32_wide(sf, topk, errs)
 
     errs.update(phase_ivf_compare(kp))
     ivf_idx, ivf_batches, bigq, ivf_launches, build_s = phase_ivf_main(kp)
@@ -3842,13 +4077,24 @@ def run(ps: Persist) -> int:
     m = api.figs["mips"]
     bf = bench["flat"]
     for k in kernels:  # K1/K2 also at d = 256 on phase_api's MIPS index, B=256
-        k["mips"] = {"ms": m[k["name"] + "_ms"], "bound_ms": m[k["name"] + "_bound"][0],
-                     "bound_by": m[k["name"] + "_bound"][1]}
-        # and on the f32 FMA design over the bench CLI's flat 1M x 128 index, B=256
-        k["bench_f32"] = {"ms": bf[k["name"]], "plain_ms": bf[k["name"] + "_plain"],
-                          "bound_ms": bf[k["name"] + "_bound"][0],
-                          "bound_by": bf[k["name"] + "_bound"][1],
-                          "launches": bench["launches"][k["name"]]}
+        name = k["name"]
+        k["mips"] = {"ms": m[name + "_ms"], "bound_ms": m[name + "_bound"][0],
+                     "bound_by": m[name + "_bound"][1]}
+        # and on the FMA design: the bench CLI's f32 flat index (B=256, its
+        # launches; B=8), the wide bf16 index, the f32 rows at d = 768
+        wide = fma_shape(wide_times, name, wide_times[name + "_bound"])
+        wide["f32_pipe_ms"] = wide_times[name + "_f32_pipe"]
+        k["fma"] = {
+            f"f32 {BENCH_ROWS}x{BENCH_DIM} B={BENCH_QUERIES} (bench flat)": fma_shape(
+                bf[BENCH_QUERIES], name, bf[BENCH_QUERIES][name + "_bound"],
+                bench["launches"][name]),
+            f"f32 {BENCH_ROWS}x{BENCH_DIM} B={SMALL_BATCH}": fma_shape(
+                bf[SMALL_BATCH], name, bf[SMALL_BATCH][name + "_bound"]),
+            f"bf16 {FLAT_WIDE_CAPACITY}x{FLAT_WIDE_DIM} B={FLAT_WIDE_BATCHES[-1]} (wide)": wide,
+            **{f"f32 {FLAT_F32_WIDE_ROWS}x{FLAT_F32_WIDE_DIM} B={b}": fma_shape(
+                f32_wide[b], name, f32_wide[b][name + "_bound"], f32_wide[b]["launches"][name])
+               for b in FLAT_F32_WIDE_BATCHES},
+        }
     bms, by = flat_bound(n_flat, MAIN_DIM, MAIN_BATCH, itemsize, "bin_candidates")
     kernels.append({"name": "bin_candidates_tree", "ms": tree_times[TREE_TILES[0]]["ms"],
                     "plain_ms": tree_times[TREE_TILES[0]]["plain_ms"], "bound_ms": bms,
@@ -3901,7 +4147,15 @@ def run(ps: Persist) -> int:
     log(f"gpu: {gpu}; flat batch_search B={MAIN_BATCH}: {big['qps']:.1f} QPS; wide bf16 d="
         f"{FLAT_WIDE_DIM} K1/K2 on the FMA design (launches {wide_launches}) "
         f"{wide_times['bin_candidates']:.4g} / {wide_times['count_below']:.4g} ms at B="
-        f"{FLAT_WIDE_BATCHES[-1]}; K6 device {adc_times['adc_scan_u8_dev']:.4g} ms (first design "
+        f"{FLAT_WIDE_BATCHES[-1]} (first design {wide_times['bin_candidates_v1']:.4g} / "
+        f"{wide_times['count_below_v1']:.4g}); f32 FMA {BENCH_ROWS}x{BENCH_DIM} B={BENCH_QUERIES} "
+        f"{bf[BENCH_QUERIES]['bin_candidates']:.4g} / {bf[BENCH_QUERIES]['count_below']:.4g} ms (first "
+        f"design {bf[BENCH_QUERIES]['bin_candidates_v1']:.4g} / "
+        f"{bf[BENCH_QUERIES]['count_below_v1']:.4g}), "
+        + ", ".join(f"{FLAT_F32_WIDE_ROWS}x{FLAT_F32_WIDE_DIM} B={b} "
+                    f"{f32_wide[b]['bin_candidates']:.4g} / {f32_wide[b]['count_below']:.4g} ms"
+                    for b in FLAT_F32_WIDE_BATCHES)
+        + f"; K6 device {adc_times['adc_scan_u8_dev']:.4g} ms (first design "
         f"{adc_times['adc_scan_u8_v1_dev']:.4g} ms), K7 {adc_times['adc_scan_u4_dev']:.4g} ms ("
         f"{adc_times['adc_scan_u4_v1_dev']:.4g} ms), write floor {adc_times['write_floor']:.4g} ms; "
         f"adc range B={ADC_RANGE_BATCH} wall {adc_times['range_wall']:.4g} ms (K6 "

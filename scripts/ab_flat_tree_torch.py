@@ -13,7 +13,8 @@ data made on the card), with CUDA events over `iters` launches each:
       them into 3 tiers; the port's K1 keeps the exact 3);
   K11 tree tile=4096 and tile=8192: one candidate per (class, block of
       `tile` rows), folded into 3 tiers (the script's "tree");
-  K1 FMA design: the earlier CUDA-core kernel instantiated for bf16, the
+  K1 FMA design: the CUDA-core kernel (scan_fma_kernel, register-tiled)
+      instantiated for bf16, and its first design (one thread a row), the
       design the tensor-core kernel replaced;
   K2 at tau = 1.0: pass 2 alone (the script's "p2").
 
@@ -74,6 +75,10 @@ def kernel_label(mangled: str) -> str:
     if m:
         dtype = "f32" if m.group(2) == "f" else "bf16"
         return f"{m.group(1)}<{dtype},{METRICS[m.group(3)]}>"
+    m = re.search(r"scan_fma_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)ELi(\d)E", mangled)
+    if m:
+        dtype = "f32" if m.group(1) == "f" else "bf16"
+        return f"scan_fma_kernel<{dtype},{METRICS[m.group(2)]},{MODES[m.group(3)]},{m.group(4)}>"
     return mangled
 
 
@@ -99,7 +104,8 @@ def build_report() -> None:
                           capture_output=True, text=True, check=True).stdout
     for block in sass.split("Function : ")[1:]:
         name = kernel_label(block.split(None, 1)[0])
-        if "scan_mma" in name or "bin_candidates_kernel" in name or "count_below_kernel" in name:
+        if any(k in name for k in ("scan_mma", "scan_fma", "bin_candidates_kernel",
+                                   "count_below_kernel")):
             counts = {op: len(re.findall(rf"\b{op}\b", block)) for op in ("HGMMA", "HMMA", "FFMA")}
             print(f"sass {name}: " + ", ".join(f"{op} {c}" for op, c in counts.items()), flush=True)
 
@@ -139,6 +145,8 @@ def main() -> int:
         ("K11 tree tile=8192", lambda: sf.bin_candidates_tree(qk, xp, bias, metric=Metric.L2, tile=8192)),
         ("K1 FMA design (CUDA cores, bf16)",
          lambda: sf.bin_candidates_fma(qk, xp, bias, None, metric=Metric.L2)),
+        ("K1 first FMA design (CUDA cores, bf16)",
+         lambda: sf.bin_candidates_fma_v1(qk, xp, bias, None, metric=Metric.L2)),
     ]
     ones = torch.ones(B, device="cuda")
     variants.append(("K2 count at tau=1.0", lambda: sf.count_below(qk, xp, bias, None, ones,

@@ -10,7 +10,10 @@ that --noconftest skips)
 
 Tolerance: the kernels against their plain versions on the card, 0 (K1/K2
 on f32 corpora and their plain versions sum each dot product as one f32 FMA
-chain over d; K3/K4/K5 and theirs as one chain of separately rounded
+chain over d, cuBLAS at the shapes of test_kernels_match_plain_versions; at
+others it sums in another order, and there K1/K2 are held bit for bit to
+their first design and by the rule of utils/parity to the plain versions;
+K3/K4/K5 and theirs as one chain of separately rounded
 products and sums; K6-K10 and theirs add the m LUT entries in order, each
 add rounded). K1/K2/K11 on bf16 corpora run on the tensor cores, whose sum
 order is not cuBLAS's: 0 on integer-valued data (every partial sum exact),
@@ -167,7 +170,8 @@ def test_index_routes_through_the_kernels(dtype, cuda_device, monkeypatch):
     sf.reset_launches()
     got = on_card.batch_search(q, 10)
     assert sf.LAUNCHES == {"bin_candidates": 1, "count_below": 1, "bin_candidates_tree": 0,
-                           "bin_candidates_fma": 0}
+                           "bin_candidates_fma": 0, "bin_candidates_fma_v1": 0,
+                           "count_below_fma_v1": 0}
     want = on_host.batch_search(q, 11)
     wd = np.array([[r.score**2 for r in row] for row in want])
     gd = np.array([[r.score**2 for r in row] for row in got])
@@ -716,6 +720,96 @@ def test_k8_class_crowding_keeps_three_rows_of_one_class(cuda_device):
         rd, ri = fa.adc_topk_fused_ref(codes, lut, 10)
         assert torch.equal(kd, rd) and torch.equal(ki, ri)
         assert ki[5, :3].tolist() == [c, c + 256, c + 512]
+
+
+#: the FMA design's cases: (data, d); f32 at the widths a corpus takes it
+#: (ragged, narrow, past one k chunk), bf16 past the tensor-core CTA
+FMA_CASES = [("f32", 100), ("f32", 128), ("f32", 129), ("f32", 768), ("bf16", 2416),
+             ("bf16", 3072)]
+
+
+def _fma_case(data, d, b, n, metric, device, aligned=True):
+    """(q_kernel, x_pad, bias, colscale) of a seeded FMA-design case: gaussian
+    rows and queries, 1/8 of the rows dead; aligned=False moves the corpus one
+    element off a 16-byte boundary (a view whose rows the kernels read with
+    plain loads)."""
+    gen = torch.Generator(device=device).manual_seed(d * 7919 + b * 31 + n)
+    x = torch.randn(n, d, generator=gen, device=device)
+    q = torch.randn(b, d, generator=gen, device=device)
+    valid = torch.rand(n, generator=gen, device=device) >= 0.125
+    dtype = torch.float32 if data == "f32" else torch.bfloat16
+    xp, sqp, vp = sf.pad_corpus(x.to(dtype), None, valid)
+    if not aligned:
+        buf = torch.empty(xp.numel() + 1, dtype=dtype, device=device)
+        buf[1:].copy_(xp.flatten())
+        xp = buf[1:].view_as(xp)
+    qk, bias, cs, _ = sf.kernel_inputs(q, sqp, vp, metric)
+    return qk, xp, bias, cs
+
+
+def _fma_check(data, qk, xp, bias, cs, metric):
+    """K1/K2 on the FMA design against their first design, bit for bit, and
+    their plain versions by the rule of utils/parity (each distance within
+    2 d 2^-23 sum_k |q_k x_k| of the exact one; counts within the rows that
+    close to tau). Both designs sum each dot product as one f32 FMA chain in
+    k order; cuBLAS does so for the plain versions only at some shapes (not
+    at B = 1, at a short last row chunk, or at d = 768), so the plain
+    versions are held bit for bit only at test_kernels_match_plain_versions'
+    shapes. K2 at K1's tau."""
+    b = qk.shape[0]
+    sf.reset_launches()
+    kd, ki = sf.bin_candidates(qk, xp, bias, cs, metric=metric)
+    vd, vi = sf.bin_candidates_fma_v1(qk, xp, bias, cs, metric=metric)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, vd) and torch.equal(ki, vi)
+    rd, ri = sf.bin_candidates_ref(qk, xp, bias, cs, metric=metric)
+    ok, err = parity.tensor_core_candidates_ok(kd, ki, rd, ri, qk, xp, bias, cs, metric)
+    assert ok, f"K1 outside the parity rule (max |err| {err})"
+    kk = min(10, int(torch.isfinite(kd.view(b, -1)).sum(dim=1).min()))
+    sd, _ = topk(kd.view(b, -1), kk, ids=ki.view(b, -1))
+    tau = sd[:, kk - 1].contiguous()
+    lt, le = sf.count_below(qk, xp, bias, cs, tau, metric=metric)
+    vlt, vle = sf.count_below_fma_v1(qk, xp, bias, cs, tau, metric=metric)
+    torch.cuda.synchronize()
+    assert torch.equal(lt, vlt) and torch.equal(le, vle)
+    assert (le >= kk).all()  # K2 recomputes K1's floats bit for bit
+    rlt, rle = sf.count_below_ref(qk, xp, bias, cs, tau, metric=metric)
+    near = parity.count_near(qk, xp, bias, cs, tau, metric).to(lt.dtype)
+    assert ((lt - rlt).abs() <= near).all() and ((le - rle).abs() <= near).all()
+    assert sf.DESIGN_LAUNCHES["fma"] == {"bin_candidates": 1, "count_below": 1}
+    assert sf.LAUNCHES["bin_candidates_fma_v1"] == 1 and sf.LAUNCHES["count_below_fma_v1"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
+@pytest.mark.parametrize("data, d", FMA_CASES)
+@pytest.mark.parametrize("b", [1, 8, 9, 64, 256])
+@pytest.mark.parametrize("n", [256, 66_304])
+def test_fma_design_equals_first_design_and_plain(metric, data, d, b, n, cuda_device):
+    """The FMA design (register-tiled, staged) against the first FMA design
+    and the plain versions, at batches on both sides of its query blocks and
+    of K2's micro-tile switch, over one tile and over 259 (dead rows)."""
+    assert sf.scan_design(d, torch.float32 if data == "f32" else torch.bfloat16) == "fma"
+    _fma_check(data, *_fma_case(data, d, b, n, metric, cuda_device), metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
+@pytest.mark.parametrize("data, d, b", [("f32", 128, 9), ("f32", 768, 64), ("bf16", 2416, 256)])
+def test_fma_design_on_rows_off_16_byte_alignment(metric, data, d, b, cuda_device):
+    """A corpus view one element off a 16-byte boundary: the kernels stage
+    its rows by plain loads, with the same floats."""
+    qk, xp, bias, cs = _fma_case(data, d, b, 66_304, metric, cuda_device, aligned=False)
+    assert xp.data_ptr() % 16 != 0
+    _fma_check(data, qk, xp, bias, cs, metric)
+
+
+@pytest.mark.cuda
+def test_fma_design_kernels_do_not_spill(cuda_device):
+    """Every FMA-design kernel fits its registers: no local memory."""
+    attrs = sf.fma_attributes()
+    assert len(attrs) == 24
+    assert all(local == 0 and regs <= 255 for regs, local in attrs.values()), attrs
 
 
 def _wide_flat(dim, cuda_device, rows=3000, nq=9, round_q=True):

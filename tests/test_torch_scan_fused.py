@@ -265,21 +265,25 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad, err):
 @pytest.mark.parametrize("nq", [8, 256])
 def test_scan_design_routes_by_width_and_dtype(d, dtype, want, nq):
     """bf16 takes the tensor cores while their smallest CTA fits (d <=
-    2,400), then the CUDA cores while the FMA query block fits (d <=
-    7,264), as f32 does; past that no kernel fits. The kernels' geometry
-    exists exactly where scan_design names a kernel design and raises where
-    it names the strict path."""
+    2,400), then the CUDA cores up to d = 7,264, as f32 does; past that no
+    kernel design is taken. The kernels' geometry exists exactly where
+    scan_design names a kernel design (the tensor-core grid, or fma_plan's
+    plans for K1 and K2) and raises where it names the strict path."""
     assert sf.scan_design(d, dtype) == want
     n = 1 << 20
     if want == "strict":
-        for mma in (True, False):
+        for plan in (lambda: sf._grid(nq, n, d, mma=True),
+                     lambda: sf.fma_plan(nq, n, d, dtype, "bin_candidates"),
+                     lambda: sf.fma_plan(nq, n, d, dtype, "count_below")):
             with pytest.raises(ValueError, match="shared-memory"):
-                sf._grid(nq, n, d, mma=mma)
+                plan()
         return
-    qw, cw, tps, splits, per = sf._grid(nq, n, d, mma=want == "mma")
-    assert (qw > 0) == (want == "mma")
-    assert (splits - 1) * per < n // sf.C <= splits * per
     if want == "mma":
-        assert sf._mma_smem(d, qw, cw, tps) <= sf.MAX_SMEM_BYTES
-    else:
-        assert sf.QUERY_BLOCK * d * 4 <= sf.MAX_SMEM_BYTES
+        qw, cw, tps, splits, per = sf._grid(nq, n, d, mma=True)
+        assert qw > 0 and sf._mma_smem(d, qw, cw, tps) <= sf.MAX_SMEM_BYTES
+        assert (splits - 1) * per < n // sf.C <= splits * per
+        return
+    for kernel in ("bin_candidates", "count_below"):
+        p = sf.fma_plan(nq, n, d, dtype, kernel)
+        assert p.smem <= sf.MAX_SMEM_BYTES
+        assert (p.splits - 1) * p.tiles_per_split < n // sf.C <= p.splits * p.tiles_per_split

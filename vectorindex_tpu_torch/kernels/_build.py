@@ -98,6 +98,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vi_bin_candidates_tree.restype = ctypes.c_int
     lib.vi_count_below.argtypes = [p, p, p, p, p] + [i] * 10 + [p, p, p]
     lib.vi_count_below.restype = ctypes.c_int
+    lib.vi_bin_candidates_fma.argtypes = [p, p, p, p] + [i] * 11 + [p, p, p, p, p]
+    lib.vi_bin_candidates_fma.restype = ctypes.c_int
+    lib.vi_count_below_fma.argtypes = [p, p, p, p, p] + [i] * 11 + [p, p, p]
+    lib.vi_count_below_fma.restype = ctypes.c_int
+    lib.vi_scan_fma_attributes.argtypes = [i] * 4 + [ctypes.POINTER(i)] * 2
+    lib.vi_scan_fma_attributes.restype = ctypes.c_int
     lib.vi_ivf_probe_scores.argtypes = [p] * 8 + [i] * 8 + [p, p]
     lib.vi_ivf_probe_scores.restype = ctypes.c_int
     lib.vi_ivf_probe_scores_v1.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p, p]

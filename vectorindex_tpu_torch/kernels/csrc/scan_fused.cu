@@ -76,37 +76,82 @@
 // is within 2 d 2^-23 sum_k |q_k x_k| (times 2 for L2, times cs for cosine)
 // of the exact one.
 //
-// f32 corpora stay on the CUDA cores in full f32 (row_distances): each
-// query's dot product is one __fmaf_rn chain over k = 0..d-1 in order, equal
-// bit for bit to the plain versions. The same FMA kernel instantiated for
-// bf16 (vi_bin_candidates with qwarps = 0) serves bf16 corpora too wide for
-// the tensor-core CTA (d > 2,400: its smallest geometry no longer fits in
-// shared memory; the FMA design stages only 8 queries, up to d = 7,264); the
-// wrapper's scan_design picks it for K1 and K2 alike. It is also the earlier
-// design of K1 on narrow bf16 rows, timed in the flat A/B.
+// f32 corpora stay on the CUDA cores in full f32: each (query, row) dot
+// product is one __fmaf_rn chain over k = 0..d-1 in order whatever the
+// geometry, so K1 and K2 may each take their own. The floats equal the
+// first FMA design's bit for bit, and the plain versions' where cuBLAS's f32
+// product sums each output in k order too (the main paths' shapes; not at
+// one query, a short last row chunk or d = 768, where it sums otherwise). The same kernels instantiated for bf16 serve bf16 corpora too
+// wide for the tensor-core CTA (d > 2,400; scan_design picks the FMA design
+// for K1 and K2 alike, up to d = 7,264, the first design's limit that the
+// routing keeps). This design (scan_fma_kernel, the second) is a
+// register-tiled f32 product over staged corpus tiles:
+//
+//   - a CTA of 256 threads takes a block of qb queries and a class group of
+//     g rows of every 256-row tile of its split (qb g = 256 TM); a warp's
+//     lanes are 8 classes x 4 queries. A thread owns one class and TN
+//     queries, and its TM x TN micro-tile of accumulators is its class's row
+//     in each of a stage's TM consecutive tiles against those queries. Each
+//     k step reads TM corpus and TN query values from shared memory as
+//     16-byte vectors (8 bytes for bf16 rows) that the warp's other lanes
+//     read too (broadcast), and feeds each corpus value to TN FMAs and each
+//     query value to TM.
+//   - the stage's rows (TM tiles' class-group rows, whole or a k chunk of kc
+//     values when d > kc) stream through a ring of 2-4 shared-memory stages
+//     by 16-byte cp.async (plain loads where rows are not 16-byte aligned),
+//     one barrier a stage, the next stages' copies in flight while the
+//     current one is multiplied. The query block is staged once (d <= kc) or
+//     rides in each stage with its k chunk; the accumulators stay in
+//     registers across k chunks, so each stays one chain in k order.
+//   - K1 keeps its exact per-class top-3 in registers: a thread owns the
+//     same TN (query, class) pairs in every tile, and folds the rows of its
+//     class in tile order, so rows grow along the loop. Taking the
+//     micro-tile's rows from TM tiles of one class, not TM classes of one
+//     tile, keeps those pairs to TN (6 TN tier registers) beside an 8 x 8
+//     tile: with TM classes a thread would own TM TN pairs, 384 tier
+//     registers at 8 x 8, so K1 would be held to 4 x 4 (its first version,
+//     36% of the f32 pipe against K2's 55% at 8 x 8; ab_scan_fma_torch.py).
+//     A distance tile folded from shared memory in a second thread mapping
+//     would need the same registers or 24 bytes of shared memory a pair.
+//   - batches of up to 16 queries take a 4 x 4 tile (a byte-bound pass,
+//     every query in one block), larger ones 8 x 8. The grid is (query
+//     block, class group, split) with the query blocks innermost, so the
+//     CTAs that read one corpus slice run together and find it in L2;
+//     kernels/scan_fused.fma_plan sizes it (one wave) and the stages, from
+//     scripts/ab_scan_fma_torch.py's sweep.
+//
+// q reaches the FMA kernels already rounded to the storage dtype (the
+// wrapper rounds it, as the plain versions do). The first FMA design (one
+// thread a row, 8 queries a CTA, __ldg loads with no stage in flight, 8 FMAs
+// a corpus value and two shared-memory loads of q every 8 FMAs:
+// bin_candidates_kernel, count_below_kernel) stays for timing only (the _v1
+// wrappers); it rounds q itself.
 //
 // Bounds on the H100 at B=256, d=128, n=2^20: 68.7 GFLOP a pass, 0.069 ms on
-// the tensor cores at 989 TFLOP/s, against 0.080 ms for reading the corpus
-// once at 3.35 TB/s: both passes are bound by the corpus bytes (the FMA
-// design took 5.95 ms, 17% of the 67 TFLOP/s f32 pipe). At small B they are
-// bound by the bytes as well. All are built by one nvcc call without
-// --use_fast_math.
+// the tensor cores at 989 TFLOP/s, against 0.080 ms for reading a bf16
+// corpus once at 3.35 TB/s: on bf16 both passes are bound by the corpus
+// bytes. On an f32 corpus the CUDA cores' 67 TFLOP/s bound the pass at
+// 1.026 ms (the first FMA design took 8.2-8.3 ms there, PERF.md); at small B
+// the corpus bytes bound it (0.160 ms at B=8). All are built by one nvcc
+// call without --use_fast_math, and no TF32 or 3xTF32 product: either would
+// change the floats.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "class_top3.cuh"
 
 namespace {
 
-constexpr int kTB = 8;  // queries per CTA of the FMA design
+constexpr int kTB = 8;  // queries per CTA of the first FMA design
 constexpr int kL2 = 0, kIP = 1, kCos = 2;
 
 // ---------------------------------------------------------------------------
-// the FMA design (f32 corpora; bf16 corpora wider than the tensor-core CTA)
+// the first FMA design (timing only: the _v1 wrappers)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float widen(float v) { return v; }
@@ -173,7 +218,7 @@ __device__ __forceinline__ float kernel_space(float acc, float bias, float colsc
 }
 
 // Kernel-space distances of one corpus row to the CTA's 8 queries. The one
-// distance function of the FMA kernels (see the file comment).
+// distance function of the first FMA design's kernels.
 template <typename T, int METRIC>
 __device__ __forceinline__ void row_distances(const float* __restrict__ qs,
                                               const T* __restrict__ xrow, int d, bool vec,
@@ -207,7 +252,7 @@ __device__ __forceinline__ void stage_queries(float* __restrict__ qs, const floa
   __syncthreads();
 }
 
-// K1 scan, FMA design: grid (query block, split), kClasses threads (thread t
+// K1, first FMA design: grid (query block, split), kClasses threads (thread t
 // owns class t: a 256-row tile holds one row of each class). Writes per-split
 // top-3 to part_[dist|row] laid out [split][query][tier][class].
 template <typename T, int METRIC>
@@ -255,7 +300,7 @@ __global__ void __launch_bounds__(kClasses)
   }
 }
 
-// K2, FMA design: grid (query block, split), kClasses threads. lt/le must be
+// K2, first FMA design: grid (query block, split), kClasses threads. lt/le must be
 // zeroed.
 template <typename T, int METRIC>
 __global__ void __launch_bounds__(kClasses)
@@ -624,6 +669,360 @@ __global__ void __launch_bounds__(32 * kMmaWarps, 2)
 }
 
 // ---------------------------------------------------------------------------
+// the FMA design (f32 corpora; bf16 corpora wider than the tensor-core CTA)
+// ---------------------------------------------------------------------------
+
+constexpr int kFmaThreads = 256;
+constexpr int kFmaRowLanes = 8;    // a warp's lanes: 8 rows ...
+constexpr int kFmaQueryLanes = 4;  // ... x 4 queries
+constexpr int kFmaMaxStages = 4;
+
+// The geometry kernels/scan_fused.fma_plan chose.
+struct FmaPlan {
+  int qb;      // queries a CTA
+  int kc;      // k values a stage holds (a multiple of 16); ceil(d / kc) chunks a row
+  int stages;  // ring stages, 2..kFmaMaxStages
+  int splits, tiles_per_split;
+};
+
+// Shared bytes of an FMA CTA whose stages hold tm tiles' g class-group rows:
+// the query block once (d <= kc), then `stages` stages of the rows (row
+// stride kc + one 16-byte pad, odd in 16-byte units: the 8 rows a warp reads
+// at once fall on distinct banks), two f32 a row (bias, colscale) and, when
+// d > kc, the query block's k chunk (row stride kc + 4). Every part is a
+// multiple of 16 bytes.
+template <typename T>
+__host__ __device__ inline int fma_smem_bytes(int d, int tm, int g, const FmaPlan& p) {
+  const int qbytes = p.qb * (p.kc + 4) * 4;
+  const bool chunked = d > p.kc;
+  const int rows = tm * g;
+  const int stage = rows * (p.kc + 16 / static_cast<int>(sizeof(T))) * static_cast<int>(sizeof(T)) +
+                    rows * 8 + (chunked ? qbytes : 0);
+  return (chunked ? 0 : qbytes) + p.stages * stage;
+}
+
+__device__ __forceinline__ void cp_async_wait_ring(int stages) {
+  // every group but the newest stages - 2 has landed
+  if (stages >= 4) {
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  } else if (stages == 3) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// A thread's (row, 16-byte chunk) walk over a block of rows x cpr chunks,
+// stepped by the CTA's width without a division per copy.
+struct ChunkWalk {
+  int r, c, dr, dc;
+  __device__ __forceinline__ explicit ChunkWalk(int cpr)
+      : r(static_cast<int>(threadIdx.x) / cpr), c(static_cast<int>(threadIdx.x) % cpr),
+        dr(kFmaThreads / cpr), dc(kFmaThreads % cpr) {}
+  __device__ __forceinline__ void next(int cpr) {
+    r += dr;
+    c += dc;
+    if (c >= cpr) {
+      c -= cpr;
+      ++r;
+    }
+  }
+};
+
+__device__ __forceinline__ float zero_like(const float*) { return 0.0f; }
+__device__ __forceinline__ __nv_bfloat16 zero_like(const __nv_bfloat16*) {
+  return __float2bfloat16_rn(0.0f);
+}
+
+// 4 consecutive corpus values from shared memory as f32 (bf16 -> f32 is
+// exact: the bf16 bits are the high half of the f32).
+__device__ __forceinline__ void lds4(const float* p, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+}
+
+__device__ __forceinline__ void lds4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(u.x << 16);
+  v[1] = __uint_as_float(u.x & 0xffff0000u);
+  v[2] = __uint_as_float(u.y << 16);
+  v[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+
+// k values [k0, k0 + klen) of the stage's rows: `tiles` 256-row tiles from
+// tile0, each the class group's g rows c0.., stored [tile][row][k] with row
+// stride kp; with_bias also stages their bias [tile][row] and, for cosine,
+// colscale (after `cap` = tm g entries). 16-byte cp.async where rows are
+// 16-byte aligned (klen is then a whole number of copies), plain loads
+// otherwise, zero-filled up to a multiple of 4 (visible after the next
+// __syncthreads).
+template <typename T, int METRIC>
+__device__ __forceinline__ void fma_load_rows(T* __restrict__ dst, float* __restrict__ sb,
+                                              const T* __restrict__ x,
+                                              const float* __restrict__ bias,
+                                              const float* __restrict__ colscale, int tile0,
+                                              int tiles, int c0, int g, int lg_g, int d, int k0,
+                                              int klen, int kp, int cap, bool vec, bool with_bias) {
+  const int rows = tiles << lg_g;
+  if (with_bias) {
+    for (int i = threadIdx.x; i < rows; i += kFmaThreads) {
+      const int row = (tile0 + (i >> lg_g)) * kClasses + c0 + (i & (g - 1));
+      cp_async4(sb + i, bias + row);
+      if (METRIC == kCos) cp_async4(sb + cap + i, colscale + row);
+    }
+  }
+  if (vec) {
+    constexpr int kEpc = 16 / sizeof(T);
+    const int cpr = klen / kEpc;
+    for (ChunkWalk w(cpr); w.r < rows; w.next(cpr)) {
+      const int row = (tile0 + (w.r >> lg_g)) * kClasses + c0 + (w.r & (g - 1));
+      cp_async16(dst + w.r * kp + w.c * kEpc, x + static_cast<size_t>(row) * d + k0 + w.c * kEpc);
+    }
+  } else {
+    const int k4 = (klen + 3) & ~3;
+    for (int i = threadIdx.x; i < rows * k4; i += kFmaThreads) {
+      const int sr = i / k4;
+      const int k = i - sr * k4;
+      const int row = (tile0 + (sr >> lg_g)) * kClasses + c0 + (sr & (g - 1));
+      dst[sr * kp + k] = k < klen ? x[static_cast<size_t>(row) * d + k0 + k] : zero_like(x);
+    }
+  }
+}
+
+// k values [k0, k0 + klen) of queries q0.. (at most qb, fewer past nq: those
+// rows stay zero), stored [query][k] with row stride kq; as fma_load_rows.
+__device__ __forceinline__ void fma_load_queries(float* __restrict__ dst,
+                                                 const float* __restrict__ q, int q0, int nq,
+                                                 int qb, int d, int k0, int klen, int kq,
+                                                 bool vec) {
+  const int nrows = min(qb, nq - q0);
+  if (vec) {
+    const int cpr = klen / 4;
+    for (ChunkWalk w(cpr); w.r < nrows; w.next(cpr)) {
+      cp_async16(dst + w.r * kq + 4 * w.c, q + static_cast<size_t>(q0 + w.r) * d + k0 + 4 * w.c);
+    }
+  } else {
+    const int k4 = (klen + 3) & ~3;
+    for (int i = threadIdx.x; i < nrows * k4; i += kFmaThreads) {
+      const int r = i / k4;
+      const int k = i - r * k4;
+      if (k < klen) {
+        cp_async4(dst + r * kq + k, q + static_cast<size_t>(q0 + r) * d + k0 + k);
+      } else {
+        dst[r * kq + k] = 0.0f;
+      }
+    }
+  }
+}
+
+// The one product of the FMA design: acc[i][j] += q[j][k] x[i][k] over k
+// steps 0..k4n-1 of 4 values, each (i, j) one __fmaf_rn chain in k order.
+// xs points at the thread's row 0 (its rows are xstride apart), qs at its
+// query 0 (its queries are qstride apart). An 8 x 8 tile has 256 FMAs a step
+// to hide the next step's loads; a smaller one unrolls two steps.
+template <typename T, int TM, int TN>
+__device__ __forceinline__ void fma_chunk(const T* __restrict__ xs, int xstride,
+                                          const float* __restrict__ qs, int qstride, int k4n,
+                                          float (&acc)[TM][TN]) {
+  constexpr int kUnroll = TM * TN >= 64 ? 1 : 2;
+#pragma unroll kUnroll
+  for (int k4 = 0; k4 < k4n; ++k4) {
+    float qv[TN][4], xv[TM][4];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) lds4(qs + j * qstride + 4 * k4, qv[j]);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) lds4(xs + i * xstride + 4 * k4, xv[i]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = __fmaf_rn(qv[j][kk], xv[i][kk], acc[i][j]);
+      }
+    }
+  }
+}
+
+// K1 (MODE kModeTop3) and K2 (kModeCount) on the CUDA cores. Grid (query
+// block of p.qb, class group of g, split), kFmaThreads threads; warp w is
+// query warp w % qwarps of row warp w / qwarps, qwarps = p.qb / (4 TN), and
+// g = 8 (8 / qwarps). A ring stage holds TM consecutive tiles' class-group
+// rows; thread (row warp rw, query warp qw, lane l) owns class
+// c0 + 8 rw + l % 8 and queries q0 + 4 TN qw + l / 8 + 4 j, j < TN: its TM x TN
+// micro-tile is its class's row in each of the stage's TM tiles against its
+// TN queries. So a K1 thread owns the same TN (query, class) pairs in every
+// tile and keeps their per-class top-3 in registers, and the rows it folds
+// in grow along the loop. K1 writes per-split tiers to part_[dist|row]
+// [split][query][tier][class]; K2 adds into lt/le, which must be zeroed.
+template <typename T, int METRIC, int MODE, int TM, int TN>
+__global__ void __launch_bounds__(kFmaThreads, 1)
+    scan_fma_kernel(const float* __restrict__ q, const T* __restrict__ x,
+                    const float* __restrict__ bias, const float* __restrict__ colscale,
+                    const float* __restrict__ thresh, int nq, int d, FmaPlan p, int ntiles,
+                    bool xvec, bool qvec, float* __restrict__ part_dist,
+                    int* __restrict__ part_row, int* __restrict__ lt, int* __restrict__ le) {
+  extern __shared__ float4 smem[];
+  const int qwarps = p.qb / (kFmaQueryLanes * TN);
+  const int g = (kFmaThreads / 32 / qwarps) * kFmaRowLanes;  // classes of the CTA
+  const int lg_g = __ffs(g) - 1;
+  const int nk = (d + p.kc - 1) / p.kc;  // k chunks a row
+  const int kp = p.kc + 16 / static_cast<int>(sizeof(T));
+  const int kq = p.kc + 4;
+  const int cap = TM * g;  // rows a stage holds
+  const int qbytes = p.qb * kq * 4;
+  const int xbytes = cap * kp * static_cast<int>(sizeof(T));
+  const int stage_bytes = xbytes + cap * 8 + (nk > 1 ? qbytes : 0);
+  char* const base = reinterpret_cast<char*>(smem);
+  char* const ring = base + (nk > 1 ? 0 : qbytes);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r0 = (warp / qwarps) * kFmaRowLanes + (lane & 7);            // the thread's class
+  const int j0 = (warp % qwarps) * (kFmaQueryLanes * TN) + (lane >> 3);  // queries j0 + 4 j
+  const int q0 = blockIdx.x * p.qb;
+  const int c0 = blockIdx.y * g;
+  const int split = blockIdx.z;
+
+  // zero everything: queries past nq stay 0 (their results are dropped)
+  {
+    const int words = fma_smem_bytes<T>(d, TM, g, p) / 16;
+    for (int i = threadIdx.x; i < words; i += kFmaThreads) smem[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();
+
+  constexpr bool kTop3 = MODE == kModeTop3;
+  float td[kTop3 ? TN : 1][kTiers];
+  int ti[kTop3 ? TN : 1][kTiers];
+  float tau[kTop3 ? 1 : TN];
+  int n_lt[kTop3 ? 1 : TN], n_le[kTop3 ? 1 : TN];
+  if constexpr (kTop3) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+#pragma unroll
+      for (int t = 0; t < kTiers; ++t) {
+        td[j][t] = INFINITY;
+        ti[j][t] = kInvalidId;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int qi = q0 + j0 + kFmaQueryLanes * j;
+      tau[j] = qi < nq ? thresh[qi] : -INFINITY;
+      n_lt[j] = 0;
+      n_le[j] = 0;
+    }
+  }
+
+  const int t0 = split * p.tiles_per_split;
+  const int ntl = min(t0 + p.tiles_per_split, ntiles) - t0;
+  const int total = (ntl + TM - 1) / TM * nk;  // ring stages this split fills
+  auto stage_x = [&](int slot) { return reinterpret_cast<T*>(ring + slot * stage_bytes); };
+  auto stage_b = [&](int slot) {
+    return reinterpret_cast<float*>(ring + slot * stage_bytes + xbytes);
+  };
+  auto stage_q = [&](int slot) {
+    return reinterpret_cast<float*>(ring + slot * stage_bytes + xbytes + cap * 8);
+  };
+  // stage s: tiles t0 + TM (s / nk).., k chunk s % nk
+  auto load = [&](int s, int slot) {
+    const int grp = s / nk;
+    const int kc = s - grp * nk;
+    const int k0 = kc * p.kc;
+    const int klen = min(p.kc, d - k0);
+    fma_load_rows<T, METRIC>(stage_x(slot), stage_b(slot), x, bias, colscale, t0 + grp * TM,
+                             min(TM, ntl - grp * TM), c0, g, lg_g, d, k0, klen, kp, cap, xvec,
+                             kc == nk - 1);
+    if (nk > 1) fma_load_queries(stage_q(slot), q, q0, nq, p.qb, d, k0, klen, kq, qvec);
+  };
+  if (nk == 1) fma_load_queries(reinterpret_cast<float*>(base), q, q0, nq, p.qb, d, 0, d, kq, qvec);
+  for (int s = 0; s < p.stages - 1; ++s) {
+    if (s < total) load(s, s);
+    cp_async_commit();
+  }
+
+  float acc[TM][TN];
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait_ring(p.stages);
+    __syncthreads();  // stage s has landed; stage s - 1's slot is free again
+    if (s + p.stages - 1 < total) load(s + p.stages - 1, (s + p.stages - 1) % p.stages);
+    cp_async_commit();
+
+    const int slot = s % p.stages;
+    const int grp = s / nk;
+    const int kc = s - grp * nk;
+    if (kc == 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+      }
+    }
+    // rows of tiles past the split's end hold stale values: their results
+    // are dropped below
+    fma_chunk<T, TM, TN>(stage_x(slot) + r0 * kp, g * kp,
+                         (nk > 1 ? stage_q(slot) : reinterpret_cast<const float*>(base)) + j0 * kq,
+                         kFmaQueryLanes * kq, (min(p.kc, d - kc * p.kc) + 3) >> 2, acc);
+    if (kc != nk - 1) continue;
+    const float* sb = stage_b(slot) + r0;  // this thread's bias in the stage's tile 0
+    const int tiles = min(TM, ntl - grp * TM);
+    const int row0 = (t0 + grp * TM) * kClasses + c0 + r0;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      if (i >= tiles) break;
+      const float b = sb[i * g];
+      const float cs = METRIC == kCos ? sb[cap + i * g] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float v = kernel_space<METRIC>(acc[i][j], b, cs);
+        if constexpr (kTop3) {
+          // rows only grow along the loop, so (v, row) beats the third tier
+          // iff v is smaller: the usual case is one compare and a reject
+          if (v < td[j][2]) insert3(td[j], ti[j], v, row0 + i * kClasses);
+        } else {
+          n_lt[j] += v < tau[j];
+          n_le[j] += v <= tau[j];
+        }
+      }
+    }
+  }
+  cp_async_wait_ring(2);  // no copy may land after the CTA exits
+
+  if constexpr (kTop3) {
+    const int c = c0 + r0;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int qi = q0 + j0 + kFmaQueryLanes * j;
+      if (qi >= nq) continue;
+#pragma unroll
+      for (int t = 0; t < kTiers; ++t) {
+        const size_t o = ((static_cast<size_t>(split) * nq + qi) * kTiers + t) * kClasses + c;
+        part_dist[o] = td[j][t];
+        part_row[o] = ti[j][t];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      int a = n_lt[j], e = n_le[j];
+#pragma unroll
+      for (int off = 1; off < kFmaRowLanes; off <<= 1) {  // the 8 classes of one query
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+        e += __shfl_xor_sync(0xffffffffu, e, off);
+      }
+      const int qi = q0 + j0 + kFmaQueryLanes * j;
+      if ((lane & 7) == 0 && qi < nq) {
+        if (a) atomicAdd(lt + qi, a);
+        if (e) atomicAdd(le + qi, e);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -668,7 +1067,7 @@ cudaError_t launch_mma(const float* q, const void* x, const float* bias, const f
 }
 
 template <typename T, int METRIC>
-cudaError_t launch_fma_bin(const float* q, const void* x, const float* bias, const float* cs,
+cudaError_t launch_v1_bin(const float* q, const void* x, const float* bias, const float* cs,
                            int nq, int n, int d, int splits, int tiles_per_split,
                            float* part_dist, int* part_row, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(kTB) * d * sizeof(float);
@@ -682,7 +1081,7 @@ cudaError_t launch_fma_bin(const float* q, const void* x, const float* bias, con
 }
 
 template <typename T, int METRIC>
-cudaError_t launch_fma_count(const float* q, const void* x, const float* bias, const float* cs,
+cudaError_t launch_v1_count(const float* q, const void* x, const float* bias, const float* cs,
                              const float* thresh, int nq, int n, int d, int splits,
                              int tiles_per_split, int* lt, int* le, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(kTB) * d * sizeof(float);
@@ -719,28 +1118,30 @@ cudaError_t launch_mma_metric(int metric, const float* q, const void* x, const f
   return cudaErrorInvalidValue;
 }
 
-// The CUDA-core kernel F<T, METRIC> for a runtime dtype (0 = f32, 1 = bf16)
+// f(T{}, integral_constant<METRIC>) for a runtime dtype (0 = f32, 1 = bf16)
 // and metric.
-#define VI_FMA_DISPATCH(FN, ...)                                                              \
-  do {                                                                                        \
-    if (dtype == 0 && metric == kL2) return static_cast<int>(FN<float, kL2>(__VA_ARGS__));     \
-    if (dtype == 0 && metric == kIP) return static_cast<int>(FN<float, kIP>(__VA_ARGS__));     \
-    if (dtype == 0 && metric == kCos) return static_cast<int>(FN<float, kCos>(__VA_ARGS__));   \
-    if (dtype == 1 && metric == kL2)                                                          \
-      return static_cast<int>(FN<__nv_bfloat16, kL2>(__VA_ARGS__));                           \
-    if (dtype == 1 && metric == kIP)                                                          \
-      return static_cast<int>(FN<__nv_bfloat16, kIP>(__VA_ARGS__));                           \
-    if (dtype == 1 && metric == kCos)                                                         \
-      return static_cast<int>(FN<__nv_bfloat16, kCos>(__VA_ARGS__));                          \
-    return static_cast<int>(cudaErrorInvalidValue);                                           \
-  } while (0)
+template <typename F>
+cudaError_t with_dtype_metric(int dtype, int metric, F&& f) {
+  using L2 = std::integral_constant<int, kL2>;
+  using IP = std::integral_constant<int, kIP>;
+  using Cos = std::integral_constant<int, kCos>;
+  if (dtype == 0 && metric == kL2) return f(float{}, L2{});
+  if (dtype == 0 && metric == kIP) return f(float{}, IP{});
+  if (dtype == 0 && metric == kCos) return f(float{}, Cos{});
+  if (dtype == 1 && metric == kL2) return f(__nv_bfloat16{}, L2{});
+  if (dtype == 1 && metric == kIP) return f(__nv_bfloat16{}, IP{});
+  if (dtype == 1 && metric == kCos) return f(__nv_bfloat16{}, Cos{});
+  return cudaErrorInvalidValue;
+}
 
 int scan_bin(const float* q, const void* x, const float* bias, const float* cs, int nq, int n,
              int d, int dtype, int metric, MmaGrid g, float* part_dist, int* part_row,
              cudaStream_t stream) {
-  if (g.qwarps == 0) {
-    VI_FMA_DISPATCH(launch_fma_bin, q, x, bias, cs, nq, n, d, g.splits, g.tiles_per_split,
-                    part_dist, part_row, stream);
+  if (g.qwarps == 0) {  // the first FMA design
+    return static_cast<int>(with_dtype_metric(dtype, metric, [&](auto t, auto m) {
+      return launch_v1_bin<decltype(t), decltype(m)::value>(
+          q, x, bias, cs, nq, n, d, g.splits, g.tiles_per_split, part_dist, part_row, stream);
+    }));
   }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_mma_metric<kModeTop3>(
@@ -751,13 +1152,65 @@ int scan_bin(const float* q, const void* x, const float* bias, const float* cs, 
 int scan_count(const float* q, const void* x, const float* bias, const float* cs,
                const float* thresh, int nq, int n, int d, int dtype, int metric, MmaGrid g,
                int* lt, int* le, cudaStream_t stream) {
-  if (g.qwarps == 0) {
-    VI_FMA_DISPATCH(launch_fma_count, q, x, bias, cs, thresh, nq, n, d, g.splits,
-                    g.tiles_per_split, lt, le, stream);
+  if (g.qwarps == 0) {  // the first FMA design
+    return static_cast<int>(with_dtype_metric(dtype, metric, [&](auto t, auto m) {
+      return launch_v1_count<decltype(t), decltype(m)::value>(
+          q, x, bias, cs, thresh, nq, n, d, g.splits, g.tiles_per_split, lt, le, stream);
+    }));
   }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_mma_metric<kModeCount>(
       metric, q, x, bias, cs, thresh, nq, n, d, g, nullptr, nullptr, lt, le, stream));
+}
+
+// The FMA design (scan_fma_kernel with a TM x TM micro-tile) under plan p.
+template <typename T, int METRIC, int MODE, int TM>
+cudaError_t launch_fma(const float* q, const void* x, const float* bias, const float* cs,
+                       const float* thresh, int nq, int n, int d, FmaPlan p, float* part_dist,
+                       int* part_row, int* lt, int* le, cudaStream_t stream) {
+  const int qwarps = p.qb / (kFmaQueryLanes * TM);
+  if (qwarps < 1 || p.qb % (kFmaQueryLanes * TM) != 0 || (kFmaThreads / 32) % qwarps != 0 ||
+      p.kc < 16 || p.kc % 16 != 0 || p.stages < 2 || p.stages > kFmaMaxStages || p.splits < 1 ||
+      p.tiles_per_split < 1) {
+    return cudaErrorInvalidValue;
+  }
+  const int g = (kFmaThreads / 32 / qwarps) * kFmaRowLanes;
+  auto kernel = scan_fma_kernel<T, METRIC, MODE, TM, TM>;
+  const size_t smem = static_cast<size_t>(fma_smem_bytes<T>(d, TM, g, p));
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const bool xvec = static_cast<size_t>(d) * sizeof(T) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool qvec = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  const dim3 grid((nq + p.qb - 1) / p.qb, kClasses / g, p.splits);
+  kernel<<<grid, kFmaThreads, smem, stream>>>(q, static_cast<const T*>(x), bias, cs, thresh, nq,
+                                              d, p, n / kClasses, xvec, qvec, part_dist,
+                                              part_row, lt, le);
+  return cudaGetLastError();
+}
+
+template <int MODE, int TM>
+cudaError_t fma_dispatch(int dtype, int metric, const float* q, const void* x, const float* bias,
+                         const float* cs, const float* thresh, int nq, int n, int d, FmaPlan p,
+                         float* part_dist, int* part_row, int* lt, int* le, cudaStream_t stream) {
+  return with_dtype_metric(dtype, metric, [&](auto t, auto m) {
+    return launch_fma<decltype(t), decltype(m)::value, MODE, TM>(
+        q, x, bias, cs, thresh, nq, n, d, p, part_dist, part_row, lt, le, stream);
+  });
+}
+
+template <int MODE, int TM>
+cudaError_t fma_attributes(int dtype, int metric, int* regs, int* local_bytes) {
+  return with_dtype_metric(dtype, metric, [&](auto t, auto m) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(
+        &a, scan_fma_kernel<decltype(t), decltype(m)::value, MODE, TM, TM>);
+    if (err == cudaSuccess) {
+      *regs = a.numRegs;
+      *local_bytes = static_cast<int>(a.localSizeBytes);
+    }
+    return err;
+  });
 }
 
 }  // namespace
@@ -766,8 +1219,8 @@ extern "C" {
 
 // K1. q [nq, d] f32; x [n, d] (dtype), n a multiple of 256; bias, colscale
 // [n] f32 (colscale read for cosine only); part_* [splits, nq, 3, 256]
-// scratch; out_* [nq, 3, 256]. qwarps = 0 runs the FMA design (f32, or bf16
-// past the tensor-core limit); otherwise the tensor-core design (bf16) with qwarps x cwarps
+// scratch; out_* [nq, 3, 256]. qwarps = 0 runs the first FMA design (timing
+// only); otherwise the tensor-core design (bf16) with qwarps x cwarps
 // warps and ring stages of tiles_per_stage tiles. Returns cudaGetLastError().
 int vi_bin_candidates(const void* q, const void* x, const void* bias, const void* colscale,
                       int nq, int n, int d, int dtype, int metric, int qwarps, int cwarps,
@@ -819,6 +1272,74 @@ int vi_count_below(const void* q, const void* x, const void* bias, const void* c
                     MmaGrid{qwarps, cwarps, tiles_per_stage, splits, tiles_per_split, 1},
                     static_cast<int*>(lt), static_cast<int*>(le),
                     static_cast<cudaStream_t>(stream));
+}
+
+// K1, FMA design: as vi_bin_candidates, with q [nq, d] already rounded to
+// the storage dtype, micro-tile edge tm (4 or 8) and the plan of
+// kernels/scan_fused.fma_plan.
+int vi_bin_candidates_fma(const void* q, const void* x, const void* bias, const void* colscale,
+                          int nq, int n, int d, int dtype, int metric, int tm, int qb, int kc,
+                          int stages, int splits, int tiles_per_split, void* part_dist,
+                          void* part_row, void* out_dist, void* out_row, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const FmaPlan p{qb, kc, stages, splits, tiles_per_split};
+  const auto* qf = static_cast<const float*>(q);
+  const auto* bf = static_cast<const float*>(bias);
+  const auto* cf = static_cast<const float*>(colscale);
+  float* pd = static_cast<float*>(part_dist);
+  int* pr = static_cast<int*>(part_row);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (tm == 4) {
+    err = fma_dispatch<kModeTop3, 4>(dtype, metric, qf, x, bf, cf, nullptr, nq, n, d, p, pd, pr,
+                                     nullptr, nullptr, s);
+  } else if (tm == 8) {
+    err = fma_dispatch<kModeTop3, 8>(dtype, metric, qf, x, bf, cf, nullptr, nq, n, d, p, pd, pr,
+                                     nullptr, nullptr, s);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_merge_splits(pd, pr, nq, splits, static_cast<float*>(out_dist),
+                                              static_cast<int*>(out_row), s));
+}
+
+// K2, FMA design: as vi_count_below, with q rounded as for
+// vi_bin_candidates_fma and micro-tile edge tm (4 or 8).
+int vi_count_below_fma(const void* q, const void* x, const void* bias, const void* colscale,
+                       const void* thresh, int nq, int n, int d, int dtype, int metric, int tm,
+                       int qb, int kc, int stages, int splits, int tiles_per_split, void* lt,
+                       void* le, void* stream) {
+  const FmaPlan p{qb, kc, stages, splits, tiles_per_split};
+  const auto* qf = static_cast<const float*>(q);
+  const auto* bf = static_cast<const float*>(bias);
+  const auto* cf = static_cast<const float*>(colscale);
+  const auto* tf = static_cast<const float*>(thresh);
+  int* l = static_cast<int*>(lt);
+  int* e = static_cast<int*>(le);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tm == 4) {
+    return static_cast<int>(fma_dispatch<kModeCount, 4>(dtype, metric, qf, x, bf, cf, tf, nq, n,
+                                                        d, p, nullptr, nullptr, l, e, s));
+  }
+  if (tm == 8) {
+    return static_cast<int>(fma_dispatch<kModeCount, 8>(dtype, metric, qf, x, bf, cf, tf, nq, n,
+                                                        d, p, nullptr, nullptr, l, e, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Registers a thread and local (spilled) bytes of the FMA design's kernel
+// for dtype, metric, K1 (mode 0) or K2 (mode 2) and tm (4 or 8).
+int vi_scan_fma_attributes(int dtype, int metric, int mode, int tm, int* regs, int* local_bytes) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (mode == kModeTop3 && tm == 4) {
+    err = fma_attributes<kModeTop3, 4>(dtype, metric, regs, local_bytes);
+  } else if (mode == kModeTop3 && tm == 8) {
+    err = fma_attributes<kModeTop3, 8>(dtype, metric, regs, local_bytes);
+  } else if (mode == kModeCount && tm == 4) {
+    err = fma_attributes<kModeCount, 4>(dtype, metric, regs, local_bytes);
+  } else if (mode == kModeCount && tm == 8) {
+    err = fma_attributes<kModeCount, 8>(dtype, metric, regs, local_bytes);
+  }
+  return static_cast<int>(err);
 }
 
 const char* vi_error_string(int err) {

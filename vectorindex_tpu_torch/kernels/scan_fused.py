@@ -23,28 +23,33 @@ q is rounded to the corpus dtype before the product. The CUDA kernels live in
 csrc/scan_fused.cu, in two designs that `scan_design` chooses from the
 corpus dtype and width: on a bf16 corpus up to d = 2,400 the tensor cores
 (mma.sync, f32 accumulation); on an f32 corpus, and on bf16 past 2,400, the
-CUDA cores (one f32 FMA chain per dot product) up to d = 7,264; past that no
-kernel fits and callers take ops/scan.scan_topk_strict. `bin_candidates_ref` and `count_below_ref` are
+CUDA cores (one f32 FMA chain per dot product, register-tiled over staged
+corpus tiles; `fma_plan` sizes each launch) up to d = 7,264; past that
+callers take ops/scan.scan_topk_verified or scan_topk_strict.
+`bin_candidates_ref` and `count_below_ref` are
 their plain PyTorch versions: CPU tensors take them, CUDA tensors always
 launch the kernel. The plain versions share one distance function with one
 chunking, so on a given device K2-ref recomputes K1-ref's floats bit for bit
 too. Kernel against plain version: equal bit for bit on f32 corpora and on
 integer-valued bf16 data (every partial sum exact); on other bf16 data each
 kernel distance lies within 2 d 2^-23 sum_k |q_k x_k| (times 2 for L2,
-times colscale for cosine) of the exact one, as the tensor cores' sum order
-is not cuBLAS's.
+times colscale for cosine) of the exact one, as the tensor cores' and
+cuBLAS's sum orders differ. The FMA design computes the same floats as its
+first design (one thread a row, 8 queries a CTA), which stays as
+`bin_candidates_fma_v1` / `count_below_fma_v1` for timing only.
 
 K11 `bin_candidates_tree` (the round-5 A/B kernel of scripts/ab_flat_tree.py,
 mode "tree") is K1 keeping, per query, class and block of `tile` rows, only
 the block's smallest distance and its first row, folded into the same 3
-tiers. `bin_candidates_fma` runs K1's earlier CUDA-core design on a bf16
-corpus, for the A/B only (scripts/ab_flat_tree_torch.py).
+tiers. `bin_candidates_fma` runs K1's FMA design on any corpus dtype, for
+the A/B of scripts/ab_flat_tree_torch.py (the CUDA-core design on bf16
+rows); scripts/ab_scan_fma_torch.py sweeps the design's plans.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -56,8 +61,6 @@ Tensor = torch.Tensor
 #: residue classes per query (rows per tile); candidates per query = TIERS*C
 C = 256
 TIERS = 3
-#: queries per CTA of the CUDA-core (f32) kernels (csrc/scan_fused.cu kTB)
-QUERY_BLOCK = 8
 #: the tensor-core (bf16) kernels: a warp computes MMA_TILE corpus rows x
 #: MMA_TILE queries; a CTA holds up to MMA_WARPS warps, split into query and
 #: class warps, and streams its rows through MMA_STAGES shared-memory stages
@@ -67,10 +70,35 @@ QUERY_BLOCK = 8
 MMA_TILE, MMA_WARPS, MMA_STAGES, MMA_STAGE_ROWS, MMA_PAD = 16, 8, 2, 128, 8
 #: the H100's SMs, and the shared memory of one SM
 SMS, SM_SMEM_BYTES = 132, 233_472
-#: CTAs a pass of the CUDA-core kernels aims for: 4 per SM
+#: CTAs a pass of the first FMA design aims for: 4 per SM
 TARGET_CTAS = 4 * SMS
 #: most shared memory a CTA may use
 MAX_SMEM_BYTES = 232_448
+#: queries per CTA of the first FMA design (csrc/scan_fused.cu kTB); its
+#: query block in shared memory bounds the FMA route, d <= FMA_MAX_D = 7,264,
+#: which scan_design keeps
+V1_QUERY_BLOCK = 8
+FMA_MAX_D = MAX_SMEM_BYTES // (4 * V1_QUERY_BLOCK)
+#: the FMA design (csrc scan_fma_kernel): FMA_THREADS threads a CTA, a warp's
+#: lanes FMA_ROW_LANES classes x FMA_QUERY_LANES queries; a thread owns one
+#: class and tm queries, and its tm x tm micro-tile is its class's row in
+#: each of a stage's tm tiles against its queries. A CTA covers qb queries x
+#: g = 8 FMA_THREADS / (32 qb / (4 tm)) classes
+FMA_THREADS, FMA_ROW_LANES, FMA_QUERY_LANES = 256, 8, 4
+#: query blocks each micro-tile edge takes, and the balanced one (a stage's
+#: tm g rows = qb: the fewest staged bytes a product)
+FMA_QUERY_BLOCKS = {4: (16, 32, 64, 128), 8: (32, 64, 128, 256)}
+FMA_BALANCED_QB = {4: 64, 8: 128}
+#: batches up to this many queries take the 4 x 4 tile (a byte-bound pass:
+#: every class in one CTA, fewer padded queries), larger ones 8 x 8
+FMA_SMALL_BATCH = 16
+#: k chunks (multiples of 16) tried, largest first, when a whole row's stage
+#: does not fit; ring stages tried, in order; at most FMA_MAX_STAGES
+FMA_K_CHUNKS = (512, 256, 128, 64, 32, 16)
+FMA_STAGES, FMA_MAX_STAGES = (3, 2), 4
+#: registers a thread may hold live in the loop (fma_registers); ptxas keeps
+#: the rest of its 255 for addresses and loop state
+FMA_REG_BUDGET = 200
 #: corpus rows per distance chunk in the plain versions
 REF_CHUNK = 256 * C
 
@@ -79,7 +107,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches per wrapper since the last reset (plain versions do not count)
 LAUNCHES = dict.fromkeys(
-    ("bin_candidates", "count_below", "bin_candidates_tree", "bin_candidates_fma"), 0)
+    ("bin_candidates", "count_below", "bin_candidates_tree", "bin_candidates_fma",
+     "bin_candidates_fma_v1", "count_below_fma_v1"), 0)
 #: K1's and K2's launches by the design they ran (scan_design)
 DESIGN_LAUNCHES = {design: {"bin_candidates": 0, "count_below": 0} for design in ("mma", "fma")}
 
@@ -276,28 +305,28 @@ def scan_design(d: int, dtype: torch.dtype) -> str:
     """The design K1 and K2 run over a corpus of this width and dtype:
     "mma" (tensor cores) for bf16 while the smallest tensor-core CTA fits in
     shared memory (d <= 2,400), "fma" (CUDA cores) for f32 and for bf16 past
-    that while the FMA query block fits (d <= 7,264), else "strict": no
-    kernel fits, and models/flat takes ops/scan.scan_topk_verified at
-    large capacity, scan_topk_strict below it (the kernels' _grid raises
-    there). K1 and K2 both take their design from
+    that up to FMA_MAX_D (7,264), else "strict": models/flat takes
+    ops/scan.scan_topk_verified at large capacity, scan_topk_strict below it
+    (fma_plan and _grid raise there). K1 and K2 both take their design from
     here: the exactness proof needs K2 to recompute K1's floats bit for bit,
     so they must never run two designs on one corpus. (K11 stays on the
     tensor cores.)"""
     if dtype == torch.bfloat16 and _mma_smem(d, 1, 1, 1) <= MAX_SMEM_BYTES:
         return "mma"
-    if QUERY_BLOCK * d * 4 <= MAX_SMEM_BYTES:
+    if d <= FMA_MAX_D:
         return "fma"
     return "strict"
 
 
 def _grid(nq: int, n: int, d: int, mma: bool, block_tiles: int = 1) -> Tuple[int, ...]:
     """(query warps, class warps, tiles per stage, splits, tiles per split)
-    of a pass over n rows; query warps 0 selects the CUDA-core (FMA)
-    design."""
+    of a tensor-core pass over n rows (mma), or of the first FMA design's
+    (query warps 0: query blocks of V1_QUERY_BLOCK, about TARGET_CTAS
+    CTAs). The FMA design takes fma_plan's plan instead."""
     if not mma:
-        if QUERY_BLOCK * d * 4 > MAX_SMEM_BYTES:
+        if V1_QUERY_BLOCK * d * 4 > MAX_SMEM_BYTES:
             raise ValueError(f"d={d} exceeds the kernels' shared-memory limit")
-        return (0, 0, 0) + _splits(-(-TARGET_CTAS // -(-nq // QUERY_BLOCK)), n // C)
+        return (0, 0, 0) + _splits(-(-TARGET_CTAS // -(-nq // V1_QUERY_BLOCK)), n // C)
     qw, cw, tps = _mma_config(nq, d)
     ctas = -(-nq // (MMA_TILE * qw)) * (C // (MMA_TILE * cw))
     # one wave of resident CTAs (at most 2 an SM; 1 KB of each SM's shared
@@ -305,6 +334,130 @@ def _grid(nq: int, n: int, d: int, mma: bool, block_tiles: int = 1) -> Tuple[int
     # CTA's run of tiles and the rarer its per-class inserts
     resident = SMS * min(2, SM_SMEM_BYTES // (_mma_smem(d, qw, cw, tps) + 1024))
     return (qw, cw, tps) + _splits(resident // ctas, n // C, math.lcm(tps, block_tiles))
+
+
+class FmaPlan(NamedTuple):
+    """One launch of the FMA design (csrc scan_fma_kernel)."""
+
+    tm: int  # micro-tile edge: a thread's class in tm tiles x tm queries
+    qb: int  # queries a CTA
+    g: int  # classes a CTA: its rows of each 256-row tile
+    kc: int  # k values a stage holds; d > kc streams each row in chunks
+    stages: int  # shared-memory ring stages of tm tiles' g rows
+    splits: int
+    tiles_per_split: int
+    smem: int  # shared bytes a CTA
+
+
+def fma_smem(d: int, itemsize: int, tm: int, qb: int, g: int, kc: int, stages: int) -> int:
+    """Shared bytes of an FMA CTA (csrc fma_smem_bytes): the query block once
+    (d <= kc), then `stages` stages of tm tiles' g rows (row stride kc + one
+    16-byte pad), two f32 a row (bias, colscale) and, when d > kc, the query
+    block's k chunk (row stride kc + 4 f32)."""
+    qbytes = qb * (kc + 4) * 4
+    chunked = d > kc
+    rows = tm * g
+    stage = rows * (kc + 16 // itemsize) * itemsize + rows * 8 + (qbytes if chunked else 0)
+    return (0 if chunked else qbytes) + stages * stage
+
+
+def fma_registers(tm: int, kernel: str) -> int:
+    """Registers a thread of the FMA design holds live in its loop: tm x tm
+    accumulators, one k step's fragments (4 values of each of its tm rows
+    and tm queries) and K1's tiers (a distance and a row in each of 3 tiers
+    of its tm (query, class) pairs) or K2's tau and two counts a query."""
+    own = 2 * TIERS * tm if kernel == "bin_candidates" else 3 * tm
+    return tm * tm + 2 * 4 * tm + own
+
+
+def fma_plan(nq: int, n: int, d: int, dtype: torch.dtype, kernel: str, *,
+             tm: Optional[int] = None, qb: Optional[int] = None, kc: Optional[int] = None,
+             stages: Optional[int] = None, splits: Optional[int] = None) -> FmaPlan:
+    """The FMA design's launch for `kernel` ("bin_candidates" or
+    "count_below") over nq queries and n rows of width d: an 8 x 8
+    micro-tile and the smallest query block that holds the batch, up to the
+    balanced one; small batches (B <= FMA_SMALL_BATCH, bound by the corpus
+    bytes) 4 x 4 with every query in one block. Whole rows a stage where a
+    ring of FMA_STAGES fits, else the largest k chunk that does; one CTA an
+    SM (the micro-tile's registers allow no second) and as many row splits
+    as fill the card once, with the query blocks innermost. Keyword
+    arguments override a choice (the sweep of scripts/ab_scan_fma_torch.py);
+    a plan that does not fit raises."""
+    if kernel not in ("bin_candidates", "count_below"):
+        raise ValueError(f"fma_plan plans bin_candidates or count_below, got {kernel}")
+    if d > FMA_MAX_D:
+        raise ValueError(f"d={d} exceeds the kernels' shared-memory limit (the FMA route takes "
+                         f"d <= {FMA_MAX_D})")
+    if tm is None:
+        tm = 4 if nq <= FMA_SMALL_BATCH else 8
+    if tm not in FMA_QUERY_BLOCKS:
+        raise ValueError(f"{kernel} takes no {tm} x {tm} micro-tile")
+    blocks = FMA_QUERY_BLOCKS[tm]
+    if qb is None:
+        want = min(nq, FMA_BALANCED_QB[tm])
+        qb = next(b for b in blocks if b >= want)
+    if qb not in blocks:
+        raise ValueError(f"qb={qb} is not one of {blocks} for a {tm} x {tm} micro-tile")
+    g = FMA_ROW_LANES * (FMA_THREADS // 32) * FMA_QUERY_LANES * tm // qb
+    item = 2 if dtype == torch.bfloat16 else 4
+    whole = -(-d // 16) * 16
+    ring = [stages] if stages is not None else list(FMA_STAGES)
+    if kc is not None:
+        order = [(kc, s) for s in ring]
+    else:  # whole rows, else the largest chunk, in the deepest ring that fits
+        chunks = [c for c in FMA_K_CHUNKS if c < whole]
+        order = [(c, s) for c in [whole] + chunks for s in ring]
+    fits = [(c, s) for c, s in order if fma_smem(d, item, tm, qb, g, c, s) <= MAX_SMEM_BYTES]
+    if not fits:
+        raise ValueError(f"no FMA stage ring fits d={d} at qb={qb}, tm={tm}")
+    kc, stages = fits[0]
+    if kc % 16 or kc < 16 or not 2 <= stages <= FMA_MAX_STAGES:
+        raise ValueError(f"kc={kc} must be a multiple of 16, stages={stages} in 2..{FMA_MAX_STAGES}")
+    columns = -(-nq // qb) * (C // g)
+    ntiles = max(1, n // C)
+    want = max(1, SMS // columns) if splits is None else splits
+    # a multiple of tm tiles a split: only the last split ends mid-stage
+    per = -(-(-(-ntiles // min(want, ntiles))) // tm) * tm
+    splits = -(-ntiles // per)
+    return FmaPlan(tm, qb, g, kc, stages, splits, per, fma_smem(d, item, tm, qb, g, kc, stages))
+
+
+def fma_thread_map(plan: FmaPlan) -> Tuple[Tensor, Tensor]:
+    """(classes [FMA_THREADS], queries [FMA_THREADS, tm]): the class (within
+    the CTA's group) and the block queries each thread of an FMA CTA owns,
+    as csrc scan_fma_kernel maps them: thread t is lane t % 32 of warp
+    t // 32; warp w is query warp w % qwarps of row warp w // qwarps; class
+    8 rw + lane % 8, queries j0 + 4 j. Its rows are its class's in every
+    tile."""
+    qwarps = plan.qb // (FMA_QUERY_LANES * plan.tm)
+    t = torch.arange(FMA_THREADS)
+    warp, lane = t // 32, t % 32
+    cls = (warp // qwarps) * FMA_ROW_LANES + lane % FMA_ROW_LANES
+    j0 = (warp % qwarps) * (FMA_QUERY_LANES * plan.tm) + lane // FMA_ROW_LANES
+    return cls, j0[:, None] + FMA_QUERY_LANES * torch.arange(plan.tm)
+
+
+def fma_attributes() -> dict:
+    """{(kernel, dtype, metric, tm): (registers a thread, local bytes a
+    thread)} of every kernel of the FMA design, from the CUDA runtime: local
+    bytes above 0 mean ptxas spilled."""
+    import ctypes
+
+    from vectorindex_tpu_torch.kernels import _build
+
+    lib = _build.load()
+    out = {}
+    for kernel, mode, tms in (("bin_candidates", 0, (4, 8)), ("count_below", 2, (4, 8))):
+        for dtype, dcode in _DTYPE_CODE.items():
+            for metric, mcode in _METRIC_CODE.items():
+                for tm in tms:
+                    regs, local = ctypes.c_int(), ctypes.c_int()
+                    err = lib.vi_scan_fma_attributes(dcode, mcode, mode, tm, ctypes.byref(regs),
+                                                     ctypes.byref(local))
+                    _build.check(lib, err, "vi_scan_fma_attributes")
+                    out[(kernel, str(dtype).split(".")[-1], metric.value, tm)] = (regs.value,
+                                                                                 local.value)
+    return out
 
 
 def _ptr(t: Optional[Tensor]) -> Optional[int]:
@@ -317,7 +470,8 @@ def _stream(x: Tensor) -> int:
 
 def _launch_candidates(name: str, q: Tensor, x: Tensor, bias: Tensor, colscale: Optional[Tensor],
                        metric: Metric, mma: bool, tile: int = C) -> Tuple[Tensor, Tensor]:
-    """Launch K1 (`tile` = C) or K11 and the split merge -> (dist, row)."""
+    """Launch K1 on the tensor cores (mma) or in its first FMA design, or
+    K11 (`tile` > C), and the split merge -> (dist, row)."""
     from vectorindex_tpu_torch.kernels import _build
 
     nq, d = q.shape
@@ -344,8 +498,40 @@ def _launch_candidates(name: str, q: Tensor, x: Tensor, bias: Tensor, colscale: 
         )
     _build.check(lib, err, name)
     LAUNCHES[name] += 1
-    if name == "bin_candidates":
-        DESIGN_LAUNCHES["mma" if mma else "fma"][name] += 1
+    return out_d, out_i
+
+
+def _storage_rounded(q: Tensor, dtype: torch.dtype) -> Tensor:
+    """q rounded to the corpus dtype, as f32: the FMA design's operand (the
+    plain versions round the same way)."""
+    return q if dtype == torch.float32 else q.to(dtype).float()
+
+
+def _fma_candidates(name: str, q: Tensor, x: Tensor, bias: Tensor, colscale: Optional[Tensor],
+                    metric: Metric, plan: Optional[FmaPlan]) -> Tuple[Tensor, Tensor]:
+    """Launch K1 in the FMA design (fma_plan's plan unless given) and the
+    split merge -> (dist, row)."""
+    from vectorindex_tpu_torch.kernels import _build
+
+    nq, d = q.shape
+    n = x.shape[0]
+    out_d = torch.empty((nq, TIERS, C), dtype=torch.float32, device=x.device)
+    out_i = torch.empty((nq, TIERS, C), dtype=torch.int32, device=x.device)
+    if nq == 0 or n == 0:
+        return out_d.fill_(INVALID_DIST), out_i.fill_(INVALID_ID)
+    p = plan or fma_plan(nq, n, d, x.dtype, "bin_candidates")
+    qk = _storage_rounded(q, x.dtype)
+    part_d = torch.empty((p.splits, nq, TIERS, C), dtype=torch.float32, device=x.device)
+    part_i = torch.empty((p.splits, nq, TIERS, C), dtype=torch.int32, device=x.device)
+    lib = _build.load()
+    err = lib.vi_bin_candidates_fma(
+        qk.data_ptr(), x.data_ptr(), bias.data_ptr(), _ptr(colscale), nq, n, d,
+        _DTYPE_CODE[x.dtype], _METRIC_CODE[metric], p.tm, p.qb, p.kc, p.stages, p.splits,
+        p.tiles_per_split, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), _stream(x),
+    )
+    _build.check(lib, err, name)
+    LAUNCHES[name] += 1
     return out_d, out_i
 
 
@@ -358,20 +544,37 @@ def bin_candidates(
     _check_inputs(q, x, bias, colscale, metric)
     if x.device.type == "cpu":
         return bin_candidates_ref(q, x, bias, colscale, metric=metric)
-    return _launch_candidates("bin_candidates", q, x, bias, colscale, metric,
-                              mma=scan_design(x.shape[1], x.dtype) == "mma")
+    design = scan_design(x.shape[1], x.dtype)
+    if design == "mma":
+        out = _launch_candidates("bin_candidates", q, x, bias, colscale, metric, mma=True)
+    else:
+        out = _fma_candidates("bin_candidates", q, x, bias, colscale, metric, None)
+    DESIGN_LAUNCHES[design]["bin_candidates"] += 1
+    return out
 
 
 def bin_candidates_fma(
     q: Tensor, x: Tensor, bias: Tensor, colscale: Optional[Tensor], *, metric: Metric
 ) -> Tuple[Tensor, Tensor]:
-    """K1 on the CUDA cores whatever the corpus dtype: on bf16 the earlier
-    design of K1, kept to time against the tensor-core one
+    """K1 in the FMA design whatever the corpus dtype: on narrow bf16 rows
+    the CUDA-core design the tensor-core one replaced, for the A/B
     (scripts/ab_flat_tree_torch.py). CUDA tensors only."""
     _check_inputs(q, x, bias, colscale, metric)
     if x.device.type == "cpu":
         raise ValueError("bin_candidates_fma times a CUDA kernel: pass CUDA tensors")
-    return _launch_candidates("bin_candidates_fma", q, x, bias, colscale, metric, mma=False)
+    return _fma_candidates("bin_candidates_fma", q, x, bias, colscale, metric, None)
+
+
+def bin_candidates_fma_v1(
+    q: Tensor, x: Tensor, bias: Tensor, colscale: Optional[Tensor], *, metric: Metric
+) -> Tuple[Tensor, Tensor]:
+    """K1 in its first FMA design (one thread a row, 8 queries a CTA), kept
+    to time the FMA design against; never on a main path. CUDA tensors
+    only."""
+    _check_inputs(q, x, bias, colscale, metric)
+    if x.device.type == "cpu":
+        raise ValueError("bin_candidates_fma_v1 times a CUDA kernel: pass CUDA tensors")
+    return _launch_candidates("bin_candidates_fma_v1", q, x, bias, colscale, metric, mma=False)
 
 
 def bin_candidates_tree(
@@ -395,6 +598,48 @@ def bin_candidates_tree(
     return _launch_candidates("bin_candidates_tree", q, x, bias, None, metric, mma=True, tile=tile)
 
 
+def _check_thresh(q: Tensor, x: Tensor, thresh: Tensor) -> None:
+    if thresh.dtype != torch.float32 or thresh.shape != (q.shape[0],):
+        raise ValueError(f"thresh must be float32 [{q.shape[0]}]")
+    if thresh.device != x.device or not thresh.is_contiguous():
+        raise ValueError("thresh must be contiguous and on the corpus device")
+
+
+def _launch_counts(name: str, q: Tensor, x: Tensor, bias: Tensor, colscale: Optional[Tensor],
+                   thresh: Tensor, metric: Metric, design: str,
+                   plan: Optional[FmaPlan] = None) -> Tuple[Tensor, Tensor]:
+    """Launch K2 in `design` ("mma", "fma" under fma_plan's plan unless
+    given, or "v1", the first FMA design) -> (lt, le)."""
+    from vectorindex_tpu_torch.kernels import _build
+
+    nq, d = q.shape
+    n = x.shape[0]
+    # zeroed, not empty: the kernel adds into them with atomics
+    lt = torch.zeros(nq, dtype=torch.int32, device=x.device)
+    le = torch.zeros(nq, dtype=torch.int32, device=x.device)
+    if nq == 0 or n == 0:
+        return lt, le
+    lib = _build.load()
+    if design == "fma":
+        p = plan or fma_plan(nq, n, d, x.dtype, "count_below")
+        qk = _storage_rounded(q, x.dtype)
+        err = lib.vi_count_below_fma(
+            qk.data_ptr(), x.data_ptr(), bias.data_ptr(), _ptr(colscale), thresh.data_ptr(),
+            nq, n, d, _DTYPE_CODE[x.dtype], _METRIC_CODE[metric], p.tm, p.qb, p.kc,
+            p.stages, p.splits, p.tiles_per_split, lt.data_ptr(), le.data_ptr(), _stream(x),
+        )
+    else:
+        qw, cw, tps, splits, per = _grid(nq, n, d, mma=design == "mma")
+        err = lib.vi_count_below(
+            q.data_ptr(), x.data_ptr(), bias.data_ptr(), _ptr(colscale),
+            thresh.data_ptr(), nq, n, d, _DTYPE_CODE[x.dtype], _METRIC_CODE[metric],
+            qw, cw, tps, splits, per, lt.data_ptr(), le.data_ptr(), _stream(x),
+        )
+    _build.check(lib, err, name)
+    LAUNCHES[name] += 1
+    return lt, le
+
+
 def count_below(
     q: Tensor,
     x: Tensor,
@@ -405,35 +650,35 @@ def count_below(
     metric: Metric,
 ) -> Tuple[Tensor, Tensor]:
     """K2 -> (lt [B] int32, le [B] int32). CUDA tensors launch the kernel
-    (in K1's design and geometry) or raise; CPU tensors take count_below_ref."""
+    (in K1's design; on the tensor cores K1's geometry too) or raise; CPU
+    tensors take count_below_ref."""
     _check_inputs(q, x, bias, colscale, metric)
-    if thresh.dtype != torch.float32 or thresh.shape != (q.shape[0],):
-        raise ValueError(f"thresh must be float32 [{q.shape[0]}]")
-    if thresh.device != x.device or not thresh.is_contiguous():
-        raise ValueError("thresh must be contiguous and on the corpus device")
+    _check_thresh(q, x, thresh)
     if x.device.type == "cpu":
         return count_below_ref(q, x, bias, colscale, thresh, metric=metric)
-    from vectorindex_tpu_torch.kernels import _build
+    design = scan_design(x.shape[1], x.dtype)
+    out = _launch_counts("count_below", q, x, bias, colscale, thresh, metric,
+                         "mma" if design == "mma" else "fma")
+    DESIGN_LAUNCHES[design]["count_below"] += 1
+    return out
 
-    nq, d = q.shape
-    n = x.shape[0]
-    # zeroed, not empty: the kernel adds into them with atomics
-    lt = torch.zeros(nq, dtype=torch.int32, device=x.device)
-    le = torch.zeros(nq, dtype=torch.int32, device=x.device)
-    if nq == 0 or n == 0:
-        return lt, le
-    mma = scan_design(d, x.dtype) == "mma"
-    qw, cw, tps, splits, per = _grid(nq, n, d, mma=mma)
-    lib = _build.load()
-    err = lib.vi_count_below(
-        q.data_ptr(), x.data_ptr(), bias.data_ptr(), _ptr(colscale),
-        thresh.data_ptr(), nq, n, d, _DTYPE_CODE[x.dtype], _METRIC_CODE[metric],
-        qw, cw, tps, splits, per, lt.data_ptr(), le.data_ptr(), _stream(x),
-    )
-    _build.check(lib, err, "count_below")
-    LAUNCHES["count_below"] += 1
-    DESIGN_LAUNCHES["mma" if mma else "fma"]["count_below"] += 1
-    return lt, le
+
+def count_below_fma_v1(
+    q: Tensor,
+    x: Tensor,
+    bias: Tensor,
+    colscale: Optional[Tensor],
+    thresh: Tensor,
+    *,
+    metric: Metric,
+) -> Tuple[Tensor, Tensor]:
+    """K2 in its first FMA design, kept to time the FMA design against;
+    never on a main path. CUDA tensors only."""
+    _check_inputs(q, x, bias, colscale, metric)
+    _check_thresh(q, x, thresh)
+    if x.device.type == "cpu":
+        raise ValueError("count_below_fma_v1 times a CUDA kernel: pass CUDA tensors")
+    return _launch_counts("count_below_fma_v1", q, x, bias, colscale, thresh, metric, "v1")
 
 
 # ---------------------------------------------------------------------------
