@@ -158,6 +158,17 @@ just after:
         save, load and first-result seconds, file sizes and journaled
         mutations a second are printed beside the card.
 
+On bf16 rows K1, K2 and K11 run the wgmma design (csrc scan_wgmma_kernel;
+kernels/scan_fused.wgmma_plan): the kernel-vs-plain cases, the main path's
+own tensors (phase_times), the A/B path (phase_tree) and the MIPS index
+also hold them to the first tensor-core design (bin_candidates_mma_v1,
+count_below_mma_v1, bin_candidates_tree_v1) by the tensor-core rule and
+time them in turns with it by CUDA events and the profiler's device time;
+the kernels line carries cuBLAS's bf16 q x^T time (the product alone, not
+their function) as a yardstick. scan_fused.DESIGN_LAUNCHES must show the
+wgmma design on the flat, MIPS, accel and restored-flat paths, with every
+first design's count at 0, and no wgmma-design kernel may spill.
+
 Wherever K1/K2 run on the FMA design (the f32 kernel-vs-plain cases, the
 wide bf16 index, the bench CLI's f32 index, the f32 rows at d = 768) they
 are also held bit for bit to their first design (kernels/scan_fused
@@ -350,6 +361,10 @@ REPLACES = {
 }
 #: K11's blocks on the A/B path (the JAX script's two tiles)
 TREE_TILES = (4096, 8192)
+#: the first designs' launch counters (kernels/scan_fused), kept for timing:
+#: 0 on every main path
+FIRST_DESIGNS = ("bin_candidates_mma_v1", "count_below_mma_v1", "bin_candidates_tree_v1",
+                 "bin_candidates_fma_v1", "count_below_fma_v1")
 
 
 def log(msg: str) -> None:
@@ -461,12 +476,14 @@ def check_against_plain(sf, topk, qk, x, bias, cs, metric, kk=MAIN_K, exact=None
     in order (the FMA design's fma_chunk; cuBLAS's f32 GEMM with TF32 off for
     the plain versions), so they agree bit for bit; on the FMA design K1 and
     K2 also equal their first design (the _v1 wrappers) bit for bit. bf16
-    corpora: the kernels sum on the tensor cores (or, past d = 2,400, in the
-    FMA design, in another order than cuBLAS); on integer-valued data (exact=True)
-    every partial sum is exact and they agree bit for bit; otherwise the
-    tensor-core rule holds (check_candidates, check_counts) and K1 <-> K2
-    bit identity is checked on its own (check_identity). Returns (K1
-    max_abs_err at the same rows, K2 max count difference, K1's tau [B]).
+    corpora: the kernels sum on the tensor cores (the wgmma design; past d =
+    2,400 the FMA design, in another order than cuBLAS); on integer-valued
+    data (exact=True) every partial sum is exact and they agree bit for bit;
+    otherwise the tensor-core rule holds (check_candidates, check_counts)
+    and K1 <-> K2 bit identity is checked on its own (check_identity). The
+    wgmma design is also held to the first tensor-core design
+    (bin_candidates_mma_v1, count_below_mma_v1) by the same rule. Returns
+    (K1 max_abs_err at the same rows, K2 max count difference, K1's tau [B]).
     """
     if exact is None:
         exact = x.dtype == torch.float32
@@ -486,7 +503,8 @@ def check_against_plain(sf, topk, qk, x, bias, cs, metric, kk=MAIN_K, exact=None
     k2_err = check_counts(sf, qk, x, bias, cs, tau, klt, kle, metric, exact)
     if not exact:
         check_identity(sf, qk, x, bias, cs, metric, kd)
-    if sf.scan_design(x.shape[1], x.dtype) == "fma":
+    design = sf.scan_design(x.shape[1], x.dtype)
+    if design == "fma":
         # the FMA design computes its first design's floats: equal bit for bit
         vd, vi = sf.bin_candidates_fma_v1(qk, x, bias, cs, metric=metric)
         vlt, vle = sf.count_below_fma_v1(qk, x, bias, cs, tau, metric=metric)
@@ -495,6 +513,24 @@ def check_against_plain(sf, topk, qk, x, bias, cs, metric, kk=MAIN_K, exact=None
                 "K1: the FMA design differs from its first design")
         require(torch.equal(klt, vlt) and torch.equal(kle, vle),
                 "K2: the FMA design's counts differ from its first design's")
+    elif design == "wgmma":
+        # the first tensor-core design sums in another order: the
+        # tensor-core rule against it (bit for bit where every sum is exact)
+        vd, vi = sf.bin_candidates_mma_v1(qk, x, bias, cs, metric=metric)
+        vlt, vle = sf.count_below_mma_v1(qk, x, bias, cs, tau, metric=metric)
+        torch.cuda.synchronize()
+        check_candidates("K1 against its first design", kd, ki, vd, vi, qk, x, bias, cs, metric,
+                         exact)
+        diff = torch.maximum((klt - vlt).abs(), (kle - vle).abs())
+        if exact:
+            require(int(diff.max()) == 0, "K2: the wgmma design's counts differ from the first design's")
+        else:
+            from vectorindex_tpu_torch.utils import parity
+
+            near = parity.count_near(qk, x, bias, cs, tau, metric)
+            require(bool((diff <= 2 * near).all()),
+                    "K2: the wgmma design's counts differ from the first design's by more than the "
+                    "rows near tau")
     return k1_err, k2_err, tau
 
 
@@ -522,9 +558,12 @@ def compare_case(sf, topk, metric, data, d, b, gen, device, n):
         if metric != Metric.COSINE:
             for tile in TREE_TILES:
                 kd, ki = sf.bin_candidates_tree(q, x_pad, bias, metric=metric, tile=tile)
+                vd, vi = sf.bin_candidates_tree_v1(q, x_pad, bias, metric=metric, tile=tile)
                 torch.cuda.synchronize()
                 rd, ri = sf.bin_candidates_tree_ref(q, x_pad, bias, metric=metric, tile=tile)
                 check_candidates("K11", kd, ki, rd, ri, q, x_pad, bias, None, metric, True)
+                check_candidates("K11 against its first design", kd, ki, vd, vi, q, x_pad, bias,
+                                 None, metric, True)
         return k1_err, k2_err, None, None
     k1_err, k2_err, _ = check_against_plain(sf, topk, qk, x_pad, bias, cs, metric)
 
@@ -635,11 +674,15 @@ def phase_main(sf, device="cuda", rows=MAIN_ROWS, dim=MAIN_DIM):
         for name in ("bin_candidates", "count_below"):
             require(sf.LAUNCHES[name] > before[name], f"batch_search did not launch {name}")
     launches = {name: sf.LAUNCHES[name] for name in ("bin_candidates", "count_below")}
+    require(sf.DESIGN_LAUNCHES["wgmma"] == launches and not any(
+        sf.LAUNCHES[name] for name in FIRST_DESIGNS), f"main: K1/K2 not on the wgmma design alone: "
+        f"{sf.DESIGN_LAUNCHES}, {sf.LAUNCHES}")
     TELEM.disable()
     counters = TELEM.snapshot()["counters"]
     fallback = counters.get("flat.verify_fallback", 0)
-    log(f"main: {len(batches)} batches through K1+K2, launches {launches}, "
-        f"strict fallback for {fallback} of {nq} queries")
+    log(f"main: {len(batches)} batches through K1+K2, launches {launches} (wgmma design; first "
+        f"designs {dict((n, sf.LAUNCHES[n]) for n in FIRST_DESIGNS)}), strict fallback for "
+        f"{fallback} of {nq} queries")
     # the data is seeded and the kernels deterministic, and no query of it
     # needs the strict path: a flagged query here means K1 or K2 changed,
     # which the strict splice would otherwise hide from the recall check
@@ -666,9 +709,10 @@ def phase_main(sf, device="cuda", rows=MAIN_ROWS, dim=MAIN_DIM):
 
 
 def phase_times(sf, topk, idx, batches, errs):
-    """Check K1 and K2 against their plain versions on the main path's own
-    tensors and queries (B=256 and B=8, so both grids; errs takes the
-    larger errors), then time them."""
+    """Check K1 and K2 against their plain versions and their first
+    tensor-core design on the main path's own tensors and queries (B=256
+    and B=8, so both plans; errs takes the larger errors), then time them in
+    turns with the first design (events and profiler device time)."""
     from vectorindex_tpu_torch.utils.config import Metric
 
     x, sqn, _, valid = idx._sync_device()
@@ -684,14 +728,9 @@ def phase_times(sf, topk, idx, batches, errs):
             f"versions (K1 max_abs_err {k1:.3g} at the same rows, K2 count diff {k2}); K2 "
             "recomputes K1's distances bit for bit")
         args = (qk, x, bias, cs)
-        t = {
-            "bin_candidates": time_ms(lambda: sf.bin_candidates(*args, metric=Metric.L2), 10),
-            "bin_candidates_plain": time_ms(
-                lambda: sf.bin_candidates_ref(*args, metric=Metric.L2), 3),
-            "count_below": time_ms(lambda: sf.count_below(*args, tau, metric=Metric.L2), 10),
-            "count_below_plain": time_ms(
-                lambda: sf.count_below_ref(*args, tau, metric=Metric.L2), 3),
-        }
+        t = design_turns(sf, qk, x, bias, cs, tau, Metric.L2, 10, 5)
+        t["bin_candidates_plain"] = time_ms(lambda: sf.bin_candidates_ref(*args, metric=Metric.L2), 3)
+        t["count_below_plain"] = time_ms(lambda: sf.count_below_ref(*args, tau, metric=Metric.L2), 3)
         idx.batch_search(batch, MAIN_K)  # warm
         lat = []
         for _ in range(10):
@@ -701,8 +740,10 @@ def phase_times(sf, topk, idx, batches, errs):
         t["search_ms_median"] = 1e3 * float(np.median(lat))
         t["qps"] = b / float(np.median(lat))
         times[b] = t
-        log(f"times B={b} n={x.shape[0]} d={x.shape[1]} bf16 L2: " + ", ".join(
-            f"{key}={val:.4g}" for key, val in t.items()))
+        log(f"times B={b} n={x.shape[0]} d={x.shape[1]} bf16 L2 (wgmma design, first design "
+            f"in turns): {design_log(t)}; plan {t['bin_candidates_plan']}; " + ", ".join(
+                f"{key}={val:.4g}" for key, val in t.items() if key.endswith("_plain")
+                or key in ("search_ms_median", "qps")))
     return times
 
 
@@ -727,7 +768,8 @@ def phase_tree(sf, topk, idx, batches, errs):
             for tile in TREE_TILES}
     torch.cuda.synchronize()
     launches = sf.LAUNCHES["bin_candidates_tree"]
-    require(launches == len(TREE_TILES), f"K11 did not run on its path: {sf.LAUNCHES}")
+    require(launches == len(TREE_TILES) and not sf.LAUNCHES["bin_candidates_tree_v1"],
+            f"K11 did not run on its path alone: {sf.LAUNCHES}")
     fd, fi, fex = sf.scan_topk_fused(q, x, sqn, valid, metric=Metric.L2, k=MAIN_K)
     t = {}
     for tile, (kd, ki) in outs.items():
@@ -742,20 +784,35 @@ def phase_tree(sf, topk, idx, batches, errs):
         both = (exact & fex).cpu()
         require(ids_match_up_to_ties(si.cpu()[both], fi.cpu()[both], fd.cpu()[both], MAIN_K),
                 f"K11 tile={tile}: ids differ from scan_topk_fused's on queries exact in both")
+        vd, vi = sf.bin_candidates_tree_v1(qk, x, bias, metric=Metric.L2, tile=tile)
+        torch.cuda.synchronize()
+        check_candidates("K11 against its first design", kd, ki, vd, vi, qk, x, bias, None,
+                         Metric.L2, False)
+        tt = turns({"tree": (
+            lambda: sf.bin_candidates_tree(qk, x, bias, metric=Metric.L2, tile=tile),
+            lambda: sf.bin_candidates_tree_v1(qk, x, bias, metric=Metric.L2, tile=tile))}, 10, 5)
         t[tile] = {
-            "ms": time_ms(lambda: sf.bin_candidates_tree(qk, x, bias, metric=Metric.L2, tile=tile), 10),
+            "ms": tt["tree"], "device_ms": tt["tree_dev"], "first_design_ms": tt["tree_v1"],
+            "first_design_device_ms": tt["tree_v1_dev"],
             "plain_ms": time_ms(lambda: sf.bin_candidates_tree_ref(qk, x, bias, metric=Metric.L2,
                                                                     tile=tile), 3),
             "flagged": int((~exact).sum()),
         }
         log(f"tree tile={tile} B={b}: K11 within the tensor-core tolerance of its plain version "
-            f"(max_abs_err {err:.3g} at the same rows); flags {t[tile]['flagged']}/{b} queries "
-            f"(K1+K2: {int((~fex).sum())}); ids equal scan_topk_fused's on the {int(both.sum())} "
-            f"queries exact in both; kernel {t[tile]['ms']:.4g} ms, plain {t[tile]['plain_ms']:.4g} ms")
+            f"and its first design (max_abs_err {err:.3g} at the same rows); flags "
+            f"{t[tile]['flagged']}/{b} queries (K1+K2: {int((~fex).sum())}); ids equal "
+            f"scan_topk_fused's on the {int(both.sum())} queries exact in both; kernel "
+            f"{t[tile]['ms']:.4g} ms (device {t[tile]['device_ms']:.4g}; rounds "
+            f"{[round(v, 4) for v in tt['tree_rounds']]}), first design "
+            f"{t[tile]['first_design_ms']:.4g} ms (device {t[tile]['first_design_device_ms']:.4g}; "
+            f"rounds {[round(v, 4) for v in tt['tree_v1_rounds']]}), plain "
+            f"{t[tile]['plain_ms']:.4g} ms")
     qb = qk.to(torch.bfloat16)
     t["matmul_ms"] = time_ms(lambda: torch.matmul(qb, x.T), 10)
-    log(f"tree: cuBLAS bf16 q x^T [{b}, {x.shape[0]}] (the product alone, bf16 out) "
-        f"{t['matmul_ms']:.4g} ms; path launches {{'bin_candidates_tree': {launches}}}")
+    t["matmul_device_ms"] = device_ms(lambda: torch.matmul(qb, x.T), 5)
+    log(f"tree: cuBLAS bf16 q x^T [{b}, {x.shape[0]}] (the product alone, bf16 out; not K1's "
+        f"function) {t['matmul_ms']:.4g} ms (device {t['matmul_device_ms']:.4g}); path launches "
+        f"{{'bin_candidates_tree': {launches}}}")
     return launches, t
 
 
@@ -1603,7 +1660,7 @@ def phase_flat_wide(sf, topk):
         q = queries[start : start + b]
         start += b
         res, designs, counters = search_counted(sf, idx, q)
-        require(designs["mma"] == {"bin_candidates": 0, "count_below": 0}
+        require(designs["wgmma"] == {"bin_candidates": 0, "count_below": 0}
                 and all(c > 0 for c in designs["fma"].values()),
                 f"wide B={b}: K1/K2 did not run on the FMA design: {designs}")
         require(counters.get("flat.verify_fallback", 0) == 0 and "kernel.scan_strict.calls" not in counters,
@@ -1629,7 +1686,7 @@ def phase_flat_wide(sf, topk):
                                        sqn, valid, Metric.L2)
     k1, k2, tau = check_against_plain(sf, topk, qk, x, bias, cs, Metric.L2)
     args = (qk, x, bias, cs)
-    t.update(fma_turns(sf, qk, x, bias, cs, tau, Metric.L2, 10, 5))
+    t.update(design_turns(sf, qk, x, bias, cs, tau, Metric.L2, 10, 5))
     t["bin_candidates_plain"] = time_ms(lambda: sf.bin_candidates_ref(*args, metric=Metric.L2), 3)
     t["count_below_plain"] = time_ms(lambda: sf.count_below_ref(*args, tau, metric=Metric.L2), 3)
     for name in ("bin_candidates", "count_below"):
@@ -1640,7 +1697,7 @@ def phase_flat_wide(sf, topk):
                                            F32_FLOPS)[0]
     log(f"wide: K1/K2 (FMA design, B={qk.shape[0]}, n={x.shape[0]}, d={FLAT_WIDE_DIM} bf16) within "
         f"the parity rule of their plain versions (K1 max_abs_err {k1:.3g}, K2 count diff {k2}) and "
-        f"equal to their first design bit for bit; {fma_log(t)}; plain "
+        f"equal to their first design bit for bit; {design_log(t)}; plain "
         f"{t['bin_candidates_plain']:.4g} / {t['count_below_plain']:.4g} ms; bound "
         f"{t['bin_candidates_bound'][0]:.4g} / {t['count_below_bound'][0]:.4g} ms "
         f"({t['bin_candidates_bound'][1]}), the f32 pipe's floor "
@@ -1681,7 +1738,7 @@ def phase_flat_f32_wide(sf, topk, errs) -> dict:
         dist, ids, exact = sf.scan_topk_fused(qd, xp, sqp, vp, metric=Metric.L2, k=MAIN_K)
         torch.cuda.synchronize()
         designs = {k: dict(c) for k, c in sf.DESIGN_LAUNCHES.items()}
-        require(designs["mma"] == {"bin_candidates": 0, "count_below": 0}
+        require(designs["wgmma"] == {"bin_candidates": 0, "count_below": 0}
                 and all(c > 0 for c in designs["fma"].values()),
                 f"f32 wide B={b}: K1/K2 did not run on the FMA design: {designs}")
         require(bool(exact.all()), f"f32 wide B={b}: {int((~exact).sum())} queries need the strict path")
@@ -1700,7 +1757,7 @@ def phase_flat_f32_wide(sf, topk, errs) -> dict:
         errs["bin_candidates"] = max(errs["bin_candidates"], k1)
         errs["count_below"] = max(errs["count_below"], k2)
         args = (qk, xp, bias, cs)
-        t = fma_turns(sf, qk, xp, bias, cs, tau, Metric.L2, 5, 3)
+        t = design_turns(sf, qk, xp, bias, cs, tau, Metric.L2, 5, 3)
         t["bin_candidates_plain"] = time_ms(lambda: sf.bin_candidates_ref(*args, metric=Metric.L2), 2, 1)
         t["count_below_plain"] = time_ms(lambda: sf.count_below_ref(*args, tau, metric=Metric.L2), 2, 1)
         for name in ("bin_candidates", "count_below"):
@@ -1710,7 +1767,7 @@ def phase_flat_f32_wide(sf, topk, errs) -> dict:
             f"{designs}, every query exact, recall@{MAIN_K}={r_tie} under the tie rule (set recall "
             f"{r_set}); K1/K2 equal to their first design bit for bit, within the parity rule of "
             f"their plain versions (K1 max_abs_err {k1:.3g}, K2 count diff {k2}); "
-            f"{fma_log(t)}; plain {t['bin_candidates_plain']:.4g} / {t['count_below_plain']:.4g} ms; "
+            f"{design_log(t)}; plain {t['bin_candidates_plain']:.4g} / {t['count_below_plain']:.4g} ms; "
             f"bound {t['bin_candidates_bound'][0]:.4g} / {t['count_below_bound'][0]:.4g} ms "
             f"({t['bin_candidates_bound'][1]})")
         out[b] = t
@@ -1749,19 +1806,13 @@ def device_ms(fn, calls: int, match: str = "", tries: int = 3) -> float:
 # ---------------------------------------------------------------------------
 
 
-def fma_turns(sf, qk, x, bias, cs, tau, metric, iters: int, calls: int) -> dict:
-    """K1 and K2 in the FMA design and in its first design, on the same
-    inputs, timed in two rounds of turns (new, first; then first, new) by
-    CUDA events (mean of `iters` launches) and by the profiler's device time
-    per call (`calls` launches; every kernel of the call, the split merge
-    included) -> {name: ms, name_dev: ms, name_v1: ms, name_v1_dev: ms}
-    (means of the two rounds), the rounds' spread and the plans."""
-    pairs = {
-        "bin_candidates": (lambda: sf.bin_candidates(qk, x, bias, cs, metric=metric),
-                           lambda: sf.bin_candidates_fma_v1(qk, x, bias, cs, metric=metric)),
-        "count_below": (lambda: sf.count_below(qk, x, bias, cs, tau, metric=metric),
-                        lambda: sf.count_below_fma_v1(qk, x, bias, cs, tau, metric=metric)),
-    }
+def turns(pairs: dict, iters: int, calls: int) -> dict:
+    """{name: (new, first)}: each pair of calls timed in two rounds of turns
+    (new, first; then first, new) by CUDA events (mean of `iters` launches)
+    and by the profiler's device time per call (`calls` launches; every
+    kernel of the call, a split merge included) -> {name: ms, name_dev: ms,
+    name_v1: ms, name_v1_dev: ms} (means of the two rounds) and each side's
+    rounds."""
     out = {}
     for name, (new, old) in pairs.items():
         ev = {"": [], "_v1": []}
@@ -1775,13 +1826,35 @@ def fma_turns(sf, qk, x, bias, cs, tau, metric, iters: int, calls: int) -> dict:
             out[name + tag] = float(np.mean(ev[tag]))
             out[name + tag + "_dev"] = float(np.mean(dev[tag]))
             out[name + tag + "_rounds"] = ev[tag] + dev[tag]
-        out[name + "_plan"] = sf.fma_plan(qk.shape[0], x.shape[0], x.shape[1], x.dtype,
-                                          name)._asdict()
     return out
 
 
-def fma_shape(t: dict, name: str, bound_ms: tuple, launches=None) -> dict:
-    """One FMA shape's figures of kernel `name` for the kernels line."""
+def design_turns(sf, qk, x, bias, cs, tau, metric, iters: int, calls: int) -> dict:
+    """K1 and K2 in the design scan_design gives these rows (wgmma, or FMA)
+    and in that design's first version (bin_candidates_mma_v1 /
+    count_below_mma_v1, or the _fma_v1 pair), on the same inputs, timed in
+    turns (turns()) -> its figures and each kernel's plan."""
+    design = sf.scan_design(x.shape[1], x.dtype)
+    v1 = "mma_v1" if design == "wgmma" else "fma_v1"
+    out = turns({
+        "bin_candidates": (lambda: sf.bin_candidates(qk, x, bias, cs, metric=metric),
+                           lambda: getattr(sf, "bin_candidates_" + v1)(qk, x, bias, cs,
+                                                                        metric=metric)),
+        "count_below": (lambda: sf.count_below(qk, x, bias, cs, tau, metric=metric),
+                        lambda: getattr(sf, "count_below_" + v1)(qk, x, bias, cs, tau,
+                                                                  metric=metric)),
+    }, iters, calls)
+    for name in ("bin_candidates", "count_below"):
+        nq, n, d = qk.shape[0], x.shape[0], x.shape[1]
+        plan = (sf.wgmma_plan(nq, n, d) if design == "wgmma"
+                else sf.fma_plan(nq, n, d, x.dtype, name))
+        out[name + "_plan"] = {"design": design, **plan._asdict()}
+    return out
+
+
+def design_shape(t: dict, name: str, bound_ms: tuple, launches=None) -> dict:
+    """One shape's figures of kernel `name` (design_turns) for the kernels
+    line."""
     fig = {"ms": t[name], "device_ms": t[name + "_dev"], "first_design_ms": t[name + "_v1"],
            "first_design_device_ms": t[name + "_v1_dev"], "plain_ms": t.get(name + "_plain"),
            "bound_ms": bound_ms[0], "bound_by": bound_ms[1], "plan": t[name + "_plan"]}
@@ -1790,7 +1863,7 @@ def fma_shape(t: dict, name: str, bound_ms: tuple, launches=None) -> dict:
     return fig
 
 
-def fma_log(t: dict) -> str:
+def design_log(t: dict) -> str:
     return "; ".join(
         f"{name} {t[name]:.4g} ms (device {t[name + '_dev']:.4g}), first design "
         f"{t[name + '_v1']:.4g} ms (device {t[name + '_v1_dev']:.4g}; rounds new "
@@ -2880,8 +2953,12 @@ def phase_persist_flat(sf, idx, batches, ps: Persist) -> None:
     ps.count(sf, ("bin_candidates", "count_below"))
     fallback = TELEM.snapshot()["counters"].get("flat.verify_fallback", 0)
     require(loaded.storage_dtype == torch.bfloat16, f"flat reloads as {loaded.storage_dtype}")
-    require(sf.LAUNCHES["bin_candidates"] > 0 and sf.LAUNCHES["count_below"] > 0,
-            f"the reloaded flat index did not run K1/K2: {sf.LAUNCHES}")
+    require(sf.LAUNCHES["bin_candidates"] > 0 and sf.LAUNCHES["count_below"] > 0
+            and sf.DESIGN_LAUNCHES["wgmma"] == {n: sf.LAUNCHES[n] for n in ("bin_candidates",
+                                                                           "count_below")}
+            and not any(sf.LAUNCHES[name] for name in FIRST_DESIGNS),
+            f"the reloaded flat index did not run K1/K2 on the wgmma design: {sf.LAUNCHES}, "
+            f"{sf.DESIGN_LAUNCHES}")
     require(fallback == 0, f"{fallback} queries of the reloaded flat index fell back")
     same_rows(got_small, want_small, f"flat B={len(small)}")
     same_rows(got_big, want_big, f"flat B={len(big)}")
@@ -3298,8 +3375,10 @@ def phase_api_flat(sf, topk, idx, batches, api: Api, errs) -> None:
         res, counters = counters_of(lambda: mi.batch_search(qa, MAIN_K))
         require(counters.get("flat.verify_fallback", 0) == 0
                 and counters.get("kernel.scan_fused.calls") == 1
-                and sf.DESIGN_LAUNCHES["mma"]["bin_candidates"] > 0,
-                f"mips B={len(q)}: K1/K2 (tensor cores) did not run alone: {counters}")
+                and all(c > 0 for c in sf.DESIGN_LAUNCHES["wgmma"].values())
+                and not any(sf.LAUNCHES[name] for name in FIRST_DESIGNS),
+                f"mips B={len(q)}: K1/K2 (wgmma design) did not run alone: {counters}, "
+                f"{sf.DESIGN_LAUNCHES}, {sf.LAUNCHES}")
         for name in m["launches"]:
             m["launches"][name] += sf.LAUNCHES[name]
         api.count("mips", sf, ("bin_candidates", "count_below"))
@@ -3314,9 +3393,11 @@ def phase_api_flat(sf, topk, idx, batches, api: Api, errs) -> None:
     k1, k2, tau = check_against_plain(sf, topk, qk, x, bias, cs, Metric.L2)
     errs["bin_candidates"] = max(errs["bin_candidates"], k1)
     errs["count_below"] = max(errs["count_below"], k2)
-    args = (qk, x, bias, cs)
-    m["bin_candidates_ms"] = time_ms(lambda: sf.bin_candidates(*args, metric=Metric.L2), 10)
-    m["count_below_ms"] = time_ms(lambda: sf.count_below(*args, tau, metric=Metric.L2), 10)
+    mt = design_turns(sf, qk, x, bias, cs, tau, Metric.L2, 10, 5)
+    for name in ("bin_candidates", "count_below"):
+        m[name + "_ms"], m[name + "_device_ms"] = mt[name], mt[name + "_dev"]
+        m[name + "_first_design_ms"] = mt[name + "_v1"]
+        m[name + "_first_design_device_ms"] = mt[name + "_v1_dev"]
     for name in ("bin_candidates", "count_below"):
         m[name + "_bound"] = flat_bound(x.shape[0], dim, len(big), 2, name)
     q8 = torch.from_numpy(small).to(DEVICE)
@@ -3335,7 +3416,8 @@ def phase_api_flat(sf, topk, idx, batches, api: Api, errs) -> None:
         f"inner-product index's up to ties; K1/K2 within the tensor-core rule of their plain "
         f"versions at d={dim} (K1 max_abs_err {k1:.3g}, K2 count diff {k2}); B={MAIN_BATCH} K1 "
         f"{m['bin_candidates_ms']:.4g} ms (bound {m['bin_candidates_bound'][0]:.4g}), K2 "
-        f"{m['count_below_ms']:.4g} ms (bound {m['count_below_bound'][0]:.4g}); hybrid == virtual "
+        f"{m['count_below_ms']:.4g} ms (bound {m['count_below_bound'][0]:.4g}); in turns with the "
+        f"first design: {design_log(mt)}; hybrid == virtual "
         f"bit for bit, within 2e-4 of the explicit augmentation")
 
     # -- the acceleration seam on the flat index --
@@ -3347,6 +3429,9 @@ def phase_api_flat(sf, topk, idx, batches, api: Api, errs) -> None:
     exact = ((q64 * q64).sum(1, keepdim=True) - 2.0 * q64 @ xc.T + (xc * xc).sum(1)[None]).cpu().numpy()
     sf.reset_launches()
     native = idx.batch_search(small, MAIN_K)
+    require(all(c > 0 for c in sf.DESIGN_LAUNCHES["wgmma"].values())
+            and not any(sf.LAUNCHES[name] for name in FIRST_DESIGNS),
+            f"accel flat: K1/K2 not on the wgmma design: {sf.DESIGN_LAUNCHES}, {sf.LAUNCHES}")
     api.count("accel", sf, ("bin_candidates", "count_below"))
     got = [accel.finalize_results(idx, c.internal_ids, exact[b], MAIN_K) for b, c in enumerate(cands)]
     ref = np.sort(exact, axis=1)[:, : MAIN_K + 1]
@@ -3753,14 +3838,14 @@ def check_bench_flat(sf, topk, seen, payload, errs) -> dict:
         errs["bin_candidates"] = max(errs["bin_candidates"], k1)
         errs["count_below"] = max(errs["count_below"], k2)
         args = (qk, xk, bias, cs)
-        t = fma_turns(sf, qk, xk, bias, cs, tau, Metric.L2, 10, 5)
+        t = design_turns(sf, qk, xk, bias, cs, tau, Metric.L2, 10, 5)
         t["bin_candidates_plain"] = time_ms(lambda: sf.bin_candidates_ref(*args, metric=Metric.L2), 3)
         t["count_below_plain"] = time_ms(lambda: sf.count_below_ref(*args, tau, metric=Metric.L2), 3)
         for name in ("bin_candidates", "count_below"):
             t[name + "_bound"] = flat_bound(xk.shape[0], xk.shape[1], b, 4, name)
         log(f"bench flat: K1/K2 on the f32 FMA design (B={b}, n={xk.shape[0]}, d={xk.shape[1]}) "
             f"equal to their plain versions and their first design bit for bit (K1 max_abs_err "
-            f"{k1:.3g}, K2 count diff {k2}); {fma_log(t)}; plain {t['bin_candidates_plain']:.4g} / "
+            f"{k1:.3g}, K2 count diff {k2}); {design_log(t)}; plain {t['bin_candidates_plain']:.4g} / "
             f"{t['count_below_plain']:.4g} ms; bound {t['bin_candidates_bound'][0]:.4g} / "
             f"{t['count_below_bound'][0]:.4g} ms ({t['bin_candidates_bound'][1]})")
         out[b] = t
@@ -3884,7 +3969,7 @@ def phase_bench(sf, kp, ap, topk, gpu: str, errs) -> dict:
         designs = {d: dict(c) for d, c in sf.DESIGN_LAUNCHES.items()}
         for name, suite in BENCH_KERNELS.items():
             require(launches[name] > 0, f"bench {suite}: {name} was not launched: {launches}")
-        require(designs["mma"]["bin_candidates"] == 0 and designs["fma"]["bin_candidates"] > 0,
+        require(designs["wgmma"]["bin_candidates"] == 0 and designs["fma"]["bin_candidates"] > 0,
                 f"bench flat: K1/K2 did not run on the f32 FMA design: {designs}")
         fields = [f.name for f in dataclasses.fields(harness.BenchResult)]
         require([r["index"] for r in payload] == ["flat", "ivf", "ivfpq"]
@@ -3997,6 +4082,12 @@ def run(ps: Persist) -> int:
     require(all(local == 0 for _, local in attrs.values()), f"an FMA-design kernel spills: {attrs}")
     log("build: FMA-design kernels' registers (no local memory): " + ", ".join(
         f"{k[0]} {k[1]} {k[2]} {k[3]}x{k[3]} {regs}" for k, (regs, _) in sorted(attrs.items())))
+    wg_attrs = sf.wgmma_attributes()
+    require(all(local == 0 for _, local in wg_attrs.values()),
+            f"a wgmma-design kernel spills: {wg_attrs}")
+    log("build: wgmma-design kernels' registers at entry (no local memory; consumers raise theirs "
+        f"to {sf.WG_CONSUMER_REGS} by setmaxnreg): " + ", ".join(
+            f"{k[0]} {k[1]} a_regs={k[2]} {regs}" for k, (regs, _) in sorted(wg_attrs.items())))
 
     errs = phase_compare(sf, topk)
     idx, batches, launches = phase_main(sf)
@@ -4071,34 +4162,53 @@ def run(ps: Persist) -> int:
     big = times[MAIN_BATCH]
     kernels = []
     for name in ("bin_candidates", "count_below"):
+        # the wgmma design at B=256 (and B=8 below), each timed in turns with
+        # the first tensor-core design
         bms, by = flat_bound(n_flat, MAIN_DIM, MAIN_BATCH, itemsize, name)
         kernels.append({"name": name, "ms": big[name], "plain_ms": big[name + "_plain"],
-                        "bound_ms": bms, "bound_by": by})
+                        "bound_ms": bms, "bound_by": by, "device_ms": big[name + "_dev"],
+                        "first_design_ms": big[name + "_v1"],
+                        "first_design_device_ms": big[name + "_v1_dev"],
+                        "plan": big[name + "_plan"]})
+        small = times[SMALL_BATCH]
+        kernels[-1][f"B={SMALL_BATCH}"] = design_shape(
+            small, name, flat_bound(n_flat, MAIN_DIM, SMALL_BATCH, itemsize, name))
     m = api.figs["mips"]
     bf = bench["flat"]
     for k in kernels:  # K1/K2 also at d = 256 on phase_api's MIPS index, B=256
         name = k["name"]
-        k["mips"] = {"ms": m[name + "_ms"], "bound_ms": m[name + "_bound"][0],
-                     "bound_by": m[name + "_bound"][1]}
+        k["mips"] = {"ms": m[name + "_ms"], "device_ms": m[name + "_device_ms"],
+                     "first_design_ms": m[name + "_first_design_ms"],
+                     "first_design_device_ms": m[name + "_first_design_device_ms"],
+                     "bound_ms": m[name + "_bound"][0], "bound_by": m[name + "_bound"][1]}
         # and on the FMA design: the bench CLI's f32 flat index (B=256, its
         # launches; B=8), the wide bf16 index, the f32 rows at d = 768
-        wide = fma_shape(wide_times, name, wide_times[name + "_bound"])
+        wide = design_shape(wide_times, name, wide_times[name + "_bound"])
         wide["f32_pipe_ms"] = wide_times[name + "_f32_pipe"]
         k["fma"] = {
-            f"f32 {BENCH_ROWS}x{BENCH_DIM} B={BENCH_QUERIES} (bench flat)": fma_shape(
+            f"f32 {BENCH_ROWS}x{BENCH_DIM} B={BENCH_QUERIES} (bench flat)": design_shape(
                 bf[BENCH_QUERIES], name, bf[BENCH_QUERIES][name + "_bound"],
                 bench["launches"][name]),
-            f"f32 {BENCH_ROWS}x{BENCH_DIM} B={SMALL_BATCH}": fma_shape(
+            f"f32 {BENCH_ROWS}x{BENCH_DIM} B={SMALL_BATCH}": design_shape(
                 bf[SMALL_BATCH], name, bf[SMALL_BATCH][name + "_bound"]),
             f"bf16 {FLAT_WIDE_CAPACITY}x{FLAT_WIDE_DIM} B={FLAT_WIDE_BATCHES[-1]} (wide)": wide,
-            **{f"f32 {FLAT_F32_WIDE_ROWS}x{FLAT_F32_WIDE_DIM} B={b}": fma_shape(
+            **{f"f32 {FLAT_F32_WIDE_ROWS}x{FLAT_F32_WIDE_DIM} B={b}": design_shape(
                 f32_wide[b], name, f32_wide[b][name + "_bound"], f32_wide[b]["launches"][name])
                for b in FLAT_F32_WIDE_BATCHES},
         }
     bms, by = flat_bound(n_flat, MAIN_DIM, MAIN_BATCH, itemsize, "bin_candidates")
-    kernels.append({"name": "bin_candidates_tree", "ms": tree_times[TREE_TILES[0]]["ms"],
-                    "plain_ms": tree_times[TREE_TILES[0]]["plain_ms"], "bound_ms": bms,
-                    "bound_by": by})
+    tree = tree_times[TREE_TILES[0]]
+    kernels.append({"name": "bin_candidates_tree", "ms": tree["ms"],
+                    "plain_ms": tree["plain_ms"], "bound_ms": bms, "bound_by": by,
+                    "device_ms": tree["device_ms"], "first_design_ms": tree["first_design_ms"],
+                    "first_design_device_ms": tree["first_design_device_ms"],
+                    f"tile={TREE_TILES[1]}": {k: v for k, v in tree_times[TREE_TILES[1]].items()
+                                              if k != "flagged"}})
+    # cuBLAS's bf16 q x^T at the main shape: the product alone (not K1's
+    # function, so not a library call of it), a yardstick for K1, K2 and K11
+    for k in kernels:
+        k["cublas_product_ms"] = tree_times["matmul_ms"]
+        k["cublas_product_device_ms"] = tree_times["matmul_device_ms"]
     for name in ("ivf_probe_topc", "ivf_probe_scores", "ivf_probe_scores_rankmajor"):
         bms, by = ivf_times[name + "_bound"]
         kernels.append({"name": name, "ms": ivf_times[name], "plain_ms": ivf_times[name + "_plain"],

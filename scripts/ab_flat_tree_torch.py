@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """A/B of the flat scan's pass 1 on one GPU: the port of scripts/ab_flat_tree.py.
 
-    python3 scripts/ab_flat_tree_torch.py [--iters 20]
+    python3 scripts/ab_flat_tree_torch.py [--iters 20] [--wgmma-rates]
 
 Builds the port's kernels, then on one card and in one process times, at
 the flat main path's shape (n = 1,000,000 gaussian rows rounded to bf16,
 padded with dead rows to 2^20, d = 128, B = 256, k = 10, L2; seeded torch
-data made on the card), with CUDA events over `iters` launches each:
+data made on the card), with CUDA events over `iters` launches each, each
+tensor-core kernel on the shipping wgmma design (scan_wgmma_kernel) and on
+the first tensor-core design (scan_mma_kernel, the _v1 wrappers):
 
-  K1 (tensor cores): exact per-class top-3, the shipping pass 1 (the JAX
-      script's "sorted2" reduction keeps 2 per class and tile and folds
-      them into 3 tiers; the port's K1 keeps the exact 3);
+  K1: exact per-class top-3, the shipping pass 1 (the JAX script's
+      "sorted2" reduction keeps 2 per class and tile and folds them into 3
+      tiers; the port's K1 keeps the exact 3);
   K11 tree tile=4096 and tile=8192: one candidate per (class, block of
       `tile` rows), folded into 3 tiers (the script's "tree");
   K1 FMA design: the CUDA-core kernel (scan_fma_kernel, register-tiled)
@@ -20,11 +22,16 @@ data made on the card), with CUDA events over `iters` launches each:
 
 Then the tree's exactness check (ab_flat_tree.py:184-202): K11 (tile 4096)
 candidates -> top-k -> tau -> K2 -> flagged queries, and whether its ids
-equal scan_topk_fused's on the queries exact in both. It also prints the
-registers and spills of the scan kernels (`nvcc -Xptxas -v`) and counts
-the tensor-core (HMMA/HGMMA) and FMA instructions in each scan kernel's
-SASS (`cuobjdump -sass` of the built library). The card's name and power
-limit come first (nvidia-smi). Imports nothing of JAX.
+equal scan_topk_fused's on the queries exact in both, on each engine. It
+also prints the registers and spills of the scan kernels (`nvcc -Xptxas
+-v`; the wgmma kernels' consumers raise theirs by setmaxnreg to
+scan_fused.WG_CONSUMER_REGS, 224) and
+counts the tensor-core (HGMMA, HMMA) and FMA instructions in each scan
+kernel's SASS (`cuobjdump -sass` of the built library). The card's name and
+power limit come first (nvidia-smi). With --wgmma-rates it first builds
+and runs scripts/wgmma_rates.cu: the clocks one wgmma m64nNk16 takes an SM
+at N = 16, 32, 64, operands from shared memory or A from registers (the
+measurement behind the wgmma design's N = 32). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -66,8 +73,11 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def kernel_label(mangled: str) -> str:
-    """scan_mma_kernel<metric, mode> or the FMA kernels' names, from a
-    mangled symbol."""
+    """scan_wgmma_kernel<metric, mode, a_regs>, scan_mma_kernel<metric,
+    mode> or the FMA kernels' names, from a mangled symbol."""
+    m = re.search(r"scan_wgmma_kernelILi(\d)ELi(\d)ELi(\d)E", mangled)
+    if m:
+        return f"scan_wgmma_kernel<{METRICS[m.group(1)]},{MODES[m.group(2)]},{m.group(3)}>"
     m = re.search(r"scan_mma_kernelILi(\d)ELi(\d)E", mangled)
     if m:
         return f"scan_mma_kernel<{METRICS[m.group(1)]},{MODES[m.group(2)]}>"
@@ -104,15 +114,31 @@ def build_report() -> None:
                           capture_output=True, text=True, check=True).stdout
     for block in sass.split("Function : ")[1:]:
         name = kernel_label(block.split(None, 1)[0])
-        if any(k in name for k in ("scan_mma", "scan_fma", "bin_candidates_kernel",
+        if any(k in name for k in ("scan_wgmma", "scan_mma", "scan_fma", "bin_candidates_kernel",
                                    "count_below_kernel")):
             counts = {op: len(re.findall(rf"\b{op}\b", block)) for op in ("HGMMA", "HMMA", "FFMA")}
             print(f"sass {name}: " + ", ".join(f"{op} {c}" for op, c in counts.items()), flush=True)
 
 
+def wgmma_rates() -> None:
+    """Build scripts/wgmma_rates.cu into build/ and print its rates."""
+    from vectorindex_tpu_torch.kernels import _build
+
+    src = Path(__file__).resolve().parent / "wgmma_rates.cu"
+    out = _build.BUILD_ROOT.parent / "wgmma_rates"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS[:4], "-o", str(out), str(src)],
+                   check=True)
+    run = subprocess.run([str(out)], capture_output=True, text=True, check=True, timeout=300)
+    for line in run.stdout.splitlines():
+        print(f"wgmma rate: {line}", flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--iters", type=int, default=20)
+    parser.add_argument("--wgmma-rates", action="store_true",
+                        help="first time wgmma m64nNk16 alone (scripts/wgmma_rates.cu)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("ab_flat_tree_torch: no CUDA device", file=sys.stderr)
@@ -124,6 +150,8 @@ def main() -> int:
     from vectorindex_tpu_torch.utils.parity import ids_match_up_to_ties
 
     print(f"gpu: {gpu_name_and_power()}", flush=True)
+    if args.wgmma_rates:
+        wgmma_rates()
     t0 = time.perf_counter()
     _build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -138,35 +166,51 @@ def main() -> int:
     qk, bias, _, _ = sf.kernel_inputs(q, sq, vp, Metric.L2)
     it = args.iters
     print(f"shape: n={N} padded to {NPAD}, d={D} bf16, B={B}, L2; mean of {it} launches", flush=True)
+    print(f"plan: {sf.wgmma_plan(B, NPAD, D)}", flush=True)
     variants = [
-        ("K1 tensor cores (exact per-class top-3; sorted2's place)",
+        ("K1 wgmma (exact per-class top-3; sorted2's place)",
          lambda: sf.bin_candidates(qk, xp, bias, None, metric=Metric.L2)),
-        ("K11 tree tile=4096", lambda: sf.bin_candidates_tree(qk, xp, bias, metric=Metric.L2, tile=4096)),
-        ("K11 tree tile=8192", lambda: sf.bin_candidates_tree(qk, xp, bias, metric=Metric.L2, tile=8192)),
+        ("K1 first tensor-core design (mma.sync)",
+         lambda: sf.bin_candidates_mma_v1(qk, xp, bias, None, metric=Metric.L2)),
+        ("K11 tree tile=4096 wgmma",
+         lambda: sf.bin_candidates_tree(qk, xp, bias, metric=Metric.L2, tile=4096)),
+        ("K11 tree tile=4096 first design",
+         lambda: sf.bin_candidates_tree_v1(qk, xp, bias, metric=Metric.L2, tile=4096)),
+        ("K11 tree tile=8192 wgmma",
+         lambda: sf.bin_candidates_tree(qk, xp, bias, metric=Metric.L2, tile=8192)),
+        ("K11 tree tile=8192 first design",
+         lambda: sf.bin_candidates_tree_v1(qk, xp, bias, metric=Metric.L2, tile=8192)),
         ("K1 FMA design (CUDA cores, bf16)",
          lambda: sf.bin_candidates_fma(qk, xp, bias, None, metric=Metric.L2)),
         ("K1 first FMA design (CUDA cores, bf16)",
          lambda: sf.bin_candidates_fma_v1(qk, xp, bias, None, metric=Metric.L2)),
     ]
     ones = torch.ones(B, device="cuda")
-    variants.append(("K2 count at tau=1.0", lambda: sf.count_below(qk, xp, bias, None, ones,
-                                                                   metric=Metric.L2)))
+    variants.append(("K2 wgmma count at tau=1.0",
+                     lambda: sf.count_below(qk, xp, bias, None, ones, metric=Metric.L2)))
+    variants.append(("K2 first tensor-core design count at tau=1.0",
+                     lambda: sf.count_below_mma_v1(qk, xp, bias, None, ones, metric=Metric.L2)))
     for name, fn in variants:
         print(f"{name}: {time_ms(fn, it):.4f} ms", flush=True)
 
-    cd, ci = sf.bin_candidates_tree(qk, xp, bias, metric=Metric.L2, tile=4096)
-    sd, si = topk(cd.view(B, -1), K, ids=ci.view(B, -1), strict_ties=True)
-    tau = sd[:, K - 1].contiguous()
-    lt, le = sf.count_below(qk, xp, bias, None, tau, metric=Metric.L2)
-    exact = (lt == (sd < tau[:, None]).sum(dim=1)) & (le == K)
     fd, fi, fex = sf.scan_topk_fused(q, xp, sq, vp, metric=Metric.L2, k=K)
-    both = (exact & fex).cpu()
-    same = ids_match_up_to_ties(si.cpu()[both], fi.cpu()[both], fd.cpu()[both], K)
-    print(f"tree tile=4096 flagged {int((~exact).sum())}/{B} queries; K1+K2 flagged "
-          f"{int((~fex).sum())}/{B}; ids equal scan_topk_fused's on the {int(both.sum())} "
-          f"queries exact in both: {same}", flush=True)
+    same_all = True
+    for engine, tree, count in (
+            ("wgmma", sf.bin_candidates_tree, sf.count_below),
+            ("first design", sf.bin_candidates_tree_v1, sf.count_below_mma_v1)):
+        cd, ci = tree(qk, xp, bias, metric=Metric.L2, tile=4096)
+        sd, si = topk(cd.view(B, -1), K, ids=ci.view(B, -1), strict_ties=True)
+        tau = sd[:, K - 1].contiguous()
+        lt, le = count(qk, xp, bias, None, tau, metric=Metric.L2)
+        exact = (lt == (sd < tau[:, None]).sum(dim=1)) & (le == K)
+        both = (exact & fex).cpu()
+        same = ids_match_up_to_ties(si.cpu()[both], fi.cpu()[both], fd.cpu()[both], K)
+        same_all &= same
+        print(f"{engine}: tree tile=4096 flagged {int((~exact).sum())}/{B} queries; K1+K2 flagged "
+              f"{int((~fex).sum())}/{B}; ids equal scan_topk_fused's on the {int(both.sum())} "
+              f"queries exact in both: {same}", flush=True)
     print("DONE", flush=True)
-    return 0 if same else 1
+    return 0 if same_all else 1
 
 
 if __name__ == "__main__":

@@ -1,0 +1,219 @@
+#!/usr/bin/env python3
+"""Sweep of the flat scan's wgmma design (K1/K2/K11 on Hopper's tensor cores)
+over bf16 row widths on one GPU, against the first tensor-core design.
+
+    python3 scripts/ab_scan_wgmma_torch.py [--dims 100,128,256,512,768,1024,1536,2400]
+                                           [--batches 8,256] [--rounds 3]
+                                           [--out build/ab_scan_wgmma.json]
+
+Builds the port's kernels and prints the CUDA runtime's registers and local
+(spilled) bytes of every wgmma-design kernel; then, for each width d and
+batch B (2^20 slots, 1,000,000 live gaussian bf16 rows made on the card from
+a seed, L2, k = 10), times K1 and K2 under wgmma_plan's own plan (through
+the `bin_candidates` / `count_below` wrappers: the route a flat index
+takes), under each other variant that fits (the query block's k chunk
+riding in each stage at one or two 64-query tiles, with 1 or 2 slabs a
+stage; resident in shared memory at one), and in the first tensor-core design (`*_mma_v1`), in
+`--rounds` rounds of turns (the order rotates each round): CUDA events over
+enough launches for about 20 ms. Every wgmma variant's K1 is first checked
+bit for bit against the plan's own (the placement does not change the
+floats). At d = 128 and B = 256 it also times K11 (tiles 4096 and 8192)
+against its first design. A width where d % 8 != 0 (d = 100) has rows TMA
+cannot address, so the producer copies them. The card's name and power
+limit come first (nvidia-smi); a JSON summary goes to --out. Imports
+nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+SEED, K, N, LIVE = 4321, 10, 1 << 20, 1_000_000
+HBM_BYTES_S, BF16_FLOPS = 3.35e12, 989e12
+TREE_TILES = (4096, 8192)
+
+
+def gpu_name_and_power() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, target_ms: float = 20.0) -> float:
+    """CUDA-event ms a call of fn(), over enough calls for about target_ms."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    iters = max(3, min(200, int(target_ms / max(start.elapsed_time(stop), 1e-3))))
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def make_rows(d: int):
+    """(x [N, d] bf16, sq [N] f32, valid [N]): LIVE gaussian rows, dead slots
+    past them."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + d)
+    x = torch.zeros(N, d, dtype=torch.bfloat16, device="cuda")
+    for s in range(0, LIVE, 1 << 18):  # in slices: no f32 copy of the corpus
+        e = min(s + (1 << 18), LIVE)
+        x[s:e] = torch.randn(e - s, d, generator=gen, device="cuda").bfloat16()
+    sq = torch.empty(N, device="cuda")
+    for s in range(0, N, 1 << 18):
+        xf = x[s : s + (1 << 18)].float()
+        sq[s : s + (1 << 18)] = (xf * xf).sum(dim=1)
+    return x, sq, torch.arange(N, device="cuda") < LIVE
+
+
+def bound_ms(d: int, b: int) -> tuple:
+    """The least time of one K1/K2 pass: its bytes (rows, bias, queries) at the
+    HBM rate, or its bf16 products at the dense peak."""
+    t_bytes = (N * (2 * d + 4) + 4 * b * d) / HBM_BYTES_S
+    t_ops = 2.0 * b * N * d / BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rounds_in_turns(fns: dict, rounds: int) -> dict:
+    """{name: [ms of each round]}: each round times every fn once, the order
+    rotated by one each round."""
+    names = list(fns)
+    out = {name: [] for name in names}
+    for r in range(rounds):
+        for name in names[r % len(names):] + names[: r % len(names)]:
+            out[name].append(time_ms(fns[name]))
+    return out
+
+
+def variant_plans(sf, b: int, d: int) -> dict:
+    """{label: plan} of the wgmma variants other than the plan's own that fit
+    at (b, d): the query block's k chunk in each stage at one or two query
+    tiles, or resident at one; where it is chunked, 1 or 2 slabs a stage (as
+    many stages as fit)."""
+    own = sf.wgmma_plan(b, N, d)
+    out = {}
+    if own.a_regs == 0:
+        for label, kw in (("chunked", dict(a_mode="chunked")),
+                          ("chunked qt=2", dict(a_mode="chunked", qt=2)),
+                          ("resident qt=1", dict(a_mode="smem", qt=1))):
+            if kw.get("qt", 1) == 2 and b <= 64:
+                continue
+            p = sf.wgmma_plan(b, N, d, **kw)
+            if p != own and p not in out.values() and (kw["a_mode"] == "chunked" or not p.chunked):
+                out[label] = p
+    if own.chunked:
+        for cs in (1, 2):
+            stage, base = sf.wgmma_smem(d, own.qt, 0, True, cs, 1, 0)
+            stages = min(sf.WG_MAX_STAGES, (sf.MAX_SMEM_BYTES - base) // stage)
+            if cs != own.cs and stages >= 2:
+                out[f"cs={cs}"] = own._replace(cs=cs, stages=stages, smem=base + stages * stage)
+    return out
+
+
+def sweep(sf, topk, d: int, b: int, rounds: int, x, sq, valid) -> dict:
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7 * d + b)
+    pick = torch.randint(0, LIVE, (b,), generator=gen, device="cuda")
+    q = x[pick].float() + 0.1 * torch.randn(b, d, generator=gen, device="cuda")
+    qk, bias, cs, _ = sf.kernel_inputs(q, sq, valid, Metric.L2)
+    m = Metric.L2
+    kd, ki = sf.bin_candidates(qk, x, bias, cs, metric=m)
+    sd, _ = topk(kd.view(b, -1), K, ids=ki.view(b, -1), strict_ties=True)
+    tau = sd[:, K - 1].contiguous()
+    plans = variant_plans(sf, b, d)
+    for label, p in plans.items():
+        vd, vi = sf._wgmma_launch("bin_candidates", qk, x, bias, cs, m, plan=p)
+        torch.cuda.synchronize()
+        if not (torch.equal(vd, kd) and torch.equal(vi, ki)):
+            raise AssertionError(f"d={d} B={b} {label}: K1's floats differ from the plan's own")
+    fns = {"K1 wgmma": lambda: sf.bin_candidates(qk, x, bias, cs, metric=m),
+           "K1 first design": lambda: sf.bin_candidates_mma_v1(qk, x, bias, cs, metric=m),
+           "K2 wgmma": lambda: sf.count_below(qk, x, bias, cs, tau, metric=m),
+           "K2 first design": lambda: sf.count_below_mma_v1(qk, x, bias, cs, tau, metric=m)}
+    for label, p in plans.items():
+        fns[f"K1 wgmma {label}"] = (lambda p=p: sf._wgmma_launch("bin_candidates", qk, x, bias,
+                                                                 cs, m, plan=p))
+        fns[f"K2 wgmma {label}"] = (lambda p=p: sf._wgmma_launch("count_below", qk, x, bias, cs,
+                                                                 m, tau, plan=p))
+    if d == 128 and b == 256:
+        for tile in TREE_TILES:
+            fns[f"K11 {tile} wgmma"] = (lambda t=tile: sf.bin_candidates_tree(
+                qk, x, bias, metric=m, tile=t))
+            fns[f"K11 {tile} wgmma resident"] = (lambda t=tile: sf._wgmma_launch(
+                "bin_candidates_tree", qk, x, bias, None, m, tile=t, plan=sf.wgmma_plan(
+                    b, N, d, block_tiles=t // sf.C, a_mode="smem", kernel="bin_candidates_tree")))
+            fns[f"K11 {tile} first design"] = (lambda t=tile: sf.bin_candidates_tree_v1(
+                qk, x, bias, metric=m, tile=t))
+    times = rounds_in_turns(fns, rounds)
+    row = {"d": d, "B": b, "bound_ms": bound_ms(d, b), "plan": sf.wgmma_plan(b, N, d)._asdict(),
+           "variants": {k: p._asdict() for k, p in plans.items()}, "rounds": times}
+    print(f"d={d} B={b}: plan {sf.wgmma_plan(b, N, d)}; bound {row['bound_ms'][0]:.4g} ms "
+          f"({row['bound_ms'][1]})", flush=True)
+    for label, p in plans.items():
+        print(f"  variant {label}: {p}", flush=True)
+    for name, ms in times.items():
+        print(f"  {name}: mean {sum(ms) / len(ms):.4f} ms, rounds {[round(v, 4) for v in ms]}",
+              flush=True)
+    for k in ("K1", "K2"):
+        new, old = times[f"{k} wgmma"], times[f"{k} first design"]
+        verdict = ("faster in every round" if max(new) < min(old) else
+                   "slower in every round" if min(new) > max(old) else "rounds cross")
+        print(f"  {k}: wgmma / first design {sum(new) / sum(old):.3f} ({verdict})", flush=True)
+    return row
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--dims", default="100,128,256,512,768,1024,1536,2400")
+    parser.add_argument("--batches", default="8,256")
+    parser.add_argument("--rounds", type=int, default=3)
+    parser.add_argument("--out", default=str(ROOT / "build" / "ab_scan_wgmma.json"))
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    print(gpu_name_and_power(), flush=True)
+    from vectorindex_tpu_torch.kernels import _build
+    from vectorindex_tpu_torch.kernels import scan_fused as sf
+    from vectorindex_tpu_torch.ops.topk import topk
+
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
+    attrs = sf.wgmma_attributes()
+    for key, (regs, local) in sorted(attrs.items()):
+        print(f"attributes {key}: {regs} registers, {local} local bytes", flush=True)
+    rows = []
+    for d in (int(v) for v in args.dims.split(",")):
+        x, sq, valid = make_rows(d)
+        for b in (int(v) for v in args.batches.split(",")):
+            rows.append(sweep(sf, topk, d, b, args.rounds, x, sq, valid))
+        del x, sq, valid
+        torch.cuda.empty_cache()
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"gpu": gpu_name_and_power(), "rows": rows,
+                               "attributes": {str(k): v for k, v in attrs.items()}}, indent=1))
+    print(f"wrote {out}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

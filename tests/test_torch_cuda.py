@@ -171,7 +171,10 @@ def test_index_routes_through_the_kernels(dtype, cuda_device, monkeypatch):
     got = on_card.batch_search(q, 10)
     assert sf.LAUNCHES == {"bin_candidates": 1, "count_below": 1, "bin_candidates_tree": 0,
                            "bin_candidates_fma": 0, "bin_candidates_fma_v1": 0,
-                           "count_below_fma_v1": 0}
+                           "count_below_fma_v1": 0, "bin_candidates_mma_v1": 0,
+                           "count_below_mma_v1": 0, "bin_candidates_tree_v1": 0}
+    design = "wgmma" if dtype == torch.bfloat16 else "fma"
+    assert sf.DESIGN_LAUNCHES[design] == {"bin_candidates": 1, "count_below": 1}
     want = on_host.batch_search(q, 11)
     wd = np.array([[r.score**2 for r in row] for row in want])
     gd = np.array([[r.score**2 for r in row] for row in got])
@@ -812,6 +815,248 @@ def test_fma_design_kernels_do_not_spill(cuda_device):
     assert all(local == 0 and regs <= 255 for regs, local in attrs.values()), attrs
 
 
+#: the wgmma design's cases: widths across its route (each side of the
+#: register-resident query block, the shared-memory one, k chunks of the
+#: query block in each stage; d = 100 is not 16-byte aligned: the producer
+#: copies its rows), batches on both sides of its query tiles and past one
+#: CTA's 256 queries
+WGMMA_DS = [16, 64, 100, 128, 256, 768, 1024, 1536, 2400]
+WGMMA_BATCHES = [1, 8, 9, 64, 256, 300]
+
+
+def _wgmma_case(data, d, b, n, metric, device, aligned=True, offset=1):
+    """(q_kernel, x_pad, bias, colscale) of a seeded bf16 case: gaussian rows
+    and queries, or integer-valued ones in [-8, 8] (every partial sum of
+    d <= 2,400 products exact in f32), 1/8 of the rows dead; aligned=False
+    moves the corpus `offset` elements off a 16-byte boundary."""
+    gen = torch.Generator(device=device).manual_seed(d * 7919 + b * 31 + n + 1)
+    if data == "bf16-int":
+        x = torch.randint(-8, 9, (n, d), generator=gen, device=device).float()
+        q = torch.randint(-8, 9, (b, d), generator=gen, device=device).float()
+    else:
+        x = torch.randn(n, d, generator=gen, device=device)
+        q = torch.randn(b, d, generator=gen, device=device)
+    valid = torch.rand(n, generator=gen, device=device) >= 0.125
+    xp, sqp, vp = sf.pad_corpus(x.bfloat16(), None, valid)
+    if not aligned:
+        buf = torch.empty(xp.numel() + offset, dtype=xp.dtype, device=device)
+        buf[offset:].copy_(xp.flatten())
+        xp = buf[offset:].view_as(xp)
+    qk, bias, cs, _ = sf.kernel_inputs(q, sqp, vp, metric)
+    return (q if data == "bf16-int" else qk), xp, bias, cs
+
+
+def _wgmma_check(data, qk, xp, bias, cs, metric):
+    """K1/K2 on the wgmma design against their plain versions (bit for bit
+    on integer-valued rows, else the tensor-core rule of utils/parity) and
+    against the first tensor-core design (the tensor-core rule: its
+    candidates no better than the new ones' tolerance allows); K2
+    recomputes K1's floats bit for bit at several tau (K1's sorted
+    candidates at ranks 0, 9, 99 and the last finite one)."""
+    b = qk.shape[0]
+    exact = data == "bf16-int"
+    sf.reset_launches()
+    kd, ki = sf.bin_candidates(qk, xp, bias, cs, metric=metric)
+    vd, vi = sf.bin_candidates_mma_v1(qk, xp, bias, cs, metric=metric)
+    torch.cuda.synchronize()
+    rd, ri = sf.bin_candidates_ref(qk, xp, bias, cs, metric=metric)
+    if exact:
+        assert torch.equal(kd, rd) and torch.equal(ki, ri)
+        assert torch.equal(kd, vd) and torch.equal(ki, vi)
+    else:
+        ok, err = parity.tensor_core_candidates_ok(kd, ki, rd, ri, qk, xp, bias, cs, metric)
+        assert ok, f"K1 outside the tensor-core rule of its plain version (max |err| {err})"
+        ok, err = parity.tensor_core_candidates_ok(kd, ki, vd, vi, qk, xp, bias, cs, metric)
+        assert ok, f"K1 outside the tensor-core rule of its first design (max |err| {err})"
+    sd, _ = torch.sort(kd.view(b, -1), dim=1)
+    last = int(torch.isfinite(sd).sum(dim=1).min()) - 1
+    for rank in sorted({0, min(9, last), min(99, last), last}):
+        tau = sd[:, rank].contiguous()
+        lt, le = sf.count_below(qk, xp, bias, cs, tau, metric=metric)
+        torch.cuda.synchronize()
+        assert (le >= (sd <= tau[:, None]).sum(dim=1)).all(), f"K2 is not K1's floats at rank {rank}"
+        assert rank != 0 or not lt.any()
+        rlt, rle = sf.count_below_ref(qk, xp, bias, cs, tau, metric=metric)
+        vlt, vle = sf.count_below_mma_v1(qk, xp, bias, cs, tau, metric=metric)
+        torch.cuda.synchronize()
+        if exact:
+            assert torch.equal(lt, rlt) and torch.equal(le, rle)
+            assert torch.equal(lt, vlt) and torch.equal(le, vle)
+        else:
+            near = parity.count_near(qk, xp, bias, cs, tau, metric).to(lt.dtype)
+            assert ((lt - rlt).abs() <= near).all() and ((le - rle).abs() <= near).all()
+            assert ((lt - vlt).abs() <= 2 * near).all() and ((le - vle).abs() <= 2 * near).all()
+    assert sf.DESIGN_LAUNCHES["wgmma"]["bin_candidates"] == 1
+    assert sf.DESIGN_LAUNCHES["fma"] == {"bin_candidates": 0, "count_below": 0}
+    assert sf.LAUNCHES["bin_candidates_mma_v1"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
+@pytest.mark.parametrize("d", WGMMA_DS)
+@pytest.mark.parametrize("b", WGMMA_BATCHES)
+def test_wgmma_design_matches_plain_and_first_design(metric, d, b, cuda_device):
+    """Gaussian bf16 rows over 259 tiles (a short last split), every width
+    and batch of the route: the tensor-core rule, K2 <-> K1 bit identity."""
+    assert sf.scan_design(d, torch.bfloat16) == "wgmma"
+    _wgmma_check("bf16-gauss", *_wgmma_case("bf16-gauss", d, b, 66_304, metric, cuda_device),
+                 metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
+@pytest.mark.parametrize("d", WGMMA_DS)
+@pytest.mark.parametrize("b", [1, 9, 256, 300])
+def test_wgmma_design_is_exact_on_integer_rows(metric, d, b, cuda_device):
+    """Integer-valued bf16 rows: every partial sum is exact, so the wgmma
+    design equals its plain versions and its first design bit for bit."""
+    _wgmma_check("bf16-int", *_wgmma_case("bf16-int", d, b, 66_304, metric, cuda_device), metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
+@pytest.mark.parametrize("d, b", [(128, 9), (128, 256), (256, 64), (2400, 8)])
+def test_wgmma_design_on_rows_off_16_byte_alignment(metric, d, b, cuda_device):
+    """A corpus view one element off a 16-byte boundary: TMA cannot address
+    it, so the producer copies its rows into the same swizzled layout; the
+    same checks hold."""
+    args = _wgmma_case("bf16-gauss", d, b, 66_304, metric, cuda_device, aligned=False)
+    assert args[1].data_ptr() % 16 != 0
+    _wgmma_check("bf16-gauss", *args, metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
+@pytest.mark.parametrize("d, offset", [(100, 0), (100, 1), (100, 2), (1000, 1), (1000, 2)])
+def test_wgmma_copied_rows_at_each_copy_width(metric, d, offset, cuda_device):
+    """Rows TMA cannot address, copied by the producer 8, 4 or 2 bytes at a
+    time (as the row width and the corpus's alignment allow; d = 1000 in k
+    chunks, whose last slab the copy zeroes past d): the same checks hold."""
+    args = _wgmma_case("bf16-gauss", d, 64, 66_304, metric, cuda_device, aligned=offset == 0,
+                       offset=offset)
+    _wgmma_check("bf16-gauss", *args, metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
+@pytest.mark.parametrize("d", [768, 1536])
+@pytest.mark.parametrize("b", [8, 256])
+def test_wgmma_wide_row_plans_agree(metric, d, b, cuda_device):
+    """Wide rows (the query block's k chunk in each stage): one or two query
+    tiles a CTA, and 1, 2 or 4 slabs a stage, give K1 the same floats bit
+    for bit; K2 under one recomputes K1's under another."""
+    qk, xp, bias, cs = _wgmma_case("bf16-gauss", d, b, 66_304, metric, cuda_device)
+    n = xp.shape[0]
+    wd, wi = sf.bin_candidates(qk, xp, bias, cs, metric=metric)
+    own = sf.wgmma_plan(b, n, d)
+    variants = [sf.wgmma_plan(b, n, d, qt=2, a_mode="chunked")]
+    for slabs in (1, 2):
+        stage, base = sf.wgmma_smem(d, own.qt, 0, True, slabs, 1, 0)
+        stages = min(sf.WG_MAX_STAGES, (sf.MAX_SMEM_BYTES - base) // stage)
+        variants.append(own._replace(cs=slabs, stages=stages, smem=base + stages * stage))
+    for plan in variants:
+        kd, ki = sf._wgmma_launch("bin_candidates", qk, xp, bias, cs, metric, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(kd, wd) and torch.equal(ki, wi), f"{plan} changes K1's floats"
+    sd, _ = topk(wd.view(b, -1), 10, ids=wi.view(b, -1))
+    lt, le = sf._wgmma_launch("count_below", qk, xp, bias, cs, metric, sd[:, 9].contiguous(),
+                              plan=variants[1])
+    torch.cuda.synchronize()
+    assert (le >= 10).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
+@pytest.mark.parametrize("a_mode", ["regs", "smem", "chunked"])
+@pytest.mark.parametrize("b", [8, 256])
+def test_wgmma_query_placements_agree(metric, a_mode, b, cuda_device):
+    """Each placement of the query block (registers, shared memory for the
+    pass, a k chunk in each stage) gives the same floats bit for bit as the
+    plan's own (the product does not depend on where A comes from), within
+    the tensor-core rule of the plain version; K2 under one placement
+    recomputes K1's floats under another. (Cosine K1 is built for shared
+    memory only, so there K2 alone takes the registers.)"""
+    qk, xp, bias, cs = _wgmma_case("bf16-gauss", 128, b, 66_304, metric, cuda_device)
+    plan = sf.wgmma_plan(b, xp.shape[0], 128, a_mode=a_mode)
+    k1_mode = sf.wgmma_placement("bin_candidates", metric, 128) if a_mode == "regs" else a_mode
+    kd, ki = sf._wgmma_launch("bin_candidates", qk, xp, bias, cs, metric,
+                              plan=sf.wgmma_plan(b, xp.shape[0], 128, a_mode=k1_mode))
+    wd, wi = sf.bin_candidates(qk, xp, bias, cs, metric=metric)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, wd) and torch.equal(ki, wi), f"{a_mode} changes K1's floats"
+    rd, ri = sf.bin_candidates_ref(qk, xp, bias, cs, metric=metric)
+    ok, err = parity.tensor_core_candidates_ok(kd, ki, rd, ri, qk, xp, bias, cs, metric)
+    assert ok, f"{a_mode}: K1 outside the tensor-core rule (max |err| {err})"
+    sd, _ = topk(kd.view(b, -1), 10, ids=ki.view(b, -1))
+    tau = sd[:, 9].contiguous()
+    lt, le = sf._wgmma_launch("count_below", qk, xp, bias, cs, metric, tau, plan=plan)
+    torch.cuda.synchronize()
+    assert (le >= 10).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT], ids=lambda m: m.value)
+@pytest.mark.parametrize("data", ["bf16-int", "bf16-gauss"])
+@pytest.mark.parametrize("tile", [4096, 8192])
+@pytest.mark.parametrize("b", [13, 256])
+def test_wgmma_tree_matches_plain_and_first_design(metric, data, tile, b, cuda_device):
+    """K11 on the wgmma design at the A/B's tiles against its plain version
+    and its first design (bit for bit on integer rows, else the tensor-core
+    rule); K2 on its tau recomputes its floats."""
+    qk, xp, bias, _ = _wgmma_case(data, 128, b, 16 * 8192, metric, cuda_device)
+    sf.reset_launches()
+    kd, ki = sf.bin_candidates_tree(qk, xp, bias, metric=metric, tile=tile)
+    vd, vi = sf.bin_candidates_tree_v1(qk, xp, bias, metric=metric, tile=tile)
+    torch.cuda.synchronize()
+    rd, ri = sf.bin_candidates_tree_ref(qk, xp, bias, metric=metric, tile=tile)
+    if data == "bf16-int":
+        assert torch.equal(kd, rd) and torch.equal(ki, ri)
+        assert torch.equal(kd, vd) and torch.equal(ki, vi)
+    else:
+        for wd, wi in ((rd, ri), (vd, vi)):
+            ok, err = parity.tensor_core_candidates_ok(kd, ki, wd, wi, qk, xp, bias, None, metric)
+            assert ok, f"K11 outside the tensor-core rule (max |err| {err})"
+    assert sf.LAUNCHES["bin_candidates_tree"] == 1 and sf.LAUNCHES["bin_candidates_tree_v1"] == 1
+    sd, _ = topk(kd.view(b, -1), 10, ids=ki.view(b, -1))
+    lt, le = sf.count_below(qk, xp, bias, None, sd[:, 9].contiguous(), metric=metric)
+    assert (le >= 10).all()  # K2 recomputes K11's floats bit for bit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT], ids=lambda m: m.value)
+@pytest.mark.parametrize("d", [256, 768])
+def test_wgmma_tree_on_wide_rows(metric, d, cuda_device):
+    """K11 past the register-resident query block (its tiers in shared memory
+    beside the resident query block at d = 256, beside stages that bring the
+    query block's k chunks at 768) against its plain version and its first
+    design by the tensor-core rule."""
+    qk, xp, bias, _ = _wgmma_case("bf16-gauss", d, 256, 8 * 8192, metric, cuda_device)
+    kd, ki = sf.bin_candidates_tree(qk, xp, bias, metric=metric, tile=4096)
+    vd, vi = sf.bin_candidates_tree_v1(qk, xp, bias, metric=metric, tile=4096)
+    torch.cuda.synchronize()
+    rd, ri = sf.bin_candidates_tree_ref(qk, xp, bias, metric=metric, tile=4096)
+    for wd, wi in ((rd, ri), (vd, vi)):
+        ok, err = parity.tensor_core_candidates_ok(kd, ki, wd, wi, qk, xp, bias, None, metric)
+        assert ok, f"K11 outside the tensor-core rule (max |err| {err})"
+
+
+@pytest.mark.cuda
+def test_wgmma_design_kernels_do_not_spill(cuda_device):
+    """Every kernel of the wgmma design fits its registers: no local memory."""
+    attrs = sf.wgmma_attributes()
+    assert len(attrs) == 22  # K1 7, K11 6, K2 9: cosine K1 takes a_regs 0 only
+    assert all(local == 0 and regs <= 255 for regs, local in attrs.values()), attrs
+
+
+@pytest.mark.cuda
+def test_first_tensor_core_design_raises_on_f32_rows(cuda_device):
+    x = torch.randn(512, 16, device=cuda_device)
+    q = torch.randn(2, 16, device=cuda_device)
+    with pytest.raises(TypeError, match="bf16"):
+        sf.bin_candidates_mma_v1(q, x, torch.zeros(512, device=cuda_device), None,
+                                 metric=Metric.L2)
+
+
 def _wide_flat(dim, cuda_device, rows=3000, nq=9, round_q=True):
     """A bf16 L2 FlatIndex of capacity 2^17 with `rows` seeded gaussian rows
     of width dim, nq queries near some of them, and the exact (f64) squared
@@ -866,7 +1111,7 @@ def test_wide_bf16_flat_index_runs_k1_k2_on_the_cuda_cores(cuda_device):
         got = idx.batch_search(q, 10)
     finally:
         TELEM.disable()
-    assert sf.DESIGN_LAUNCHES == {"mma": {"bin_candidates": 0, "count_below": 0},
+    assert sf.DESIGN_LAUNCHES == {"wgmma": {"bin_candidates": 0, "count_below": 0},
                                   "fma": {"bin_candidates": 1, "count_below": 1}}
     counters = TELEM.snapshot()["counters"]
     assert counters.get("flat.verify_fallback", 0) == 0 and counters["kernel.scan_fused.calls"] == 1

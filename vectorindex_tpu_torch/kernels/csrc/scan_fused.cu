@@ -41,36 +41,65 @@
 //
 // Two designs.
 //
-// bf16 corpora (the flat main path) run on the tensor cores, as the TPU
-// kernel runs on its matrix unit: one mma.sync.m16n8k16 (bf16 x bf16, f32
-// accumulate) per 16 corpus rows x 8 queries x 16 k. A warp owns 16 classes
-// (the mma's M) x 16 queries (two n8 tiles); a CTA holds up to 8 warps, split
-// into query warps (the batch's queries, up to 128) and class warps. The
-// thread that holds a fragment position owns the same (query, class) pairs
-// in every 256-row tile, so the per-class tiers live in its registers: 8
-// pairs a thread. Queries are staged once per CTA in shared memory as bf16;
-// the CTA's slice of each corpus tile (16 rows per class warp) streams
-// through two shared-memory stages of several tiles each (about 128 rows,
-// one barrier a stage: the per-stage overhead, not memory or mma latency,
-// bounded the first version) by cp.async (16-byte copies where the rows are
-// 16-byte aligned, plain loads otherwise: a d=100 bf16 row is 200 bytes),
-// K past d zero-filled. Rows are padded by 8 bf16 in shared memory so
-// ldmatrix reads are free of bank conflicts. The grid is one wave of
-// (query block, class group, split) CTAs with the query blocks innermost,
-// so the CTAs that read one corpus slice run together and find it in L2,
-// and each CTA's run of tiles is long, which keeps per-class inserts rare.
+// bf16 corpora up to d = 2,400 (the flat main path) run on Hopper's
+// asynchronous tensor cores, as the TPU kernel runs on its matrix unit
+// (scan_wgmma_kernel, sized by kernels/scan_fused.wgmma_plan):
 //
-// mma.sync rather than wgmma: the per-class epilogue needs each thread to
-// own a fixed set of (query, class) pairs, which the m16n8 accumulator
-// layout gives directly; at B=256 the product is not what bounds the pass
-// (PERF.md), and a first kernel is right and simple first.
+//   - wgmma.mma_async m64n32k16 (bf16 x bf16, f32 accumulate) with the
+//     queries as A (64 a warpgroup: M) and 32 classes of a 256-row tile as
+//     B (N), so each thread owns the same 16 (query, class) pairs in every
+//     tile and K1's tiers live in its registers. N = 32 issues at about 90%
+//     of the tensor cores' rate, N = 16 at about half (scripts/
+//     wgmma_rates.cu); 16 pairs a thread is what K1's 6 tier registers a
+//     pair allow.
+//   - a CTA: two consumer warpgroups (one unit each: query tile w % qt
+//     against class block w / qt) and one producer warpgroup, so a CTA covers
+//     64 qt queries x 64 / qt classes (qt = 1 or 2): every query of a batch
+//     up to 128 in one CTA, and the corpus read once a pass there (256 do
+//     not fit: K1's tiers would need 4 units' registers; past 128 the query
+//     blocks that read one corpus slice run together and share it in L2;
+//     a 2-CTA cluster sharing each load by TMA multicast was slower). Rows
+//     past the batch take nothing; a warp (or half a warp's rows) with
+//     none skips its epilogues.
+//   - the producer's one thread brings each stage's corpus rows in by TMA
+//     (a 3-D tensor map [tile][class][k], 64-value k slabs of 128 bytes in
+//     the 128-byte swizzle wgmma reads, bias and colscale by 2-D maps) into
+//     a ring of up to 8 stages with full and empty mbarriers; rows TMA
+//     cannot address (not 16-byte aligned: a d = 100 bf16 row is 200 bytes)
+//     are copied by the producer's 128 threads into the same layout
+//     (cp.async of 8 or 4 bytes as the width and alignment allow, two
+//     stages in flight). The query block is rounded to bf16 once a CTA by
+//     the consumers: held in registers as A fragments up to d = 128,
+//     written into shared memory for the whole pass past that, and for rows
+//     too wide for that (d > 448) its k chunk rides in each stage (TMA from
+//     a padded copy the wrapper makes). The placements give the same floats
+//     bit for bit. K11 keeps its tiers, touched once a
+//     block, in shared memory, so its A fragments fit in registers beside
+//     its block minima.
+//   - a consumer warpgroup issues one tile's products, waits, and runs the
+//     mode's epilogue from the accumulator registers (the other warpgroup's
+//     products run meanwhile): K1's inserts (push3: selects only, so the
+//     pairs interleave), K11's running block minimum, or K2's counts behind
+//     one test of each query's smallest distance against tau. Issuing the next tile before the epilogue made
+//     ptxas serialize the products (it injects waits on the epilogue's
+//     divergent paths). setmaxnreg gives the consumers 224 registers of
+//     the launch bound's 168 a thread, the producer 56.
+//   - the grid is one wave of (query block, class group, split) CTAs, one
+//     CTA an SM, with the query blocks innermost, so the CTAs that read one
+//     corpus slice run together and find it in L2. K11's splits start on
+//     block boundaries.
+//
+// The first tensor-core design (scan_mma_kernel: mma.sync m16n8k16 with
+// ldmatrix from a 2-stage cp.async ring, up to 128 queries a CTA) stays for
+// timing only (the _mma_v1 / tree_v1 wrappers).
 //
 // The exactness proof (scan_fused.py:17-21) needs K2 to recompute, bit for
 // bit, the float K1 produced for every (query, row). Tensor-core sums are
 // deterministic but not IEEE-sequential, so K1, K2 and K11 share one
-// __device__ tile function (mma_dist_tile) with the same instruction, the
-// same k order, the same query block and the same row-to-fragment mapping
-// for a given (nq, d), and the same rounded epilogue (kernel_space). Against
+// __device__ tile function (wg_dist_tile; mma_dist_tile in the first
+// design) with the same instruction, the same k order, the same query
+// placement and the same row-to-fragment mapping for a given (nq, d), and
+// the same rounded epilogue (kernel_space). Against
 // the plain versions (cuBLAS f32 GEMM) they agree bit for bit only where
 // every partial sum is exact (integer-valued data); elsewhere each distance
 // is within 2 d 2^-23 sum_k |q_k x_k| (times 2 for L2, times cs for cosine)
@@ -136,6 +165,7 @@
 // call without --use_fast_math, and no TF32 or 3xTF32 product: either would
 // change the floats.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda is linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -212,7 +242,8 @@ __device__ __forceinline__ void fma8(const float* __restrict__ qk, float xk, flo
 // here (explicit intrinsics, which nvcc cannot contract).
 template <int METRIC>
 __device__ __forceinline__ float kernel_space(float acc, float bias, float colscale) {
-  if (METRIC == kL2) return __fsub_rn(bias, __fmul_rn(2.0f, acc));
+  // L2: one FMA equals bias - fl(2 acc) rounded, since 2 acc is exact
+  if (METRIC == kL2) return __fmaf_rn(-2.0f, acc, bias);
   if (METRIC == kIP) return __fsub_rn(bias, acc);
   return __fsub_rn(bias, __fmul_rn(acc, colscale));
 }
@@ -669,6 +700,643 @@ __global__ void __launch_bounds__(32 * kMmaWarps, 2)
 }
 
 // ---------------------------------------------------------------------------
+// the wgmma design (bf16 corpora up to d = 2,400: K1, K2 and K11)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgConsumers = 2;                    // consumer warpgroups a CTA
+constexpr int kWgConsumerThreads = 128 * kWgConsumers;
+constexpr int kWgThreads = kWgConsumerThreads + 128;  // + one producer warpgroup
+// setmaxnreg: the producer warpgroup gives up registers the consumers take
+// (the launch bound alone allows 168 a thread: 65,536 / 384)
+constexpr int kConsumerRegs = 224, kProducerRegs = 56;
+constexpr int kWgUnits = 1;      // (64-query tile, 32-class block) units a consumer warpgroup
+constexpr int kWgN = 32;         // classes of a unit: the wgmma's N
+constexpr int kSlab = 64;        // bf16 k values of one 128-byte swizzled row
+constexpr int kWgMaxStages = 8;
+constexpr int kWgHeader = 2048;  // barriers, then slack to align the regions to 1024 bytes
+
+// The geometry kernels/scan_fused.wgmma_plan chose.
+struct WgPlan {
+  int qt;       // 64-query tiles a CTA (1 or 2); a CTA holds 64 / qt classes
+  int a_regs;   // k16 steps of the query block held in registers (4 or 8); 0: shared memory
+  int chunked;  // 1: the query block's k chunk rides in each stage (wide rows)
+  int cs;       // 64-value k slabs a stage holds (every slab unless chunked)
+  int tps;      // 256-row tiles a stage holds (1 when chunked)
+  int stages;   // ring stages, 2..kWgMaxStages
+  int splits, tiles_per_split, block_tiles;
+};
+
+// K11's tiers in shared memory: a distance and a row in each of 3 tiers of
+// each consumer thread's 16 pairs, [pair][tier][thread] (a thread reads and
+// writes only its own column)
+constexpr int kWgTierBytes = 2 * (kWgN / 2) * kTiers * kWgConsumerThreads * 4;
+
+// Shared memory of a wgmma CTA past the header: the query block once (its
+// k slabs [slab][query][64], when it is neither in registers nor chunked),
+// K11's tiers (`tiers`), then `stages` ring stages of: cs slabs of the tps
+// tiles' class-block rows ([slab][tile][class][64]), the query block's cs
+// slabs when chunked, and the tiles' bias and colscale [tile][class] (f32).
+// Rows are 128 bytes, swizzled as TMA's 128-byte swizzle writes them; every
+// part starts on 1024 bytes (bias and colscale on 128).
+struct WgLayout {
+  int g, qb, slabs, q_res, tiers, x_slab, x_bytes, q_bytes, b_off, c_off, stage_bytes, total;
+};
+
+__host__ __device__ inline WgLayout wg_layout(int d, const WgPlan& p, bool tiers) {
+  WgLayout l;
+  l.g = kWgUnits * kWgConsumers * kWgN / p.qt;
+  l.qb = 64 * p.qt;
+  l.slabs = (d + kSlab - 1) / kSlab;
+  l.q_res = (p.a_regs == 0 && !p.chunked) ? l.slabs * l.qb * 128 : 0;
+  l.tiers = tiers ? kWgTierBytes : 0;
+  l.x_slab = p.tps * l.g * 128;
+  l.x_bytes = p.cs * l.x_slab;
+  l.q_bytes = p.chunked ? p.cs * l.qb * 128 : 0;
+  const int bb = (p.tps * l.g * 4 + 127) & ~127;
+  l.b_off = l.x_bytes + l.q_bytes;
+  l.c_off = l.b_off + bb;
+  l.stage_bytes = (l.c_off + bb + 1023) & ~1023;
+  l.total = kWgHeader + l.q_res + l.tiers + p.stages * l.stage_bytes;
+  return l;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait for the phase of parity `parity` to complete. A phase that never
+// completes (a lost arrival) traps after about 2^35 clocks, so the launch
+// fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try(bar, parity)) {
+    if (clock64() - start > (1ll << 35)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                      uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                      int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// wgmma's shared-memory operand: K-major rows of 128 bytes in 128-byte
+// swizzle, 8-row atoms 1024 bytes apart, from `addr` (a k16 step inside a
+// slab adds 32 bytes to the start, as the swizzle is a function of the
+// address).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// d (64 queries x 32 classes, f32) (+)= a (64 x 16 k, shared memory) b^T.
+// N = 32 reaches about 90% of the tensor cores' rate from registers (16 runs
+// at about half; scripts/ab_flat_tree_torch.py --wgmma-rates).
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, "
+      "0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The same with a from registers (the m16n8k16 A fragment of each warp's 16 rows).
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous product's fence and wait.
+__device__ __forceinline__ void fence_acc(float (&d)[16]) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e) asm volatile("" : "+f"(d[e])::"memory");
+}
+
+// K1's insert in a thread's own stream, where each row lies above every row
+// the tiers hold: (v, row) goes in iff v < td[2] (so v is finite), below
+// every tier it is smaller than. Equal to insert3 there, with no row
+// compares and no branch (selects only: the wgmma pipeline may be in
+// flight, and a branch would make ptxas serialize it).
+__device__ __forceinline__ void push3(float (&td)[kTiers], int (&ti)[kTiers], float v, int row) {
+  const bool c2 = v < td[2], c1 = v < td[1], c0 = v < td[0];  // c0 => c1 => c2
+  td[2] = c1 ? td[1] : (c2 ? v : td[2]);
+  ti[2] = c1 ? ti[1] : (c2 ? row : ti[2]);
+  td[1] = c0 ? td[0] : (c1 ? v : td[1]);
+  ti[1] = c0 ? ti[0] : (c1 ? row : ti[1]);
+  td[0] = c0 ? v : td[0];
+  ti[0] = c0 ? row : ti[0];
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The one distance tile of K1, K2 and K11 on this design: the warpgroup's
+// 64 queries against its 32 classes of one ring tile over the stage's k
+// steps (k order from the stage's first slab; accumulate = 0 starts the
+// sums), issued and not waited for. a: the query block's A fragments
+// (KS > 0) or its query rows' first slab in shared memory (qa, slab stride
+// qstride); xb: the class rows' first slab in the stage (slab stride
+// xstride).
+template <int KS>
+__device__ __forceinline__ void wg_dist_tile(float (&acc)[16], const uint32_t (&a)[KS > 0 ? KS : 1][4],
+                                             uint32_t qa, int qstride, uint32_t xb, int xstride,
+                                             int nks, int accumulate) {
+  if constexpr (KS > 0) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      wgmma_rs(acc, a[ks], sw128_desc(xb + (ks >> 2) * xstride + (ks & 3) * 32), ks > 0);
+    }
+  } else {
+    for (int ks = 0; ks < nks; ++ks) {
+      wgmma_ss(acc, sw128_desc(qa + (ks >> 2) * qstride + (ks & 3) * 32),
+               sw128_desc(xb + (ks >> 2) * xstride + (ks & 3) * 32), accumulate | (ks > 0));
+    }
+  }
+}
+
+// K1 (MODE kModeTop3), K11 (kModeTree) and K2 (kModeCount) on Hopper's
+// asynchronous tensor cores. Grid (query block of 64 qt, class group of
+// g = 64 / qt, split), kWgThreads threads: warpgroups 0 and 1 consume,
+// warpgroup 2 produces (setmaxnreg moves its registers to the consumers).
+// Consumer warpgroup w's unit is 64-query tile w % qt against 32-class
+// block w / qt, one m64n32k16 accumulator (warp i of the warpgroup: queries
+// 16 i + lane / 4 (+ 8), classes 2 (lane % 4) + 8 j (+ 1)), the same pairs
+// in every tile, so K1's tiers live in registers (16 pairs a thread; K11's
+// in shared memory). The producer fills a ring of stages through TMA (one
+// thread; the corpus by a 3-D tensor map [tile][class][k], bias and
+// colscale by 2-D maps), or, where rows are not 16-byte aligned, copies the
+// corpus rows itself into the same swizzled layout (all 128 threads, one
+// stage's copies in flight behind the next's) before its first thread
+// issues the rest; full barriers complete on the copies' bytes, every
+// consumer warp arrives on a stage's empty barrier once done with it. The
+// query block, rounded to bf16 by the consumers, sits in registers as A
+// fragments (KS > 0), in shared memory for the whole pass, or (chunked: a
+// wrapper-made padded copy, one tile a stage) rides in each stage with its
+// k chunk. K1/K11 write per-split tiers to part_[dist|row]
+// [split][query][tier][class]; K2 adds into lt/le, which must be zeroed.
+template <int METRIC, int MODE, int KS>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    scan_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap bmap,
+                      const __grid_constant__ CUtensorMap cmap,
+                      const __grid_constant__ CUtensorMap qmap,
+                      const float* __restrict__ q, const __nv_bfloat16* __restrict__ x,
+                      const float* __restrict__ thresh, int nq, int d, int ntiles, WgPlan p,
+                      int tma_x, float* __restrict__ part_dist, int* __restrict__ part_row,
+                      int* __restrict__ lt, int* __restrict__ le) {
+  extern __shared__ float4 smem_v4[];
+  uint8_t* const smem = reinterpret_cast<uint8_t*>(smem_v4);
+  const WgLayout L = wg_layout(d, p, MODE == kModeTree);
+  const uint32_t raw = smem_addr(smem);
+  const uint32_t full0 = raw, empty0 = raw + 8 * kWgMaxStages;
+  const uint32_t qres = (raw + 256 + 1023) & ~1023u;
+  const uint32_t ring = qres + L.q_res + L.tiers;
+  const int q0 = blockIdx.x * L.qb;
+  const int c0 = blockIdx.y * L.g;
+  const int split = blockIdx.z;
+  const int t0 = split * p.tiles_per_split;
+  const int ntl = min(t0 + p.tiles_per_split, ntiles) - t0;
+  const int nk = p.chunked ? (L.slabs + p.cs - 1) / p.cs : 1;  // ring stages a tile group takes
+  const int total = (ntl + p.tps - 1) / p.tps * nk;
+  const int wg = threadIdx.x >> 7;  // consumer warpgroup 0 or 1; 2: the producer
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kWgConsumerThreads / 32);  // every consumer warp arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kWgConsumers) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int pt = threadIdx.x - kWgConsumerThreads;
+    const uint32_t tx_fixed = p.tps * L.g * 4 * (METRIC == kCos ? 2 : 1);
+    if (tma_x && pt != 0) return;
+    // stage s: ring slot, first slab and slabs of its k chunk, first tile
+    auto stage_of = [&](int s, int& slot, int& sl0, int& nsl, int& tile0) {
+      const int grp = s / nk;
+      slot = s % p.stages;
+      sl0 = (s - grp * nk) * p.cs;
+      nsl = min(p.cs, L.slabs - sl0);
+      tile0 = t0 + grp * p.tps;
+    };
+    // the TMA copies of stage s onto its full barrier: the corpus rows (when
+    // TMA-fed), the query block's k chunk (chunked), bias and colscale
+    auto issue = [&](int s) {
+      int slot, sl0, nsl, tile0;
+      stage_of(s, slot, sl0, nsl, tile0);
+      const uint32_t st = ring + slot * L.stage_bytes;
+      const uint32_t fb = full0 + 8 * slot;
+      mbar_expect(fb, tx_fixed + nsl * (tma_x ? L.x_slab : 0) + (p.chunked ? nsl * L.qb * 128 : 0));
+      if (tma_x) {
+        for (int j = 0; j < nsl; ++j) {
+          tma3d(st + j * L.x_slab, &xmap, (sl0 + j) * kSlab, c0, tile0, fb);
+        }
+      }
+      if (p.chunked) {
+        for (int j = 0; j < nsl; ++j) {
+          tma2d(st + L.x_bytes + j * L.qb * 128, &qmap, (sl0 + j) * kSlab, q0, fb);
+        }
+      }
+      tma2d(st + L.b_off, &bmap, c0, tile0, fb);
+      if (METRIC == kCos) tma2d(st + L.c_off, &cmap, c0, tile0, fb);
+    };
+    if (tma_x) {
+      for (int s = 0; s < total; ++s) {
+        if (s >= p.stages) mbar_wait(empty0 + 8 * (s % p.stages), ((s / p.stages) - 1) & 1);
+        issue(s);
+      }
+      return;
+    }
+    // Rows TMA cannot address: the producer's 128 threads copy them, V
+    // values (2 V bytes) a copy, by cp.async where V > 1 (zero-filled past
+    // d), with two stages in flight: element (row r of the stage, k) of slab
+    // j lands at byte r * 128 + (((k % 64) / 8) ^ (r % 8)) * 16 + (k % 8) * 2
+    // (a slot holds other k chunks' slabs before, so k past d is written 0).
+    auto copy = [&](int s, auto vec) {
+      constexpr int V = decltype(vec)::value;
+      int slot, sl0, nsl, tile0;
+      stage_of(s, slot, sl0, nsl, tile0);
+      const uint32_t st = ring + slot * L.stage_bytes;
+      const int k0 = sl0 * kSlab;
+      const int per = nsl * kSlab / V;  // copies a row
+      for (int i = pt; i < p.tps * L.g * per; i += 128) {
+        const int r = i / per;
+        const int k = V * (i - r * per);
+        const int tile = tile0 + r / L.g;
+        if (tile >= ntiles) continue;
+        const bool in = k0 + k < d;  // d % V == 0: all V values or none
+        const __nv_bfloat16* src =
+            x + (in ? (static_cast<size_t>(tile) * kClasses + c0 + r % L.g) * d + k0 + k : 0);
+        const uint32_t dst =
+            st + (k >> 6) * L.x_slab + r * 128 + ((((k >> 3) & 7) ^ (r & 7)) << 4) + ((k & 7) << 1);
+        if constexpr (V > 1) {
+          asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+                       "n"(2 * V), "r"(in ? 2 * V : 0)
+                       : "memory");
+        } else {
+          const unsigned short v = in ? __ldg(reinterpret_cast<const unsigned short*>(src)) : 0;
+          asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(v) : "memory");
+        }
+      }
+    };
+    const uintptr_t base = reinterpret_cast<uintptr_t>(x);
+    const int vec = d % 4 == 0 && base % 8 == 0 ? 4 : (d % 2 == 0 && base % 4 == 0 ? 2 : 1);
+    for (int s = 0; s <= total; ++s) {
+      if (s < total) {
+        if (s >= p.stages) mbar_wait(empty0 + 8 * (s % p.stages), ((s / p.stages) - 1) & 1);
+        if (vec == 4) {
+          copy(s, std::integral_constant<int, 4>{});
+        } else if (vec == 2) {
+          copy(s, std::integral_constant<int, 2>{});
+        } else {
+          copy(s, std::integral_constant<int, 1>{});
+        }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // stage s - 1's copies landed
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      }
+      if (s > 0) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 2, 128;\n" ::: "memory");
+        if (pt == 0) issue(s - 1);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int lane = threadIdx.x & 31;
+  const int wq = (threadIdx.x >> 5) & 3;  // warp of the warpgroup: its 16 query rows
+  const int gq = lane >> 2, tq = lane & 3;
+  const int mq = wg % p.qt;  // the warpgroup's query tile
+  const int cb = wg / p.qt;  // and class block
+  // The thread's queries are qrow and qrow + kHi; a warp whose 16 rows
+  // hold no query skips its epilogues, and one whose second 8 hold none
+  // skips that half (a small batch: spreading it over the 4 warps measured
+  // slower).
+  constexpr int kHi = 8;
+  const int qrow = q0 + mq * 64 + 16 * wq + gq;
+  const bool live = q0 + mq * 64 + 16 * wq < nq;
+  const bool hi_live = q0 + mq * 64 + 16 * wq + 8 < nq;
+  // q rounded to bf16 once a CTA: two consecutive k of query `row` as the
+  // packed pair wgmma reads (0 past nq and d)
+  auto qpair = [&](int row, int k) -> uint32_t {
+    const float* qr = q + static_cast<size_t>(row) * d;
+    const float lo = row < nq && k < d ? qr[k] : 0.0f;
+    const float hi = row < nq && k + 1 < d ? qr[k + 1] : 0.0f;
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  };
+
+  // the query block's A fragments (KS > 0): queries qrow (+ 8), k pairs
+  // 2 tq (+ 8) of each k16 step; or (resident in shared memory) the block's
+  // k slabs written by the consumers in the 128-byte swizzle, once
+  uint32_t a[KS > 0 ? KS : 1][4];
+  if constexpr (KS > 0) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      a[ks][0] = qpair(qrow, 16 * ks + 2 * tq);
+      a[ks][1] = qpair(qrow + kHi, 16 * ks + 2 * tq);
+      a[ks][2] = qpair(qrow, 16 * ks + 8 + 2 * tq);
+      a[ks][3] = qpair(qrow + kHi, 16 * ks + 8 + 2 * tq);
+    }
+  } else if (!p.chunked) {
+    const int pairs = L.slabs * kSlab / 2;  // k pairs a row
+    for (int i = threadIdx.x; i < L.qb * pairs; i += 128 * kWgConsumers) {
+      const int r = i / pairs;
+      const int k = 2 * (i - r * pairs);
+      const uint32_t off = (k >> 6) * L.qb * 128 + r * 128 + ((((k >> 3) & 7) ^ (r & 7)) << 4) +
+                           ((k & 7) << 1);
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(qres + off), "r"(qpair(q0 + r, k))
+                   : "memory");
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kWgConsumerThreads) : "memory");
+  }
+
+  // per pair p = 4 j + e: query qrow + 8 (e / 2), class 32 cb + 8 j + 2 tq + e % 2
+  constexpr int kPairs = kWgN / 2;
+  // K1's tiers in registers; K11's, touched once a block, in shared memory
+  // (tier k of pair pp at [pp][k][thread]), so that its query block's A
+  // fragments fit in registers beside its block minima
+  constexpr bool kTiers3 = MODE == kModeTop3;
+  float td[kTiers3 ? kPairs : 1][kTiers];
+  int ti[kTiers3 ? kPairs : 1][kTiers];
+  float* const tds = reinterpret_cast<float*>(smem + (qres - raw) + L.q_res) + threadIdx.x;
+  int* const tis = reinterpret_cast<int*>(tds) + kPairs * kTiers * kWgConsumerThreads;
+  auto tier = [](auto* t, int pp, int k) -> auto& { return t[(pp * kTiers + k) * kWgConsumerThreads]; };
+  float m1[MODE == kModeTree ? kPairs : 1];
+  int r1[MODE == kModeTree ? kPairs : 1];  // the block minima's rows
+  float tau[2];
+  int n_lt[2] = {0, 0}, n_le[2] = {0, 0};
+  if constexpr (MODE != kModeCount) {
+#pragma unroll
+    for (int pp = 0; pp < kPairs; ++pp) {
+      // a query past nq takes nothing: no distance beats a tier
+      const float init = qrow + kHi * ((pp >> 1) & 1) >= nq ? -INFINITY : INFINITY;
+#pragma unroll
+      for (int k = 0; k < kTiers; ++k) {
+        if constexpr (kTiers3) {
+          td[pp][k] = init;
+          ti[pp][k] = kInvalidId;
+        } else {
+          tier(tds, pp, k) = init;
+          tier(tis, pp, k) = kInvalidId;
+        }
+      }
+    }
+  }
+  if constexpr (MODE == kModeTree) {
+#pragma unroll
+    for (int pp = 0; pp < kPairs; ++pp) m1[pp] = INFINITY;
+  }
+  if constexpr (MODE == kModeCount) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) tau[h] = qrow + kHi * h < nq ? thresh[qrow + kHi * h] : -INFINITY;
+  }
+
+  const int cls = cb * kWgN + 2 * tq;  // the thread's classes cls + 8 j (+ 1) of the group
+  const uint32_t xrow = cls - 2 * tq;  // the warpgroup's first class row of a ring tile
+  // The mode's step for split tile j (ring tile r of the stage at st), with
+  // no product in flight (the epilogue is on each warpgroup's critical
+  // path): K1's inserts without a branch, K11's running block minimum, or
+  // K2's counts behind one test of each query's smallest distance against
+  // tau (at or below it: about k rows of the corpus a query). Rows past nq
+  // take nothing (their tiers are -inf, their tau -inf); the second half of
+  // rows is skipped when it holds no query.
+  auto epilogue = [&](const float (&acc)[16], int j, int r, uint32_t st) {
+    const int tile = t0 + j;
+    if (!live) {
+      if constexpr (MODE == kModeTree) {
+        if ((tile + 1) % p.block_tiles == 0) {
+#pragma unroll
+          for (int pp = 0; pp < kPairs; ++pp) m1[pp] = INFINITY;
+        }
+      }
+      return;
+    }
+    const float* sb = reinterpret_cast<const float*>(smem + (st - raw) + L.b_off) + r * L.g + cls;
+    const float* sc = reinterpret_cast<const float*>(smem + (st - raw) + L.c_off) + r * L.g + cls;
+    const int row = tile * kClasses + c0 + cls;
+    // pair pp = 4 jj + e: query qrow + 8 (e / 2), class cls + 8 jj + e % 2
+    float b[kPairs / 2], c[kPairs / 2];
+#pragma unroll
+    for (int jj = 0; jj < kWgN / 8; ++jj) {
+      const float2 bb = *reinterpret_cast<const float2*>(sb + 8 * jj);
+      const float2 cc = METRIC == kCos ? *reinterpret_cast<const float2*>(sc + 8 * jj)
+                                       : make_float2(0.f, 0.f);
+      b[2 * jj] = bb.x;
+      b[2 * jj + 1] = bb.y;
+      c[2 * jj] = cc.x;
+      c[2 * jj + 1] = cc.y;
+    }
+    auto dist = [&](int pp) {
+      return kernel_space<METRIC>(acc[pp], b[2 * (pp >> 2) + (pp & 1)], c[2 * (pp >> 2) + (pp & 1)]);
+    };
+    // the pairs of `halves` halves of rows (query qrow + 8 h: pairs
+    // 4 jj + 2 h (+ 1)), with no branch inside, so they interleave
+    auto each_pair = [&](auto halves, auto&& f) {
+#pragma unroll
+      for (int h = 0; h < decltype(halves)::value; ++h) {
+#pragma unroll
+        for (int jj = 0; jj < kWgN / 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) f(4 * jj + 2 * h + e, row + 8 * jj + e);
+        }
+      }
+    };
+    auto live_pairs = [&](auto&& f) {
+      if (hi_live) {
+        each_pair(std::integral_constant<int, 2>{}, f);
+      } else {
+        each_pair(std::integral_constant<int, 1>{}, f);
+      }
+    };
+    if constexpr (MODE == kModeTop3) {
+      // rows only grow along the loop, so (v, row) beats a tier iff v is
+      // smaller; the distances first, then push3, selects only (a branch a
+      // pair measured slower). Cosine keeps no distance array (its colscale
+      // takes those registers).
+      if constexpr (METRIC == kCos) {
+        live_pairs([&](int pp, int rw) { push3(td[pp], ti[pp], dist(pp), rw); });
+      } else {
+        float v[kPairs];
+        live_pairs([&](int pp, int) { v[pp] = dist(pp); });
+        live_pairs([&](int pp, int rw) { push3(td[pp], ti[pp], v[pp], rw); });
+      }
+    } else if constexpr (MODE == kModeTree) {
+#pragma unroll
+      for (int pp = 0; pp < kPairs; ++pp) {
+        // strict <: the first row of the block wins a tie (the JAX eq-scan)
+        const float v = dist(pp);
+        const bool lower = v < m1[pp];
+        m1[pp] = lower ? v : m1[pp];
+        r1[pp] = lower ? row + 8 * (pp >> 2) + (pp & 1) : r1[pp];
+      }
+      if ((tile + 1) % p.block_tiles == 0) {
+#pragma unroll
+        for (int pp = 0; pp < kPairs; ++pp) {
+          // rows of a later block lie above the tiers'
+          if (m1[pp] < tier(tds, pp, 2)) {
+            float d3[kTiers];
+            int i3[kTiers];
+#pragma unroll
+            for (int k = 0; k < kTiers; ++k) {
+              d3[k] = tier(tds, pp, k);
+              i3[k] = tier(tis, pp, k);
+            }
+            push3(d3, i3, m1[pp], r1[pp]);
+#pragma unroll
+            for (int k = 0; k < kTiers; ++k) {
+              tier(tds, pp, k) = d3[k];
+              tier(tis, pp, k) = i3[k];
+            }
+          }
+          m1[pp] = INFINITY;
+        }
+      }
+    } else {
+      float v[kPairs];
+#pragma unroll
+      for (int pp = 0; pp < kPairs; ++pp) v[pp] = INFINITY;  // a skipped half counts nothing
+      live_pairs([&](int pp, int) { v[pp] = dist(pp); });
+      float lo[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        lo[h] = fminf(fminf(fminf(v[2 * h], v[2 * h + 1]), fminf(v[4 + 2 * h], v[5 + 2 * h])),
+                      fminf(fminf(v[8 + 2 * h], v[9 + 2 * h]), fminf(v[12 + 2 * h], v[13 + 2 * h])));
+      }
+      if (lo[0] <= tau[0] || lo[1] <= tau[1]) {
+#pragma unroll
+        for (int pp = 0; pp < kPairs; ++pp) {
+          const int h = (pp >> 1) & 1;
+          n_lt[h] += v[pp] < tau[h];  // tau is -inf past nq
+          n_le[h] += v[pp] <= tau[h];
+        }
+      }
+    }
+  };
+
+  // One tile's product at a time, waited for before its epilogue; the other
+  // consumer warpgroup's product runs meanwhile. (Issuing the next tile
+  // before this one's epilogue makes ptxas serialize the products: it
+  // injects waits on the pipeline's divergent paths.)
+  float acc[16];
+  for (int s = 0; s < total; ++s) {
+    const int slot = s % p.stages;
+    mbar_wait(full0 + 8 * slot, (s / p.stages) & 1);
+    const int grp = s / nk;
+    const int kc = s - grp * nk;
+    const int nks = 4 * min(p.cs, L.slabs - kc * p.cs);
+    const int tiles = min(p.tps, ntl - grp * p.tps);
+    const uint32_t st = ring + slot * L.stage_bytes;
+    const uint32_t qa = (p.chunked ? st + L.x_bytes : qres) + mq * 64 * 128;
+    for (int r = 0; r < tiles; ++r) {
+      fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wg_dist_tile<KS>(acc, a, qa, L.qb * 128, st + (r * L.g + xrow) * 128, L.x_slab, nks,
+                       kc > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (kc == nk - 1) epilogue(acc, grp * p.tps + r, r, st);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * slot);  // the warp is done with the stage
+  }
+
+  if constexpr (MODE == kModeCount) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int cl = n_lt[h], ce = n_le[h];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes of one query row
+        cl += __shfl_xor_sync(0xffffffffu, cl, off);
+        ce += __shfl_xor_sync(0xffffffffu, ce, off);
+      }
+      const int qi = qrow + kHi * h;
+      if (tq == 0 && qi < nq) {
+        if (cl) atomicAdd(lt + qi, cl);
+        if (ce) atomicAdd(le + qi, ce);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int pp = 0; pp < kPairs; ++pp) {
+      const int qi = qrow + kHi * ((pp & 3) >> 1);
+      if (qi >= nq) continue;
+      const int c = c0 + cls + 8 * (pp >> 2) + (pp & 1);
+#pragma unroll
+      for (int k = 0; k < kTiers; ++k) {
+        const size_t o = ((static_cast<size_t>(split) * nq + qi) * kTiers + k) * kClasses + c;
+        if constexpr (kTiers3) {
+          part_dist[o] = td[pp][k];
+          part_row[o] = ti[pp][k];
+        } else {
+          part_dist[o] = tier(tds, pp, k);
+          part_row[o] = tier(tis, pp, k);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // the FMA design (f32 corpora; bf16 corpora wider than the tensor-core CTA)
 // ---------------------------------------------------------------------------
 
@@ -1066,6 +1734,167 @@ cudaError_t launch_mma(const float* q, const void* x, const float* bias, const f
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled from the driver, through the runtime (the library
+// links no libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+  }
+  return fn;
+}
+
+// A tensor map over `rank` dims (innermost first; strides in bytes of dims
+// 1..rank-1), boxes of `box`, zero fill past the edges.
+cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr,
+                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                       bool swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const CUresult r = fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, ones,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// scan_wgmma_kernel<METRIC, MODE, KS> under plan p: the tensor maps, then
+// the launch. q [nq, d] f32; qpad (chunked plans only) is q rounded to bf16,
+// zero-padded to [query blocks x 64 qt, slabs x 64]. The corpus goes
+// through TMA where its rows are 16-byte aligned, else through the
+// producer's copies.
+template <int METRIC, int MODE, int KS>
+cudaError_t launch_wgmma(const float* q, const void* qpad, const void* x, const float* bias,
+                         const float* cs,
+                         const float* thresh, int nq, int n, int d, WgPlan p, float* part_dist,
+                         int* part_row, int* lt, int* le, cudaStream_t stream) {
+  const WgLayout L = wg_layout(d, p, MODE == kModeTree);
+  if ((p.qt != 1 && p.qt != 2) || p.tps < 1 || p.tps > 256 || p.cs < 1 || p.cs > L.slabs ||
+      p.stages < 2 || p.stages > kWgMaxStages || p.splits < 1 || p.tiles_per_split < 1 ||
+      p.block_tiles < 1 || (p.chunked && (p.tps != 1 || KS > 0)) ||
+      (!p.chunked && p.cs != L.slabs) || (KS > 0 && KS != 4 * L.slabs) ||
+      L.total > 232448 || reinterpret_cast<uintptr_t>(bias) % 16 != 0 ||
+      (METRIC == kCos && reinterpret_cast<uintptr_t>(cs) % 16 != 0) ||
+      (p.chunked && (qpad == nullptr || reinterpret_cast<uintptr_t>(qpad) % 16 != 0))) {
+    return cudaErrorInvalidValue;
+  }
+  const int ntiles = n / kClasses;
+  const int qblocks = (nq + L.qb - 1) / L.qb;
+  const bool tma_x = d % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  CUtensorMap xmap, bmap, cmap, qmap;
+  {
+    const cuuint64_t dims[2] = {kClasses, static_cast<cuuint64_t>(ntiles)};
+    const cuuint64_t strides[1] = {kClasses * sizeof(float)};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(L.g), static_cast<cuuint32_t>(p.tps)};
+    cudaError_t err = tensor_map(&bmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, bias, dims, strides,
+                                 box, false);
+    if (err != cudaSuccess) return err;
+    cmap = bmap;
+    if (METRIC == kCos) {
+      err = tensor_map(&cmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, cs, dims, strides, box, false);
+      if (err != cudaSuccess) return err;
+    }
+  }
+  qmap = xmap = bmap;  // unused unless chunked / TMA-fed
+  if (p.chunked) {
+    const cuuint64_t kpad = static_cast<cuuint64_t>(L.slabs) * kSlab;
+    const cuuint64_t dims[2] = {kpad, static_cast<cuuint64_t>(qblocks) * L.qb};
+    const cuuint64_t strides[1] = {kpad * 2};
+    const cuuint32_t box[2] = {kSlab, static_cast<cuuint32_t>(L.qb)};
+    const cudaError_t err =
+        tensor_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, qpad, dims, strides, box, true);
+    if (err != cudaSuccess) return err;
+  }
+  if (tma_x) {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), kClasses,
+                                static_cast<cuuint64_t>(ntiles)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                   static_cast<cuuint64_t>(d) * 2 * kClasses};
+    const cuuint32_t box[3] = {kSlab, static_cast<cuuint32_t>(L.g), static_cast<cuuint32_t>(p.tps)};
+    const cudaError_t err =
+        tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x, dims, strides, box, true);
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = scan_wgmma_kernel<METRIC, MODE, KS>;
+  const size_t smem = static_cast<size_t>(L.total);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(qblocks, kClasses / L.g, p.splits);
+  kernel<<<grid, kWgThreads, smem, stream>>>(xmap, bmap, cmap, qmap, q,
+                                             static_cast<const __nv_bfloat16*>(x), thresh, nq, d,
+                                             ntiles, p, tma_x ? 1 : 0, part_dist, part_row, lt, le);
+  return cudaGetLastError();
+}
+
+// f(integral_constant<METRIC>, integral_constant<KS>) for a runtime metric
+// (K11: L2 and IP only) and query-block placement (a_regs 0, 4 or 8; cosine
+// K1 takes 0 only: its tiers and colscale leave no registers for the A
+// fragments, kernels/scan_fused.wgmma_placement).
+template <int MODE, typename F>
+cudaError_t with_metric_ks(int metric, int a_regs, F&& f) {
+  using L2 = std::integral_constant<int, kL2>;
+  using IP = std::integral_constant<int, kIP>;
+  using Cos = std::integral_constant<int, kCos>;
+  auto by_ks = [&](auto m) -> cudaError_t {
+    constexpr bool kRegs = !(MODE == kModeTop3 && decltype(m)::value == kCos);
+    if (a_regs == 0) return f(m, std::integral_constant<int, 0>{});
+    if constexpr (kRegs) {
+      if (a_regs == 4) return f(m, std::integral_constant<int, 4>{});
+      if (a_regs == 8) return f(m, std::integral_constant<int, 8>{});
+    }
+    return cudaErrorInvalidValue;
+  };
+  if (metric == kL2) return by_ks(L2{});
+  if (metric == kIP) return by_ks(IP{});
+  if constexpr (MODE != kModeTree) {
+    if (metric == kCos) return by_ks(Cos{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int MODE>
+cudaError_t wgmma_dispatch(int metric, const float* q, const void* qpad, const void* x,
+                           const float* bias,
+                           const float* cs, const float* thresh, int nq, int n, int d, WgPlan p,
+                           float* part_dist, int* part_row, int* lt, int* le,
+                           cudaStream_t stream) {
+  return with_metric_ks<MODE>(metric, p.a_regs, [&](auto m, auto ks) {
+    return launch_wgmma<decltype(m)::value, MODE, decltype(ks)::value>(
+        q, qpad, x, bias, cs, thresh, nq, n, d, p, part_dist, part_row, lt, le, stream);
+  });
+}
+
+template <int MODE>
+cudaError_t wgmma_attributes(int metric, int a_regs, int* regs, int* local_bytes) {
+  return with_metric_ks<MODE>(metric, a_regs, [&](auto m, auto ks) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(
+        &a, scan_wgmma_kernel<decltype(m)::value, MODE, decltype(ks)::value>);
+    if (err == cudaSuccess) {
+      *regs = a.numRegs;
+      *local_bytes = static_cast<int>(a.localSizeBytes);
+    }
+    return err;
+  });
+}
+
 template <typename T, int METRIC>
 cudaError_t launch_v1_bin(const float* q, const void* x, const float* bias, const float* cs,
                            int nq, int n, int d, int splits, int tiles_per_split,
@@ -1272,6 +2101,62 @@ int vi_count_below(const void* q, const void* x, const void* bias, const void* c
                     MmaGrid{qwarps, cwarps, tiles_per_stage, splits, tiles_per_split, 1},
                     static_cast<int*>(lt), static_cast<int*>(le),
                     static_cast<cudaStream_t>(stream));
+}
+
+// K1 (mode 0), K11 (mode 1: bf16, L2 or IP) and K2 (mode 2) on the wgmma
+// design under the plan of kernels/scan_fused.wgmma_plan. q [nq, d] f32
+// (rounded to bf16 by the kernel); qpad, for chunked plans only, is q
+// rounded to bf16 and zero-padded to [query blocks x 64 qt, slabs x 64]
+// (16-byte aligned); x [n, d] bf16, n a multiple of 256 (of 256 block_tiles for
+// K11); bias and colscale [n] f32, 16-byte aligned (colscale read for
+// cosine only). K1/K11: part_* [splits, nq, 3, 256] scratch, out_* [nq, 3,
+// 256]; K2: thresh [nq], lt/le [nq] int32 zeroed by the caller. Returns
+// cudaGetLastError().
+int vi_scan_wgmma(int mode, const void* q, const void* qpad, const void* x, const void* bias,
+                  const void* colscale, const void* thresh, int nq, int n, int d, int metric,
+                  int qt, int a_regs, int chunked, int cs, int tps, int stages, int splits,
+                  int tiles_per_split, int block_tiles, void* part_dist, void* part_row,
+                  void* out_dist, void* out_row, void* lt, void* le, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const WgPlan p{qt, a_regs, chunked, cs, tps, stages, splits, tiles_per_split, block_tiles};
+  const auto* qf = static_cast<const float*>(q);
+  const auto* bf = static_cast<const float*>(bias);
+  const auto* cf = static_cast<const float*>(colscale);
+  float* pd = static_cast<float*>(part_dist);
+  int* pr = static_cast<int*>(part_row);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (mode == kModeCount) {
+    return static_cast<int>(wgmma_dispatch<kModeCount>(
+        metric, qf, qpad, x, bf, cf, static_cast<const float*>(thresh), nq, n, d, p, nullptr,
+        nullptr, static_cast<int*>(lt), static_cast<int*>(le), s));
+  }
+  if (mode == kModeTop3) {
+    err = wgmma_dispatch<kModeTop3>(metric, qf, qpad, x, bf, cf, nullptr, nq, n, d, p, pd, pr,
+                                    nullptr, nullptr, s);
+  } else if (mode == kModeTree) {
+    if (tiles_per_split % block_tiles != 0 || (n / kClasses) % block_tiles != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    err = wgmma_dispatch<kModeTree>(metric, qf, qpad, x, bf, cf, nullptr, nq, n, d, p, pd, pr,
+                                    nullptr, nullptr, s);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_merge_splits(pd, pr, nq, splits, static_cast<float*>(out_dist),
+                                              static_cast<int*>(out_row), s));
+}
+
+// Registers a thread and local (spilled) bytes of the wgmma design's kernel
+// for metric, mode (0 K1, 1 K11, 2 K2) and a_regs (0, 4, 8).
+int vi_scan_wgmma_attributes(int metric, int mode, int a_regs, int* regs, int* local_bytes) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (mode == kModeTop3) {
+    err = wgmma_attributes<kModeTop3>(metric, a_regs, regs, local_bytes);
+  } else if (mode == kModeTree) {
+    err = wgmma_attributes<kModeTree>(metric, a_regs, regs, local_bytes);
+  } else if (mode == kModeCount) {
+    err = wgmma_attributes<kModeCount>(metric, a_regs, regs, local_bytes);
+  }
+  return static_cast<int>(err);
 }
 
 // K1, FMA design: as vi_bin_candidates, with q [nq, d] already rounded to

@@ -21,11 +21,15 @@ Kernel-space distances omit ||q||^2 (monotone per query; added back for L2):
 
 q is rounded to the corpus dtype before the product. The CUDA kernels live in
 csrc/scan_fused.cu, in two designs that `scan_design` chooses from the
-corpus dtype and width: on a bf16 corpus up to d = 2,400 the tensor cores
-(mma.sync, f32 accumulation); on an f32 corpus, and on bf16 past 2,400, the
-CUDA cores (one f32 FMA chain per dot product, register-tiled over staged
-corpus tiles; `fma_plan` sizes each launch) up to d = 7,264; past that
-callers take ops/scan.scan_topk_verified or scan_topk_strict.
+corpus dtype and width: on a bf16 corpus up to d = 2,400 Hopper's
+asynchronous tensor cores (`scan_wgmma_kernel`: wgmma m64n32k16 with f32
+accumulation, the corpus through a TMA-fed ring, read once a pass where the
+batch fits one CTA (up to 128 queries), the query block resident in
+registers or shared memory; `wgmma_plan` sizes each launch); on an f32
+corpus, and on bf16 past 2,400, the CUDA cores (one f32 FMA chain per dot
+product, register-tiled over staged corpus tiles; `fma_plan` sizes each
+launch) up to d = 7,264; past that callers take
+ops/scan.scan_topk_verified or scan_topk_strict.
 `bin_candidates_ref` and `count_below_ref` are
 their plain PyTorch versions: CPU tensors take them, CUDA tensors always
 launch the kernel. The plain versions share one distance function with one
@@ -36,7 +40,10 @@ kernel distance lies within 2 d 2^-23 sum_k |q_k x_k| (times 2 for L2,
 times colscale for cosine) of the exact one, as the tensor cores' and
 cuBLAS's sum orders differ. The FMA design computes the same floats as its
 first design (one thread a row, 8 queries a CTA), which stays as
-`bin_candidates_fma_v1` / `count_below_fma_v1` for timing only.
+`bin_candidates_fma_v1` / `count_below_fma_v1` for timing only; the first
+tensor-core design (mma.sync m16n8k16 over a 2-stage cp.async ring, up to
+128 queries a CTA) stays as `bin_candidates_mma_v1` / `count_below_mma_v1`
+/ `bin_candidates_tree_v1`, for timing only too.
 
 K11 `bin_candidates_tree` (the round-5 A/B kernel of scripts/ab_flat_tree.py,
 mode "tree") is K1 keeping, per query, class and block of `tile` rows, only
@@ -61,13 +68,39 @@ Tensor = torch.Tensor
 #: residue classes per query (rows per tile); candidates per query = TIERS*C
 C = 256
 TIERS = 3
-#: the tensor-core (bf16) kernels: a warp computes MMA_TILE corpus rows x
-#: MMA_TILE queries; a CTA holds up to MMA_WARPS warps, split into query and
-#: class warps, and streams its rows through MMA_STAGES shared-memory stages
-#: of about MMA_STAGE_ROWS rows (whole 256-row tiles' class-group rows),
-#: with MMA_PAD bf16 of padding after each row (kMmaTile, kMmaWarps,
-#: kStages, kMmaPad)
+#: the first tensor-core (bf16) design, kept for timing: a warp computes
+#: MMA_TILE corpus rows x MMA_TILE queries; a CTA holds up to MMA_WARPS
+#: warps, split into query and class warps, and streams its rows through
+#: MMA_STAGES shared-memory stages of about MMA_STAGE_ROWS rows (whole
+#: 256-row tiles' class-group rows), with MMA_PAD bf16 of padding after each
+#: row (kMmaTile, kMmaWarps, kStages, kMmaPad)
 MMA_TILE, MMA_WARPS, MMA_STAGES, MMA_STAGE_ROWS, MMA_PAD = 16, 8, 2, 128, 8
+#: the wgmma design (csrc scan_wgmma_kernel): WG_THREADS threads, two
+#: consumer warpgroups and one producer warpgroup; a consumer warpgroup owns
+#: WG_UNITS unit, one m64n32k16 product (WG_M queries x WG_N classes), so a
+#: CTA covers 64 qt queries x 64 / qt classes (qt = 1 or 2 query tiles).
+#: Rows are staged as WG_SLAB-value k slabs of 128 bytes (kWgThreads,
+#: kWgUnits, kWgN, kSlab)
+WG_THREADS, WG_UNITS, WG_M, WG_N, WG_SLAB = 384, 1, 64, 32, 64
+WG_CTA_UNITS = 2 * WG_UNITS
+#: shared bytes before the regions (barriers, alignment), most ring stages
+#: (kWgHeader, kWgMaxStages)
+WG_HEADER, WG_MAX_STAGES = 2048, 8
+#: K11's tiers in shared memory: a distance and a row in 3 tiers of each
+#: consumer thread's WG_N / 2 pairs (kWgTierBytes)
+WG_TIER_BYTES = 2 * (WG_N // 2) * TIERS * 256 * 4
+#: corpus bytes a stage aims for; a chunked stage's bytes at most (4 slabs
+#: of 64 class and 64 query rows: stages of 2 slabs took 1.3-1.5x longer
+#: over d = 512-896, scripts/ab_scan_wgmma_torch.py)
+WG_STAGE_BYTES, WG_CHUNK_BYTES = 16384, 65536
+#: registers a consumer thread holds (setmaxnreg, kConsumerRegs: the
+#: producer warpgroup keeps kProducerRegs of the launch bound's 65,536 /
+#: WG_THREADS = 168), of which WG_REG_BUDGET may be live state of the
+#: consumers' loop (wgmma_registers)
+WG_CONSUMER_REGS, WG_PRODUCER_REGS, WG_REG_BUDGET = 224, 56, 176
+#: widest bf16 row the wgmma route takes: the first tensor-core design's
+#: route, kept (the kernel streams wider rows in k chunks too)
+WGMMA_MAX_D = 2400
 #: the H100's SMs, and the shared memory of one SM
 SMS, SM_SMEM_BYTES = 132, 233_472
 #: CTAs a pass of the first FMA design aims for: 4 per SM
@@ -108,9 +141,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: kernel launches per wrapper since the last reset (plain versions do not count)
 LAUNCHES = dict.fromkeys(
     ("bin_candidates", "count_below", "bin_candidates_tree", "bin_candidates_fma",
-     "bin_candidates_fma_v1", "count_below_fma_v1"), 0)
+     "bin_candidates_fma_v1", "count_below_fma_v1", "bin_candidates_mma_v1",
+     "count_below_mma_v1", "bin_candidates_tree_v1"), 0)
 #: K1's and K2's launches by the design they ran (scan_design)
-DESIGN_LAUNCHES = {design: {"bin_candidates": 0, "count_below": 0} for design in ("mma", "fma")}
+DESIGN_LAUNCHES = {design: {"bin_candidates": 0, "count_below": 0} for design in ("wgmma", "fma")}
 
 
 def reset_launches() -> None:
@@ -278,11 +312,11 @@ def _mma_smem(d: int, qw: int, cw: int, tps: int) -> int:
 
 
 def _mma_config(nq: int, d: int) -> Tuple[int, int, int]:
-    """(query warps, class warps, tiles per stage) of the tensor-core
-    kernels: enough query warps for the batch (up to MMA_WARPS), the other
+    """(query warps, class warps, tiles per stage) of the first tensor-core
+    design: enough query warps for the batch (up to MMA_WARPS), the other
     warps on classes, stages of about MMA_STAGE_ROWS rows, shrunk (tiles per
-    stage, class warps, query warps) until the CTA's shared memory fits. K1,
-    K2 and K11 take the same geometry for the same (nq, d), so their
+    stage, class warps, query warps) until the CTA's shared memory fits. Its
+    K1, K2 and K11 take the same geometry for the same (nq, d), so their
     distances agree bit for bit."""
     qw = 1
     while qw < MMA_WARPS and qw * MMA_TILE < nq:
@@ -303,16 +337,17 @@ def _mma_config(nq: int, d: int) -> Tuple[int, int, int]:
 
 def scan_design(d: int, dtype: torch.dtype) -> str:
     """The design K1 and K2 run over a corpus of this width and dtype:
-    "mma" (tensor cores) for bf16 while the smallest tensor-core CTA fits in
-    shared memory (d <= 2,400), "fma" (CUDA cores) for f32 and for bf16 past
-    that up to FMA_MAX_D (7,264), else "strict": models/flat takes
+    "wgmma" (tensor cores) for bf16 up to WGMMA_MAX_D (2,400, the route of
+    the first tensor-core design, whose smallest CTA fits in shared memory
+    there), "fma" (CUDA cores) for f32 and for bf16 past that up to
+    FMA_MAX_D (7,264), else "strict": models/flat takes
     ops/scan.scan_topk_verified at large capacity, scan_topk_strict below it
-    (fma_plan and _grid raise there). K1 and K2 both take their design from
-    here: the exactness proof needs K2 to recompute K1's floats bit for bit,
-    so they must never run two designs on one corpus. (K11 stays on the
-    tensor cores.)"""
-    if dtype == torch.bfloat16 and _mma_smem(d, 1, 1, 1) <= MAX_SMEM_BYTES:
-        return "mma"
+    (fma_plan, wgmma_plan and _grid raise there). K1 and K2 both take their
+    design from here: the exactness proof needs K2 to recompute K1's floats
+    bit for bit, so they must never run two designs on one corpus. (K11
+    stays on the tensor cores.)"""
+    if dtype == torch.bfloat16 and d <= WGMMA_MAX_D:
+        return "wgmma"
     if d <= FMA_MAX_D:
         return "fma"
     return "strict"
@@ -320,9 +355,10 @@ def scan_design(d: int, dtype: torch.dtype) -> str:
 
 def _grid(nq: int, n: int, d: int, mma: bool, block_tiles: int = 1) -> Tuple[int, ...]:
     """(query warps, class warps, tiles per stage, splits, tiles per split)
-    of a tensor-core pass over n rows (mma), or of the first FMA design's
-    (query warps 0: query blocks of V1_QUERY_BLOCK, about TARGET_CTAS
-    CTAs). The FMA design takes fma_plan's plan instead."""
+    of a pass of the first tensor-core design over n rows (mma), or of the
+    first FMA design's (query warps 0: query blocks of V1_QUERY_BLOCK, about
+    TARGET_CTAS CTAs). The shipping designs take wgmma_plan's and fma_plan's
+    plans instead."""
     if not mma:
         if V1_QUERY_BLOCK * d * 4 > MAX_SMEM_BYTES:
             raise ValueError(f"d={d} exceeds the kernels' shared-memory limit")
@@ -334,6 +370,170 @@ def _grid(nq: int, n: int, d: int, mma: bool, block_tiles: int = 1) -> Tuple[int
     # CTA's run of tiles and the rarer its per-class inserts
     resident = SMS * min(2, SM_SMEM_BYTES // (_mma_smem(d, qw, cw, tps) + 1024))
     return (qw, cw, tps) + _splits(resident // ctas, n // C, math.lcm(tps, block_tiles))
+
+
+class WgmmaPlan(NamedTuple):
+    """One launch of the wgmma design (csrc scan_wgmma_kernel)."""
+
+    qt: int  # 64-query tiles a CTA (1 or 2)
+    g: int  # classes a CTA: its rows of each 256-row tile (64 / qt)
+    qblocks: int  # CTAs along the batch: ceil(nq / 64 qt)
+    a_regs: int  # k16 steps of the query block in registers (4, 8); 0: shared memory
+    chunked: bool  # the query block's k chunk rides in each stage (wide rows)
+    cs: int  # 64-value k slabs a stage holds (every slab unless chunked)
+    tps: int  # 256-row tiles a stage holds (1 when chunked)
+    stages: int  # shared-memory ring stages
+    splits: int
+    tiles_per_split: int
+    smem: int  # shared bytes a CTA uses
+
+
+def _slabs(d: int) -> int:
+    return -(-d // WG_SLAB)
+
+
+def wgmma_smem(d: int, qt: int, a_regs: int, chunked: bool, cs: int, tps: int,
+               stages: int, tiers: bool = False) -> Tuple[int, int]:
+    """(bytes a ring stage, shared bytes a CTA) of the wgmma design (csrc
+    wg_layout): the header, the query block once (k slabs of 64 qt rows of
+    128 bytes, when neither in registers nor chunked), K11's tiers (tiers),
+    then `stages` stages of cs slabs of the tps tiles' 64 / qt class rows,
+    the query block's cs slabs when chunked, and the tiles' bias and
+    colscale (128-byte aligned), each stage rounded up to 1,024 bytes."""
+    g, qb = WG_CTA_UNITS * WG_N // qt, WG_M * qt
+    q_res = _slabs(d) * qb * 128 if a_regs == 0 and not chunked else 0
+    bb = -(-tps * g * 4 // 128) * 128
+    stage = cs * tps * g * 128 + (cs * qb * 128 if chunked else 0) + 2 * bb
+    stage = -(-stage // 1024) * 1024
+    return stage, WG_HEADER + q_res + (WG_TIER_BYTES if tiers else 0) + stages * stage
+
+
+def wgmma_registers(a_regs: int, kernel: str) -> int:
+    """Registers a consumer thread of the wgmma design holds live in its
+    loop: its accumulator (WG_N / 2), the query block's A fragments (4 a
+    k16 step) when in registers, and K1's tiers (a distance and a row in
+    each of 3 tiers of its WG_N / 2 (query, class) pairs) and the tile's
+    distances, K11's block minima and their rows (its tiers are in shared
+    memory), or K2's tau and two counts of its 2 queries and the tile's
+    distances."""
+    pairs = WG_UNITS * WG_N // 2
+    own = {"bin_candidates": pairs * (2 * TIERS + 1),
+           "bin_candidates_tree": pairs * 2,
+           "count_below": 2 * 3 + pairs}[kernel]
+    return pairs + WG_UNITS * 4 * a_regs + own
+
+
+def _wgmma_ring(d: int, qt: int, a_regs: int, chunked: bool,
+                tiers: bool) -> Tuple[int, int, int]:
+    """(cs, tps, stages) of a wgmma CTA's ring: stages of about
+    WG_STAGE_BYTES of whole rows (up to 8 tiles) in as many stages (up to
+    WG_MAX_STAGES) as fit, fewer tiles a stage until 3 stages fit; chunked
+    plans one tile a stage of at most WG_CHUNK_BYTES of rows and query
+    chunk, fewer slabs a stage until 3 stages fit. stages is 0 where none
+    fits."""
+    slabs = _slabs(d)
+    g, qb = WG_CTA_UNITS * WG_N // qt, WG_M * qt
+
+    def depth(cs: int, tps: int) -> int:
+        stage, base = wgmma_smem(d, qt, a_regs, chunked, cs, tps, 0, tiers)
+        return max(0, min(WG_MAX_STAGES, (MAX_SMEM_BYTES - base) // stage))
+
+    if chunked:
+        cs = max(1, min(slabs, WG_CHUNK_BYTES // ((g + qb) * 128)))
+        while depth(cs, 1) < 3 and cs > 1:
+            cs -= 1
+        return cs, 1, depth(cs, 1)
+    tps = max(1, min(8, WG_STAGE_BYTES // (slabs * g * 128)))
+    while depth(slabs, tps) < 3 and tps > 1:
+        tps //= 2
+    return slabs, tps, depth(slabs, tps)
+
+
+def wgmma_plan(nq: int, n: int, d: int, *, block_tiles: int = 1, a_mode: Optional[str] = None,
+               kernel: str = "bin_candidates", qt: Optional[int] = None) -> WgmmaPlan:
+    """The wgmma design's launch for `kernel` over nq queries and n rows of
+    width d. K1, K2 and K11 (whose splits also hold whole blocks of
+    `block_tiles` tiles, and whose tiers take shared memory) take the same
+    query tiles, class groups and splits for one (nq, d), so that their
+    distances agree bit for bit: the fewest 64-query tiles that hold the
+    batch (up to 2, so every query of a batch up to 128 is in one CTA and
+    the corpus is read once a pass; K1's tiers in registers allow no more),
+    the query block in registers while a row is at most 2 slabs (d <= 128),
+    else resident in shared memory for the whole pass (with fewer query
+    tiles a CTA if that is what fits beside 3 stages of whole rows), else
+    streamed with each stage's k chunk at one query tile; as many row
+    splits as fill the card once with one CTA an SM. a_mode places the
+    query block ("regs", "smem" or "chunked") and qt sets the query tiles
+    by hand (the A/B sweep's variants: the same floats bit for bit, which
+    the cuda tests check); a plan that does not fit raises."""
+    if d > WGMMA_MAX_D or d < 1:
+        raise ValueError(f"d={d} is outside the wgmma route (1 <= d <= {WGMMA_MAX_D})")
+    if kernel not in _WGMMA_MODES:
+        raise ValueError(f"wgmma_plan plans {tuple(_WGMMA_MODES)}, got {kernel}")
+    if qt not in (None, 1, 2):
+        raise ValueError(f"qt must be 1 or 2, got {qt}")
+    slabs = _slabs(d)
+    tiers = kernel == "bin_candidates_tree"
+    qt_want = qt or (1 if nq <= WG_M else 2)
+    if a_mode is None:
+        a_mode = "regs" if slabs <= 2 else "smem"
+    if a_mode == "regs":
+        if slabs > 2:
+            raise ValueError(f"d={d}: the query block goes in registers only up to d = 128")
+        qt, a_regs, chunked = qt_want, 4 * slabs, False
+    elif a_mode == "smem":
+        qt = next((t for t in (2, 1) if t <= qt_want and (qt is None or t == qt)
+                   and _wgmma_ring(d, t, 0, False, False)[2] >= 3), None)
+        a_regs, chunked = 0, qt is None
+        qt = qt or 1
+    elif a_mode == "chunked":
+        qt, a_regs, chunked = qt or 1, 0, True
+    else:
+        raise ValueError(f"a_mode must be 'regs', 'smem' or 'chunked', got {a_mode!r}")
+    cs, tps, stages = _wgmma_ring(d, qt, a_regs, chunked, tiers)
+    if tiers and a_regs == 0 and not chunked and stages < 3:
+        # K11's tiers leave no room for the resident query block: its k
+        # chunks ride in each stage, at K1's query tiles
+        chunked = True
+        cs, tps, stages = _wgmma_ring(d, qt, a_regs, chunked, tiers)
+    if stages < 2:
+        raise ValueError(f"no wgmma stage ring fits d={d} at qt={qt}, a_mode={a_mode}")
+    g, qb = WG_CTA_UNITS * WG_N // qt, WG_M * qt
+    qblocks = -(-max(nq, 1) // qb)
+    ntiles = max(1, n // C)
+    splits, per = _splits(max(1, SMS // (qblocks * (C // g))), ntiles, block_tiles)
+    return WgmmaPlan(qt, g, qblocks, a_regs, chunked, cs, tps, stages, splits, per,
+                     wgmma_smem(d, qt, a_regs, chunked, cs, tps, stages, tiers)[1])
+
+
+def wgmma_placement(kernel: str, metric: Metric, d: int) -> Optional[str]:
+    """The query block's placement `kernel` takes (wgmma_plan's a_mode):
+    the plan's own, except that cosine K1 takes it from shared memory where
+    the plan would hold it in registers (d <= 128): its tiers and colscale
+    leave no registers for the A fragments. (K11 keeps its tiers in shared
+    memory, so its A fragments fit.) The placement does not change the
+    floats (the cuda tests hold every placement's K1 to the others' bit for
+    bit), so K2 still recomputes cosine K1's floats."""
+    takes_smem = kernel == "bin_candidates" and metric == Metric.COSINE
+    return "smem" if takes_smem and _slabs(d) <= 2 else None
+
+
+def wgmma_thread_map(plan: WgmmaPlan) -> Tuple[Tensor, Tensor]:
+    """(queries [256, 16], classes [256, 16]): the (query, class) pairs of
+    the CTA's block and group each consumer thread of a wgmma CTA owns, as
+    csrc scan_wgmma_kernel maps them: thread t is lane t % 32 of warp
+    (t // 32) % 4 of consumer warpgroup w = t // 128, whose unit is query
+    tile w % qt against class block w // qt; pair 4 j + e is query
+    64 (w % qt) + 16 warp + lane // 4 + 8 (e // 2) and class
+    32 (w // qt) + 8 j + 2 (lane % 4) + e % 2. Its classes' rows are its
+    pairs' rows in every tile."""
+    t = torch.arange(2 * 128)
+    wg, warp, lane = t // 128, (t // 32) % 4, t % 32
+    pair = torch.arange(WG_UNITS * WG_N // 2)
+    j, e = pair // 4, pair % 4
+    queries = WG_M * (wg % plan.qt)[:, None] + 16 * warp[:, None] + (lane // 4)[:, None] + 8 * (e // 2)
+    classes = WG_N * (wg // plan.qt)[:, None] + 8 * j + 2 * (lane % 4)[:, None] + e % 2
+    return queries, classes
 
 
 class FmaPlan(NamedTuple):
@@ -460,6 +660,30 @@ def fma_attributes() -> dict:
     return out
 
 
+def wgmma_attributes() -> dict:
+    """{(kernel, metric, a_regs): (registers a thread, local bytes a
+    thread)} of every kernel of the wgmma design, from the CUDA runtime:
+    local bytes above 0 mean ptxas spilled."""
+    import ctypes
+
+    from vectorindex_tpu_torch.kernels import _build
+
+    lib = _build.load()
+    out = {}
+    for kernel, mode in (("bin_candidates", 0), ("bin_candidates_tree", 1), ("count_below", 2)):
+        for metric, mcode in _METRIC_CODE.items():
+            if kernel == "bin_candidates_tree" and metric == Metric.COSINE:
+                continue
+            # the placements the kernel is built for (wgmma_placement)
+            for a_regs in (0,) if wgmma_placement(kernel, metric, 128) else (0, 4, 8):
+                regs, local = ctypes.c_int(), ctypes.c_int()
+                err = lib.vi_scan_wgmma_attributes(mcode, mode, a_regs, ctypes.byref(regs),
+                                                   ctypes.byref(local))
+                _build.check(lib, err, "vi_scan_wgmma_attributes")
+                out[(kernel, metric.value, a_regs)] = (regs.value, local.value)
+    return out
+
+
 def _ptr(t: Optional[Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -468,10 +692,68 @@ def _stream(x: Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+_WGMMA_MODES = {"bin_candidates": 0, "bin_candidates_tree": 1, "count_below": 2}
+
+
+def _query_block(q: Tensor, plan: WgmmaPlan) -> Tensor:
+    """q rounded to bf16, zero-padded to [query blocks x 64 qt, slabs x 64]:
+    the query block a chunked plan's stages bring in by TMA (otherwise the
+    kernel rounds q itself; the plain versions round the same way)."""
+    nq, d = q.shape
+    qp = torch.zeros((plan.qblocks * WG_M * plan.qt, _slabs(d) * WG_SLAB), dtype=torch.bfloat16,
+                     device=q.device)
+    qp[:nq, :d] = q
+    return qp
+
+
+def _aligned16(t: Optional[Tensor]) -> Optional[Tensor]:
+    """t, or a copy of it on a 16-byte boundary (a tensor map's base)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _wgmma_launch(name: str, q: Tensor, x: Tensor, bias: Tensor, colscale: Optional[Tensor],
+                  metric: Metric, thresh: Optional[Tensor] = None, tile: int = C,
+                  plan: Optional[WgmmaPlan] = None):
+    """Launch K1, K11 (`tile` > C rows a block) or K2 (`name`) on the wgmma
+    design under wgmma_plan's plan unless given (and K1's and K11's split
+    merge) -> (dist, row) or (lt, le)."""
+    from vectorindex_tpu_torch.kernels import _build
+
+    nq, d = q.shape
+    n = x.shape[0]
+    count = name == "count_below"
+    if count:  # zeroed, not empty: the kernel adds into them with atomics
+        out, parts = tuple(torch.zeros((2, nq), dtype=torch.int32, device=x.device)), (None, None)
+    else:
+        out = (torch.empty((nq, TIERS, C), dtype=torch.float32, device=x.device),
+               torch.empty((nq, TIERS, C), dtype=torch.int32, device=x.device))
+    if nq == 0 or n == 0:
+        return out if count else (out[0].fill_(INVALID_DIST), out[1].fill_(INVALID_ID))
+    p = plan or wgmma_plan(nq, n, d, block_tiles=tile // C,
+                           a_mode=wgmma_placement(name, metric, d), kernel=name)
+    qp = _query_block(q, p) if p.chunked else None
+    bias, colscale = _aligned16(bias), _aligned16(colscale)
+    if not count:
+        parts = (torch.empty((p.splits, nq, TIERS, C), dtype=torch.float32, device=x.device),
+                 torch.empty((p.splits, nq, TIERS, C), dtype=torch.int32, device=x.device))
+    lib = _build.load()
+    err = lib.vi_scan_wgmma(
+        _WGMMA_MODES[name], q.data_ptr(), _ptr(qp), x.data_ptr(), bias.data_ptr(), _ptr(colscale),
+        _ptr(thresh), nq, n, d, _METRIC_CODE[metric], p.qt, p.a_regs, int(p.chunked), p.cs,
+        p.tps, p.stages, p.splits, p.tiles_per_split, tile // C, _ptr(parts[0]), _ptr(parts[1]),
+        None if count else out[0].data_ptr(), None if count else out[1].data_ptr(),
+        out[0].data_ptr() if count else None, out[1].data_ptr() if count else None, _stream(x),
+    )
+    _build.check(lib, err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
 def _launch_candidates(name: str, q: Tensor, x: Tensor, bias: Tensor, colscale: Optional[Tensor],
                        metric: Metric, mma: bool, tile: int = C) -> Tuple[Tensor, Tensor]:
-    """Launch K1 on the tensor cores (mma) or in its first FMA design, or
-    K11 (`tile` > C), and the split merge -> (dist, row)."""
+    """Launch K1 in the first tensor-core design (mma) or in its first FMA
+    design, or K11 in the first tensor-core design (`tile` > C), and the
+    split merge -> (dist, row)."""
     from vectorindex_tpu_torch.kernels import _build
 
     nq, d = q.shape
@@ -484,7 +766,7 @@ def _launch_candidates(name: str, q: Tensor, x: Tensor, bias: Tensor, colscale: 
     part_d = torch.empty((splits, nq, TIERS, C), dtype=torch.float32, device=x.device)
     part_i = torch.empty((splits, nq, TIERS, C), dtype=torch.int32, device=x.device)
     lib = _build.load()
-    if name == "bin_candidates_tree":
+    if name == "bin_candidates_tree_v1":
         err = lib.vi_bin_candidates_tree(
             q.data_ptr(), x.data_ptr(), bias.data_ptr(), nq, n, d, _METRIC_CODE[metric],
             qw, cw, tps, splits, per, tile // C,
@@ -545,12 +827,30 @@ def bin_candidates(
     if x.device.type == "cpu":
         return bin_candidates_ref(q, x, bias, colscale, metric=metric)
     design = scan_design(x.shape[1], x.dtype)
-    if design == "mma":
-        out = _launch_candidates("bin_candidates", q, x, bias, colscale, metric, mma=True)
+    if design == "wgmma":
+        out = _wgmma_launch("bin_candidates", q, x, bias, colscale, metric)
     else:
         out = _fma_candidates("bin_candidates", q, x, bias, colscale, metric, None)
     DESIGN_LAUNCHES[design]["bin_candidates"] += 1
     return out
+
+
+def _check_first_design(name: str, x: Tensor) -> None:
+    if x.device.type == "cpu":
+        raise ValueError(f"{name} times a CUDA kernel: pass CUDA tensors")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name} runs on bf16 corpora, got {x.dtype}")
+
+
+def bin_candidates_mma_v1(
+    q: Tensor, x: Tensor, bias: Tensor, colscale: Optional[Tensor], *, metric: Metric
+) -> Tuple[Tensor, Tensor]:
+    """K1 in its first tensor-core design (mma.sync m16n8k16, a 2-stage
+    cp.async ring, up to 128 queries a CTA), kept to time the wgmma design
+    against; never on a main path. bf16 CUDA tensors only."""
+    _check_inputs(q, x, bias, colscale, metric)
+    _check_first_design("bin_candidates_mma_v1", x)
+    return _launch_candidates("bin_candidates_mma_v1", q, x, bias, colscale, metric, mma=True)
 
 
 def bin_candidates_fma(
@@ -595,7 +895,24 @@ def bin_candidates_tree(
             f"tile must be a multiple of {C} dividing the {x.shape[0]} rows, got {tile}")
     if x.device.type == "cpu":
         return bin_candidates_tree_ref(q, x, bias, metric=metric, tile=tile)
-    return _launch_candidates("bin_candidates_tree", q, x, bias, None, metric, mma=True, tile=tile)
+    return _wgmma_launch("bin_candidates_tree", q, x, bias, None, metric, tile=tile)
+
+
+def bin_candidates_tree_v1(
+    q: Tensor, x: Tensor, bias: Tensor, *, metric: Metric, tile: int
+) -> Tuple[Tensor, Tensor]:
+    """K11 in the first tensor-core design (K1's first design, tree mode),
+    kept to time the wgmma design against; never on a main path. CUDA
+    tensors only."""
+    if metric not in (Metric.L2, Metric.INNER_PRODUCT):
+        raise ValueError(f"bin_candidates_tree_v1 supports L2/IP, got {metric}")
+    _check_inputs(q, x, bias, None, metric)
+    _check_first_design("bin_candidates_tree_v1", x)
+    if tile <= 0 or tile % C or x.shape[0] % tile:
+        raise ValueError(
+            f"tile must be a multiple of {C} dividing the {x.shape[0]} rows, got {tile}")
+    return _launch_candidates("bin_candidates_tree_v1", q, x, bias, None, metric, mma=True,
+                              tile=tile)
 
 
 def _check_thresh(q: Tensor, x: Tensor, thresh: Tensor) -> None:
@@ -608,8 +925,9 @@ def _check_thresh(q: Tensor, x: Tensor, thresh: Tensor) -> None:
 def _launch_counts(name: str, q: Tensor, x: Tensor, bias: Tensor, colscale: Optional[Tensor],
                    thresh: Tensor, metric: Metric, design: str,
                    plan: Optional[FmaPlan] = None) -> Tuple[Tensor, Tensor]:
-    """Launch K2 in `design` ("mma", "fma" under fma_plan's plan unless
-    given, or "v1", the first FMA design) -> (lt, le)."""
+    """Launch K2 in `design` ("fma" under fma_plan's plan unless given;
+    "mma_v1" or "fma_v1", the first tensor-core or FMA design) -> (lt,
+    le)."""
     from vectorindex_tpu_torch.kernels import _build
 
     nq, d = q.shape
@@ -629,7 +947,7 @@ def _launch_counts(name: str, q: Tensor, x: Tensor, bias: Tensor, colscale: Opti
             p.stages, p.splits, p.tiles_per_split, lt.data_ptr(), le.data_ptr(), _stream(x),
         )
     else:
-        qw, cw, tps, splits, per = _grid(nq, n, d, mma=design == "mma")
+        qw, cw, tps, splits, per = _grid(nq, n, d, mma=design == "mma_v1")
         err = lib.vi_count_below(
             q.data_ptr(), x.data_ptr(), bias.data_ptr(), _ptr(colscale),
             thresh.data_ptr(), nq, n, d, _DTYPE_CODE[x.dtype], _METRIC_CODE[metric],
@@ -650,17 +968,36 @@ def count_below(
     metric: Metric,
 ) -> Tuple[Tensor, Tensor]:
     """K2 -> (lt [B] int32, le [B] int32). CUDA tensors launch the kernel
-    (in K1's design; on the tensor cores K1's geometry too) or raise; CPU
+    (in K1's design; on the tensor cores K1's wgmma_plan too) or raise; CPU
     tensors take count_below_ref."""
     _check_inputs(q, x, bias, colscale, metric)
     _check_thresh(q, x, thresh)
     if x.device.type == "cpu":
         return count_below_ref(q, x, bias, colscale, thresh, metric=metric)
     design = scan_design(x.shape[1], x.dtype)
-    out = _launch_counts("count_below", q, x, bias, colscale, thresh, metric,
-                         "mma" if design == "mma" else "fma")
+    if design == "wgmma":
+        out = _wgmma_launch("count_below", q, x, bias, colscale, metric, thresh)
+    else:
+        out = _launch_counts("count_below", q, x, bias, colscale, thresh, metric, "fma")
     DESIGN_LAUNCHES[design]["count_below"] += 1
     return out
+
+
+def count_below_mma_v1(
+    q: Tensor,
+    x: Tensor,
+    bias: Tensor,
+    colscale: Optional[Tensor],
+    thresh: Tensor,
+    *,
+    metric: Metric,
+) -> Tuple[Tensor, Tensor]:
+    """K2 in its first tensor-core design, kept to time the wgmma design
+    against; never on a main path. bf16 CUDA tensors only."""
+    _check_inputs(q, x, bias, colscale, metric)
+    _check_thresh(q, x, thresh)
+    _check_first_design("count_below_mma_v1", x)
+    return _launch_counts("count_below_mma_v1", q, x, bias, colscale, thresh, metric, "mma_v1")
 
 
 def count_below_fma_v1(
@@ -678,7 +1015,7 @@ def count_below_fma_v1(
     _check_thresh(q, x, thresh)
     if x.device.type == "cpu":
         raise ValueError("count_below_fma_v1 times a CUDA kernel: pass CUDA tensors")
-    return _launch_counts("count_below_fma_v1", q, x, bias, colscale, thresh, metric, "v1")
+    return _launch_counts("count_below_fma_v1", q, x, bias, colscale, thresh, metric, "fma_v1")
 
 
 # ---------------------------------------------------------------------------

@@ -22,8 +22,8 @@ FlatIndexOptimized.swift:20-420 and FlatIndex.swift).
     (K2's count; a tie at the c-th candidate). Below the threshold the
     strict path is the whole search. All give the exact top-k under the
     (score, id) contract. The fused pair runs in the design
-    scan_fused.scan_design picks (tensor cores on bf16 up to d = 2,400,
-    CUDA cores up to 7,264).
+    scan_fused.scan_design picks (the wgmma tensor-core kernel on bf16 up
+    to d = 2,400, CUDA cores up to 7,264).
   - utils/debug.enable() checks the search's distances for NaN and -inf
     before the results are built.
   - range_search is one distance block and a compaction
