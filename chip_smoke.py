@@ -179,11 +179,14 @@ and host. After the build, every FMA-design kernel's registers are printed
 and a kernel with local memory (a spill) fails the run.
 
 The flat path also runs FlatIndex.range_search on its index (a few queries,
-one filtered), checked against brute force. K6, K7 and K8 are also timed in
-their first designs (kernels/adc.adc_scan_u8_v1, adc_scan_u4_v1,
-adc_topk_fused_v1) in turns with the shipping ones, by CUDA events and the
-profiler's device time, beside the write-only floor of K6/K7's output, and
-the range call at B=64 is split into K6 and its mask + sort; so are K3, K4
+one filtered), checked against brute force. K6 and K7 are also timed in
+their first designs (kernels/adc.adc_scan_u8_v1, adc_scan_u4_v1), and K8
+(csrc/adc_topk.cu) in its second (kernels/adc.adc_topk_fused_v2, queries on
+the lanes one a lane), in turns with the shipping ones, by CUDA events and
+the profiler's device time, beside the write-only floor of K6/K7's output;
+K8's second and first designs are held to the plain version bit for bit on
+every ADC case and the main path, and a K8 kernel with local memory fails
+the run. The range call at B=64 is split into K6 and its mask + sort; so are K3, K4
 and K5 (kernels/ivf_probe.ivf_probe_topc_v1 and ivf_probe_scores_v1) on the
 IVF path's own tensors, and K9/K10 (kernels/adc_probe.adc_probe_scores_v1)
 on the IVF-PQ path's; the first designs are checked against the plain
@@ -329,6 +332,9 @@ FLAT_F32_WIDE_ROWS, FLAT_F32_WIDE_DIM, FLAT_F32_WIDE_BATCHES = 1 << 20, 768, (25
 #: the H100 SXM's published peaks (NVIDIA's data sheet): bytes/s of HBM3,
 #: bf16 tensor-core and f32 CUDA-core FLOP/s
 HBM_BYTES_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+#: f32 adds a second: F32_FLOPS counts an FMA as two flops, and an FADD takes
+#: a whole FMA slot (the ADC kernels K6-K10 add, they do not multiply)
+F32_ADDS = F32_FLOPS / 2
 #: its SMs, and the bytes one SM's shared memory delivers a clock (32 banks
 #: of 4 B; the Hopper architecture white paper)
 H100_SMS, SMEM_BYTES_PER_CLOCK = 132, 128
@@ -343,7 +349,7 @@ SOURCES = {
     "adc_probe_scores_rankseg": "vectorindex_tpu_torch/kernels/csrc/adc_probe.cu",
     "adc_scan_u8": "vectorindex_tpu_torch/kernels/csrc/adc.cu",
     "adc_scan_u4": "vectorindex_tpu_torch/kernels/csrc/adc.cu",
-    "adc_topk_fused": "vectorindex_tpu_torch/kernels/csrc/adc.cu",
+    "adc_topk_fused": "vectorindex_tpu_torch/kernels/csrc/adc_topk.cu",
     "bin_candidates_tree": "vectorindex_tpu_torch/kernels/csrc/scan_fused.cu",
 }
 REPLACES = {
@@ -1371,7 +1377,7 @@ def adc_bound(args, probe_cap, m, packed_u4):
     mb = m // 2 if packed_u4 else m
     nbytes = (distinct_rows(starts, lives) * (mb + 4) + lut.numel() * 4 + starts.numel() * 8
               + starts.numel() * probe_cap * 4)
-    return bound(nbytes, (m + 1) * float(lives.sum()), F32_FLOPS)
+    return bound(nbytes, (m + 1) * float(lives.sum()), F32_ADDS)
 
 
 def phase_pq_times(ap, name, idx, batches, bigq, pool, errs):
@@ -1778,11 +1784,12 @@ def phase_flat_f32_wide(sf, topk, errs) -> dict:
     return out
 
 
-def device_ms(fn, calls: int, match: str = "", tries: int = 3) -> float:
+def device_ms(fn, calls: int, match: str = "", tries: int = 6) -> float:
     """torch.profiler device time per call of fn() of the kernels whose
     names contain `match` ("" = every kernel and copy of the call). A
     profiling session that records no such kernel is repeated, up to
-    `tries` sessions."""
+    `tries` sessions (three sessions in a row once recorded nothing for the
+    bench suite's K1/K2 on the H100, late in a run)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1872,8 +1879,8 @@ def design_log(t: dict) -> str:
 
 
 def check_k8(fa, codes, lut, k, k6, errs, what):
-    """K8 against its plain version (bit for bit) and K6 (its distances at
-    its rows); returns K8's rows."""
+    """K8 and its second design against the plain version (bit for bit)
+    and K6 (K8's distances at its rows); returns K8's rows."""
     kd, ki = fa.adc_topk_fused(codes, lut, k)
     torch.cuda.synchronize()
     rd, ri = fa.adc_topk_fused_ref(codes, lut, k)
@@ -1881,6 +1888,9 @@ def check_k8(fa, codes, lut, k, k6, errs, what):
     require(torch.equal(kd, rd) and torch.equal(ki, ri), f"K8 {what}: differs from the plain version")
     require(torch.equal(kd, torch.gather(k6, 1, ki.long())) and bool((ki < codes.shape[0]).all()),
             f"K8 {what}: distances are not K6's at its rows")
+    vd, vi = fa.adc_topk_fused_v2(codes, lut, k)
+    require(torch.equal(vd, rd) and torch.equal(vi, ri),
+            f"K8's second design {what}: differs from the plain version")
     return ki
 
 
@@ -1888,11 +1898,11 @@ def phase_adc_compare(fa):
     """Random codes and non-negative LUTs over ADC_CASE_ROWS rows (a ragged
     last tile, n % 4 != 0: K6/K7 write with plain stores), B in
     ADC_CASE_BATCHES (below, within and past one K8 query block): K6 and K8
-    (k=10 and 512) on u8 codes, K7 on packed u4, and K6/K7's first designs,
-    against their plain versions; then K8 on a query whose three nearest rows share
-    a class. Equal bit for bit (one add order: j ascending from 0, each add
-    rounded); K8's distances equal K6's at K8's rows, K7's equal K6's on the
-    unpacked codes."""
+    (k=10 and 512; and K8's second design) on u8 codes, K7 on packed u4, and
+    K6/K7's first designs, against their plain versions; then K8 on a query
+    whose three nearest rows share a class. Equal bit for bit (one add
+    order: j ascending from 0, each add rounded); K8's distances equal K6's
+    at K8's rows, K7's equal K6's on the unpacked codes."""
     from vectorindex_tpu_torch.ops import pq
 
     errs = dict.fromkeys(ADC_KERNELS, 0.0)
@@ -1921,7 +1931,7 @@ def phase_adc_compare(fa):
                         f"K7's first design m={m} B={b}: differs from the plain version")
             for k in (MAIN_K, 2 * 256):
                 check_k8(fa, codes, lut, k, k6, errs, f"m={m} ks={ks} B={b} k={k}")
-        log(f"adc compare m={m} ks={ks} rows={n}: K6, K8 (k=10, 512)"
+        log(f"adc compare m={m} ks={ks} rows={n}: K6, K8 and its second design (k=10, 512)"
             + (" and K7 (packed u4)" if packed is not None else "")
             + f" and K6/K7's first designs at B={', '.join(map(str, ADC_CASE_BATCHES))} equal "
             "their plain versions bit for bit")
@@ -1933,7 +1943,7 @@ def phase_adc_compare(fa):
     ki = check_k8(fa, codes, lut, MAIN_K, fa.adc_scan_u8(codes, lut), errs, "class crowding")
     require(ki[5, :3].tolist() == [c, c + 256, c + 512], "K8 lost a row of a crowded class")
     log("adc compare class crowding (B=17): K8 returns the 3 nearest rows of one class, "
-        "equal to its plain version")
+        "equal to its plain version, as does its second design")
     return errs
 
 
@@ -2028,6 +2038,8 @@ def phase_adc_main(fa, st):
     launches = dict(fa.LAUNCHES)
     log(f"adc: main path launches {launches}")
     require(all(launches[n] > 0 for n in ADC_KERNELS), f"a K6/K7/K8 kernel did not run: {launches}")
+    require(not any(launches[n] for n in launches if n not in ADC_KERNELS),
+            f"an earlier K6/K7/K8 design ran on the main path: {launches}")
 
     with plain_versions(fa, ADC_KERNELS):
         for c, (_, ids) in res.items():
@@ -2093,16 +2105,17 @@ def lookup_floor_ms(lookups: float, sm_clock_mhz: float) -> float:
 def adc_bounds(n: int, b: int, m: int, ks: int, mb: int, k: int = 0):
     """(bound_ms, bound_by) of K6/K7 (k=0: a [B, n] f32 output) or K8 (a
     [B, k] top-k): the codes and LUTs read once, the output written once;
-    B * n * m f32 adds."""
+    B * n * m f32 adds at F32_ADDS."""
     out = b * k * 8 if k else b * n * 4
-    return bound(n * mb + b * m * ks * 4 + out, float(b) * n * m, F32_FLOPS)
+    return bound(n * mb + b * m * ks * 4 + out, float(b) * n * m, F32_ADDS)
 
 
 def phase_adc_times(fa, st, tensors, errs):
     """K6/K7 at B=64 and K8 at B=256 on the main path's tensors: each, in
-    both designs, against its plain version; both designs timed in turns
-    (events) and by the profiler; bounds and the write-only floor; the range
-    call's split into K6 and compaction; K6 + a stable top-10 of its
+    every design, against its plain version; K6/K7 timed in turns with their
+    first designs and K8 with its second (queries on the lanes, one a lane),
+    by events and by the profiler; bounds and the write-only floor; the
+    range call's split into K6 and compaction; K6 + a stable top-10 of its
     [256, 1M] output as K8's scan-then-select yardstick; embedding_bag as
     K6's library call; then the median wall of the B=256 searches."""
     from vectorindex_tpu_torch.ops import pq
@@ -2130,12 +2143,14 @@ def phase_adc_times(fa, st, tensors, errs):
         errs[name] = max(errs[name], max_abs_err(got, ref))
         del got, ref
     errs["adc_topk_fused"] = max(errs["adc_topk_fused"], max_abs_err(k8[0], ref8[0]))
-    v1 = fa.adc_topk_fused_v1(codes, lut256, MAIN_K)
-    require(torch.equal(v1[0], ref8[0]) and torch.equal(v1[1], ref8[1]),
-            "K8's first design differs from the plain version (B=256)")
-    log("adc main-shape check: K6, K7 (B=64) and K8 (B=256), each in both designs, equal their "
+    for design in ("v2", "v1"):
+        got = getattr(fa, "adc_topk_fused_" + design)(codes, lut256, MAIN_K)
+        require(torch.equal(got[0], ref8[0]) and torch.equal(got[1], ref8[1]),
+                f"K8's {design} design differs from the plain version (B=256)")
+    require(fa.k8_route(ADC_M, ADC_KS, ADC_BATCH) == "ring", "K8 routes the main shape away")
+    log("adc main-shape check: K6, K7 (B=64) and K8 (B=256), each in every design, equal their "
         "plain versions bit for bit")
-    del k6_256, ref8, v1
+    del k6_256, ref8, got
     cases = (  # (kernel, plain version, bound, lookups)
         ("adc_scan_u8", lambda: fa.adc_scan_u8_ref(codes, lut64),
          adc_bounds(n, ADC_RANGE_BATCH, ADC_M, ADC_KS, ADC_M), ADC_RANGE_BATCH * n * ADC_M),
@@ -2145,28 +2160,36 @@ def phase_adc_times(fa, st, tensors, errs):
         ("adc_topk_fused", lambda: fa.adc_topk_fused_ref(codes, lut256, MAIN_K),
          adc_bounds(n, ADC_BATCH, ADC_M, ADC_KS, ADC_M, MAIN_K), ADC_BATCH * n * ADC_M),
     )
-    # each new design and its first one in turns (new, old, old, new) by
-    # CUDA events, then by the profiler's device time per call
+    # each kernel and its earlier design in turns (new, old, old, new) by
+    # CUDA events, then by the profiler's device time per call (new, old,
+    # old, new): K6/K7 against their first designs, K8 against its second
     designs = {
         "adc_scan_u8": (lambda: fa.adc_scan_u8(codes, lut64), lambda: fa.adc_scan_u8_v1(codes, lut64),
-                        "adc_qlane_scan_kernel", "adc_scan_kernel"),
+                        "adc_qlane_scan_kernel", "adc_scan_kernel", "first"),
         "adc_scan_u4": (lambda: fa.adc_scan_u4(packed, lut4), lambda: fa.adc_scan_u4_v1(packed, lut4),
-                        "adc_qlane_scan_kernel", "adc_scan_kernel"),
+                        "adc_qlane_scan_kernel", "adc_scan_kernel", "first"),
         "adc_topk_fused": (lambda: fa.adc_topk_fused(codes, lut256, MAIN_K),
-                           lambda: fa.adc_topk_fused_v1(codes, lut256, MAIN_K),
-                           "adc_qlane_candidates_kernel", "adc_candidates_kernel"),
+                           lambda: fa.adc_topk_fused_v2(codes, lut256, MAIN_K),
+                           "adc_ring_candidates_kernel", "adc_qlane_candidates_kernel", "second"),
     }
-    for name, (new, old, new_k, old_k) in designs.items():
+    for name, (new, old, new_k, old_k, which) in designs.items():
         runs = {"new": [], "old": []}
+        dev = {"new": [], "old": []}
         for design in ("new", "old", "old", "new"):
             runs[design].append(time_ms(new if design == "new" else old, 20))
-        t[name], t[name + "_v1"] = float(np.mean(runs["new"])), float(np.mean(runs["old"]))
-        t[name + "_dev"], t[name + "_v1_dev"] = device_ms(new, 10, new_k), device_ms(old, 10, old_k)
+        for design in ("new", "old", "old", "new"):
+            dev[design].append(device_ms(new if design == "new" else old, 10,
+                                         new_k if design == "new" else old_k))
+        t[name], t[name + "_old"] = float(np.mean(runs["new"])), float(np.mean(runs["old"]))
+        t[name + "_dev"] = float(np.mean(dev["new"]))
+        t[name + "_old_dev"] = float(np.mean(dev["old"]))
+        t[name + "_rounds"] = {"events": runs, "device": dev}
         t[name + "_call_dev"] = device_ms(new, 10)  # every kernel of the wrapper's call
-        log(f"adc times {name} in turns (new, old, old, new): new {runs['new']} ms, first design "
-            f"{runs['old']} ms; device time per call (profiler): kernel {t[name + '_dev']:.4g} ms "
-            f"(the wrapper's whole call {t[name + '_call_dev']:.4g} ms), first design "
-            f"{t[name + '_v1_dev']:.4g} ms")
+        log(f"adc times {name} in turns (new, old, old, new): new {runs['new']} ms, {which} design "
+            f"{runs['old']} ms; device time per call (profiler, same turns): kernel {dev['new']} ms "
+            f"(the wrapper's whole call {t[name + '_call_dev']:.4g} ms), {which} design "
+            f"{dev['old']} ms")
+    t["adc_topk_fused_plan"] = fa.k8_plan(ADC_M, ADC_KS, ADC_BATCH)._asdict()
     # the card's practical bound for K6/K7's [64, n] f32 write
     sink = torch.empty((ADC_RANGE_BATCH, n), dtype=torch.float32, device=DEVICE)
     t["write_floor"] = device_ms(lambda: sink.fill_(0), 10)
@@ -4082,6 +4105,10 @@ def run(ps: Persist) -> int:
     require(all(local == 0 for _, local in attrs.values()), f"an FMA-design kernel spills: {attrs}")
     log("build: FMA-design kernels' registers (no local memory): " + ", ".join(
         f"{k[0]} {k[1]} {k[2]} {k[3]}x{k[3]} {regs}" for k, (regs, _) in sorted(attrs.items())))
+    k8_attrs = fa.k8_ring_attributes()
+    require(all(local == 0 for _, local in k8_attrs.values()), f"a K8 kernel spills: {k8_attrs}")
+    log("build: K8 kernels' registers (no local memory; (qb, ksp, queries a lane, skew, row "
+        "width)): " + ", ".join(f"{k} {regs}" for k, (regs, _) in sorted(k8_attrs.items())))
     wg_attrs = sf.wgmma_attributes()
     require(all(local == 0 for _, local in wg_attrs.values()),
             f"a wgmma-design kernel spills: {wg_attrs}")
@@ -4228,16 +4255,22 @@ def run(ps: Persist) -> int:
             kernels[-1]["hostpq"] = {"ms": k9["ms"], "device_ms": k9["device_ms"],
                                      "plain_ms": k9["plain_ms"], "bound_ms": k9["bound"][0],
                                      "bound_by": k9["bound"][1]}
-    for name in ADC_KERNELS:  # K6/K7 at B=64, K8 at B=256; each timed in turns with its first design
+    # K6/K7 at B=64 (timed in turns with their first designs), K8 at B=256
+    # (with its second)
+    for name in ADC_KERNELS:
         bms, by = adc_times[name + "_bound"]
         kernels.append({"name": name, "ms": adc_times[name], "plain_ms": adc_times[name + "_plain"],
                         "bound_ms": bms, "bound_by": by,
                         "lookup_floor_ms": lookup_floor_ms(adc_times[name + "_lookups"], clock),
-                        "first_design_ms": adc_times[name + "_v1"],
-                        "device_ms": adc_times[name + "_dev"],
-                        "first_design_device_ms": adc_times[name + "_v1_dev"]})
+                        "device_ms": adc_times[name + "_dev"]})
+        which = "second" if name == "adc_topk_fused" else "first"
+        kernels[-1][which + "_design_ms"] = adc_times[name + "_old"]
+        kernels[-1][which + "_design_device_ms"] = adc_times[name + "_old_dev"]
+        kernels[-1]["rounds"] = adc_times[name + "_rounds"]
         if name != "adc_topk_fused":
             kernels[-1]["write_floor_ms"] = adc_times["write_floor"]
+        else:
+            kernels[-1]["plan"] = adc_times[name + "_plan"]
     # embedding_bag computes K6's function in one call; no single PyTorch
     # call computes a per-class top-3, a count below tau, distances (or
     # LUT-gather sums) over per-query probed row lists, or reads packed u4
@@ -4266,12 +4299,13 @@ def run(ps: Persist) -> int:
                     f"{f32_wide[b]['bin_candidates']:.4g} / {f32_wide[b]['count_below']:.4g} ms"
                     for b in FLAT_F32_WIDE_BATCHES)
         + f"; K6 device {adc_times['adc_scan_u8_dev']:.4g} ms (first design "
-        f"{adc_times['adc_scan_u8_v1_dev']:.4g} ms), K7 {adc_times['adc_scan_u4_dev']:.4g} ms ("
-        f"{adc_times['adc_scan_u4_v1_dev']:.4g} ms), write floor {adc_times['write_floor']:.4g} ms; "
+        f"{adc_times['adc_scan_u8_old_dev']:.4g} ms), K7 {adc_times['adc_scan_u4_dev']:.4g} ms ("
+        f"{adc_times['adc_scan_u4_old_dev']:.4g} ms), write floor {adc_times['write_floor']:.4g} ms; "
         f"adc range B={ADC_RANGE_BATCH} wall {adc_times['range_wall']:.4g} ms (K6 "
         f"{adc_times['range_k6_wall']:.4g}, mask and sort {adc_times['range_compact_wall']:.4g}); "
-        f"K8 {adc_times['adc_topk_fused']:.4g} ms (first design "
-        f"{adc_times['adc_topk_fused_v1']:.4g} ms); ivf K4 B={IVF_BIG_BATCH} "
+        f"K8 {adc_times['adc_topk_fused']:.4g} ms, device {adc_times['adc_topk_fused_dev']:.4g} ms "
+        f"(second design {adc_times['adc_topk_fused_old']:.4g} ms, device "
+        f"{adc_times['adc_topk_fused_old_dev']:.4g} ms); ivf K4 B={IVF_BIG_BATCH} "
         f"{ivf_times['ivf_probe_scores']:.4g} ms (first design "
         f"{ivf_times['ivf_probe_scores_v1']:.4g} ms), K3 B={SMALL_BATCH} "
         f"{ivf_times['ivf_probe_topc']:.4g} ms (first design {ivf_times['ivf_probe_topc_v1']:.4g} "

@@ -48,9 +48,9 @@ from vectorindex_tpu_torch.bench.synth import lowdim_corpus, lowdim_queries  # n
 #: device-time groups by kernel name (first match wins)
 GROUPS = (
     ("flat scan kernels (K1/K2)", ("scan_mma_kernel", "bin_candidates_kernel", "count_below_kernel")),
-    ("split merge (K1/K8)", ("merge_splits",)),
+    ("split merge (K1/K8)", ("merge_splits", "merge_segments")),
     ("ADC kernels (K6-K8)", ("adc_scan_kernel", "adc_qlane_scan", "adc_candidates_kernel",
-                             "adc_qlane_candidates")),
+                             "adc_qlane_candidates", "adc_ring_candidates")),
     ("probe kernels (K3-K5, K9/K10)", ("probe_scores_", "topc_", "adc_probe_")),
     ("sorts", ("Sort", "sort")),
     ("products (select, LUT, rerank)", ("gemm", "gemv", "xmma", "cutlass", "bmm")),

@@ -22,6 +22,7 @@ The CUDA kernels are compared with these plain versions on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -182,7 +183,8 @@ def test_wrappers_check_their_inputs():
     adc.reset_launches()
     adc.adc_scan_u8(codes, lut)
     assert adc.LAUNCHES == {"adc_scan_u8": 0, "adc_scan_u4": 0, "adc_topk_fused": 0,
-                            "adc_scan_u8_v1": 0, "adc_scan_u4_v1": 0, "adc_topk_fused_v1": 0}
+                            "adc_scan_u8_v1": 0, "adc_scan_u4_v1": 0, "adc_topk_fused_v1": 0,
+                            "adc_topk_fused_v2": 0}
 
 
 def test_source_names_what_it_replaces():
@@ -302,6 +304,256 @@ def test_k8_first_design_needs_cuda_tensors():
     with pytest.raises(ValueError):
         adc.adc_topk_fused_v1(torch.from_numpy(codes), torch.from_numpy(lut).double(), 10)
     assert not any(adc.LAUNCHES.values())
+
+
+#: csrc/adc_topk.cu's kernel table: (qb, ksp, ql, skew, cnt) of each instance
+RING_TABLE = {tuple(map(int, t)) for t in re.findall(
+    r"VI_RING\((\d+), (\d+), (\d+), (\d+), (\d+)\)", (CSRC / "adc_topk.cu").read_text())}
+
+
+def _ring_replay(codes, lut, plan, ctas):
+    """A numpy replay of csrc/adc_topk.cu: adc_ring_candidates_kernel's map
+    from (CTA, segment, tile, phase, step, warp, lane, pair, query of the
+    lane) to (query, class, row, subspace), over the LUTs as lut_blocks lays
+    them out, and merge_segments_kernel's partial slots. Each phase a lane
+    of skew s adds sub-block (f - s) mod skew of its row (the previous
+    tile's while f < s), reading the entry of code c at byte i·KSP·line +
+    c·line + (sub-block)·qb·4 + 4·ql·q (+ 4 for its second query); a row
+    starts from +0.0 at phase s and ends at phase s - 1. Returns the sums of
+    every valid (query, row) it ends, how often each was ended, and each
+    stream's partial slots."""
+    n, m = codes.shape
+    b, _, ks = lut.shape
+    qb, ql, skew, warps, groups, _ = plan
+    pairs, _, _ = adc.k8_geometry(qb, ql)
+    kpad, mb = adc.k8_ks_pad(ks), -(-m // skew)
+    lanes, slots_w, rows_g = qb // ql, 32 * ql // qb, adc.C_BINS // groups
+    line = skew * qb * 4
+    nblk, ntiles = -(-b // qb), -(-n // adc.C_BINS)
+    units = nblk * groups * ntiles
+    blocks = adc.lut_blocks(torch.from_numpy(lut), qb, ql, skew).numpy().reshape(nblk, -1)
+    flat = codes.astype(np.int64).ravel()
+    w, lane, p, hq = (a.ravel() for a in np.meshgrid(range(warps), range(32), range(pairs),
+                                                     range(ql), indexing="ij"))
+    q, slot = lane % lanes, lane // lanes
+    s = slot % skew
+    lr = w * pairs * slots_w + slot + p * slots_w
+    assert sorted(set(lr.tolist())) == list(range(rows_g))  # the group's rows, each a slot
+    got = np.full((b, n), np.nan, dtype=np.float32)
+    hits = np.zeros((b, n), dtype=np.int64)
+    stream_slots = {}
+
+    def cta_of(u):
+        return ((u + 1) * ctas - 1) // units
+
+    for k in range(ctas):
+        u, u1 = k * units // ctas, (k + 1) * units // ctas
+        while u < u1:
+            st = u // ntiles
+            tb = u - st * ntiles
+            te = min(ntiles, tb + u1 - u)
+            qblk, g = divmod(st, groups)
+            stream_slots.setdefault(st, []).append(k - cta_of(st * ntiles))
+            qi = qblk * qb + q + hq * lanes
+            acc = np.zeros(len(lane), dtype=np.float32)
+            nxt = np.zeros(len(lane), dtype=np.int64)  # the next subspace each sum must add
+            for t in range(tb, te + (skew > 1)):
+                for f in range(skew):
+                    acc[f == s] = 0.0
+                    nxt[f == s] = 0
+                    tile = np.where(f >= s, t, t - 1)
+                    row = tile * adc.C_BINS + g * rows_g + lr
+                    h = (f - s) % skew
+                    valid = (tile >= tb) & (tile < te) & (row < n) & (qi < b)
+                    for i in range(mb):
+                        j = h * mb + i
+                        at = row * m + j  # a padded subspace reads past its row
+                        code = np.where((at >= 0) & (at < flat.size),
+                                        flat[np.clip(at, 0, flat.size - 1)], 0) & (kpad - 1)
+                        byte = i * kpad * line + code * line + h * qb * 4 + 4 * ql * q + 4 * hq
+                        entry = blocks[qblk, byte // 4]
+                        assert (entry[valid & (j >= m)] == 0).all()  # a zero table
+                        assert (nxt[valid] == j[valid]).all()  # j in order
+                        acc = (acc + entry).astype(np.float32)
+                        nxt += 1
+                    end = valid & (f == (s + skew - 1) % skew)
+                    assert (nxt[end] == mb * skew).all()
+                    got[qi[end], row[end]] = acc[end]
+                    np.add.at(hits, (qi[end], row[end]), 1)
+            u += te - tb
+    return got, hits, stream_slots
+
+
+@pytest.mark.parametrize("m, ks, b, n, resident, override", [
+    (8, 256, 17, 700, 3, {}),  # PQ8x8: 16 a CTA, 4 a lane, skew 2; a ragged block, 3 CTAs
+    (8, 256, 40, 1300, 5, {}),  # past a block; segments cut by CTAs
+    (8, 256, 40, 1300, 5, dict(ql=1)),  # one query a lane (the A/B)
+    (8, 256, 40, 1300, 5, dict(ql=2)),  # two a lane (the A/B)
+    (16, 256, 9, 900, 4, dict(ql=2)),  # two a lane at PQ16 (the A/B)
+    (8, 256, 40, 1300, 7, dict(skew=1)),  # skew off (the A/B)
+    (8, 256, 5, 600, 132, {}),  # B below a block: 8 a CTA, no skew
+    (8, 256, 1, 300, 2, {}),  # one query, one a lane
+    (8, 256, 2, 300, 2, {}),  # two queries, two a lane
+    (16, 256, 9, 900, 4, {}),  # PQ16: 8 a CTA, skew 4
+    (9, 256, 20, 800, 3, {}),  # m odd: skew 2, an idle step of a zero table
+    (18, 200, 12, 600, 3, {}),  # m = 18 over skew 4: mb 5, two idle steps
+    (7, 200, 3, 555, 2, {}),  # m odd below the skew's least width
+    (32, 256, 5, 600, 3, {}),  # rows of 32 codes: 4 a CTA, a loop compiled for them
+    (64, 16, 16, 700, 3, {}),  # rows of 64 codes at skew 2, four class groups
+    (8, 16, 40, 1000, 6, {}),  # small tables: 32 a CTA, two class groups
+    (16, 16, 16, 700, 5, {})])  # 16 a CTA, skew 2, four class groups
+def test_k8_ring_replays_the_plain_sums(m, ks, b, n, resident, override):
+    """The replay of K8's kernel under k8_plan (and the A/B's variants)
+    over a ragged n and ragged query blocks: every (query, row < n) is
+    summed exactly once, over j = 0..m-1 in order and then the zero tables,
+    and equals plain K6 bit for bit; each stream's partial slots are 0..k-1
+    with k from the merge's formula, at most k8_part_slots."""
+    codes, lut = _case(n, m, ks, b, seed=m * b + n)
+    plan = adc.k8_plan(m, ks, b, **override)
+    ctas = adc.k8_ctas(plan, b, n, resident)
+    got, hits, stream_slots = _ring_replay(codes, lut, plan, ctas)
+    assert (hits == 1).all()
+    want = adc.adc_scan_u8_ref(torch.from_numpy(codes), torch.from_numpy(lut)).numpy()
+    np.testing.assert_array_equal(got, want)
+    ntiles = -(-n // adc.C_BINS)
+    units = -(-b // plan.qb) * plan.groups * ntiles
+    for st, slots in stream_slots.items():
+        first = ((st * ntiles + 1) * ctas - 1) // units
+        last = ((st * ntiles + ntiles) * ctas - 1) // units
+        assert slots == list(range(last - first + 1))
+        assert len(slots) <= adc.k8_part_slots(plan, b, n, ctas)
+
+
+def test_k8_lut_blocks_read_back():
+    """lut_blocks(lut, qb, ql, skew): line (i, code) of block blk holds in
+    segment h, column 2q + e, query blk·qb + q + e·qb/2's entry of subspace
+    h·mb + i; zero past ks, past m (padded to mb·skew) and past B."""
+    _, lut = _case(1, 9, 200, 13, seed=12)
+    qb, ql, skew = 8, 2, 4
+    t = adc.lut_blocks(torch.from_numpy(lut), qb, ql, skew)
+    mb = 3  # ceil(9 / 4)
+    assert t.shape == (2, mb, 256, skew * qb) and t.is_contiguous()
+    v = t.view(2, mb, 256, skew, qb).numpy()
+    for blk in range(2):
+        for col in range(qb):
+            query = blk * qb + col // 2 + (col % 2) * qb // 2
+            for h in range(skew):
+                for i in range(mb):
+                    j = h * mb + i
+                    want = lut[query, j] if query < 13 and j < 9 else np.zeros(200, np.float32)
+                    np.testing.assert_array_equal(v[blk, i, :200, h, col], want)
+                    assert not v[blk, i, 200:, h, col].any()
+    assert torch.equal(adc.lut_blocks(torch.from_numpy(lut), qb, ql, 1),
+                       adc.lut_blocks(torch.from_numpy(lut), qb, ql))
+
+
+def test_k8_plan_fits_shared_memory_and_routes():
+    """For every (m, ks) the wrappers accept and B from 1: k8_plan takes the
+    largest query block (<= 32 and B rounded up to a power of two) whose
+    tables, padded for the skew, and at least two code-ring stages fit in
+    shared memory, is a kernel csrc/adc_topk.cu instantiates, and covers the
+    C classes; where no plan fits, or 32 rows a warp would read codes a byte
+    a load at a pitch of a multiple of 32, k8_route sends the shape to the
+    second design, and refuses it where neither fits."""
+    counts = {"ring": 0, "qlanes": 0, "refused": 0}
+    for ks in (16, 200, 256):
+        for m in range(1, adc.MAX_SMEM_BYTES // (4 * ks) + 1, 1 if ks > 16 else 37):
+            for b in (1, 3, 8, 17, 64, 256):
+                plan = adc.k8_plan(m, ks, b)
+                try:
+                    route = adc.k8_route(m, ks, b)
+                except ValueError:
+                    assert plan is None and 4 * m * adc.k8_ks_pad(ks) > adc.MAX_SMEM_BYTES
+                    counts["refused"] += 1
+                    continue
+                counts[route] += 1
+                if plan is None:
+                    # one warp of 32 rows: the most class groups
+                    assert route == "qlanes" and adc.k8_smem(1, 1, 1, m, ks, 8, 2) > adc.MAX_SMEM_BYTES
+                    continue
+                # rows of a multiple of 32 codes read a byte a load by 32 rows a warp
+                conflicted = plan.qb <= 4 and m % 32 == 0 and not adc.k8_cnt(m, plan.skew)
+                assert route == ("qlanes" if conflicted else "ring")
+                qb, ql, skew, warps, groups, stages = plan
+                cap = min(32, 1 << (b - 1).bit_length())
+                assert qb & (qb - 1) == 0 and qb <= cap and ql == min(4, qb)
+                assert skew in (1, adc.k8_skew(qb, m)) and 2 <= stages <= adc.K8_RING_STAGES
+                assert adc.k8_smem(qb, ql, skew, m, ks, groups, stages) <= adc.MAX_SMEM_BYTES
+                key = (qb, adc.k8_ks_pad(ks), ql, skew, adc.k8_cnt(m, skew))
+                assert key in RING_TABLE, key
+                pairs, w, g = adc.k8_geometry(qb, ql)
+                assert (w, g) == (warps, groups) or (qb == 1 and warps < w and groups > g)
+                assert warps * pairs * (32 * ql // qb) * groups == adc.C_BINS
+                if qb < cap:  # twice the block fits at no skew and two stages nowhere
+                    _, _, g2 = adc.k8_geometry(2 * qb, min(4, 2 * qb))
+                    assert adc.k8_smem(2 * qb, min(4, 2 * qb), 1, m, ks, g2, 2) > adc.MAX_SMEM_BYTES
+    assert counts["ring"] and counts["qlanes"] and counts["refused"]
+
+
+def test_k8_route_is_pinned():
+    """The main shapes and the edges of k8_route, a pure function of
+    (m, ks, B)."""
+    assert adc.k8_plan(8, 256, 256) == adc.K8Plan(16, 4, 2, 16, 2, 4)  # bench_adc's PQ8x8
+    assert adc.k8_plan(16, 256, 256) == adc.K8Plan(8, 4, 4, 16, 1, 4)  # PQ16
+    assert adc.k8_plan(8, 256, 64) == adc.K8Plan(16, 4, 2, 16, 2, 4)  # B=64
+    assert adc.k8_plan(8, 256, 8) == adc.K8Plan(8, 4, 1, 16, 1, 4)  # B=8: no skew at 8 codes
+    assert adc.k8_plan(8, 256, 2) == adc.K8Plan(2, 2, 1, 8, 1, 4)  # B=2: two a lane
+    assert adc.k8_plan(8, 256, 1) == adc.K8Plan(1, 1, 1, 8, 1, 4)  # B=1: one query a CTA
+    assert adc.k8_plan(16, 16, 256) == adc.K8Plan(32, 4, 1, 16, 4, 4)  # pq16x4: a row a wavefront
+    assert [adc.k8_route(m, 256, 4) for m in (8, 100, 213, 214, 227)] == ["ring"] * 3 + [
+        "qlanes"] * 2
+    assert adc.k8_plan(213, 256, 1) == adc.K8Plan(1, 1, 1, 1, 8, 2)  # one warp, 32 rows a stage
+    with pytest.raises(ValueError):
+        adc.k8_route(228, 256, 4)
+    assert adc.k8_route(3000, 16, 1) == "qlanes" and adc.k8_route(1000, 16, 1) == "ring"
+    # rows of 32 and 64 codes take loops compiled for them; 96 and 128 read at
+    # run time by 32 rows a warp go to the second design, by fewer they stay
+    assert adc.k8_route(32, 256, 256) == adc.k8_route(64, 256, 256) == "ring"
+    assert adc.k8_route(96, 256, 64) == adc.k8_route(256, 16, 64) == "qlanes"
+    assert adc.k8_route(128, 16, 64) == "ring" and adc.k8_route(100, 256, 64) == "ring"
+
+
+@pytest.mark.parametrize("nq, n, resident", [
+    (256, 1_000_000, 132), (64, 1_000_000, 132), (8, 1_000_000, 132), (1, 300, 132),
+    (17, 20_077, 132), (256, 1_000_000, 264), (700, 5, 132), (256, 1_000_000, 140)])
+def test_k8_ctas_cover_every_unit_once(nq, n, resident):
+    """K8's persistent CTAs cut the (query block, class group, tile) units
+    into contiguous ranges that cover each unit once, every range within
+    one unit of the others; a stream is cut by at most k8_part_slots CTAs.
+    The CTAs are the resident ones, or whole CTAs a stream where that keeps
+    K8_WAVE_FILL of them (then no CTA crosses a stream)."""
+    plan = adc.k8_plan(8, 256, nq)
+    ctas = adc.k8_ctas(plan, nq, n, resident)
+    ntiles = -(-n // adc.C_BINS)
+    streams = -(-nq // plan.qb) * plan.groups
+    units = streams * ntiles
+    most = min(resident, units)
+    assert ctas == most or (ctas % streams == 0 and adc.K8_WAVE_FILL * most <= ctas < most)
+    bounds = [k * units // ctas for k in range(ctas + 1)]
+    sizes = np.diff(bounds)
+    assert bounds[-1] == units and sizes.min() >= 1 and sizes.max() - sizes.min() <= 1
+    cuts = [sum(bounds[k] < (st + 1) * ntiles and bounds[k + 1] > st * ntiles for k in range(ctas))
+            for st in range(streams)]
+    assert max(cuts) <= adc.k8_part_slots(plan, nq, n, ctas)
+    if ctas % streams == 0:
+        assert max(cuts) == ctas // streams
+
+
+def test_k8_second_design_needs_cuda_tensors():
+    codes, lut = _case(300, 8, 16, 2, seed=13)
+    adc.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        adc.adc_topk_fused_v2(torch.from_numpy(codes), torch.from_numpy(lut), 10)
+    with pytest.raises(ValueError):
+        adc.adc_topk_fused_v2(torch.from_numpy(codes), torch.from_numpy(lut).double(), 10)
+    assert not any(adc.LAUNCHES.values())
+
+
+def test_k8_source_names_what_it_replaces():
+    text = (CSRC / "adc_topk.cu").read_text()
+    assert "adc.py:adc_topk_fused" in text and "_adc_candidates_kernel" in text
+    for header in ("class_top3.cuh", "adc_sum.cuh", "bulk_copy.cuh"):
+        assert f'#include "{header}"' in text
 
 
 def test_scan_query_block_fits_every_accepted_shape():

@@ -602,7 +602,8 @@ def test_full_corpus_adc_kernels_match_plain_versions(m, ks, cuda_device):
             assert torch.equal(kd, torch.gather(k6, 1, ki.long()))
             assert (ki < n).all()
     assert fa.LAUNCHES == {"adc_scan_u8": 2, "adc_scan_u4": 2 if ks <= 16 else 0, "adc_topk_fused": 4,
-                           "adc_scan_u8_v1": 0, "adc_scan_u4_v1": 0, "adc_topk_fused_v1": 0}
+                           "adc_scan_u8_v1": 0, "adc_scan_u4_v1": 0, "adc_topk_fused_v1": 0,
+                           "adc_topk_fused_v2": 0}
     with pytest.raises(ValueError):
         fa.adc_scan_u4(codes, torch.rand(2, m, ks, device=cuda_device))  # unpacked width
 
@@ -667,15 +668,24 @@ def test_range_search_on_card_matches_host(dtype, cuda_device):
         assert ids_match_up_to_ties([[r.id for r in got]], [[r.id for r in want]], wd, len(want))
 
 
+#: K8's designs: the kernel adc_topk_fused launches (csrc/adc_topk.cu), the
+#: second (adc_topk_fused_v2) and the first (adc_topk_fused_v1)
+K8_DESIGNS = (fa.adc_topk_fused, fa.adc_topk_fused_v2, fa.adc_topk_fused_v1)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m, ks", [(8, 256), (16, 256), (16, 16), (32, 16)],
-                         ids=["pq8x8", "pq16", "pq16x4", "pq32x4"])
+@pytest.mark.parametrize("m, ks", [(8, 256), (16, 256), (16, 16), (32, 16), (7, 200), (9, 256),
+                                   (18, 200), (32, 256), (64, 16)],
+                         ids=["pq8x8", "pq16", "pq16x4", "pq32x4", "m7ks200", "m9", "m18ks200",
+                              "pq32", "m64ks16"])
 @pytest.mark.parametrize("b", [1, 13, 16, 17, 256])
 def test_k8_designs_match_the_plain_version(m, ks, b, cuda_device):
-    """K8 (queries on the lanes) and its first design (adc_topk_fused_v1)
-    against the plain version bit for bit over a ragged row count, at
-    batches below, at, and past a query block; distances equal K6's at the
-    rows returned."""
+    """K8 and its second and first designs (adc_topk_fused_v2, _v1) against
+    the plain version bit for bit over a ragged row count, at batches
+    below, at, and past a query block; distances equal K6's at the rows
+    returned. m = 7 runs unskewed, m = 9 and 18 skewed with idle steps
+    (m not a multiple of the skew), m = 32 and 64 in loops compiled for
+    them."""
     gen = torch.Generator(device=cuda_device).manual_seed(b * m + ks)
     n = 20_000 + 77
     codes = torch.randint(0, ks, (n, m), generator=gen, device=cuda_device).to(torch.uint8)
@@ -684,12 +694,71 @@ def test_k8_designs_match_the_plain_version(m, ks, b, cuda_device):
     fa.reset_launches()
     for k in (10, 512):
         rd, ri = fa.adc_topk_fused_ref(codes, lut, k)
-        for fn in (fa.adc_topk_fused, fa.adc_topk_fused_v1):
+        for fn in K8_DESIGNS:
             kd, ki = fn(codes, lut, k)
             torch.cuda.synchronize()
             assert torch.equal(kd, rd) and torch.equal(ki, ri), fn.__name__
             assert torch.equal(kd, torch.gather(k6, 1, ki.long())) and (ki < n).all()
-    assert fa.LAUNCHES["adc_topk_fused"] == 2 and fa.LAUNCHES["adc_topk_fused_v1"] == 2
+    assert fa.k8_route(m, ks, b) == "ring"
+    assert (fa.LAUNCHES["adc_topk_fused"], fa.LAUNCHES["adc_topk_fused_v2"],
+            fa.LAUNCHES["adc_topk_fused_v1"]) == (2, 2, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, ks, b", [(8, 256, 256), (8, 256, 40), (16, 256, 64), (9, 256, 33)])
+def test_k8_plans_and_grids_match_the_plain_version(m, ks, b, cuda_device):
+    """K8 under every variant its plan allows that csrc/adc_topk.cu
+    instantiates (one or two queries a lane, skew on or off, 2-4 ring
+    stages) and persistent grids of 1, 3, 131 and
+    all the units' CTAs (segments cut anywhere, a CTA crossing query
+    blocks), over codes read from one row in (not 16-byte aligned: the
+    producer's lanes copy them) and over n below one tile: equal to the
+    plain version's candidates bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m * b)
+    codes = torch.randint(0, ks, (20_000 + 78, m), generator=gen, device=cuda_device).to(torch.uint8)
+    lut = torch.rand(b, m, ks, generator=gen, device=cuda_device)
+    base = fa.k8_plan(m, ks, b)
+    table = fa.k8_ring_attributes()
+    plans = {p for p in (base, fa.k8_plan(m, ks, b, ql=1), fa.k8_plan(m, ks, b, skew=1),
+                         fa.k8_plan(m, ks, b, stages=2), fa.k8_plan(m, ks, b, stages=3))
+             if (p.qb, fa.k8_ks_pad(ks), p.ql, p.skew, fa.k8_cnt(m, p.skew)) in table}
+    assert len(plans) >= 3
+    for c in (codes[:-1], codes[1:], codes[:200]):
+        want = fa.adc_topk_candidates_ref(c, lut)
+        units = -(-b // base.qb) * base.groups * -(-c.shape[0] // fa.C_BINS)
+        for plan in plans:
+            for ctas in (None, 1, 3, 131, units):
+                if ctas is not None and ctas > -(-b // plan.qb) * plan.groups * -(
+                        -c.shape[0] // fa.C_BINS):
+                    continue
+                got = fa.k8_candidates(c, lut, plan=plan, ctas=ctas)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (plan, ctas)
+
+
+@pytest.mark.cuda
+def test_k8_routes_conflicted_rows_to_the_second_design(cuda_device):
+    """Rows of 96 codes read a byte a load by 32 rows a warp go to the
+    second design (k8_route), counted under its own key, and equal the
+    plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(96)
+    codes = torch.randint(0, 256, (5_000 + 3, 96), generator=gen, device=cuda_device).to(torch.uint8)
+    lut = torch.rand(17, 96, 256, generator=gen, device=cuda_device)
+    assert fa.k8_route(96, 256, 17) == "qlanes"
+    fa.reset_launches()
+    kd, ki = fa.adc_topk_fused(codes, lut, 10)
+    rd, ri = fa.adc_topk_fused_ref(codes, lut, 10)
+    assert torch.equal(kd, rd) and torch.equal(ki, ri)
+    assert fa.LAUNCHES["adc_topk_fused"] == 0 and fa.LAUNCHES["adc_topk_fused_v2"] == 1
+
+
+@pytest.mark.cuda
+def test_k8_kernels_do_not_spill(cuda_device):
+    """Every kernel csrc/adc_topk.cu instantiates keeps its state in
+    registers: no local memory."""
+    attrs = fa.k8_ring_attributes()
+    assert len(attrs) >= 40 and (16, 256, 2, 2, 8) in attrs
+    assert all(local == 0 for _, local in attrs.values()), attrs
 
 
 @pytest.mark.cuda
@@ -700,7 +769,7 @@ def test_k8_short_corpus_never_reads_past_n(n, cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(n)
     codes = torch.randint(0, 256, (n, 8), generator=gen, device=cuda_device).to(torch.uint8)
     lut = torch.rand(17, 8, 256, generator=gen, device=cuda_device)
-    for fn in (fa.adc_topk_fused, fa.adc_topk_fused_v1):
+    for fn in K8_DESIGNS:
         kd, ki = fn(codes, lut, 512)
         rd, ri = fa.adc_topk_fused_ref(codes, lut, 512)
         assert torch.equal(kd, rd) and torch.equal(ki, ri)
@@ -718,7 +787,7 @@ def test_k8_class_crowding_keeps_three_rows_of_one_class(cuda_device):
     lut = torch.rand(17, 8, 256, generator=gen, device=cuda_device) + 1.0
     c = 37
     codes[[c, c + 256, c + 512]] = lut[5].argmin(dim=1).to(torch.uint8)
-    for fn in (fa.adc_topk_fused, fa.adc_topk_fused_v1):
+    for fn in K8_DESIGNS:
         kd, ki = fn(codes, lut, 10)
         rd, ri = fa.adc_topk_fused_ref(codes, lut, 10)
         assert torch.equal(kd, rd) and torch.equal(ki, ri)

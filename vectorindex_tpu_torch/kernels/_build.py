@@ -132,6 +132,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vi_adc_topk_qlanes.restype = ctypes.c_int
     lib.vi_adc_topk_qlanes_per_sm.argtypes = [i] * 4
     lib.vi_adc_topk_qlanes_per_sm.restype = ctypes.c_int
+    lib.vi_adc_topk_ring.argtypes = [p, p] + [i] * 11 + [p] * 5
+    lib.vi_adc_topk_ring.restype = ctypes.c_int
+    lib.vi_adc_topk_ring_per_sm.argtypes = [i] * 8
+    lib.vi_adc_topk_ring_per_sm.restype = ctypes.c_int
+    lib.vi_adc_topk_ring_attributes.argtypes = [i] + [ctypes.POINTER(i)] * 3
+    lib.vi_adc_topk_ring_attributes.restype = ctypes.c_int
     lib.vi_error_string.argtypes = [i]
     lib.vi_error_string.restype = ctypes.c_char_p
 

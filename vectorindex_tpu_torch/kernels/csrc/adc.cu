@@ -3,9 +3,11 @@
 //
 //   K6 adc_scan_u8     replaces adc.py:adc_scan_pallas (body _adc_kernel)
 //   K7 adc_scan_u4     replaces adc.py:adc_scan_u4_pallas (body _adc_u4_kernel)
-//   K8 adc_topk_fused  replaces adc.py:adc_topk_fused (body _adc_candidates_kernel)
-//                      (adc_topk_fused_v1 keeps K8's first design for the A/B,
-//                      adc_scan_u8_v1 / adc_scan_u4_v1 K6's and K7's)
+//   K8 adc_topk_fused  replaces adc.py:adc_topk_fused (body _adc_candidates_kernel):
+//                      its kernel is adc_topk.cu's; here are its second design
+//                      (adc_topk_fused_v2) and first (adc_topk_fused_v1), kept
+//                      for the A/B, and adc_scan_u8_v1 / adc_scan_u4_v1, K6's
+//                      and K7's first designs
 //
 // K6 and K7 compute, for B queries' LUTs lut [B, m, ks] f32 over a code array
 // of n rows (u8 [n, m], or packed u4 [n, m / 2] with ks <= 16),
@@ -58,7 +60,10 @@
 // (about 3.2 wavefronts a lookup on PQ8 codes), writing out[b, row]
 // coalesced along the rows.
 //
-// K8's design (adc_qlane_candidates_kernel): queries on the lanes. In the
+// K8's second design (adc_qlane_candidates_kernel, adc_topk_fused_v2; the
+// kernel K8 launches is adc_topk.cu's, which reads four queries a lane, lays
+// the LUTs out so that a lookup instruction meets no bank conflict, and takes
+// its codes from a ring filled by bulk copies): queries on the lanes. In the
 // first design a warp's 32 lanes scored 32 rows for one query, so one
 // lookup instruction read 32 random entries of one 256-float subspace table:
 // 8 entries on each of the 32 banks, about 3.2 wavefronts a lookup on PQ

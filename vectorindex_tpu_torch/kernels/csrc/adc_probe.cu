@@ -68,6 +68,7 @@
 #include <cstdint>
 
 #include "adc_sum.cuh"
+#include "bulk_copy.cuh"
 
 namespace {
 
@@ -165,58 +166,6 @@ struct ProbeArgs {
 // the LUT's mbarrier, padded to 16 bytes, then the LUT.
 __host__ __device__ constexpr int group_smem(int m, int ks) { return 16 + 4 * m * ks; }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-// One arrival that also expects `bytes` more of the bulk copies completing
-// on the barrier.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the barrier's phase of this parity has completed. A copy
-// that never completes (a byte count that does not match the copies) traps
-// after about ten seconds instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  long long t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) {
-      t0 = clock64();
-    } else if (clock64() - t0 > 20000000000LL) {
-      __trap();
-    }
-  }
-}
-
-// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
-// to this CTA's shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_load(void* sdst, const void* gsrc, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(sdst)), "l"(gsrc), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // cnt (<= 16, a multiple of vec) code bytes at p into w (byte i is
 // (w[i / 4] >> 8 (i % 4)) & 0xff); p is aligned to vec. Every index into w
 // is a constant after unrolling, so w stays in registers.
@@ -291,7 +240,7 @@ __global__ void __launch_bounds__(kThreads, 4) adc_probe_group_kernel(const Prob
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     if (a.lut_bulk) {  // the LUT's copy leaves first
       const uint32_t lut_bytes = 4u * a.m * a.ks;
-      mbar_expect_tx(bar, lut_bytes);
+      mbar_arrive_tx(bar, lut_bytes);
       bulk_load(slut, lq, lut_bytes, bar);
     }
   }
