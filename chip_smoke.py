@@ -98,10 +98,12 @@ just after:
         subprocess (131,072 rows, 64 queries, --vb): exit 0, its envelope
         names the card. JSON lands in build/bench/.
 
-  wide flat: a bf16 FlatIndex at d = 3,072 (capacity 2^17, 120,000 rows) past
-        the tensor-core CTA: batch_search at B=8 and 64 through K1/K2 on the
-        CUDA cores (scan_fused.scan_design "fma"), recall@10 = 1.0, no strict
-        fallback.
+  wide flat: a bf16 FlatIndex at d = 3,072 (capacity 2^17, 120,000 rows):
+        batch_search at B=8 and 64 through K1/K2 on the tensor cores
+        (scan_fused.scan_design "wgmma", the query block's k chunk in each
+        stage), recall@10 = 1.0, no strict fallback; K1/K2 held to their
+        plain versions and to the FMA design (the CUDA cores, their route
+        before) and timed in turns with it.
 
   f32 wide (phase_flat_f32_wide): 2^20 x 768 f32 rows (3.2 GB, drawn on the
         card from a seed) through scan_topk_fused at B=256 and B=8: K1/K2 on
@@ -111,16 +113,33 @@ just after:
         versions by the parity rule (cuBLAS sums a d = 768 product in another
         order), timed in turns with the first design beside their bounds.
 
-  api (phase_api_*): the verified route (ops/scan.scan_topk_verified): a
-        bf16 FlatIndex of 131,072 x 8,192 rows (capacity 2^17, past every
-        kernel design) and a manhattan f32 FlatIndex over the flat main
-        path's 1M x 128 rows, each at B=8 and 64: telemetry names the path
-        models/flat selects by B x capacity (scan_verified from
-        VERIFIED_MIN_BLOCK = 2^22 on, so scan_strict for the bf16 index at
-        B=8), no K1/K2 launch, no strict fallback, recall@10 = 1.0 against f64
-        brute force, the verified and the strict selection timed on the
-        same tensors (events and host clock), the manhattan call's peak
-        memory under its bound; MIPS: the main rows augmented explicitly to
+  4k wide (phase_flat_wide_full): 2^20 x 4,096 bf16 rows (8.6 GB, drawn on
+        the card from a seed) through scan_topk_fused at B = 8, 64 and 256:
+        K1/K2 on the wgmma design, every query exact, recall@10 = 1.0 under
+        the tie rule against a row-chunked f64 brute force, K1 <-> K2 bit
+        for bit and both within the parity rule of their plain versions and
+        of the FMA design, timed by events and profiler device time in turns
+        with the FMA design, beside their plain versions, cuBLAS's bf16
+        q x^T alone and their bound.
+
+  f32 past 7,264 (phase_flat_f32_xwide): 2^17 x 8,192 f32 rows through
+        scan_topk_fused at B=8: K1/K2 on the FMA design (past the first FMA
+        design's width), every query exact, recall@10 = 1.0, within the
+        parity rule of the plain versions, K1 <-> K2 bit for bit, timed.
+
+  api (phase_api_*): a bf16 FlatIndex of 131,072 x 8,192 rows (capacity
+        2^17) at B=8 and 64 through K1/K2 on the wgmma design (no strict
+        fallback, recall@10 = 1.0 against f64 brute force; K1/K2 held to
+        their plain versions and the FMA design and timed; scan_topk_fused,
+        scan_topk_verified and scan_topk_strict timed on the same tensors);
+        the verified route (ops/scan.scan_topk_verified) on the same index
+        at k = 2C + 1 = 513, B=64, and on a manhattan f32 FlatIndex over
+        the flat main path's 1M x 128 rows at B=8 and 64: telemetry names
+        the path models/flat selects by B x capacity (scan_verified from
+        VERIFIED_MIN_BLOCK = 2^22 on), no K1/K2 launch, no strict fallback,
+        recall@k = 1.0 against f64 brute force, the verified and the strict
+        selection timed on the same tensors (events and host clock), the
+        verified call's peak memory under its bound; MIPS: the main rows augmented explicitly to
         padded_dim(128) = 256 in a bf16 L2 FlatIndex (K1/K2 at d = 256,
         held to their plain versions and timed), ids equal to an
         inner-product FlatIndex's up to ties, mips_hybrid_score_block equal
@@ -170,8 +189,8 @@ wgmma design on the flat, MIPS, accel and restored-flat paths, with every
 first design's count at 0, and no wgmma-design kernel may spill.
 
 Wherever K1/K2 run on the FMA design (the f32 kernel-vs-plain cases, the
-wide bf16 index, the bench CLI's f32 index, the f32 rows at d = 768) they
-are also held bit for bit to their first design (kernels/scan_fused
+bench CLI's f32 index, the f32 rows at d = 768) they are also held bit for
+bit to their first design (kernels/scan_fused
 bin_candidates_fma_v1, count_below_fma_v1), which never runs on a main path,
 and timed in turns with it by CUDA events and the profiler's device time;
 the bench CLI's flat batch wall is split once into K1, K2, other device time
@@ -320,14 +339,21 @@ ADC_CASE_BATCHES = (1, SMALL_BATCH, 17, ADC_RANGE_BATCH)
 ADC_KERNELS = ("adc_scan_u8", "adc_scan_u4", "adc_topk_fused")
 #: flat range search on the flat main path's index: queries, matches each
 FLAT_RANGE_QUERIES, FLAT_RANGE_HITS = 4, 50
-#: flat rows too wide for the tensor-core CTA (d > 2,400): a bf16 index of
-#: capacity 2^17 at d = 3,072 (an embedding width users serve) whose K1/K2
-#: run on the CUDA cores, searched at B=8 and 64 (d = 8,192, past the FMA
-#: design, is phase_api's verified route)
+#: wide flat rows: a bf16 index of capacity 2^17 at d = 3,072 (OpenAI
+#: text-embedding-3-large), past the first tensor-core design's route, whose
+#: K1/K2 run on the tensor cores (the query block's k chunk in each stage),
+#: searched at B=8 and 64 (d = 8,192 is phase_api_verified_wide's)
 FLAT_WIDE_DIM, FLAT_WIDE_ROWS, FLAT_WIDE_BATCHES, FLAT_WIDE_CAPACITY = 3072, 120_000, (8, 64), 1 << 17
 #: f32 rows at an embedding width (BERT-base, all-mpnet-base-v2: 768), 2^20
 #: of them (3.2 GB): K1/K2's FMA design streams each row in k chunks
 FLAT_F32_WIDE_ROWS, FLAT_F32_WIDE_DIM, FLAT_F32_WIDE_BATCHES = 1 << 20, 768, (256, 8)
+#: a full-size wide corpus: 2^20 bf16 rows at d = 4,096 (e5-mistral-7b-
+#: instruct, NV-Embed-v2; 8.6 GB) drawn on the card, through
+#: scan_topk_fused on the tensor cores at B = 8, 64 and 256
+FLAT_4K_ROWS, FLAT_4K_DIM, FLAT_4K_BATCHES = 1 << 20, 4096, (8, 64, 256)
+#: f32 rows past the first FMA design's width (d > 7,264): 2^17 x 8,192
+#: (4.3 GB) through scan_topk_fused at B=8 on the FMA design
+FLAT_F32_XWIDE_ROWS, FLAT_F32_XWIDE_DIM, FLAT_F32_XWIDE_BATCH = 1 << 17, 8192, 8
 
 #: the H100 SXM's published peaks (NVIDIA's data sheet): bytes/s of HBM3,
 #: bf16 tensor-core and f32 CUDA-core FLOP/s
@@ -475,6 +501,18 @@ def check_identity(sf, qk, x, bias, cs, metric, kd):
         require(rank != 0 or not bool(lt.any()), "K2 finds a row below K1's smallest distance")
 
 
+def earlier_design(sf, d: int, dtype):
+    """The design K1/K2 ran on these rows before the one scan_design gives
+    now, kept for timing (the suffix of its wrappers): on bf16 the first
+    tensor-core design up to d = 2,400 (its route) and the FMA design past
+    it (the route of wider bf16 rows before the tensor cores took every
+    width); on f32 the first FMA design up to FMA_MAX_D (its query block's
+    limit), and None past it."""
+    if dtype == torch.bfloat16:
+        return "mma_v1" if d <= 2400 else "fma"
+    return "fma_v1" if d <= sf.FMA_MAX_D else None
+
+
 def check_against_plain(sf, topk, qk, x, bias, cs, metric, kk=MAIN_K, exact=None):
     """K1 and K2 against their plain versions on the same inputs on the card.
 
@@ -482,14 +520,16 @@ def check_against_plain(sf, topk, qk, x, bias, cs, metric, kk=MAIN_K, exact=None
     in order (the FMA design's fma_chunk; cuBLAS's f32 GEMM with TF32 off for
     the plain versions), so they agree bit for bit; on the FMA design K1 and
     K2 also equal their first design (the _v1 wrappers) bit for bit. bf16
-    corpora: the kernels sum on the tensor cores (the wgmma design; past d =
-    2,400 the FMA design, in another order than cuBLAS); on integer-valued
-    data (exact=True) every partial sum is exact and they agree bit for bit;
-    otherwise the tensor-core rule holds (check_candidates, check_counts)
-    and K1 <-> K2 bit identity is checked on its own (check_identity). The
-    wgmma design is also held to the first tensor-core design
-    (bin_candidates_mma_v1, count_below_mma_v1) by the same rule. Returns
-    (K1 max_abs_err at the same rows, K2 max count difference, K1's tau [B]).
+    corpora: the kernels sum on the tensor cores (the wgmma design, in
+    another order than cuBLAS); on integer-valued data (exact=True) every
+    partial sum is exact and they agree bit for bit; otherwise the
+    tensor-core rule holds (check_candidates, check_counts) and K1 <-> K2
+    bit identity is checked on its own (check_identity). The wgmma design is
+    also held to the earlier design of these rows (earlier_design: the first
+    tensor-core design, or past d = 2,400 the FMA design on the CUDA cores,
+    one f32 chain in k order) by the same rule. f32 rows past the first FMA
+    design's width have no earlier design to hold them to. Returns (K1
+    max_abs_err at the same rows, K2 max count difference, K1's tau [B]).
     """
     if exact is None:
         exact = x.dtype == torch.float32
@@ -509,8 +549,8 @@ def check_against_plain(sf, topk, qk, x, bias, cs, metric, kk=MAIN_K, exact=None
     k2_err = check_counts(sf, qk, x, bias, cs, tau, klt, kle, metric, exact)
     if not exact:
         check_identity(sf, qk, x, bias, cs, metric, kd)
-    design = sf.scan_design(x.shape[1], x.dtype)
-    if design == "fma":
+    earlier = earlier_design(sf, x.shape[1], x.dtype)
+    if earlier == "fma_v1":
         # the FMA design computes its first design's floats: equal bit for bit
         vd, vi = sf.bin_candidates_fma_v1(qk, x, bias, cs, metric=metric)
         vlt, vle = sf.count_below_fma_v1(qk, x, bias, cs, tau, metric=metric)
@@ -519,24 +559,25 @@ def check_against_plain(sf, topk, qk, x, bias, cs, metric, kk=MAIN_K, exact=None
                 "K1: the FMA design differs from its first design")
         require(torch.equal(klt, vlt) and torch.equal(kle, vle),
                 "K2: the FMA design's counts differ from its first design's")
-    elif design == "wgmma":
-        # the first tensor-core design sums in another order: the
-        # tensor-core rule against it (bit for bit where every sum is exact)
-        vd, vi = sf.bin_candidates_mma_v1(qk, x, bias, cs, metric=metric)
-        vlt, vle = sf.count_below_mma_v1(qk, x, bias, cs, tau, metric=metric)
+    elif earlier is not None:
+        # the earlier design sums in another order: the tensor-core rule
+        # against it (bit for bit where every sum is exact)
+        vd, vi = getattr(sf, "bin_candidates_" + earlier)(qk, x, bias, cs, metric=metric)
+        vlt, vle = getattr(sf, "count_below_" + earlier)(qk, x, bias, cs, tau, metric=metric)
         torch.cuda.synchronize()
-        check_candidates("K1 against its first design", kd, ki, vd, vi, qk, x, bias, cs, metric,
-                         exact)
+        check_candidates(f"K1 against its earlier design ({earlier})", kd, ki, vd, vi, qk, x,
+                         bias, cs, metric, exact)
         diff = torch.maximum((klt - vlt).abs(), (kle - vle).abs())
         if exact:
-            require(int(diff.max()) == 0, "K2: the wgmma design's counts differ from the first design's")
+            require(int(diff.max()) == 0,
+                    f"K2: the wgmma design's counts differ from the earlier design's ({earlier})")
         else:
             from vectorindex_tpu_torch.utils import parity
 
             near = parity.count_near(qk, x, bias, cs, tau, metric)
             require(bool((diff <= 2 * near).all()),
-                    "K2: the wgmma design's counts differ from the first design's by more than the "
-                    "rows near tau")
+                    f"K2: the wgmma design's counts differ from the earlier design's ({earlier}) "
+                    "by more than the rows near tau")
     return k1_err, k2_err, tau
 
 
@@ -1645,12 +1686,13 @@ def search_counted(sf, idx, q: np.ndarray):
 
 
 def phase_flat_wide(sf, topk):
-    """bf16 rows past the tensor-core CTA: FlatIndex at d = FLAT_WIDE_DIM,
-    capacity 2^17 (FLAT_WIDE_ROWS live rows: dead slots keep the mask path
-    live), batch_search at B=8 and 64 through K1/K2 on the FMA design, no
-    strict fallback, recall@10 = 1.0; K1 and K2 against their plain versions
-    on the index's tensors (any f32 sum order is within the utils/parity
-    rule; K1 <-> K2 bit identity on its own) and timed at B=64."""
+    """Wide bf16 rows: FlatIndex at d = FLAT_WIDE_DIM, capacity 2^17
+    (FLAT_WIDE_ROWS live rows: dead slots keep the mask path live),
+    batch_search at B=8 and 64 through K1/K2 on the wgmma design, no strict
+    fallback, recall@10 = 1.0; K1 and K2 against their plain versions and
+    the FMA design (the CUDA cores, their earlier route) on the index's
+    tensors (the utils/parity rule; K1 <-> K2 bit identity on its own) and
+    timed at B=64 in turns with the FMA design."""
     from vectorindex_tpu_torch.utils.config import Metric
 
     t0 = time.perf_counter()
@@ -1666,12 +1708,12 @@ def phase_flat_wide(sf, topk):
         q = queries[start : start + b]
         start += b
         res, designs, counters = search_counted(sf, idx, q)
-        require(designs["wgmma"] == {"bin_candidates": 0, "count_below": 0}
-                and all(c > 0 for c in designs["fma"].values()),
-                f"wide B={b}: K1/K2 did not run on the FMA design: {designs}")
+        require(designs["fma"] == {"bin_candidates": 0, "count_below": 0}
+                and all(c > 0 for c in designs["wgmma"].values()),
+                f"wide B={b}: K1/K2 did not run on the wgmma design: {designs}")
         require(counters.get("flat.verify_fallback", 0) == 0 and "kernel.scan_strict.calls" not in counters,
                 f"wide B={b}: a query fell back to the strict path")
-        for name, c in designs["fma"].items():
+        for name, c in designs["wgmma"].items():
             launches[name] += c
         dist, kth, truth = brute_force(x_dev, sq_dev, q, MAIN_K)
         r_tie, r_set = recall(res, dist, kth, truth, MAIN_K)
@@ -1690,28 +1732,67 @@ def phase_flat_wide(sf, topk):
     x, sqn, _, valid = idx._sync_device()
     qk, bias, cs, _ = sf.kernel_inputs(torch.from_numpy(queries[-FLAT_WIDE_BATCHES[-1]:]).to(DEVICE),
                                        sqn, valid, Metric.L2)
-    k1, k2, tau = check_against_plain(sf, topk, qk, x, bias, cs, Metric.L2)
-    args = (qk, x, bias, cs)
-    t.update(design_turns(sf, qk, x, bias, cs, tau, Metric.L2, 10, 5))
-    t["bin_candidates_plain"] = time_ms(lambda: sf.bin_candidates_ref(*args, metric=Metric.L2), 3)
-    t["count_below_plain"] = time_ms(lambda: sf.count_below_ref(*args, tau, metric=Metric.L2), 3)
-    for name in ("bin_candidates", "count_below"):
-        # the card's bound (the tensor cores' rate), and the f32 pipe's own
-        # floor, which bounds any CUDA-core design
-        t[name + "_bound"] = flat_bound(x.shape[0], FLAT_WIDE_DIM, qk.shape[0], 2, name)
-        t[name + "_f32_pipe"] = flat_bound(x.shape[0], FLAT_WIDE_DIM, qk.shape[0], 2, name,
-                                           F32_FLOPS)[0]
-    log(f"wide: K1/K2 (FMA design, B={qk.shape[0]}, n={x.shape[0]}, d={FLAT_WIDE_DIM} bf16) within "
-        f"the parity rule of their plain versions (K1 max_abs_err {k1:.3g}, K2 count diff {k2}) and "
-        f"equal to their first design bit for bit; {design_log(t)}; plain "
-        f"{t['bin_candidates_plain']:.4g} / {t['count_below_plain']:.4g} ms; bound "
-        f"{t['bin_candidates_bound'][0]:.4g} / {t['count_below_bound'][0]:.4g} ms "
-        f"({t['bin_candidates_bound'][1]}), the f32 pipe's floor "
-        f"{t['bin_candidates_f32_pipe']:.4g} ms; search "
-        + ", ".join(f"{key} {val:.4g} ms" for key, val in t.items() if key.startswith("search")))
+    errs = {"bin_candidates": 0.0, "count_below": 0}
+    t.update(wide_figures(sf, topk, qk, x, bias, cs, errs, "wide", 6, 3))
+    t["launches"] = launches
+    log("wide: search " + ", ".join(f"{key} {val:.4g} ms" for key, val in t.items()
+                                    if key.startswith("search")))
     del idx, x, sqn, valid, qk, bias
     torch.cuda.empty_cache()
-    return launches, t, {"bin_candidates": k1, "count_below": k2}
+    return launches, t, errs
+
+
+def wide_figures(sf, topk, qk, x, bias, cs, errs, label: str, iters: int, calls: int,
+                 plain_iters: int = 3) -> dict:
+    """K1 and K2 on wide L2 rows, in the design scan_design gives them: held
+    to their plain versions by the parity rule (K1 <-> K2 bit identity on
+    its own; errs takes the larger errors) and to their earlier design
+    (earlier_design), timed in turns with it (design_turns: events and
+    profiler device time), beside their plain versions, cuBLAS's q x^T in
+    the corpus dtype alone (not K1's function: a yardstick), their bound
+    and the f32 pipe's floor (which bounds any CUDA-core design)."""
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    m = Metric.L2
+    n, d = x.shape
+    k1, k2, tau = check_against_plain(sf, topk, qk, x, bias, cs, m, exact=False)
+    errs["bin_candidates"] = max(errs["bin_candidates"], k1)
+    errs["count_below"] = max(errs["count_below"], k2)
+    args = (qk, x, bias, cs)
+    if earlier_design(sf, d, x.dtype) is not None:
+        t = design_turns(sf, qk, x, bias, cs, tau, m, iters, calls, required=False)
+    else:  # no earlier design at this width: the kernels alone
+        t = {"earlier": None}
+        for name, fn in (("bin_candidates", lambda: sf.bin_candidates(*args, metric=m)),
+                         ("count_below", lambda: sf.count_below(*args, tau, metric=m))):
+            t[name] = time_ms(fn, iters)
+            t[name + "_dev"] = device_ms(fn, calls, required=False)
+            plan = (sf.wgmma_plan(qk.shape[0], n, d) if x.dtype == torch.bfloat16
+                    else sf.fma_plan(qk.shape[0], n, d, x.dtype, name))
+            t[name + "_plan"] = {"design": sf.scan_design(d, x.dtype), **plan._asdict()}
+    t["bin_candidates_plain"] = time_ms(lambda: sf.bin_candidates_ref(*args, metric=m), plain_iters, 1)
+    t["count_below_plain"] = time_ms(lambda: sf.count_below_ref(*args, tau, metric=m), plain_iters, 1)
+    qb = qk.to(x.dtype)
+    t["cublas_product_ms"] = time_ms(lambda: torch.matmul(qb, x.T), iters)
+    item = x.element_size()
+    for name in ("bin_candidates", "count_below"):
+        t[name + "_bound"] = flat_bound(n, d, qk.shape[0], item, name)
+        t[name + "_f32_pipe"] = flat_bound(n, d, qk.shape[0], item, name, F32_FLOPS)[0]
+    t["max_abs_err"] = k1
+    t["count_diff"] = k2
+    earlier = (f"; {design_log(t)}" if t["earlier"] else "; " + "; ".join(
+        f"{name} {t[name]:.4g} ms (device {dev_str(t[name + '_dev'])}), no earlier design at this width"
+        for name in ("bin_candidates", "count_below")))
+    log(f"{label}: K1/K2 ({sf.scan_design(d, x.dtype)} design, B={qk.shape[0]}, n={n}, d={d} "
+        f"{str(x.dtype).split('.')[-1]}) within the parity rule of their plain versions (K1 "
+        f"max_abs_err {k1:.3g}, K2 count diff {k2}), K1 <-> K2 bit for bit"
+        + (f", and of their earlier design ({t['earlier']})" if t["earlier"] else "")
+        + f"{earlier}; plain {t['bin_candidates_plain']:.4g} / {t['count_below_plain']:.4g} ms; "
+        f"cuBLAS q x^T alone {t['cublas_product_ms']:.4g} ms; bound "
+        f"{t['bin_candidates_bound'][0]:.4g} / "
+        f"{t['count_below_bound'][0]:.4g} ms ({t['bin_candidates_bound'][1]}), the f32 pipe's floor "
+        f"{t['bin_candidates_f32_pipe']:.4g} ms")
+    return t
 
 
 def phase_flat_f32_wide(sf, topk, errs) -> dict:
@@ -1784,12 +1865,154 @@ def phase_flat_f32_wide(sf, topk, errs) -> dict:
     return out
 
 
-def device_ms(fn, calls: int, match: str = "", tries: int = 6) -> float:
+def chunked_truth64(x, q: torch.Tensor, k: int, chunk: int = 1 << 16):
+    """Exact f64 brute force over the rows of x (any dtype; converted a row
+    chunk at a time, never whole) for queries q [B, d] -> (ids [B, k],
+    k-th distance [B])."""
+    q64 = q.double()
+    qn = (q64 * q64).sum(dim=1, keepdim=True)
+    best_d = torch.full((q.shape[0], 0), float("inf"), dtype=torch.float64, device=x.device)
+    best_i = torch.zeros((q.shape[0], 0), dtype=torch.long, device=x.device)
+    for s in range(0, x.shape[0], chunk):
+        xc = x[s : s + chunk].double()
+        dist = (xc * xc).sum(dim=1)[None, :] - 2.0 * (q64 @ xc.T) + qn
+        cd, ci = torch.topk(dist, k, dim=1, largest=False, sorted=True)
+        md, sel = torch.sort(torch.cat([best_d, cd], dim=1), dim=1, stable=True)
+        best_d = md[:, :k]
+        best_i = torch.gather(torch.cat([best_i, ci + s], dim=1), 1, sel[:, :k])
+        del xc, dist
+    return best_i, best_d[:, k - 1]
+
+
+def fused_recall64(x, q: torch.Tensor, ids, k: int):
+    """(tie-aware recall@k, set recall) of scan_topk_fused's ids [B, k]
+    against chunked_truth64: a returned row whose exact f64 distance is at
+    most the true k-th (within RECALL_RTOL) is a hit."""
+    truth, kth = chunked_truth64(x, q, k)
+    q64 = q.double()
+    xg = x[ids.long()].double()  # [B, k, d]
+    d_got = ((xg - q64[:, None, :]) ** 2).sum(dim=2)
+    hits = d_got <= kth[:, None] + RECALL_RTOL * kth.abs()[:, None]
+    same = (ids.long()[:, :, None] == truth[:, None, :]).any(dim=2)
+    return float(hits.float().mean()), float(same.float().mean())
+
+
+def fused_counted(sf, q, xp, sqp, vp, design: str, what: str):
+    """scan_topk_fused with the launch counts set to 0 just before and read
+    just after: K1/K2 launched on `design` alone, every query proved exact
+    (no strict fallback) -> (ids, K1/K2 launches on the design)."""
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    sf.reset_launches()
+    _, ids, exact = sf.scan_topk_fused(q, xp, sqp, vp, metric=Metric.L2, k=MAIN_K)
+    torch.cuda.synchronize()
+    designs = {k: dict(c) for k, c in sf.DESIGN_LAUNCHES.items()}
+    other = "fma" if design == "wgmma" else "wgmma"
+    require(designs[other] == {"bin_candidates": 0, "count_below": 0}
+            and all(c > 0 for c in designs[design].values()),
+            f"{what}: K1/K2 did not run on the {design} design: {designs}")
+    require(bool(exact.all()), f"{what}: {int((~exact).sum())} queries need the strict path")
+    return ids, designs[design]
+
+
+def phase_flat_wide_full(sf, topk, errs) -> dict:
+    """The full-size wide corpus: FLAT_4K_ROWS x FLAT_4K_DIM bf16 rows drawn
+    on the card from a seed (queries near some rows, rounded to bf16),
+    through scan_topk_fused at each of FLAT_4K_BATCHES: K1/K2 on the wgmma
+    design, every query proved exact (no strict fallback), recall@10 = 1.0
+    under the tie rule against a row-chunked f64 brute force; K1/K2 held to
+    their plain versions and the FMA design by the parity rule, K1 <-> K2
+    bit for bit, timed in turns with the FMA design beside their plain
+    versions, cuBLAS's bf16 q x^T and their bound (wide_figures)."""
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    t_phase = time.perf_counter()
+    n, d = FLAT_4K_ROWS, FLAT_4K_DIM
+    require(sf.scan_design(d, torch.bfloat16) == "wgmma", "4k wide: not on the wgmma design")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + d)
+    x = torch.empty((n, d), dtype=torch.bfloat16, device=DEVICE)
+    sq = torch.empty(n, device=DEVICE)
+    for s in range(0, n, 1 << 17):  # in slices: no f32 copy of the corpus
+        xs = torch.randn((min(1 << 17, n - s), d), generator=gen, device=DEVICE).bfloat16()
+        x[s : s + len(xs)] = xs
+        xf = xs.float()
+        sq[s : s + len(xs)] = (xf * xf).sum(dim=1)
+    del xs, xf
+    nq = sum(FLAT_4K_BATCHES)
+    pick = torch.randint(0, n, (nq,), generator=gen, device=DEVICE)
+    queries = (x[pick].float() + 0.1 * torch.randn((nq, d), generator=gen, device=DEVICE)
+               ).bfloat16().float()
+    xp, sqp, vp = sf.pad_corpus(x, sq, None)
+    log(f"4k wide: {n} x {d} bf16 ({n * d * 2 / 1e9:.2f} GB) drawn on the card in "
+        f"{time.perf_counter() - t_phase:.1f} s; scan_design -> {sf.scan_design(d, torch.bfloat16)}")
+    out, start = {"launches": {"bin_candidates": 0, "count_below": 0}}, 0
+    for b in FLAT_4K_BATCHES:
+        q = queries[start : start + b].contiguous()
+        start += b
+        ids, launched = fused_counted(sf, q, xp, sqp, vp, "wgmma", f"4k wide B={b}")
+        for name, c in launched.items():
+            out["launches"][name] += c
+        r_tie, r_set = fused_recall64(x, q, ids, MAIN_K)
+        require(r_tie == 1.0, f"4k wide B={b}: recall@{MAIN_K} {r_tie} < 1 under the tie rule")
+        log(f"4k wide: B={b} through scan_topk_fused: K1/K2 launches on the wgmma design "
+            f"{launched}, every query exact, recall@{MAIN_K}={r_tie} under the tie rule against "
+            f"f64 brute force (set recall {r_set})")
+        qk, bias, cs, _ = sf.kernel_inputs(q, sqp, vp, Metric.L2)
+        t = wide_figures(sf, topk, qk, xp, bias, cs, errs, f"4k wide B={b}", 4, 2, 2)
+        t["launches"] = launched
+        t["recall"] = r_tie
+        out[b] = t
+    del x, xp, sqp, vp, sq, queries
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"4k wide: phase {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_flat_f32_xwide(sf, topk, errs) -> dict:
+    """f32 rows past the first FMA design's width: FLAT_F32_XWIDE_ROWS x
+    FLAT_F32_XWIDE_DIM drawn on the card (queries near some rows) through
+    scan_topk_fused at B = FLAT_F32_XWIDE_BATCH: K1/K2 on the FMA design (k
+    chunks of each row in the ring), every query proved exact, recall@10 =
+    1.0 under the tie rule against f64 brute force; K1/K2 held to their
+    plain versions by the parity rule, K1 <-> K2 bit for bit, timed beside
+    their plain versions and their bound (no earlier design takes this
+    width)."""
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    t_phase = time.perf_counter()
+    n, d, b = FLAT_F32_XWIDE_ROWS, FLAT_F32_XWIDE_DIM, FLAT_F32_XWIDE_BATCH
+    require(sf.scan_design(d, torch.float32) == "fma", "f32 past 7,264: not on the FMA design")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + d + 1)
+    x = torch.randn((n, d), generator=gen, device=DEVICE)
+    pick = torch.randint(0, n, (b,), generator=gen, device=DEVICE)
+    q = x[pick] + 0.1 * torch.randn((b, d), generator=gen, device=DEVICE)
+    xp, sqp, vp = sf.pad_corpus(x, None, None)
+    ids, launched = fused_counted(sf, q, xp, sqp, vp, "fma", f"f32 d={d} B={b}")
+    r_tie, r_set = fused_recall64(x, q, ids, MAIN_K)
+    require(r_tie == 1.0, f"f32 d={d} B={b}: recall@{MAIN_K} {r_tie} < 1 under the tie rule")
+    log(f"f32 past 7,264: {n} x {d} f32, B={b} through scan_topk_fused: K1/K2 launches on the FMA "
+        f"design {launched} (plan {sf.fma_plan(b, n, d, torch.float32, 'bin_candidates')}), every "
+        f"query exact, recall@{MAIN_K}={r_tie} (set {r_set})")
+    qk, bias, cs, _ = sf.kernel_inputs(q, sqp, vp, Metric.L2)
+    t = wide_figures(sf, topk, qk, xp, bias, cs, errs, f"f32 d={d} B={b}", 6, 3)
+    t["launches"] = launched
+    t["recall"] = r_tie
+    del x, xp, sqp, vp
+    torch.cuda.empty_cache()
+    t["phase_s"] = time.perf_counter() - t_phase
+    log(f"f32 past 7,264: phase {t['phase_s']:.1f} s")
+    return t
+
+
+def device_ms(fn, calls: int, match: str = "", tries: int = 6, required: bool = True):
     """torch.profiler device time per call of fn() of the kernels whose
     names contain `match` ("" = every kernel and copy of the call). A
     profiling session that records no such kernel is repeated, up to
     `tries` sessions (three sessions in a row once recorded nothing for the
-    bench suite's K1/K2 on the H100, late in a run)."""
+    bench suite's K1/K2 on the H100, late in a run); then a required time
+    fails the run, another is None ("not recorded": the wide phases, whose
+    events are the figure quoted, as the profiler read K1 low there)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1804,6 +2027,9 @@ def device_ms(fn, calls: int, match: str = "", tries: int = 6) -> float:
                     if e.device_type == DeviceType.CUDA and match in e.key)
         if total > 0:
             return total / 1e3 / calls
+    if not required:
+        log(f"profiler: no device time recorded for {match or 'the call'} in {tries} sessions")
+        return None
     raise AssertionError(f"the profiler saw no device time for {match or 'the call'} "
                          f"in {tries} sessions")
 
@@ -1813,12 +2039,13 @@ def device_ms(fn, calls: int, match: str = "", tries: int = 6) -> float:
 # ---------------------------------------------------------------------------
 
 
-def turns(pairs: dict, iters: int, calls: int) -> dict:
+def turns(pairs: dict, iters: int, calls: int, required: bool = True) -> dict:
     """{name: (new, first)}: each pair of calls timed in two rounds of turns
     (new, first; then first, new) by CUDA events (mean of `iters` launches)
     and by the profiler's device time per call (`calls` launches; every
-    kernel of the call, a split merge included) -> {name: ms, name_dev: ms,
-    name_v1: ms, name_v1_dev: ms} (means of the two rounds) and each side's
+    kernel of the call, a split merge included; device_ms's `required`) ->
+    {name: ms, name_dev: ms, name_v1: ms, name_v1_dev: ms} (means of the two
+    rounds; a device time no round recorded is None) and each side's
     rounds."""
     out = {}
     for name, (new, old) in pairs.items():
@@ -1828,21 +2055,25 @@ def turns(pairs: dict, iters: int, calls: int) -> dict:
             for tag in order:
                 fn = new if tag == "" else old
                 ev[tag].append(time_ms(fn, iters))
-                dev[tag].append(device_ms(fn, calls))
+                dev[tag].append(device_ms(fn, calls, required=required))
         for tag in ("", "_v1"):
+            seen = [v for v in dev[tag] if v is not None]
             out[name + tag] = float(np.mean(ev[tag]))
-            out[name + tag + "_dev"] = float(np.mean(dev[tag]))
+            out[name + tag + "_dev"] = float(np.mean(seen)) if seen else None
             out[name + tag + "_rounds"] = ev[tag] + dev[tag]
     return out
 
 
-def design_turns(sf, qk, x, bias, cs, tau, metric, iters: int, calls: int) -> dict:
+def design_turns(sf, qk, x, bias, cs, tau, metric, iters: int, calls: int,
+                 required: bool = True) -> dict:
     """K1 and K2 in the design scan_design gives these rows (wgmma, or FMA)
-    and in that design's first version (bin_candidates_mma_v1 /
-    count_below_mma_v1, or the _fma_v1 pair), on the same inputs, timed in
-    turns (turns()) -> its figures and each kernel's plan."""
+    and in the earlier design of these rows (earlier_design: the first
+    tensor-core design, the FMA design on wide bf16 rows, or the first FMA
+    design; its figures under the "_v1" keys, its name under "earlier"), on
+    the same inputs, timed in turns (turns()) -> its figures and each
+    kernel's plan."""
     design = sf.scan_design(x.shape[1], x.dtype)
-    v1 = "mma_v1" if design == "wgmma" else "fma_v1"
+    v1 = earlier_design(sf, x.shape[1], x.dtype)
     out = turns({
         "bin_candidates": (lambda: sf.bin_candidates(qk, x, bias, cs, metric=metric),
                            lambda: getattr(sf, "bin_candidates_" + v1)(qk, x, bias, cs,
@@ -1850,12 +2081,13 @@ def design_turns(sf, qk, x, bias, cs, tau, metric, iters: int, calls: int) -> di
         "count_below": (lambda: sf.count_below(qk, x, bias, cs, tau, metric=metric),
                         lambda: getattr(sf, "count_below_" + v1)(qk, x, bias, cs, tau,
                                                                   metric=metric)),
-    }, iters, calls)
+    }, iters, calls, required)
     for name in ("bin_candidates", "count_below"):
         nq, n, d = qk.shape[0], x.shape[0], x.shape[1]
         plan = (sf.wgmma_plan(nq, n, d) if design == "wgmma"
                 else sf.fma_plan(nq, n, d, x.dtype, name))
         out[name + "_plan"] = {"design": design, **plan._asdict()}
+    out["earlier"] = v1
     return out
 
 
@@ -1863,18 +2095,27 @@ def design_shape(t: dict, name: str, bound_ms: tuple, launches=None) -> dict:
     """One shape's figures of kernel `name` (design_turns) for the kernels
     line."""
     fig = {"ms": t[name], "device_ms": t[name + "_dev"], "first_design_ms": t[name + "_v1"],
-           "first_design_device_ms": t[name + "_v1_dev"], "plain_ms": t.get(name + "_plain"),
-           "bound_ms": bound_ms[0], "bound_by": bound_ms[1], "plan": t[name + "_plan"]}
+           "first_design_device_ms": t[name + "_v1_dev"], "earlier_design": t["earlier"],
+           "plain_ms": t.get(name + "_plain"), "bound_ms": bound_ms[0], "bound_by": bound_ms[1],
+           "plan": t[name + "_plan"]}
     if launches is not None:
         fig["launches"] = launches
     return fig
 
 
+def dev_str(v) -> str:
+    return "not recorded" if v is None else f"{v:.4g}"
+
+
+def rounds_str(vals) -> list:
+    return [None if v is None else round(v, 4) for v in vals]
+
+
 def design_log(t: dict) -> str:
     return "; ".join(
-        f"{name} {t[name]:.4g} ms (device {t[name + '_dev']:.4g}), first design "
-        f"{t[name + '_v1']:.4g} ms (device {t[name + '_v1_dev']:.4g}; rounds new "
-        f"{[round(v, 4) for v in t[name + '_rounds']]}, first {[round(v, 4) for v in t[name + '_v1_rounds']]})"
+        f"{name} {t[name]:.4g} ms (device {dev_str(t[name + '_dev'])}), earlier design "
+        f"({t['earlier']}) {t[name + '_v1']:.4g} ms (device {dev_str(t[name + '_v1_dev'])}; rounds new "
+        f"{rounds_str(t[name + '_rounds'])}, first {rounds_str(t[name + '_v1_rounds'])})"
         for name in ("bin_candidates", "count_below"))
 
 
@@ -3253,11 +3494,12 @@ def rows_ids(res) -> np.ndarray:
     return np.array([[r.id for r in row] for row in res])
 
 
-def verified_route(sf, idx, q: np.ndarray, truth, label: str, peak_bound=None) -> dict:
-    """batch_search through the selection models/flat picks past K1/K2 at
-    this B x capacity (scan_topk_verified from VERIFIED_MIN_BLOCK on, else
-    scan_topk_strict; no K1/K2 launch, no strict fallback, recall@10 = 1.0
-    against `truth` = (dist, kth, ids)), then the verified and the strict
+def verified_route(sf, idx, q: np.ndarray, truth, label: str, peak_bound=None,
+                   k: int = MAIN_K) -> dict:
+    """batch_search for k results through the selection models/flat picks
+    past K1/K2 at this B x capacity (scan_topk_verified from
+    VERIFIED_MIN_BLOCK on, else scan_topk_strict; no K1/K2 launch, no strict
+    fallback, recall@k = 1.0 against `truth` = (dist, kth, ids)), then the verified and the strict
     selection on the index's own tensors at this B: CUDA events and
     host-clock seconds; with peak_bound, the verified call's peak device
     memory above its inputs must stay under it."""
@@ -3266,51 +3508,58 @@ def verified_route(sf, idx, q: np.ndarray, truth, label: str, peak_bound=None) -
 
     path = "scan_verified" if len(q) * idx.capacity >= VERIFIED_MIN_BLOCK else "scan_strict"
     sf.reset_launches()
-    res, counters = counters_of(lambda: idx.batch_search(q, MAIN_K))
+    res, counters = counters_of(lambda: idx.batch_search(q, k))
     calls = {k for k, v in counters.items() if k.startswith("kernel.") and k.endswith(".calls") and v}
     require(not any(sf.LAUNCHES.values()) and calls == {f"kernel.{path}.calls"}
             and counters.get("flat.verify_fallback", 0) == 0,
             f"{label}: batch_search did not take {path} alone: {counters}")
     dist, kth, ids = truth
-    r_tie, r_set = recall(res, dist, kth, ids, MAIN_K)
-    require(r_tie == 1.0, f"{label}: recall@{MAIN_K} {r_tie} < 1")
+    r_tie, r_set = recall(res, dist, kth, ids, k)
+    require(r_tie == 1.0, f"{label}: recall@{k} {r_tie} < 1")
     vecs, sqn, inv, valid = idx._sync_device()
     if not idx._free and idx._next_slot >= idx.capacity:
         valid = None  # every slot live: the index passes no mask
     qt = torch.from_numpy(q).to(DEVICE)
     f = {"recall": r_tie, "set_recall": r_set, "path": path}
     for name, fn in (("verified", scan_topk_verified), ("strict", scan_topk_strict)):
-        call = functools.partial(fn, qt, vecs, sqn, inv, valid, metric=idx.metric, k=MAIN_K)
+        call = functools.partial(fn, qt, vecs, sqn, inv, valid, metric=idx.metric, k=k)
         f[name + "_ms"] = time_ms(call, 3, warmup=1)
         f[name + "_wall_s"] = walls(call)
     if peak_bound is not None:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        scan_topk_verified(qt, vecs, sqn, inv, valid, metric=idx.metric, k=MAIN_K)
+        scan_topk_verified(qt, vecs, sqn, inv, valid, metric=idx.metric, k=k)
         torch.cuda.synchronize()
         f["peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 2**20
         require(f["peak_mb"] <= peak_bound / 2**20,
                 f"{label}: the verified scan held {f['peak_mb']:.1f} MiB > {peak_bound / 2**20:.1f}")
     log(f"api verified {label} B={len(q)}: {path}, no K1/K2 launch, no strict fallback, "
-        f"recall@{MAIN_K}={r_tie} (set {r_set}); scan_topk_verified {f['verified_ms']:.4g} ms "
+        f"recall@{k}={r_tie} (set {r_set}); scan_topk_verified {f['verified_ms']:.4g} ms "
         f"(wall {f['verified_wall_s']:.4g} s) against scan_topk_strict {f['strict_ms']:.4g} ms "
         f"(wall {f['strict_wall_s']:.4g} s)"
         + (f"; verified peak {f['peak_mb']:.1f} MiB" if "peak_mb" in f else ""))
     return f
 
 
-def phase_api_verified_wide(sf, api: Api) -> None:
-    """The verified route past every kernel design: a bf16 FlatIndex of
-    VERIFIED_ROWS x VERIFIED_DIM seeded gaussian rows (bf16 values, drawn on
-    the card), every slot live, searched at B=8 and 64 against f64 brute
-    force."""
+def phase_api_verified_wide(sf, topk, api: Api, errs) -> dict:
+    """Wide rows through K1/K2 and the verified route on one index: a bf16
+    FlatIndex of VERIFIED_ROWS x VERIFIED_DIM seeded gaussian rows (bf16
+    values, drawn on the card), every slot live. At B=8 and 64 batch_search
+    runs K1/K2 on the wgmma design (no strict fallback, recall@10 = 1.0
+    against f64 brute force), K1/K2 are held to their plain versions and
+    the FMA design (wide_figures) and timed, and scan_topk_fused,
+    scan_topk_verified and scan_topk_strict are timed on the same tensors;
+    then k = 2C + 1 at B=64 takes the verified scan (verified_route: no
+    K1/K2 launch, recall@k = 1.0, peak memory under its bound)."""
     from vectorindex_tpu_torch.models.flat import FlatIndex
+    from vectorindex_tpu_torch.ops.scan import scan_topk_strict, scan_topk_verified
+    from vectorindex_tpu_torch.ops.scoring import _BROADCAST_ELEMS
     from vectorindex_tpu_torch.utils.config import Metric
 
     t_phase = time.perf_counter()
-    require(sf.scan_design(VERIFIED_DIM, torch.bfloat16) == "strict",
-            f"d={VERIFIED_DIM} found a kernel design")
+    require(sf.scan_design(VERIFIED_DIM, torch.bfloat16) == "wgmma",
+            f"d={VERIFIED_DIM} is not on the wgmma design")
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
     nq = sum(VERIFIED_BATCHES)
     data = torch.randn((VERIFIED_ROWS + nq, VERIFIED_DIM), generator=gen, device=DEVICE)
@@ -3331,17 +3580,60 @@ def phase_api_verified_wide(sf, api: Api) -> None:
     del data
     log(f"api verified wide: bf16 FlatIndex {VERIFIED_ROWS} x {VERIFIED_DIM}, capacity "
         f"{idx.capacity} ({VERIFIED_ROWS * VERIFIED_DIM * 2 / 2**30:.2f} GiB on the card), built "
-        f"in {build_s:.2f} s; scan_design -> strict")
-    figs, start = {}, 0
+        f"in {build_s:.2f} s; scan_design -> wgmma")
+    vecs, sqn, inv, valid = idx._sync_device()
+    figs, start = {"launches": {"bin_candidates": 0, "count_below": 0}}, 0
     for b in VERIFIED_BATCHES:
         q = queries[start : start + b]
         start += b
-        figs[b] = verified_route(sf, idx, q, brute_force(x_dev, sq_dev, q, MAIN_K),
-                                 f"d={VERIFIED_DIM} bf16")
-    del idx, x_dev, sq_dev
+        res, designs, counters = search_counted(sf, idx, q)
+        require(designs["fma"] == {"bin_candidates": 0, "count_below": 0}
+                and all(c > 0 for c in designs["wgmma"].values()),
+                f"d={VERIFIED_DIM} B={b}: K1/K2 did not run on the wgmma design: {designs}")
+        calls = {k for k, v in counters.items() if k.startswith("kernel.") and k.endswith(".calls") and v}
+        require(calls == {"kernel.scan_fused.calls"} and counters.get("flat.verify_fallback", 0) == 0,
+                f"d={VERIFIED_DIM} B={b}: batch_search did not take K1/K2 alone: {counters}")
+        for name, c in designs["wgmma"].items():
+            figs["launches"][name] += c
+        dist, kth, truth = brute_force(x_dev, sq_dev, q, MAIN_K)
+        r_tie, r_set = recall(res, dist, kth, truth, MAIN_K)
+        require(r_tie == 1.0, f"d={VERIFIED_DIM} B={b}: recall@{MAIN_K} {r_tie} < 1")
+        del dist
+        qt = torch.from_numpy(q).to(DEVICE)
+        qk, bias, cs, _ = sf.kernel_inputs(qt, sqn, valid, Metric.L2)
+        t = wide_figures(sf, topk, qk, vecs, bias, cs, errs, f"d={VERIFIED_DIM} B={b}", 5, 3)
+        t["launches"] = designs["wgmma"]
+        t["recall"] = r_tie
+        whole = {"fused": functools.partial(sf.scan_topk_fused, qt, vecs, sqn, valid,
+                                            metric=Metric.L2, k=MAIN_K),
+                 "verified": functools.partial(scan_topk_verified, qt, vecs, sqn, inv, None,
+                                               metric=Metric.L2, k=MAIN_K),
+                 "strict": functools.partial(scan_topk_strict, qt, vecs, sqn, inv, None,
+                                             metric=Metric.L2, k=MAIN_K)}
+        for name, fn in whole.items():
+            t[name + "_ms"] = time_ms(fn, 3, warmup=1)
+        log(f"api verified wide B={b}: batch_search through K1/K2 (wgmma {designs['wgmma']}), no "
+            f"strict fallback, recall@{MAIN_K}={r_tie} (set {r_set}); on the same tensors "
+            f"scan_topk_fused {t['fused_ms']:.4g} ms, scan_topk_verified {t['verified_ms']:.4g} ms, "
+            f"scan_topk_strict {t['strict_ms']:.4g} ms")
+        figs[b] = t
+    # the verified route on the same index: k past K1/K2's 2C candidates.
+    # Its L2 block holds the corpus's f32 copy (ops/scoring._gram), then the
+    # [B, N] distances and their temporaries, and a chunk's intermediates
+    b = VERIFIED_BATCHES[-1]
+    k = 2 * sf.C + 1
+    q = queries[-b:]
+    bound_bytes = (VERIFIED_ROWS * VERIFIED_DIM * 4 + 4 * b * VERIFIED_ROWS * 4
+                   + 3 * _BROADCAST_ELEMS * 4)
+    figs["large_k"] = verified_route(sf, idx, q, brute_force(x_dev, sq_dev, q, k),
+                                     f"d={VERIFIED_DIM} bf16 k={k}", peak_bound=bound_bytes, k=k)
+    figs["large_k"]["peak_bound_mb"] = bound_bytes / 2**20
+    del idx, x_dev, sq_dev, vecs, sqn, inv, valid
     torch.cuda.empty_cache()
     api.figs["verified_wide"] = figs
-    log(f"api verified wide: phase {time.perf_counter() - t_phase:.1f} s")
+    figs["phase_s"] = time.perf_counter() - t_phase
+    log(f"api verified wide: phase {figs['phase_s']:.1f} s")
+    return figs
 
 
 def phase_api_flat(sf, topk, idx, batches, api: Api, errs) -> None:
@@ -3746,10 +4038,20 @@ def api_summary(api: Api, gpu: str) -> str:
     parts = [f"phase_{kind} {sum(v for k, v in api.seconds.items() if k.startswith(kind)):.1f} s ("
              + ", ".join(f"{k[len(kind) + 1:]} {v:.1f}" for k, v in api.seconds.items()
                          if k.startswith(kind)) + ")" for kind in ("api", "sharded")]
-    for label in ("verified_wide", "verified_manhattan"):
-        for b, f in api.figs.get(label, {}).items():
-            parts.append(f"{label} B={b} ({f['path']}) verified {f['verified_ms']:.4g} ms / "
-                         f"strict {f['strict_ms']:.4g} ms")
+    wide = api.figs.get("verified_wide", {})
+    for b in VERIFIED_BATCHES:
+        if b in wide:
+            f = wide[b]
+            parts.append(f"verified_wide B={b} (scan_fused) fused {f['fused_ms']:.4g} ms / verified "
+                         f"{f['verified_ms']:.4g} ms / strict {f['strict_ms']:.4g} ms")
+    if "large_k" in wide:
+        f = wide["large_k"]
+        parts.append(f"verified_wide k={2 * 256 + 1} B={VERIFIED_BATCHES[-1]} ({f['path']}) "
+                     f"verified {f['verified_ms']:.4g} ms / strict {f['strict_ms']:.4g} ms, peak "
+                     f"{f['peak_mb']:.1f} MiB (bound {f['peak_bound_mb']:.1f})")
+    for b, f in api.figs.get("verified_manhattan", {}).items():
+        parts.append(f"verified_manhattan B={b} ({f['path']}) verified {f['verified_ms']:.4g} ms / "
+                     f"strict {f['strict_ms']:.4g} ms")
     return f"api: gpu {gpu}; " + "; ".join(parts) + f"; launches {api.launches}"
 
 
@@ -4114,7 +4416,8 @@ def run(ps: Persist) -> int:
             f"a wgmma-design kernel spills: {wg_attrs}")
     log("build: wgmma-design kernels' registers at entry (no local memory; consumers raise theirs "
         f"to {sf.WG_CONSUMER_REGS} by setmaxnreg): " + ", ".join(
-            f"{k[0]} {k[1]} a_regs={k[2]} {regs}" for k, (regs, _) in sorted(wg_attrs.items())))
+            f"{k[0]} {k[1]} a_regs={k[2]} tiles={k[3]} {regs}"
+            for k, (regs, _) in sorted(wg_attrs.items())))
 
     errs = phase_compare(sf, topk)
     idx, batches, launches = phase_main(sf)
@@ -4134,8 +4437,10 @@ def run(ps: Persist) -> int:
     for name, e in wide_errs.items():
         errs[name] = max(errs[name], e)
     with api.timed("api verified wide"):
-        phase_api_verified_wide(sf, api)
+        xwide = phase_api_verified_wide(sf, topk, api, errs)
     f32_wide = phase_flat_f32_wide(sf, topk, errs)
+    wide_full = phase_flat_wide_full(sf, topk, errs)
+    f32_xwide = phase_flat_f32_xwide(sf, topk, errs)
 
     errs.update(phase_ivf_compare(kp))
     ivf_idx, ivf_batches, bigq, ivf_launches, build_s = phase_ivf_main(kp)
@@ -4208,20 +4513,38 @@ def run(ps: Persist) -> int:
                      "first_design_ms": m[name + "_first_design_ms"],
                      "first_design_device_ms": m[name + "_first_design_device_ms"],
                      "bound_ms": m[name + "_bound"][0], "bound_by": m[name + "_bound"][1]}
+        # wide bf16 rows on the wgmma design, each timed in turns with the
+        # FMA design (their earlier route), beside cuBLAS's bf16 q x^T alone
+        def wide_shape(t, launches=None):
+            fig = design_shape(t, name, t[name + "_bound"], launches)
+            fig.update(f32_pipe_ms=t[name + "_f32_pipe"], cublas_product_ms=t["cublas_product_ms"])
+            return fig
+
+        k["wgmma_wide"] = {
+            f"bf16 {FLAT_WIDE_CAPACITY}x{FLAT_WIDE_DIM} B={FLAT_WIDE_BATCHES[-1]} (wide)": wide_shape(
+                wide_times, wide_launches[name]),
+            **{f"bf16 {VERIFIED_ROWS}x{VERIFIED_DIM} B={b} (api verified wide)": wide_shape(
+                xwide[b], xwide[b]["launches"][name]) for b in VERIFIED_BATCHES},
+            **{f"bf16 {FLAT_4K_ROWS}x{FLAT_4K_DIM} B={b} (4k wide)": wide_shape(
+                wide_full[b], wide_full[b]["launches"][name]) for b in FLAT_4K_BATCHES},
+        }
         # and on the FMA design: the bench CLI's f32 flat index (B=256, its
-        # launches; B=8), the wide bf16 index, the f32 rows at d = 768
-        wide = design_shape(wide_times, name, wide_times[name + "_bound"])
-        wide["f32_pipe_ms"] = wide_times[name + "_f32_pipe"]
+        # launches; B=8), the f32 rows at d = 768 and at d = 8,192 (past the
+        # first FMA design: no earlier design in turns)
+        xw = f32_xwide
         k["fma"] = {
             f"f32 {BENCH_ROWS}x{BENCH_DIM} B={BENCH_QUERIES} (bench flat)": design_shape(
                 bf[BENCH_QUERIES], name, bf[BENCH_QUERIES][name + "_bound"],
                 bench["launches"][name]),
             f"f32 {BENCH_ROWS}x{BENCH_DIM} B={SMALL_BATCH}": design_shape(
                 bf[SMALL_BATCH], name, bf[SMALL_BATCH][name + "_bound"]),
-            f"bf16 {FLAT_WIDE_CAPACITY}x{FLAT_WIDE_DIM} B={FLAT_WIDE_BATCHES[-1]} (wide)": wide,
             **{f"f32 {FLAT_F32_WIDE_ROWS}x{FLAT_F32_WIDE_DIM} B={b}": design_shape(
                 f32_wide[b], name, f32_wide[b][name + "_bound"], f32_wide[b]["launches"][name])
                for b in FLAT_F32_WIDE_BATCHES},
+            f"f32 {FLAT_F32_XWIDE_ROWS}x{FLAT_F32_XWIDE_DIM} B={FLAT_F32_XWIDE_BATCH}": {
+                "ms": xw[name], "device_ms": xw[name + "_dev"], "plain_ms": xw[name + "_plain"],
+                "bound_ms": xw[name + "_bound"][0], "bound_by": xw[name + "_bound"][1],
+                "plan": xw[name + "_plan"], "launches": xw["launches"][name]},
         }
     bms, by = flat_bound(n_flat, MAIN_DIM, MAIN_BATCH, itemsize, "bin_candidates")
     tree = tree_times[TREE_TILES[0]]
@@ -4278,7 +4601,12 @@ def run(ps: Persist) -> int:
     # `launches` is the kernel's main path's own count; the other paths'
     # runs, each counted from 0 just before it, stand under "paths"
     other = {"pq_host_tier": tier_launches, "hostpq": host_launches, "persist": ps.launches,
-             **api.launches, "bench": bench["launches"], "bench_sweep": bench["sweep_launches"]}
+             **api.launches, "bench": bench["launches"], "bench_sweep": bench["sweep_launches"],
+             "flat_wide (wgmma)": wide_launches, "api_verified_wide (wgmma)": xwide["launches"],
+             "flat_wide_4k (wgmma)": wide_full["launches"],
+             "flat_f32_wide (fma)": {n: sum(f32_wide[b]["launches"][n] for b in FLAT_F32_WIDE_BATCHES)
+                                     for n in ("bin_candidates", "count_below")},
+             "flat_f32_xwide (fma)": f32_xwide["launches"]}
     for k in kernels:
         k.update(route="cuda", source=SOURCES[k["name"]], replaces=REPLACES[k["name"]],
                  launches=launches[k["name"]], max_abs_err=errs[k["name"]],
@@ -4288,10 +4616,19 @@ def run(ps: Persist) -> int:
     require(all(k["launches"] > 0 for k in kernels),
             f"a kernel did not run on its main path: {launches}")
     log(f"gpu: {gpu}; flat batch_search B={MAIN_BATCH}: {big['qps']:.1f} QPS; wide bf16 d="
-        f"{FLAT_WIDE_DIM} K1/K2 on the FMA design (launches {wide_launches}) "
+        f"{FLAT_WIDE_DIM} K1/K2 on the wgmma design (launches {wide_launches}) "
         f"{wide_times['bin_candidates']:.4g} / {wide_times['count_below']:.4g} ms at B="
-        f"{FLAT_WIDE_BATCHES[-1]} (first design {wide_times['bin_candidates_v1']:.4g} / "
-        f"{wide_times['count_below_v1']:.4g}); f32 FMA {BENCH_ROWS}x{BENCH_DIM} B={BENCH_QUERIES} "
+        f"{FLAT_WIDE_BATCHES[-1]} (FMA design {wide_times['bin_candidates_v1']:.4g} / "
+        f"{wide_times['count_below_v1']:.4g}); d={VERIFIED_DIM} "
+        + ", ".join(f"B={b} {xwide[b]['bin_candidates']:.4g} / {xwide[b]['count_below']:.4g} ms"
+                    for b in VERIFIED_BATCHES)
+        + f"; {FLAT_4K_ROWS}x{FLAT_4K_DIM} "
+        + ", ".join(f"B={b} {wide_full[b]['bin_candidates']:.4g} / "
+                    f"{wide_full[b]['count_below']:.4g} ms (FMA design "
+                    f"{wide_full[b]['bin_candidates_v1']:.4g} / {wide_full[b]['count_below_v1']:.4g})"
+                    for b in FLAT_4K_BATCHES)
+        + f"; f32 d={FLAT_F32_XWIDE_DIM} B={FLAT_F32_XWIDE_BATCH} {f32_xwide['bin_candidates']:.4g} / "
+        f"{f32_xwide['count_below']:.4g} ms; f32 FMA {BENCH_ROWS}x{BENCH_DIM} B={BENCH_QUERIES} "
         f"{bf[BENCH_QUERIES]['bin_candidates']:.4g} / {bf[BENCH_QUERIES]['count_below']:.4g} ms (first "
         f"design {bf[BENCH_QUERIES]['bin_candidates_v1']:.4g} / "
         f"{bf[BENCH_QUERIES]['count_below_v1']:.4g}), "

@@ -73,11 +73,12 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def kernel_label(mangled: str) -> str:
-    """scan_wgmma_kernel<metric, mode, a_regs>, scan_mma_kernel<metric,
+    """scan_wgmma_kernel<metric, mode, a_regs, tiles>, scan_mma_kernel<metric,
     mode> or the FMA kernels' names, from a mangled symbol."""
-    m = re.search(r"scan_wgmma_kernelILi(\d)ELi(\d)ELi(\d)E", mangled)
+    m = re.search(r"scan_wgmma_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d)E", mangled)
     if m:
-        return f"scan_wgmma_kernel<{METRICS[m.group(1)]},{MODES[m.group(2)]},{m.group(3)}>"
+        return (f"scan_wgmma_kernel<{METRICS[m.group(1)]},{MODES[m.group(2)]},{m.group(3)},"
+                f"{m.group(4)}>")
     m = re.search(r"scan_mma_kernelILi(\d)ELi(\d)E", mangled)
     if m:
         return f"scan_mma_kernel<{METRICS[m.group(1)]},{MODES[m.group(2)]}>"

@@ -2,7 +2,7 @@
 """Sweep of the flat scan's wgmma design (K1/K2/K11 on Hopper's tensor cores)
 over bf16 row widths on one GPU, against the first tensor-core design.
 
-    python3 scripts/ab_scan_wgmma_torch.py [--dims 100,128,256,512,768,1024,1536,2400]
+    python3 scripts/ab_scan_wgmma_torch.py [--dims 100,128,256,512,768,1024,1536,2400,3072,4096,8192]
                                            [--batches 8,256] [--rounds 3]
                                            [--out build/ab_scan_wgmma.json]
 
@@ -12,16 +12,24 @@ batch B (2^20 slots, 1,000,000 live gaussian bf16 rows made on the card from
 a seed, L2, k = 10), times K1 and K2 under wgmma_plan's own plan (through
 the `bin_candidates` / `count_below` wrappers: the route a flat index
 takes), under each other variant that fits (the query block's k chunk
-riding in each stage at one or two 64-query tiles, with 1 or 2 slabs a
-stage; resident in shared memory at one), and in the first tensor-core design (`*_mma_v1`), in
-`--rounds` rounds of turns (the order rotates each round): CUDA events over
-enough launches for about 20 ms. Every wgmma variant's K1 is first checked
-bit for bit against the plan's own (the placement does not change the
-floats). At d = 128 and B = 256 it also times K11 (tiles 4096 and 8192)
-against its first design. A width where d % 8 != 0 (d = 100) has rows TMA
-cannot address, so the producer copies them. The card's name and power
-limit come first (nvidia-smi); a JSON summary goes to --out. Imports
-nothing of JAX.
+riding in each stage at one or two 64-query tiles, beside one ring tile's
+k chunk (the first chunked design) or two, each in its own accumulator,
+with 1, 2, 3, 4 or 6 slabs a stage and as many stages as fit; resident in
+shared memory at one),
+and in the earlier design of these rows: the first tensor-core design
+(`*_mma_v1`) up to d = 2,400, its route, and the FMA design on the CUDA
+cores (`bin_candidates_fma` / `count_below_fma`, the route of bf16 rows past
+2,400 before the tensor cores took them) past it, in `--rounds` rounds of
+turns (the order rotates each round): CUDA events over enough launches for
+about 20 ms. Every wgmma variant's K1 is first checked bit for bit against
+the plan's own (the placement does not change the floats). At d = 128 and
+B = 256 it also times K11 (tiles 4096 and 8192) against its first design. A
+width where d % 8 != 0 (d = 100) has rows TMA cannot address, so the
+producer copies them. Each row prints its byte bound and, beside it, the
+bytes the plan moves from L2 to the SMs (every CTA's class rows, and its
+query rows where they ride in the stages). The card's name and power limit
+come first (nvidia-smi); a JSON summary goes to --out. Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -90,6 +98,16 @@ def bound_ms(d: int, b: int) -> tuple:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def l2_bytes(sf, p, d: int) -> float:
+    """Bytes a pass under plan p brings from L2 into the SMs: each CTA's
+    class rows of every tile, and the query block's rows with each stage
+    where they ride in them (chunked: once for the stage's tps tiles)."""
+    slab_bytes = sf._slabs(d) * sf.WG_SLAB * 2
+    ctas = p.qblocks * (sf.C // p.g)
+    rows = p.g + (64 * p.qt / p.tps if p.chunked else 0)
+    return float(ctas * (N // sf.C) * rows * slab_bytes)
+
+
 def rounds_in_turns(fns: dict, rounds: int) -> dict:
     """{name: [ms of each round]}: each round times every fn once, the order
     rotated by one each round."""
@@ -104,13 +122,16 @@ def rounds_in_turns(fns: dict, rounds: int) -> dict:
 def variant_plans(sf, b: int, d: int) -> dict:
     """{label: plan} of the wgmma variants other than the plan's own that fit
     at (b, d): the query block's k chunk in each stage at one or two query
-    tiles, or resident at one; where it is chunked, 1 or 2 slabs a stage (as
-    many stages as fit)."""
+    tiles, beside one tile's k chunk a stage (the first chunked design) or
+    two (each in its own accumulator), or resident at one; where it is
+    chunked, 1, 2, 3, 4 or 6 slabs a stage (as many stages as fit)."""
     own = sf.wgmma_plan(b, N, d)
     out = {}
     if own.a_regs == 0:
         for label, kw in (("chunked", dict(a_mode="chunked")),
                           ("chunked qt=2", dict(a_mode="chunked", qt=2)),
+                          ("chunked 1 tile", dict(a_mode="chunked", chunk_tiles=1)),
+                          ("chunked 1 tile qt=2", dict(a_mode="chunked", chunk_tiles=1, qt=2)),
                           ("resident qt=1", dict(a_mode="smem", qt=1))):
             if kw.get("qt", 1) == 2 and b <= 64:
                 continue
@@ -118,8 +139,8 @@ def variant_plans(sf, b: int, d: int) -> dict:
             if p != own and p not in out.values() and (kw["a_mode"] == "chunked" or not p.chunked):
                 out[label] = p
     if own.chunked:
-        for cs in (1, 2):
-            stage, base = sf.wgmma_smem(d, own.qt, 0, True, cs, 1, 0)
+        for cs in (1, 2, 3, 4, 6):
+            stage, base = sf.wgmma_smem(d, own.qt, 0, True, cs, own.tps, 0)
             stages = min(sf.WG_MAX_STAGES, (sf.MAX_SMEM_BYTES - base) // stage)
             if cs != own.cs and stages >= 2:
                 out[f"cs={cs}"] = own._replace(cs=cs, stages=stages, smem=base + stages * stage)
@@ -143,10 +164,15 @@ def sweep(sf, topk, d: int, b: int, rounds: int, x, sq, valid) -> dict:
         torch.cuda.synchronize()
         if not (torch.equal(vd, kd) and torch.equal(vi, ki)):
             raise AssertionError(f"d={d} B={b} {label}: K1's floats differ from the plan's own")
+    # the earlier design of these rows: the first tensor-core design on its
+    # route (d <= 2,400), the FMA design (CUDA cores) past it
+    earlier = "mma_v1" if d <= 2400 else "fma"
     fns = {"K1 wgmma": lambda: sf.bin_candidates(qk, x, bias, cs, metric=m),
-           "K1 first design": lambda: sf.bin_candidates_mma_v1(qk, x, bias, cs, metric=m),
+           "K1 " + earlier: lambda: getattr(sf, "bin_candidates_" + earlier)(qk, x, bias, cs,
+                                                                           metric=m),
            "K2 wgmma": lambda: sf.count_below(qk, x, bias, cs, tau, metric=m),
-           "K2 first design": lambda: sf.count_below_mma_v1(qk, x, bias, cs, tau, metric=m)}
+           "K2 " + earlier: lambda: getattr(sf, "count_below_" + earlier)(qk, x, bias, cs, tau,
+                                                                         metric=m)}
     for label, p in plans.items():
         fns[f"K1 wgmma {label}"] = (lambda p=p: sf._wgmma_launch("bin_candidates", qk, x, bias,
                                                                  cs, m, plan=p))
@@ -162,26 +188,30 @@ def sweep(sf, topk, d: int, b: int, rounds: int, x, sq, valid) -> dict:
             fns[f"K11 {tile} first design"] = (lambda t=tile: sf.bin_candidates_tree_v1(
                 qk, x, bias, metric=m, tile=t))
     times = rounds_in_turns(fns, rounds)
-    row = {"d": d, "B": b, "bound_ms": bound_ms(d, b), "plan": sf.wgmma_plan(b, N, d)._asdict(),
-           "variants": {k: p._asdict() for k, p in plans.items()}, "rounds": times}
-    print(f"d={d} B={b}: plan {sf.wgmma_plan(b, N, d)}; bound {row['bound_ms'][0]:.4g} ms "
-          f"({row['bound_ms'][1]})", flush=True)
+    own = sf.wgmma_plan(b, N, d)
+    row = {"d": d, "B": b, "bound_ms": bound_ms(d, b), "plan": own._asdict(),
+           "l2_gb": l2_bytes(sf, own, d) / 1e9, "earlier": earlier,
+           "variants": {k: p._asdict() for k, p in plans.items()},
+           "variant_l2_gb": {k: l2_bytes(sf, p, d) / 1e9 for k, p in plans.items()},
+           "rounds": times}
+    print(f"d={d} B={b}: plan {own}; bound {row['bound_ms'][0]:.4g} ms "
+          f"({row['bound_ms'][1]}); L2->SM {row['l2_gb']:.4g} GB", flush=True)
     for label, p in plans.items():
-        print(f"  variant {label}: {p}", flush=True)
+        print(f"  variant {label}: {p}; L2->SM {row['variant_l2_gb'][label]:.4g} GB", flush=True)
     for name, ms in times.items():
         print(f"  {name}: mean {sum(ms) / len(ms):.4f} ms, rounds {[round(v, 4) for v in ms]}",
               flush=True)
     for k in ("K1", "K2"):
-        new, old = times[f"{k} wgmma"], times[f"{k} first design"]
+        new, old = times[f"{k} wgmma"], times[f"{k} {earlier}"]
         verdict = ("faster in every round" if max(new) < min(old) else
                    "slower in every round" if min(new) > max(old) else "rounds cross")
-        print(f"  {k}: wgmma / first design {sum(new) / sum(old):.3f} ({verdict})", flush=True)
+        print(f"  {k}: wgmma / {earlier} {sum(new) / sum(old):.3f} ({verdict})", flush=True)
     return row
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--dims", default="100,128,256,512,768,1024,1536,2400")
+    parser.add_argument("--dims", default="100,128,256,512,768,1024,1536,2400,3072,4096,8192")
     parser.add_argument("--batches", default="8,256")
     parser.add_argument("--rounds", type=int, default=3)
     parser.add_argument("--out", default=str(ROOT / "build" / "ab_scan_wgmma.json"))

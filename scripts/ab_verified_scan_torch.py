@@ -12,8 +12,8 @@ sort for a fixed tail of small operations, so it wins only past some
 B x N. This script times both at the two shapes chip_smoke.py drives the
 route with, k = 10, over batches that span B x N = 2^20 to 2^26:
 
-  - bf16 131,072 x 8,192 rows, L2 (wider than any K1/K2 design), B = 8, 16,
-    32, 64;
+  - bf16 131,072 x 8,192 rows, L2 (the index models/flat now sends to K1/K2
+    at k <= 512, and to this route at k > 512), B = 8, 16, 32, 64;
   - f32 1,048,576 x 128 rows, manhattan, B = 1, 2, 4, 8, 64.
 
 Rows and queries are seeded gaussians drawn on the card (queries near rows).

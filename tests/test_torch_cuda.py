@@ -170,7 +170,8 @@ def test_index_routes_through_the_kernels(dtype, cuda_device, monkeypatch):
     sf.reset_launches()
     got = on_card.batch_search(q, 10)
     assert sf.LAUNCHES == {"bin_candidates": 1, "count_below": 1, "bin_candidates_tree": 0,
-                           "bin_candidates_fma": 0, "bin_candidates_fma_v1": 0,
+                           "bin_candidates_fma": 0, "count_below_fma": 0,
+                           "bin_candidates_fma_v1": 0,
                            "count_below_fma_v1": 0, "bin_candidates_mma_v1": 0,
                            "count_below_mma_v1": 0, "bin_candidates_tree_v1": 0}
     design = "wgmma" if dtype == torch.bfloat16 else "fma"
@@ -795,7 +796,8 @@ def test_k8_class_crowding_keeps_three_rows_of_one_class(cuda_device):
 
 
 #: the FMA design's cases: (data, d); f32 at the widths a corpus takes it
-#: (ragged, narrow, past one k chunk), bf16 past the tensor-core CTA
+#: (ragged, narrow, past one k chunk), bf16 at the widths it took before the
+#: tensor cores took every bf16 width (now through its timing wrappers)
 FMA_CASES = [("f32", 100), ("f32", 128), ("f32", 129), ("f32", 768), ("bf16", 2416),
              ("bf16", 3072)]
 
@@ -827,10 +829,15 @@ def _fma_check(data, qk, xp, bias, cs, metric):
     k order; cuBLAS does so for the plain versions only at some shapes (not
     at B = 1, at a short last row chunk, or at d = 768), so the plain
     versions are held bit for bit only at test_kernels_match_plain_versions'
-    shapes. K2 at K1's tau."""
+    shapes. K2 at K1's tau. f32 rows take the design through the routed
+    wrappers, bf16 rows (routed to the tensor cores) through its timing
+    wrappers bin_candidates_fma / count_below_fma."""
     b = qk.shape[0]
+    routed = data == "f32"
+    k1 = sf.bin_candidates if routed else sf.bin_candidates_fma
+    k2 = sf.count_below if routed else sf.count_below_fma
     sf.reset_launches()
-    kd, ki = sf.bin_candidates(qk, xp, bias, cs, metric=metric)
+    kd, ki = k1(qk, xp, bias, cs, metric=metric)
     vd, vi = sf.bin_candidates_fma_v1(qk, xp, bias, cs, metric=metric)
     torch.cuda.synchronize()
     assert torch.equal(kd, vd) and torch.equal(ki, vi)
@@ -840,7 +847,7 @@ def _fma_check(data, qk, xp, bias, cs, metric):
     kk = min(10, int(torch.isfinite(kd.view(b, -1)).sum(dim=1).min()))
     sd, _ = topk(kd.view(b, -1), kk, ids=ki.view(b, -1))
     tau = sd[:, kk - 1].contiguous()
-    lt, le = sf.count_below(qk, xp, bias, cs, tau, metric=metric)
+    lt, le = k2(qk, xp, bias, cs, tau, metric=metric)
     vlt, vle = sf.count_below_fma_v1(qk, xp, bias, cs, tau, metric=metric)
     torch.cuda.synchronize()
     assert torch.equal(lt, vlt) and torch.equal(le, vle)
@@ -848,7 +855,9 @@ def _fma_check(data, qk, xp, bias, cs, metric):
     rlt, rle = sf.count_below_ref(qk, xp, bias, cs, tau, metric=metric)
     near = parity.count_near(qk, xp, bias, cs, tau, metric).to(lt.dtype)
     assert ((lt - rlt).abs() <= near).all() and ((le - rle).abs() <= near).all()
-    assert sf.DESIGN_LAUNCHES["fma"] == {"bin_candidates": 1, "count_below": 1}
+    want = {"bin_candidates": int(routed), "count_below": int(routed)}
+    assert sf.DESIGN_LAUNCHES["fma"] == want
+    assert sf.LAUNCHES["bin_candidates_fma"] == sf.LAUNCHES["count_below_fma"] == int(not routed)
     assert sf.LAUNCHES["bin_candidates_fma_v1"] == 1 and sf.LAUNCHES["count_below_fma_v1"] == 1
 
 
@@ -861,7 +870,8 @@ def test_fma_design_equals_first_design_and_plain(metric, data, d, b, n, cuda_de
     """The FMA design (register-tiled, staged) against the first FMA design
     and the plain versions, at batches on both sides of its query blocks and
     of K2's micro-tile switch, over one tile and over 259 (dead rows)."""
-    assert sf.scan_design(d, torch.float32 if data == "f32" else torch.bfloat16) == "fma"
+    want = "fma" if data == "f32" else "wgmma"
+    assert sf.scan_design(d, torch.float32 if data == "f32" else torch.bfloat16) == want
     _fma_check(data, *_fma_case(data, d, b, n, metric, cuda_device), metric)
 
 
@@ -891,12 +901,16 @@ def test_fma_design_kernels_do_not_spill(cuda_device):
 #: CTA's 256 queries
 WGMMA_DS = [16, 64, 100, 128, 256, 768, 1024, 1536, 2400]
 WGMMA_BATCHES = [1, 8, 9, 64, 256, 300]
+#: bf16 widths past the first tensor-core design's route (d <= 2,400), which
+#: the FMA design took before: embedding widths, one past a slab edge and
+#: not 16-byte aligned (3,073: the producer copies its rows), and 16,384
+WGMMA_WIDE_DS = [2401, 3072, 3073, 4096, 8192, 16384]
 
 
 def _wgmma_case(data, d, b, n, metric, device, aligned=True, offset=1):
     """(q_kernel, x_pad, bias, colscale) of a seeded bf16 case: gaussian rows
     and queries, or integer-valued ones in [-8, 8] (every partial sum of
-    d <= 2,400 products exact in f32), 1/8 of the rows dead; aligned=False
+    d <= 16,384 products exact in f32: |sum| <= 2^20), 1/8 of the rows dead; aligned=False
     moves the corpus `offset` elements off a 16-byte boundary."""
     gen = torch.Generator(device=device).manual_seed(d * 7919 + b * 31 + n + 1)
     if data == "bf16-int":
@@ -918,15 +932,18 @@ def _wgmma_case(data, d, b, n, metric, device, aligned=True, offset=1):
 def _wgmma_check(data, qk, xp, bias, cs, metric):
     """K1/K2 on the wgmma design against their plain versions (bit for bit
     on integer-valued rows, else the tensor-core rule of utils/parity) and
-    against the first tensor-core design (the tensor-core rule: its
-    candidates no better than the new ones' tolerance allows); K2
-    recomputes K1's floats bit for bit at several tau (K1's sorted
-    candidates at ranks 0, 9, 99 and the last finite one)."""
+    against the earlier design of these rows (the tensor-core rule: its
+    candidates no better than the new ones' tolerance allows): the first
+    tensor-core design up to d = 2,400, its route, the FMA design (CUDA
+    cores, the route of wider bf16 rows before) past it; K2 recomputes K1's
+    floats bit for bit at several tau (K1's sorted candidates at ranks 0, 9,
+    99 and the last finite one)."""
     b = qk.shape[0]
     exact = data == "bf16-int"
+    earlier = "mma_v1" if qk.shape[1] <= 2400 else "fma"
     sf.reset_launches()
     kd, ki = sf.bin_candidates(qk, xp, bias, cs, metric=metric)
-    vd, vi = sf.bin_candidates_mma_v1(qk, xp, bias, cs, metric=metric)
+    vd, vi = getattr(sf, "bin_candidates_" + earlier)(qk, xp, bias, cs, metric=metric)
     torch.cuda.synchronize()
     rd, ri = sf.bin_candidates_ref(qk, xp, bias, cs, metric=metric)
     if exact:
@@ -946,7 +963,7 @@ def _wgmma_check(data, qk, xp, bias, cs, metric):
         assert (le >= (sd <= tau[:, None]).sum(dim=1)).all(), f"K2 is not K1's floats at rank {rank}"
         assert rank != 0 or not lt.any()
         rlt, rle = sf.count_below_ref(qk, xp, bias, cs, tau, metric=metric)
-        vlt, vle = sf.count_below_mma_v1(qk, xp, bias, cs, tau, metric=metric)
+        vlt, vle = getattr(sf, "count_below_" + earlier)(qk, xp, bias, cs, tau, metric=metric)
         torch.cuda.synchronize()
         if exact:
             assert torch.equal(lt, rlt) and torch.equal(le, rle)
@@ -957,7 +974,7 @@ def _wgmma_check(data, qk, xp, bias, cs, metric):
             assert ((lt - vlt).abs() <= 2 * near).all() and ((le - vle).abs() <= 2 * near).all()
     assert sf.DESIGN_LAUNCHES["wgmma"]["bin_candidates"] == 1
     assert sf.DESIGN_LAUNCHES["fma"] == {"bin_candidates": 0, "count_below": 0}
-    assert sf.LAUNCHES["bin_candidates_mma_v1"] == 1
+    assert sf.LAUNCHES["bin_candidates_" + earlier] == 1
 
 
 @pytest.mark.cuda
@@ -980,6 +997,31 @@ def test_wgmma_design_is_exact_on_integer_rows(metric, d, b, cuda_device):
     """Integer-valued bf16 rows: every partial sum is exact, so the wgmma
     design equals its plain versions and its first design bit for bit."""
     _wgmma_check("bf16-int", *_wgmma_case("bf16-int", d, b, 66_304, metric, cuda_device), metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
+@pytest.mark.parametrize("d", WGMMA_WIDE_DS)
+@pytest.mark.parametrize("b", [1, 8, 64, 256, 300])
+def test_wgmma_wide_rows_match_plain_and_fma_design(metric, d, b, cuda_device):
+    """Gaussian bf16 rows past d = 2,400 over 129 tiles (a short last
+    split), on the tensor cores (the query block's k chunk in each stage):
+    the tensor-core rule against the plain versions and the FMA design,
+    K2 <-> K1 bit identity."""
+    assert sf.scan_design(d, torch.bfloat16) == "wgmma" and sf.wgmma_plan(b, 33_024, d).chunked
+    _wgmma_check("bf16-gauss", *_wgmma_case("bf16-gauss", d, b, 33_024, metric, cuda_device),
+                 metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
+@pytest.mark.parametrize("d", [3073, 4096, 16384])
+@pytest.mark.parametrize("b", [9, 256])
+def test_wgmma_wide_rows_are_exact_on_integer_rows(metric, d, b, cuda_device):
+    """Integer-valued bf16 rows past d = 2,400: every partial sum is exact,
+    so the wgmma design equals its plain versions and the FMA design bit
+    for bit."""
+    _wgmma_check("bf16-int", *_wgmma_case("bf16-int", d, b, 33_024, metric, cuda_device), metric)
 
 
 @pytest.mark.cuda
@@ -1008,19 +1050,23 @@ def test_wgmma_copied_rows_at_each_copy_width(metric, d, offset, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
-@pytest.mark.parametrize("d", [768, 1536])
+@pytest.mark.parametrize("d", [768, 1536, 3072, 3073, 4096, 8192, 16384])
 @pytest.mark.parametrize("b", [8, 256])
 def test_wgmma_wide_row_plans_agree(metric, d, b, cuda_device):
     """Wide rows (the query block's k chunk in each stage): one or two query
-    tiles a CTA, and 1, 2 or 4 slabs a stage, give K1 the same floats bit
+    tiles a CTA, one or two ring tiles a stage (each in its own
+    accumulator), and 1, 2 or 3 slabs a stage give K1 the same floats bit
     for bit; K2 under one recomputes K1's under another."""
     qk, xp, bias, cs = _wgmma_case("bf16-gauss", d, b, 66_304, metric, cuda_device)
     n = xp.shape[0]
     wd, wi = sf.bin_candidates(qk, xp, bias, cs, metric=metric)
     own = sf.wgmma_plan(b, n, d)
-    variants = [sf.wgmma_plan(b, n, d, qt=2, a_mode="chunked")]
-    for slabs in (1, 2):
-        stage, base = sf.wgmma_smem(d, own.qt, 0, True, slabs, 1, 0)
+    assert own.chunked and own.tps == 2
+    variants = [sf.wgmma_plan(b, n, d, qt=2, a_mode="chunked"),
+                sf.wgmma_plan(b, n, d, a_mode="chunked", chunk_tiles=1),
+                sf.wgmma_plan(b, n, d, qt=2, a_mode="chunked", chunk_tiles=1)]
+    for slabs in (1, 2, 3):
+        stage, base = sf.wgmma_smem(d, own.qt, 0, True, slabs, own.tps, 0)
         stages = min(sf.WG_MAX_STAGES, (sf.MAX_SMEM_BYTES - base) // stage)
         variants.append(own._replace(cs=slabs, stages=stages, smem=base + stages * stage))
     for plan in variants:
@@ -1111,10 +1157,19 @@ def test_wgmma_tree_on_wide_rows(metric, d, cuda_device):
 
 @pytest.mark.cuda
 def test_wgmma_design_kernels_do_not_spill(cuda_device):
-    """Every kernel of the wgmma design fits its registers: no local memory."""
+    """Every kernel of the wgmma design fits its registers: no local memory;
+    the plans of wide rows (two tiles a chunked stage) take kernels that
+    are among them."""
     attrs = sf.wgmma_attributes()
-    assert len(attrs) == 22  # K1 7, K11 6, K2 9: cosine K1 takes a_regs 0 only
+    # K1 7 + 3 (two tiles), K11 6, K2 9 + 3: cosine K1 takes a_regs 0 only
+    assert len(attrs) == 28
     assert all(local == 0 and regs <= 255 for regs, local in attrs.values()), attrs
+    for d in (2401, 3072, 3073, 4096, 8192, 16384):
+        for b in (8, 64, 256):
+            for kernel in ("bin_candidates", "count_below"):
+                p = sf.wgmma_plan(b, 1 << 20, d, kernel=kernel)
+                for metric in METRICS:
+                    assert (kernel, metric.value, p.a_regs, p.tps) in attrs
 
 
 @pytest.mark.cuda
@@ -1126,23 +1181,24 @@ def test_first_tensor_core_design_raises_on_f32_rows(cuda_device):
                                  metric=Metric.L2)
 
 
-def _wide_flat(dim, cuda_device, rows=3000, nq=9, round_q=True):
-    """A bf16 L2 FlatIndex of capacity 2^17 with `rows` seeded gaussian rows
-    of width dim, nq queries near some of them, and the exact (f64) squared
-    distances [nq, rows], with q rounded to bf16 in the product where the
-    path does (K1/K2 do, the strict path does not), and their f32
-    tolerance: a distance the index sums in f32 over d terms (the dot
-    product, ||x||^2 and ||q||^2) is within 2 d 2^-24 (2 sum_k |q_k x_k| +
-    ||x||^2 + ||q||^2) of the exact one."""
+def _wide_flat(dim, cuda_device, rows=3000, nq=9, round_q=True, dtype=torch.bfloat16):
+    """An L2 FlatIndex of capacity 2^17 storing `dtype` with `rows` seeded
+    gaussian rows of width dim, nq queries near some of them, and the exact
+    (f64) squared distances [nq, rows] over the stored rows, with q rounded
+    to the storage dtype in the product where the path does (K1/K2 do, the
+    strict path does not), and their f32 tolerance: a distance the index
+    sums in f32 over d terms (the dot product, ||x||^2 and ||q||^2) is
+    within 2 d 2^-24 (2 sum_k |q_k x_k| + ||x||^2 + ||q||^2) of the exact
+    one."""
     rng = np.random.default_rng(dim)
     x = rng.standard_normal((rows, dim)).astype(np.float32)
     q = x[rng.choice(rows, nq, replace=False)] + 0.5 * rng.standard_normal((nq, dim)).astype(np.float32)
-    idx = tflat.FlatIndex(dim, Metric.L2, capacity=1 << 17, storage_dtype=torch.bfloat16,
+    idx = tflat.FlatIndex(dim, Metric.L2, capacity=1 << 17, storage_dtype=dtype,
                           device=cuda_device)
     idx.insert_batch(list(range(rows)), x)
-    xb = torch.from_numpy(x).to(cuda_device).bfloat16().double()
+    xb = torch.from_numpy(x).to(cuda_device).to(dtype).double()
     qf = torch.from_numpy(q).to(cuda_device).double()
-    qd = qf.bfloat16().double() if round_q else qf
+    qd = qf.to(dtype).double() if round_q else qf
     xsq, qsq = (xb * xb).sum(1), (qf * qf).sum(1, keepdim=True)
     dist = xsq[None, :] - 2.0 * (qd @ xb.T) + qsq
     tol = 2.0 * dim * 2.0**-24 * (2.0 * (qd.abs() @ xb.abs().T) + xsq[None, :] + qsq)
@@ -1165,14 +1221,10 @@ def _assert_exact_top_k(got, dist, tol, k=10):
     assert all(len(set(row)) == k for row in gi.tolist())
 
 
-@pytest.mark.cuda
-def test_wide_bf16_flat_index_runs_k1_k2_on_the_cuda_cores(cuda_device):
-    """d = 2,416 bf16 is past the tensor-core CTA (d <= 2,400): K1 and K2
-    both run the FMA design, the top-10 is exact (against f64 brute force
-    over the bf16 rows, within the f32 tolerance of _wide_flat) and no query
-    needs the strict path."""
-    idx, q, dist, tol = _wide_flat(2416, cuda_device)
-    assert sf.scan_design(2416, torch.bfloat16) == "fma"
+def _fused_search(idx, q, design):
+    """batch_search with the launch and telemetry counts from 0: K1 and K2
+    launched once each, on `design` alone, through the fused path alone with
+    no strict fallback."""
     sf.reset_launches()
     TELEM.reset()
     TELEM.enable()
@@ -1180,33 +1232,45 @@ def test_wide_bf16_flat_index_runs_k1_k2_on_the_cuda_cores(cuda_device):
         got = idx.batch_search(q, 10)
     finally:
         TELEM.disable()
-    assert sf.DESIGN_LAUNCHES == {"wgmma": {"bin_candidates": 0, "count_below": 0},
-                                  "fma": {"bin_candidates": 1, "count_below": 1}}
+    other = "fma" if design == "wgmma" else "wgmma"
+    assert sf.DESIGN_LAUNCHES == {design: {"bin_candidates": 1, "count_below": 1},
+                                  other: {"bin_candidates": 0, "count_below": 0}}
     counters = TELEM.snapshot()["counters"]
     assert counters.get("flat.verify_fallback", 0) == 0 and counters["kernel.scan_fused.calls"] == 1
-    _assert_exact_top_k(got, dist, tol)
+    assert sum(v for key, v in counters.items() if key.endswith(".calls")) == 1
+    return got
 
 
 @pytest.mark.cuda
-def test_bf16_flat_index_past_the_fma_limit_takes_the_strict_path(cuda_device):
-    """Past d = 7,264 no kernel design fits: at capacity 2^17 and B=32
-    (B x capacity = VERIFIED_MIN_BLOCK) the index takes the verified scan
-    (ops/scan.scan_topk_verified), no K1/K2 launch, and no query needs the
-    strict path."""
-    idx, q, dist, tol = _wide_flat(7300, cuda_device, rows=600, nq=32, round_q=False)
-    assert sf.scan_design(7300, torch.bfloat16) == "strict"
-    sf.reset_launches()
-    TELEM.reset()
-    TELEM.enable()
-    try:
-        got = idx.batch_search(q, 10)
-    finally:
-        TELEM.disable()
-    assert not any(sf.LAUNCHES.values())
-    counters = TELEM.snapshot()["counters"]
-    assert counters["kernel.scan_verified.calls"] == 1
-    assert counters.get("flat.verify_fallback", 0) == 0
-    _assert_exact_top_k(got, dist, tol)
+def test_wide_bf16_flat_index_runs_k1_k2_on_the_tensor_cores(cuda_device):
+    """d = 2,416 bf16, past the first tensor-core design's route (d <= 2,400)
+    that the FMA design took before: K1 and K2 both run the wgmma design, the
+    top-10 is exact (against f64 brute force over the bf16 rows, within the
+    f32 tolerance of _wide_flat) and no query needs the strict path."""
+    idx, q, dist, tol = _wide_flat(2416, cuda_device)
+    assert sf.scan_design(2416, torch.bfloat16) == "wgmma"
+    _assert_exact_top_k(_fused_search(idx, q, "wgmma"), dist, tol)
+
+
+@pytest.mark.cuda
+def test_bf16_flat_index_past_the_fma_limit_runs_k1_k2_on_the_tensor_cores(cuda_device):
+    """d = 7,300 bf16, past the first FMA design's d = 7,264 (where the index
+    took the verified scan before): at capacity 2^17 and B=32 K1 and K2 run
+    the wgmma design, no verified or strict call, and the top-10 is exact."""
+    idx, q, dist, tol = _wide_flat(7300, cuda_device, rows=600, nq=32)
+    assert sf.scan_design(7300, torch.bfloat16) == "wgmma"
+    _assert_exact_top_k(_fused_search(idx, q, "wgmma"), dist, tol)
+
+
+@pytest.mark.cuda
+def test_f32_flat_index_past_the_first_fma_limit_runs_k1_k2_on_the_fma_design(cuda_device):
+    """d = 7,300 f32, past the first FMA design's query block: K1 and K2 run
+    the FMA design (rows streamed in k chunks), no verified or strict call,
+    and the top-10 is exact against f64 brute force."""
+    idx, q, dist, tol = _wide_flat(7300, cuda_device, rows=600, nq=32, dtype=torch.float32)
+    assert sf.scan_design(7300, torch.float32) == "fma"
+    assert sf.fma_plan(32, 1 << 17, 7300, torch.float32, "bin_candidates").kc < 7300
+    _assert_exact_top_k(_fused_search(idx, q, "fma"), dist, tol)
 
 
 def _host_tier(device, n=6000, d=32, seed=9):

@@ -4,8 +4,8 @@ package's, on the same seeded inserts, removes, updates and compaction.
 Both routes are covered: the strict path below LARGE_SCAN_THRESHOLD, and the
 fused path above it, with the threshold lowered to 1024 in both packages and
 the JAX side forced onto its Pallas kernels (interpret mode), as
-tests/test_scan_fused.py does; above it manhattan/chebyshev and rows too wide
-for the kernels take the verified two-phase scan in both packages. Tolerance for distances: rtol=2e-4,
+tests/test_scan_fused.py does, at any width; above it manhattan/chebyshev
+take the verified two-phase scan in both packages. Tolerance for distances: rtol=2e-4,
 atol=2e-5 on the internal ascending distance (squared L2, -IP, 1-cosine);
 f32 sums in another order, and bf16 products are exact in f32. Ids must be
 equal, except at a rank whose JAX distance lies within that tolerance of a
@@ -290,13 +290,13 @@ def test_fallback_splices_strict_results(monkeypatch):
 
 
 
-@pytest.mark.parametrize("dim, kernel", [(7264, "scan_fused"), (7265, "scan_verified")])
+@pytest.mark.parametrize("dim, kernel", [(7264, "scan_fused"), (7265, "scan_fused")])
 def test_rows_too_wide_for_the_kernels_take_the_strict_path(dim, kernel, monkeypatch):
-    """Above the fused threshold a bf16 index runs K1+K2 while a kernel
-    design fits (scan_fused.scan_design) and the verified scan past
-    d = 7,264 (ops/scan.scan_topk_verified, which re-runs only the queries
-    it cannot prove exact through the strict path); either way the top-k is
-    exact, and telemetry names the path that ran."""
+    """Above the fused threshold a bf16 index runs K1+K2 at every width
+    (scan_fused.scan_design names a kernel design for every d, as the JAX
+    package routes by metric, k and capacity alone): past the first FMA
+    design's d = 7,264 too, the top-k is exact and telemetry names the
+    fused path alone."""
     monkeypatch.setattr(tflat, "LARGE_SCAN_THRESHOLD", 1024)
     monkeypatch.setattr(tflat, "VERIFIED_MIN_BLOCK", 1024)
     rng = np.random.default_rng(41)
@@ -320,3 +320,33 @@ def test_rows_too_wide_for_the_kernels_take_the_strict_path(dim, kernel, monkeyp
     np.testing.assert_allclose([[r.score**2 for r in row] for row in res], want_d[:, :5],
                                rtol=RTOL, atol=ATOL)
     assert ids_match_up_to_ties([[r.id for r in row] for row in res], want, want_d, 5)
+
+
+def test_wide_bf16_index_matches_jax_past_the_first_fma_limit(monkeypatch):
+    """d = 7,265 bf16 (past the first FMA design's query block) above the
+    fused threshold: the port's
+    FlatIndex runs K1+K2 (their plain versions on the CPU) and the JAX
+    FlatIndex its Pallas kernels (interpret mode) on the same numpy rows;
+    distances within rtol=2e-4, atol=2e-5, ids equal up to ties."""
+    monkeypatch.setenv("VECTORINDEX_TPU_FORCE_PALLAS_SCAN", "1")
+    monkeypatch.setattr(jflat, "LARGE_SCAN_THRESHOLD", 1024)
+    monkeypatch.setattr(tflat, "LARGE_SCAN_THRESHOLD", 1024)
+    dim = 7265
+    rng = np.random.default_rng(43)
+    x = rng.standard_normal((300, dim)).astype(np.float32)
+    q = x[:3] + 0.5 * rng.standard_normal((3, dim)).astype(np.float32)
+    j = jflat.FlatIndex(dim, JMetric.L2, storage_dtype=jnp.bfloat16)
+    t = tflat.FlatIndex(dim, Metric.L2, storage_dtype=torch.bfloat16, device="cpu")
+    for idx in (j, t):
+        idx.insert_batch(list(range(len(x))), x)
+    assert t.capacity == j.capacity >= 1024
+    TELEM.reset()
+    TELEM.enable()
+    try:
+        got = t.batch_search(q, K)
+    finally:
+        TELEM.disable()
+    counters = TELEM.snapshot()["counters"]
+    assert counters["kernel.scan_fused.calls"] == 1
+    assert sum(v for key, v in counters.items() if key.endswith(".calls")) == 1
+    _assert_same(got, j.batch_search(q, K + 1), Metric.L2)

@@ -22,7 +22,7 @@ N = 1 << 20
 
 @pytest.mark.parametrize("b", [1, 7, 8, 9, 16, 17, 64, 256, 300])
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("d", [1, 8, 100, 128, 129, 768, 2401, 3072, 7264])
+@pytest.mark.parametrize("d", [1, 8, 100, 128, 129, 768, 2401, 3072, 7264, 7265, 8192, 16384])
 def test_plan_fits_shared_memory_and_registers(d, dtype, b):
     """Both kernels' plans fit 227 KB and the register budget, and fill one
     wave of the card with splits of whole stages; small batches put every
@@ -104,10 +104,11 @@ def test_plans_that_cannot_launch_raise(override, match):
         sf.fma_plan(64, N, 768, torch.float32, "bin_candidates", **override)
 
 
-@pytest.mark.parametrize("fn", ["bin_candidates_fma_v1", "count_below_fma_v1", "bin_candidates_fma"])
+@pytest.mark.parametrize("fn", ["bin_candidates_fma_v1", "count_below_fma_v1", "bin_candidates_fma",
+                                "count_below_fma"])
 def test_timing_only_wrappers_raise_on_cpu_tensors(fn):
-    """The first design (and the A/B entry) run only on the card: a CPU tensor
-    raises instead of taking a plain version."""
+    """The first design (and the FMA design's timing entries) run only on the
+    card: a CPU tensor raises instead of taking a plain version."""
     q, x = torch.randn(3, 16), torch.randn(sf.C, 16)
     bias = (x * x).sum(dim=1)
     args = (q, x, bias, None) + ((torch.zeros(3),) if fn.startswith("count") else ())

@@ -258,44 +258,43 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad, err):
 
 @pytest.mark.parametrize(
     "d, dtype, want",
-    [(2400, torch.bfloat16, "wgmma"), (2401, torch.bfloat16, "fma"), (7264, torch.bfloat16, "fma"),
-     (7265, torch.bfloat16, "strict"), (7264, torch.float32, "fma"),
-     (7265, torch.float32, "strict"), (128, torch.float32, "fma"), (8, torch.bfloat16, "wgmma"),
+    [(2400, torch.bfloat16, "wgmma"), (2401, torch.bfloat16, "wgmma"), (7264, torch.bfloat16, "wgmma"),
+     (7265, torch.bfloat16, "wgmma"), (7264, torch.float32, "fma"),
+     (7265, torch.float32, "fma"), (128, torch.float32, "fma"), (8, torch.bfloat16, "wgmma"),
      (100, torch.bfloat16, "wgmma"), (128, torch.bfloat16, "wgmma"),
-     (1024, torch.bfloat16, "wgmma")],
+     (1024, torch.bfloat16, "wgmma"), (16384, torch.bfloat16, "wgmma"),
+     (16384, torch.float32, "fma")],
 )
 @pytest.mark.parametrize("nq", [8, 256])
 def test_scan_design_routes_by_width_and_dtype(d, dtype, want, nq):
-    """bf16 takes the tensor cores (the wgmma design) up to d = 2,400, the
-    first tensor-core design's route, then the CUDA cores up to d = 7,264,
-    as f32 does; past that no kernel design is taken. The kernels' geometry
-    exists exactly where scan_design names a kernel design (wgmma_plan's
-    plan and the first tensor-core design's grid, or fma_plan's plans for K1
-    and K2) and raises where it names the strict path."""
+    """bf16 takes the tensor cores (the wgmma design) and f32 the CUDA cores
+    (the FMA design) at every width, as the JAX package takes K1/K2 at every
+    width: each design's plans fit there (wgmma_plan's for bf16, fma_plan's
+    for K1 and K2 on f32). The first designs, kept for timing, keep their
+    limits: the first tensor-core design's grid raises past its smallest
+    CTA (d > 2,400) and the first FMA design's past its query block
+    (d > FMA_MAX_D)."""
     assert sf.scan_design(d, dtype) == want
     n = 1 << 20
-    if want == "strict":
-        for plan in (lambda: sf._grid(nq, n, d, mma=True),
-                     lambda: sf.fma_plan(nq, n, d, dtype, "bin_candidates"),
-                     lambda: sf.fma_plan(nq, n, d, dtype, "count_below")):
-            with pytest.raises(ValueError, match="shared-memory"):
-                plan()
-        with pytest.raises(ValueError, match="wgmma route"):
-            sf.wgmma_plan(nq, n, d)
-        return
     if want == "wgmma":
         p = sf.wgmma_plan(nq, n, d)
         assert p.smem <= sf.MAX_SMEM_BYTES
         assert (p.splits - 1) * p.tiles_per_split < n // sf.C <= p.splits * p.tiles_per_split
-        # the first tensor-core design, kept for timing, covers the route too
-        qw, cw, tps, splits, per = sf._grid(nq, n, d, mma=True)
-        assert qw > 0 and sf._mma_smem(d, qw, cw, tps) <= sf.MAX_SMEM_BYTES
-        assert (splits - 1) * per < n // sf.C <= splits * per
+        if d <= 2400:
+            # the first tensor-core design, kept for timing, covers its route
+            qw, cw, tps, splits, per = sf._grid(nq, n, d, mma=True)
+            assert qw > 0 and sf._mma_smem(d, qw, cw, tps) <= sf.MAX_SMEM_BYTES
+            assert (splits - 1) * per < n // sf.C <= splits * per
+        else:
+            with pytest.raises(ValueError, match="shared-memory"):
+                sf._grid(nq, n, d, mma=True)
         return
-    if dtype == torch.bfloat16:  # bf16 past the wgmma route
-        with pytest.raises(ValueError, match="wgmma route"):
-            sf.wgmma_plan(nq, n, d)
     for kernel in ("bin_candidates", "count_below"):
         p = sf.fma_plan(nq, n, d, dtype, kernel)
         assert p.smem <= sf.MAX_SMEM_BYTES
         assert (p.splits - 1) * p.tiles_per_split < n // sf.C <= p.splits * p.tiles_per_split
+    if d > sf.FMA_MAX_D:
+        with pytest.raises(ValueError, match="shared-memory"):
+            sf._grid(nq, n, d, mma=False)
+    else:
+        assert sf._grid(nq, n, d, mma=False)[3] >= 1

@@ -214,6 +214,37 @@ def test_flat_index_routes_by_metric_k_and_capacity(metric, k, capacity, path):
     assert all(len(row) == min(k, len(x)) for row in res)
 
 
+def test_wide_bf16_index_at_large_k_takes_the_verified_scan(monkeypatch):
+    """k = 2C + 1 on a wide bf16 index (d = 8,192, which K1/K2 take at
+    k <= 2C) routes by k alone, as in the JAX package: the verified scan,
+    no fused call, and the exact top-k against f64 brute force over the
+    bf16 rows, up to ties."""
+    monkeypatch.setattr(tflat, "LARGE_SCAN_THRESHOLD", 1024)
+    monkeypatch.setattr(tflat, "VERIFIED_MIN_BLOCK", 1024)
+    d, rows, k = 8192, 600, 2 * sf.C + 1
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((rows, d)).astype(np.float32)
+    q = rng.standard_normal((2, d)).astype(np.float32)
+    t = tflat.FlatIndex(d, Metric.L2, capacity=1024, storage_dtype=torch.bfloat16, device="cpu")
+    t.insert_batch(list(range(rows)), x)
+    TELEM.reset()
+    TELEM.enable()
+    try:
+        res = t.batch_search(q, k)
+    finally:
+        TELEM.disable()
+    calls = {key.split(".")[1] for key, v in TELEM.snapshot()["counters"].items()
+             if key.startswith("kernel.") and v}
+    assert calls == {"scan_verified"}
+    xb = torch.from_numpy(x).bfloat16().double()
+    dist = torch.cdist(torch.from_numpy(q).double(), xb).square().numpy()
+    want = np.argsort(dist, axis=1, kind="stable")[:, : k + 1]
+    want_d = np.take_along_axis(dist, want, axis=1)
+    np.testing.assert_allclose([[r.score**2 for r in row] for row in res], want_d[:, :k],
+                               rtol=RTOL, atol=ATOL)
+    assert ids_match_up_to_ties([[r.id for r in row] for row in res], want, want_d, k)
+
+
 @pytest.mark.parametrize("metric, k", [(Metric.MANHATTAN, K), (Metric.L2, 2 * sf.C + 1)],
                          ids=["manhattan", "l2_large_k"])
 def test_small_blocks_at_capacity_take_the_strict_path(metric, k):

@@ -20,10 +20,12 @@ torch.set_num_threads(1)
 
 KERNELS = ("bin_candidates", "bin_candidates_tree", "count_below")
 #: widths across the route: each side of the slab edges (64), of the
-#: register-resident query block (d <= 128), of the shared-memory one, and
-#: its last width
+#: register-resident query block (d <= 128), of the shared-memory one, of
+#: the first tensor-core design's last width (2,400) and of the first FMA
+#: design's (7,264), and the embedding widths past them (3,072, 4,096,
+#: 8,192), some not a multiple of 8 (rows the producer copies)
 ROUTE_D = [1, 8, 16, 63, 64, 65, 100, 127, 128, 129, 192, 256, 257, 320, 384, 448, 449, 512,
-           768, 1024, 1536, 2048, 2399, 2400]
+           768, 1024, 1536, 2048, 2399, 2400, 2401, 3072, 3073, 4096, 7265, 8192, 16383, 16384]
 BATCHES = [1, 8, 9, 64, 65, 129, 256, 300]
 N = 1 << 20
 
@@ -51,7 +53,8 @@ def test_wgmma_plan_fits_shared_memory_and_registers(d, nq):
             assert placed.smem == sf.wgmma_smem(d, placed.qt, placed.a_regs, placed.chunked,
                                                 placed.cs, placed.tps, placed.stages,
                                                 kernel == "bin_candidates_tree")[1]
-            assert sf.wgmma_registers(placed.a_regs, kernel) <= sf.WG_REG_BUDGET < sf.WG_CONSUMER_REGS
+            tps = placed.tps if placed.chunked else 1  # accumulators a warpgroup holds
+            assert sf.wgmma_registers(placed.a_regs, kernel, tps) <= sf.WG_REG_BUDGET < sf.WG_CONSUMER_REGS
     assert 2 <= p.stages <= sf.WG_MAX_STAGES
     assert p.qt in (1, 2) and p.g * p.qt == 64 and sf.C % p.g == 0
     assert p.qblocks * 64 * p.qt >= nq > (p.qblocks - 1) * 64 * p.qt
@@ -59,7 +62,8 @@ def test_wgmma_plan_fits_shared_memory_and_registers(d, nq):
         assert p.qblocks == 1  # every query in one CTA: the corpus read once a pass
     assert (p.a_regs > 0) == (slabs <= 2) and p.a_regs in (0, 4 * slabs)
     if p.chunked:
-        assert p.tps == 1 and p.qt == 1 and p.cs <= slabs
+        assert p.tps == sf.WG_CHUNK_TILES and p.qt == 1 and p.cs <= slabs
+        assert p.tiles_per_split % p.tps == 0  # only the last split ends mid-stage
     else:
         assert p.cs == slabs
     if p.a_regs == 0 and not p.chunked:
@@ -120,9 +124,11 @@ def test_wgmma_thread_map_owns_each_pair_once(nq):
 
 @pytest.mark.parametrize(
     "kwargs, match",
-    [(dict(d=2401), "wgmma route"), (dict(d=0), "wgmma route"),
+    [(dict(d=-1), "wgmma route"), (dict(d=0), "wgmma route"),
      (dict(d=129, a_mode="regs"), "registers"), (dict(d=128, a_mode="tma"), "a_mode"),
-     (dict(d=128, qt=4), "qt"), (dict(d=128, kernel="bin_candidates_fma"), "plans")],
+     (dict(d=128, qt=4), "qt"), (dict(d=128, kernel="bin_candidates_fma"), "plans"),
+     (dict(d=4096, chunk_tiles=3), "chunk_tiles"),
+     (dict(d=4096, kernel="bin_candidates_tree", chunk_tiles=2), "chunk_tiles")],
 )
 def test_wgmma_plan_refuses_what_the_kernel_does_not_take(kwargs, match):
     d = kwargs.pop("d")
@@ -153,16 +159,23 @@ def test_chunked_query_block_is_q_rounded_once_and_zero_padded(nq):
     assert not qp[nq:].any() and not qp[:, 1000:].any()
 
 
-@pytest.mark.parametrize("d", [449, 768, 1024, 1536, 2048, 2400])
+@pytest.mark.parametrize("d", [449, 768, 1024, 1536, 2048, 2400, 2401, 3072, 3073, 4096, 8192,
+                               16384])
 @pytest.mark.parametrize("nq", [8, 256])
 def test_wide_rows_stream_the_query_block(d, nq):
     """Past the widths whose resident query block leaves 3 stages of whole
     rows (d > 448), the query block's k chunk rides in each stage at one
-    query tile, in stages of at most WG_CHUNK_BYTES."""
+    query tile beside WG_CHUNK_TILES tiles' k chunk, in stages of at most
+    WG_CHUNK_RING's bytes, as many as its fewest; the query block is made
+    at any width."""
     p = sf.wgmma_plan(nq, N, d)
-    assert p.chunked and p.qt == 1 and p.tps == 1 and p.a_regs == 0
+    assert p.chunked and p.qt == 1 and p.tps == sf.WG_CHUNK_TILES == 2 and p.a_regs == 0
     assert sf._wgmma_ring(d, 1, 0, False, False)[2] < 3
-    assert p.cs * (p.g + 64 * p.qt) * 128 <= sf.WG_CHUNK_BYTES
+    most, fewest = sf.WG_CHUNK_RING[p.tps]
+    assert p.cs * (p.tps * p.g + 64 * p.qt) * 128 <= most and p.stages >= fewest
+    assert (p.cs, p.stages) == (4, 2)
+    qp = sf._query_block(torch.zeros(nq, d), p)
+    assert qp.shape == (p.qblocks * 64, -(-d // 64) * 64)
     assert sf.wgmma_plan(nq, N, d, a_mode="smem") == p  # the default placement past d = 448
 
 
@@ -190,3 +203,18 @@ def test_first_designs_raise_on_cpu_tensors():
         sf.bin_candidates_tree_v1(q, x, bias, metric=Metric.L2, tile=512)
     assert sf.LAUNCHES["bin_candidates_mma_v1"] == sf.LAUNCHES["count_below_mma_v1"] == 0
     assert sf.LAUNCHES["bin_candidates_tree_v1"] == 0
+
+
+@pytest.mark.parametrize("d", [768, 3073, 4096, 16384])
+@pytest.mark.parametrize("chunk_tiles", [1, 2])
+def test_chunked_stages_hold_one_or_two_tiles(d, chunk_tiles):
+    """A chunked plan's stage holds chunk_tiles tiles' k chunk beside the
+    query block's (the A/B sweep's variants); two tiles hold two
+    accumulators within the register budget, and K11 keeps one tile."""
+    for kernel in ("bin_candidates", "count_below"):
+        p = sf.wgmma_plan(256, N, d, a_mode="chunked", kernel=kernel, chunk_tiles=chunk_tiles)
+        assert p.chunked and p.tps == chunk_tiles and p.stages >= sf.WG_CHUNK_RING[chunk_tiles][1]
+        assert p.smem == sf.wgmma_smem(d, p.qt, 0, True, p.cs, p.tps, p.stages)[1] <= sf.MAX_SMEM_BYTES
+        assert sf.wgmma_registers(0, kernel, p.tps) <= sf.WG_REG_BUDGET
+    tree = sf.wgmma_plan(256, N, d, a_mode="chunked", kernel="bin_candidates_tree", block_tiles=16)
+    assert tree.tps == 1 and tree.tiles_per_split % 16 == 0

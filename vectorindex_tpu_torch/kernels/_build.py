@@ -104,7 +104,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vi_count_below_fma.restype = ctypes.c_int
     lib.vi_scan_wgmma.argtypes = [i] + [p] * 6 + [i] * 13 + [p] * 7
     lib.vi_scan_wgmma.restype = ctypes.c_int
-    lib.vi_scan_wgmma_attributes.argtypes = [i] * 3 + [ctypes.POINTER(i)] * 2
+    lib.vi_scan_wgmma_attributes.argtypes = [i] * 4 + [ctypes.POINTER(i)] * 2
     lib.vi_scan_wgmma_attributes.restype = ctypes.c_int
     lib.vi_scan_fma_attributes.argtypes = [i] * 4 + [ctypes.POINTER(i)] * 2
     lib.vi_scan_fma_attributes.restype = ctypes.c_int

@@ -41,7 +41,7 @@
 //
 // Two designs.
 //
-// bf16 corpora up to d = 2,400 (the flat main path) run on Hopper's
+// bf16 corpora of any width (the flat main path) run on Hopper's
 // asynchronous tensor cores, as the TPU kernel runs on its matrix unit
 // (scan_wgmma_kernel, sized by kernels/scan_fused.wgmma_plan):
 //
@@ -72,8 +72,14 @@
 //     the consumers: held in registers as A fragments up to d = 128,
 //     written into shared memory for the whole pass past that, and for rows
 //     too wide for that (d > 448) its k chunk rides in each stage (TMA from
-//     a padded copy the wrapper makes). The placements give the same floats
-//     bit for bit. K11 keeps its tiers, touched once a
+//     a padded copy the wrapper makes) beside the k chunk of two ring
+//     tiles' rows (K11: one), each multiplied into its own accumulator:
+//     every CTA brings its query rows from L2 with every stage, so a stage
+//     of one tile moved as many query bytes as corpus bytes, and the pass
+//     ran at the SMs' L2 bandwidth (24-26 bytes a clock an SM at B=256,
+//     d = 3,072-8,192, scripts/ab_scan_wgmma_torch.py), not the corpus's
+//     HBM bound. The placements give the same floats bit for bit, as the
+//     accumulators keep each dot product one chain in k order. K11 keeps its tiers, touched once a
 //     block, in shared memory, so its A fragments fit in registers beside
 //     its block minima.
 //   - a consumer warpgroup issues one tile's products, waits, and runs the
@@ -105,15 +111,16 @@
 // is within 2 d 2^-23 sum_k |q_k x_k| (times 2 for L2, times cs for cosine)
 // of the exact one.
 //
-// f32 corpora stay on the CUDA cores in full f32: each (query, row) dot
-// product is one __fmaf_rn chain over k = 0..d-1 in order whatever the
-// geometry, so K1 and K2 may each take their own. The floats equal the
-// first FMA design's bit for bit, and the plain versions' where cuBLAS's f32
-// product sums each output in k order too (the main paths' shapes; not at
-// one query, a short last row chunk or d = 768, where it sums otherwise). The same kernels instantiated for bf16 serve bf16 corpora too
-// wide for the tensor-core CTA (d > 2,400; scan_design picks the FMA design
-// for K1 and K2 alike, up to d = 7,264, the first design's limit that the
-// routing keeps). This design (scan_fma_kernel, the second) is a
+// f32 corpora of any width stay on the CUDA cores in full f32: each
+// (query, row) dot product is one __fmaf_rn chain over k = 0..d-1 in order
+// whatever the geometry, so K1 and K2 may each take their own. The floats
+// equal the first FMA design's bit for bit (where it fits: d <= 7,264), and
+// the plain versions' where cuBLAS's f32 product sums each output in k
+// order too (the main paths' shapes; not at one query, a short last row
+// chunk or d = 768, where it sums otherwise). The same kernels instantiated
+// for bf16 took bf16 rows past d = 2,400 before the tensor cores took every
+// width; they stay for timing (kernels/scan_fused.bin_candidates_fma /
+// count_below_fma). This design (scan_fma_kernel, the second) is a
 // register-tiled f32 product over staged corpus tiles:
 //
 //   - a CTA of 256 threads takes a block of qb queries and a class group of
@@ -700,7 +707,7 @@ __global__ void __launch_bounds__(32 * kMmaWarps, 2)
 }
 
 // ---------------------------------------------------------------------------
-// the wgmma design (bf16 corpora up to d = 2,400: K1, K2 and K11)
+// the wgmma design (bf16 corpora of any width: K1, K2 and K11)
 // ---------------------------------------------------------------------------
 
 constexpr int kWgConsumers = 2;                    // consumer warpgroups a CTA
@@ -920,10 +927,14 @@ __device__ __forceinline__ void wg_dist_tile(float (&acc)[16], const uint32_t (&
 // consumer warp arrives on a stage's empty barrier once done with it. The
 // query block, rounded to bf16 by the consumers, sits in registers as A
 // fragments (KS > 0), in shared memory for the whole pass, or (chunked: a
-// wrapper-made padded copy, one tile a stage) rides in each stage with its
-// k chunk. K1/K11 write per-split tiers to part_[dist|row]
-// [split][query][tier][class]; K2 adds into lt/le, which must be zeroed.
-template <int METRIC, int MODE, int KS>
+// wrapper-made padded copy) rides in each stage with its k chunk beside
+// the k chunk of TPS ring tiles' class rows, so each query chunk brought
+// from L2 serves TPS tiles; a warpgroup holds TPS accumulators across the
+// chunks (TPS = 2 for wide rows; 1 where the block is resident or in
+// registers, whose stages' tiles run one after another). K1/K11 write
+// per-split tiers to part_[dist|row] [split][query][tier][class]; K2 adds
+// into lt/le, which must be zeroed.
+template <int METRIC, int MODE, int KS, int TPS>
 __global__ void __launch_bounds__(kWgThreads, 1)
     scan_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                       const __grid_constant__ CUtensorMap bmap,
@@ -1275,8 +1286,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   // One tile's product at a time, waited for before its epilogue; the other
   // consumer warpgroup's product runs meanwhile. (Issuing the next tile
   // before this one's epilogue makes ptxas serialize the products: it
-  // injects waits on the pipeline's divergent paths.)
-  float acc[16];
+  // injects waits on the pipeline's divergent paths.) With TPS > 1 (chunked)
+  // the stage's TPS tiles' products over its k chunk are issued together,
+  // each into its own accumulator, and waited for once; a tile past the
+  // split's end is multiplied too (its rows are TMA's zero fill or stale)
+  // but takes no epilogue.
+  float acc[TPS][16];
   for (int s = 0; s < total; ++s) {
     const int slot = s % p.stages;
     mbar_wait(full0 + 8 * slot, (s / p.stages) & 1);
@@ -1286,15 +1301,36 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int tiles = min(p.tps, ntl - grp * p.tps);
     const uint32_t st = ring + slot * L.stage_bytes;
     const uint32_t qa = (p.chunked ? st + L.x_bytes : qres) + mq * 64 * 128;
-    for (int r = 0; r < tiles; ++r) {
-      fence_acc(acc);
+    if constexpr (TPS > 1) {
+#pragma unroll
+      for (int r = 0; r < TPS; ++r) fence_acc(acc[r]);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-      wg_dist_tile<KS>(acc, a, qa, L.qb * 128, st + (r * L.g + xrow) * 128, L.x_slab, nks,
-                       kc > 0);
+#pragma unroll
+      for (int r = 0; r < TPS; ++r) {
+        wg_dist_tile<KS>(acc[r], a, qa, L.qb * 128, st + (r * L.g + xrow) * 128, L.x_slab, nks,
+                         kc > 0);
+      }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       wgmma_wait<0>();
-      fence_acc(acc);
-      if (kc == nk - 1) epilogue(acc, grp * p.tps + r, r, st);
+#pragma unroll
+      for (int r = 0; r < TPS; ++r) fence_acc(acc[r]);
+      if (kc == nk - 1) {
+#pragma unroll
+        for (int r = 0; r < TPS; ++r) {
+          if (r < tiles) epilogue(acc[r], grp * p.tps + r, r, st);
+        }
+      }
+    } else {
+      for (int r = 0; r < tiles; ++r) {
+        fence_acc(acc[0]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        wg_dist_tile<KS>(acc[0], a, qa, L.qb * 128, st + (r * L.g + xrow) * 128, L.x_slab, nks,
+                         kc > 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        wgmma_wait<0>();
+        fence_acc(acc[0]);
+        if (kc == nk - 1) epilogue(acc[0], grp * p.tps + r, r, st);
+      }
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty0 + 8 * slot);  // the warp is done with the stage
@@ -1775,12 +1811,12 @@ cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, con
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// scan_wgmma_kernel<METRIC, MODE, KS> under plan p: the tensor maps, then
+// scan_wgmma_kernel<METRIC, MODE, KS, TPS> under plan p: the tensor maps, then
 // the launch. q [nq, d] f32; qpad (chunked plans only) is q rounded to bf16,
 // zero-padded to [query blocks x 64 qt, slabs x 64]. The corpus goes
 // through TMA where its rows are 16-byte aligned, else through the
 // producer's copies.
-template <int METRIC, int MODE, int KS>
+template <int METRIC, int MODE, int KS, int TPS>
 cudaError_t launch_wgmma(const float* q, const void* qpad, const void* x, const float* bias,
                          const float* cs,
                          const float* thresh, int nq, int n, int d, WgPlan p, float* part_dist,
@@ -1788,7 +1824,7 @@ cudaError_t launch_wgmma(const float* q, const void* qpad, const void* x, const 
   const WgLayout L = wg_layout(d, p, MODE == kModeTree);
   if ((p.qt != 1 && p.qt != 2) || p.tps < 1 || p.tps > 256 || p.cs < 1 || p.cs > L.slabs ||
       p.stages < 2 || p.stages > kWgMaxStages || p.splits < 1 || p.tiles_per_split < 1 ||
-      p.block_tiles < 1 || (p.chunked && (p.tps != 1 || KS > 0)) ||
+      p.block_tiles < 1 || (p.chunked && (p.tps != TPS || KS > 0)) || (!p.chunked && TPS != 1) ||
       (!p.chunked && p.cs != L.slabs) || (KS > 0 && KS != 4 * L.slabs) ||
       L.total > 232448 || reinterpret_cast<uintptr_t>(bias) % 16 != 0 ||
       (METRIC == kCos && reinterpret_cast<uintptr_t>(cs) % 16 != 0) ||
@@ -1832,7 +1868,7 @@ cudaError_t launch_wgmma(const float* q, const void* qpad, const void* x, const 
         tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x, dims, strides, box, true);
     if (err != cudaSuccess) return err;
   }
-  auto kernel = scan_wgmma_kernel<METRIC, MODE, KS>;
+  auto kernel = scan_wgmma_kernel<METRIC, MODE, KS, TPS>;
   const size_t smem = static_cast<size_t>(L.total);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1843,21 +1879,31 @@ cudaError_t launch_wgmma(const float* q, const void* qpad, const void* x, const 
   return cudaGetLastError();
 }
 
-// f(integral_constant<METRIC>, integral_constant<KS>) for a runtime metric
-// (K11: L2 and IP only) and query-block placement (a_regs 0, 4 or 8; cosine
-// K1 takes 0 only: its tiers and colscale leave no registers for the A
-// fragments, kernels/scan_fused.wgmma_placement).
+// f(integral_constant<METRIC>, integral_constant<KS>, integral_constant<TPS>)
+// for a runtime metric (K11: L2 and IP only), query-block placement (a_regs
+// 0, 4 or 8; cosine K1 takes 0 only: its tiers and colscale leave no
+// registers for the A fragments, kernels/scan_fused.wgmma_placement) and the
+// tiles a warpgroup multiplies at once (tps: 2 for K1's and K2's chunked
+// plans, else 1).
 template <int MODE, typename F>
-cudaError_t with_metric_ks(int metric, int a_regs, F&& f) {
+cudaError_t with_metric_ks(int metric, int a_regs, int tps, F&& f) {
   using L2 = std::integral_constant<int, kL2>;
   using IP = std::integral_constant<int, kIP>;
   using Cos = std::integral_constant<int, kCos>;
+  using One = std::integral_constant<int, 1>;
   auto by_ks = [&](auto m) -> cudaError_t {
     constexpr bool kRegs = !(MODE == kModeTop3 && decltype(m)::value == kCos);
-    if (a_regs == 0) return f(m, std::integral_constant<int, 0>{});
+    if (a_regs == 0) {
+      if (tps == 1) return f(m, std::integral_constant<int, 0>{}, One{});
+      if constexpr (MODE != kModeTree) {
+        if (tps == 2) return f(m, std::integral_constant<int, 0>{}, std::integral_constant<int, 2>{});
+      }
+      return cudaErrorInvalidValue;
+    }
+    if (tps != 1) return cudaErrorInvalidValue;
     if constexpr (kRegs) {
-      if (a_regs == 4) return f(m, std::integral_constant<int, 4>{});
-      if (a_regs == 8) return f(m, std::integral_constant<int, 8>{});
+      if (a_regs == 4) return f(m, std::integral_constant<int, 4>{}, One{});
+      if (a_regs == 8) return f(m, std::integral_constant<int, 8>{}, One{});
     }
     return cudaErrorInvalidValue;
   };
@@ -1875,18 +1921,21 @@ cudaError_t wgmma_dispatch(int metric, const float* q, const void* qpad, const v
                            const float* cs, const float* thresh, int nq, int n, int d, WgPlan p,
                            float* part_dist, int* part_row, int* lt, int* le,
                            cudaStream_t stream) {
-  return with_metric_ks<MODE>(metric, p.a_regs, [&](auto m, auto ks) {
-    return launch_wgmma<decltype(m)::value, MODE, decltype(ks)::value>(
+  // a chunked plan's tiles a stage are the kernel's TPS; other plans run
+  // their stages' tiles one after another (TPS = 1)
+  return with_metric_ks<MODE>(metric, p.a_regs, p.chunked ? p.tps : 1, [&](auto m, auto ks,
+                                                                          auto tps) {
+    return launch_wgmma<decltype(m)::value, MODE, decltype(ks)::value, decltype(tps)::value>(
         q, qpad, x, bias, cs, thresh, nq, n, d, p, part_dist, part_row, lt, le, stream);
   });
 }
 
 template <int MODE>
-cudaError_t wgmma_attributes(int metric, int a_regs, int* regs, int* local_bytes) {
-  return with_metric_ks<MODE>(metric, a_regs, [&](auto m, auto ks) {
+cudaError_t wgmma_attributes(int metric, int a_regs, int tps, int* regs, int* local_bytes) {
+  return with_metric_ks<MODE>(metric, a_regs, tps, [&](auto m, auto ks, auto t) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(
-        &a, scan_wgmma_kernel<decltype(m)::value, MODE, decltype(ks)::value>);
+        &a, scan_wgmma_kernel<decltype(m)::value, MODE, decltype(ks)::value, decltype(t)::value>);
     if (err == cudaSuccess) {
       *regs = a.numRegs;
       *local_bytes = static_cast<int>(a.localSizeBytes);
@@ -2146,15 +2195,17 @@ int vi_scan_wgmma(int mode, const void* q, const void* qpad, const void* x, cons
 }
 
 // Registers a thread and local (spilled) bytes of the wgmma design's kernel
-// for metric, mode (0 K1, 1 K11, 2 K2) and a_regs (0, 4, 8).
-int vi_scan_wgmma_attributes(int metric, int mode, int a_regs, int* regs, int* local_bytes) {
+// for metric, mode (0 K1, 1 K11, 2 K2), a_regs (0, 4, 8) and the tiles a
+// warpgroup multiplies at once (tps 1, or 2 for K1's and K2's chunked plans).
+int vi_scan_wgmma_attributes(int metric, int mode, int a_regs, int tps, int* regs,
+                             int* local_bytes) {
   cudaError_t err = cudaErrorInvalidValue;
   if (mode == kModeTop3) {
-    err = wgmma_attributes<kModeTop3>(metric, a_regs, regs, local_bytes);
+    err = wgmma_attributes<kModeTop3>(metric, a_regs, tps, regs, local_bytes);
   } else if (mode == kModeTree) {
-    err = wgmma_attributes<kModeTree>(metric, a_regs, regs, local_bytes);
+    err = wgmma_attributes<kModeTree>(metric, a_regs, tps, regs, local_bytes);
   } else if (mode == kModeCount) {
-    err = wgmma_attributes<kModeCount>(metric, a_regs, regs, local_bytes);
+    err = wgmma_attributes<kModeCount>(metric, a_regs, tps, regs, local_bytes);
   }
   return static_cast<int>(err);
 }

@@ -21,15 +21,15 @@ Kernel-space distances omit ||q||^2 (monotone per query; added back for L2):
 
 q is rounded to the corpus dtype before the product. The CUDA kernels live in
 csrc/scan_fused.cu, in two designs that `scan_design` chooses from the
-corpus dtype and width: on a bf16 corpus up to d = 2,400 Hopper's
-asynchronous tensor cores (`scan_wgmma_kernel`: wgmma m64n32k16 with f32
-accumulation, the corpus through a TMA-fed ring, read once a pass where the
-batch fits one CTA (up to 128 queries), the query block resident in
-registers or shared memory; `wgmma_plan` sizes each launch); on an f32
-corpus, and on bf16 past 2,400, the CUDA cores (one f32 FMA chain per dot
-product, register-tiled over staged corpus tiles; `fma_plan` sizes each
-launch) up to d = 7,264; past that callers take
-ops/scan.scan_topk_verified or scan_topk_strict.
+corpus dtype alone, at any width: on a bf16 corpus Hopper's asynchronous
+tensor cores (`scan_wgmma_kernel`: wgmma m64n32k16 with f32 accumulation,
+the corpus through a TMA-fed ring, read once a pass where the batch fits
+one CTA (up to 128 queries), the query block resident in registers or
+shared memory, or past d = 448 its k chunk riding in each stage beside the
+rows; `wgmma_plan` sizes each launch); on an f32 corpus the CUDA cores (one
+f32 FMA chain per dot product, register-tiled over staged corpus tiles,
+rows streamed in k chunks where they do not fit whole; `fma_plan` sizes
+each launch).
 `bin_candidates_ref` and `count_below_ref` are
 their plain PyTorch versions: CPU tensors take them, CUDA tensors always
 launch the kernel. The plain versions share one distance function with one
@@ -48,9 +48,10 @@ tensor-core design (mma.sync m16n8k16 over a 2-stage cp.async ring, up to
 K11 `bin_candidates_tree` (the round-5 A/B kernel of scripts/ab_flat_tree.py,
 mode "tree") is K1 keeping, per query, class and block of `tile` rows, only
 the block's smallest distance and its first row, folded into the same 3
-tiers. `bin_candidates_fma` runs K1's FMA design on any corpus dtype, for
-the A/B of scripts/ab_flat_tree_torch.py (the CUDA-core design on bf16
-rows); scripts/ab_scan_fma_torch.py sweeps the design's plans.
+tiers. `bin_candidates_fma` / `count_below_fma` run K1's / K2's FMA design
+on any corpus dtype, to time the CUDA-core design on bf16 rows against the
+tensor cores (scripts/ab_flat_tree_torch.py, scripts/ab_scan_wgmma_torch.py,
+chip_smoke.py); scripts/ab_scan_fma_torch.py sweeps the design's plans.
 """
 
 from __future__ import annotations
@@ -89,18 +90,22 @@ WG_HEADER, WG_MAX_STAGES = 2048, 8
 #: K11's tiers in shared memory: a distance and a row in 3 tiers of each
 #: consumer thread's WG_N / 2 pairs (kWgTierBytes)
 WG_TIER_BYTES = 2 * (WG_N // 2) * TIERS * 256 * 4
-#: corpus bytes a stage aims for; a chunked stage's bytes at most (4 slabs
-#: of 64 class and 64 query rows: stages of 2 slabs took 1.3-1.5x longer
-#: over d = 512-896, scripts/ab_scan_wgmma_torch.py)
-WG_STAGE_BYTES, WG_CHUNK_BYTES = 16384, 65536
+#: corpus bytes a stage aims for
+WG_STAGE_BYTES = 16384
+#: ring tiles a chunked stage of K1/K2 holds, each in its own accumulator, so
+#: that each query chunk brought from L2 serves that many tiles (K11: 1)
+WG_CHUNK_TILES = 2
+#: by a chunked stage's tiles: its bytes at most, and the fewest stages of
+#: its ring. K1/K2: 4 slabs of 2 tiles' 64 class rows and 64 query rows in
+#: 2 stages; K11: 4 slabs of one tile's in 3. Fewer bytes a stage took
+#: longer at d = 768-8,192 (each stage pays a wait; 3 slabs in 3 stages
+#: 1.0-1.1x, 1 slab in 8 stages 1.2-1.8x, scripts/ab_scan_wgmma_torch.py)
+WG_CHUNK_RING = {1: (65536, 3), 2: (98304, 2)}
 #: registers a consumer thread holds (setmaxnreg, kConsumerRegs: the
 #: producer warpgroup keeps kProducerRegs of the launch bound's 65,536 /
 #: WG_THREADS = 168), of which WG_REG_BUDGET may be live state of the
 #: consumers' loop (wgmma_registers)
 WG_CONSUMER_REGS, WG_PRODUCER_REGS, WG_REG_BUDGET = 224, 56, 176
-#: widest bf16 row the wgmma route takes: the first tensor-core design's
-#: route, kept (the kernel streams wider rows in k chunks too)
-WGMMA_MAX_D = 2400
 #: the H100's SMs, and the shared memory of one SM
 SMS, SM_SMEM_BYTES = 132, 233_472
 #: CTAs a pass of the first FMA design aims for: 4 per SM
@@ -108,8 +113,8 @@ TARGET_CTAS = 4 * SMS
 #: most shared memory a CTA may use
 MAX_SMEM_BYTES = 232_448
 #: queries per CTA of the first FMA design (csrc/scan_fused.cu kTB); its
-#: query block in shared memory bounds the FMA route, d <= FMA_MAX_D = 7,264,
-#: which scan_design keeps
+#: query block in shared memory bounds that design (the _fma_v1 timing
+#: wrappers) to d <= FMA_MAX_D = 7,264; the FMA design streams wider rows
 V1_QUERY_BLOCK = 8
 FMA_MAX_D = MAX_SMEM_BYTES // (4 * V1_QUERY_BLOCK)
 #: the FMA design (csrc scan_fma_kernel): FMA_THREADS threads a CTA, a warp's
@@ -141,7 +146,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: kernel launches per wrapper since the last reset (plain versions do not count)
 LAUNCHES = dict.fromkeys(
     ("bin_candidates", "count_below", "bin_candidates_tree", "bin_candidates_fma",
-     "bin_candidates_fma_v1", "count_below_fma_v1", "bin_candidates_mma_v1",
+     "count_below_fma", "bin_candidates_fma_v1", "count_below_fma_v1", "bin_candidates_mma_v1",
      "count_below_mma_v1", "bin_candidates_tree_v1"), 0)
 #: K1's and K2's launches by the design they ran (scan_design)
 DESIGN_LAUNCHES = {design: {"bin_candidates": 0, "count_below": 0} for design in ("wgmma", "fma")}
@@ -336,21 +341,13 @@ def _mma_config(nq: int, d: int) -> Tuple[int, int, int]:
 
 
 def scan_design(d: int, dtype: torch.dtype) -> str:
-    """The design K1 and K2 run over a corpus of this width and dtype:
-    "wgmma" (tensor cores) for bf16 up to WGMMA_MAX_D (2,400, the route of
-    the first tensor-core design, whose smallest CTA fits in shared memory
-    there), "fma" (CUDA cores) for f32 and for bf16 past that up to
-    FMA_MAX_D (7,264), else "strict": models/flat takes
-    ops/scan.scan_topk_verified at large capacity, scan_topk_strict below it
-    (fma_plan, wgmma_plan and _grid raise there). K1 and K2 both take their
-    design from here: the exactness proof needs K2 to recompute K1's floats
-    bit for bit, so they must never run two designs on one corpus. (K11
-    stays on the tensor cores.)"""
-    if dtype == torch.bfloat16 and d <= WGMMA_MAX_D:
-        return "wgmma"
-    if d <= FMA_MAX_D:
-        return "fma"
-    return "strict"
+    """The design K1 and K2 run over a corpus of this dtype, at any width d:
+    "wgmma" (tensor cores) for bf16, "fma" (CUDA cores, one f32 FMA chain a
+    dot product) for f32. K1 and K2 both take their design from here: the
+    exactness proof needs K2 to recompute K1's floats bit for bit, so they
+    must never run two designs on one corpus. (K11 stays on the tensor
+    cores.)"""
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
 def _grid(nq: int, n: int, d: int, mma: bool, block_tiles: int = 1) -> Tuple[int, ...]:
@@ -381,7 +378,7 @@ class WgmmaPlan(NamedTuple):
     a_regs: int  # k16 steps of the query block in registers (4, 8); 0: shared memory
     chunked: bool  # the query block's k chunk rides in each stage (wide rows)
     cs: int  # 64-value k slabs a stage holds (every slab unless chunked)
-    tps: int  # 256-row tiles a stage holds (1 when chunked)
+    tps: int  # 256-row tiles a stage holds (chunked: multiplied at once, 1 or 2)
     stages: int  # shared-memory ring stages
     splits: int
     tiles_per_split: int
@@ -408,29 +405,29 @@ def wgmma_smem(d: int, qt: int, a_regs: int, chunked: bool, cs: int, tps: int,
     return stage, WG_HEADER + q_res + (WG_TIER_BYTES if tiers else 0) + stages * stage
 
 
-def wgmma_registers(a_regs: int, kernel: str) -> int:
+def wgmma_registers(a_regs: int, kernel: str, tps: int = 1) -> int:
     """Registers a consumer thread of the wgmma design holds live in its
-    loop: its accumulator (WG_N / 2), the query block's A fragments (4 a
-    k16 step) when in registers, and K1's tiers (a distance and a row in
-    each of 3 tiers of its WG_N / 2 (query, class) pairs) and the tile's
-    distances, K11's block minima and their rows (its tiers are in shared
-    memory), or K2's tau and two counts of its 2 queries and the tile's
-    distances."""
+    loop: its accumulator (WG_N / 2) for each of the tps tiles it multiplies
+    at once, the query block's A fragments (4 a k16 step) when in
+    registers, and K1's tiers (a distance and a row in each of 3 tiers of
+    its WG_N / 2 (query, class) pairs) and the tile's distances, K11's block
+    minima and their rows (its tiers are in shared memory), or K2's tau and
+    two counts of its 2 queries and the tile's distances."""
     pairs = WG_UNITS * WG_N // 2
     own = {"bin_candidates": pairs * (2 * TIERS + 1),
            "bin_candidates_tree": pairs * 2,
            "count_below": 2 * 3 + pairs}[kernel]
-    return pairs + WG_UNITS * 4 * a_regs + own
+    return tps * pairs + WG_UNITS * 4 * a_regs + own
 
 
 def _wgmma_ring(d: int, qt: int, a_regs: int, chunked: bool,
-                tiers: bool) -> Tuple[int, int, int]:
+                tiers: bool, chunk_tiles: int = 1) -> Tuple[int, int, int]:
     """(cs, tps, stages) of a wgmma CTA's ring: stages of about
     WG_STAGE_BYTES of whole rows (up to 8 tiles) in as many stages (up to
     WG_MAX_STAGES) as fit, fewer tiles a stage until 3 stages fit; chunked
-    plans one tile a stage of at most WG_CHUNK_BYTES of rows and query
-    chunk, fewer slabs a stage until 3 stages fit. stages is 0 where none
-    fits."""
+    plans chunk_tiles tiles a stage, of at most WG_CHUNK_RING's bytes of
+    rows and query chunk, fewer slabs a stage until its fewest stages fit.
+    stages is 0 where none fits."""
     slabs = _slabs(d)
     g, qb = WG_CTA_UNITS * WG_N // qt, WG_M * qt
 
@@ -439,10 +436,12 @@ def _wgmma_ring(d: int, qt: int, a_regs: int, chunked: bool,
         return max(0, min(WG_MAX_STAGES, (MAX_SMEM_BYTES - base) // stage))
 
     if chunked:
-        cs = max(1, min(slabs, WG_CHUNK_BYTES // ((g + qb) * 128)))
-        while depth(cs, 1) < 3 and cs > 1:
+        t = chunk_tiles
+        most, fewest = WG_CHUNK_RING[t]
+        cs = max(1, min(slabs, most // ((t * g + qb) * 128)))
+        while depth(cs, t) < fewest and cs > 1:
             cs -= 1
-        return cs, 1, depth(cs, 1)
+        return cs, t, depth(cs, t)
     tps = max(1, min(8, WG_STAGE_BYTES // (slabs * g * 128)))
     while depth(slabs, tps) < 3 and tps > 1:
         tps //= 2
@@ -450,7 +449,8 @@ def _wgmma_ring(d: int, qt: int, a_regs: int, chunked: bool,
 
 
 def wgmma_plan(nq: int, n: int, d: int, *, block_tiles: int = 1, a_mode: Optional[str] = None,
-               kernel: str = "bin_candidates", qt: Optional[int] = None) -> WgmmaPlan:
+               kernel: str = "bin_candidates", qt: Optional[int] = None,
+               chunk_tiles: Optional[int] = None) -> WgmmaPlan:
     """The wgmma design's launch for `kernel` over nq queries and n rows of
     width d. K1, K2 and K11 (whose splits also hold whole blocks of
     `block_tiles` tiles, and whose tiers take shared memory) take the same
@@ -461,19 +461,27 @@ def wgmma_plan(nq: int, n: int, d: int, *, block_tiles: int = 1, a_mode: Optiona
     the query block in registers while a row is at most 2 slabs (d <= 128),
     else resident in shared memory for the whole pass (with fewer query
     tiles a CTA if that is what fits beside 3 stages of whole rows), else
-    streamed with each stage's k chunk at one query tile; as many row
-    splits as fill the card once with one CTA an SM. a_mode places the
-    query block ("regs", "smem" or "chunked") and qt sets the query tiles
-    by hand (the A/B sweep's variants: the same floats bit for bit, which
-    the cuda tests check); a plan that does not fit raises."""
-    if d > WGMMA_MAX_D or d < 1:
-        raise ValueError(f"d={d} is outside the wgmma route (1 <= d <= {WGMMA_MAX_D})")
+    streamed with each stage's k chunk at one query tile beside
+    WG_CHUNK_TILES tiles' k chunk (K11: one tile's), each tile in its own
+    accumulator, so each query chunk crosses from L2 once for that many
+    tiles; as many row splits as fill the card once with one CTA an SM
+    (chunked: each split a multiple of the stage's tiles). a_mode places the
+    query block ("regs", "smem" or "chunked"), qt sets the query tiles and
+    chunk_tiles a chunked stage's tiles (1 or 2) by hand (the A/B sweep's
+    variants: the same floats bit for bit, which the cuda tests check); a
+    plan that does not fit raises."""
+    if d < 1:
+        raise ValueError(f"d={d} is outside the wgmma route (d >= 1)")
     if kernel not in _WGMMA_MODES:
         raise ValueError(f"wgmma_plan plans {tuple(_WGMMA_MODES)}, got {kernel}")
     if qt not in (None, 1, 2):
         raise ValueError(f"qt must be 1 or 2, got {qt}")
-    slabs = _slabs(d)
     tiers = kernel == "bin_candidates_tree"
+    if chunk_tiles is None:
+        chunk_tiles = 1 if tiers else WG_CHUNK_TILES
+    if chunk_tiles not in (1, 2) or (tiers and chunk_tiles != 1):
+        raise ValueError(f"chunk_tiles must be 1 or 2 (K11: 1), got {chunk_tiles}")
+    slabs = _slabs(d)
     qt_want = qt or (1 if nq <= WG_M else 2)
     if a_mode is None:
         a_mode = "regs" if slabs <= 2 else "smem"
@@ -490,18 +498,19 @@ def wgmma_plan(nq: int, n: int, d: int, *, block_tiles: int = 1, a_mode: Optiona
         qt, a_regs, chunked = qt or 1, 0, True
     else:
         raise ValueError(f"a_mode must be 'regs', 'smem' or 'chunked', got {a_mode!r}")
-    cs, tps, stages = _wgmma_ring(d, qt, a_regs, chunked, tiers)
+    cs, tps, stages = _wgmma_ring(d, qt, a_regs, chunked, tiers, chunk_tiles)
     if tiers and a_regs == 0 and not chunked and stages < 3:
         # K11's tiers leave no room for the resident query block: its k
         # chunks ride in each stage, at K1's query tiles
         chunked = True
-        cs, tps, stages = _wgmma_ring(d, qt, a_regs, chunked, tiers)
+        cs, tps, stages = _wgmma_ring(d, qt, a_regs, chunked, tiers, chunk_tiles)
     if stages < 2:
         raise ValueError(f"no wgmma stage ring fits d={d} at qt={qt}, a_mode={a_mode}")
     g, qb = WG_CTA_UNITS * WG_N // qt, WG_M * qt
     qblocks = -(-max(nq, 1) // qb)
     ntiles = max(1, n // C)
-    splits, per = _splits(max(1, SMS // (qblocks * (C // g))), ntiles, block_tiles)
+    align = math.lcm(tps, block_tiles) if chunked else block_tiles
+    splits, per = _splits(max(1, SMS // (qblocks * (C // g))), ntiles, align)
     return WgmmaPlan(qt, g, qblocks, a_regs, chunked, cs, tps, stages, splits, per,
                      wgmma_smem(d, qt, a_regs, chunked, cs, tps, stages, tiers)[1])
 
@@ -585,9 +594,6 @@ def fma_plan(nq: int, n: int, d: int, dtype: torch.dtype, kernel: str, *,
     a plan that does not fit raises."""
     if kernel not in ("bin_candidates", "count_below"):
         raise ValueError(f"fma_plan plans bin_candidates or count_below, got {kernel}")
-    if d > FMA_MAX_D:
-        raise ValueError(f"d={d} exceeds the kernels' shared-memory limit (the FMA route takes "
-                         f"d <= {FMA_MAX_D})")
     if tm is None:
         tm = 4 if nq <= FMA_SMALL_BATCH else 8
     if tm not in FMA_QUERY_BLOCKS:
@@ -661,9 +667,10 @@ def fma_attributes() -> dict:
 
 
 def wgmma_attributes() -> dict:
-    """{(kernel, metric, a_regs): (registers a thread, local bytes a
-    thread)} of every kernel of the wgmma design, from the CUDA runtime:
-    local bytes above 0 mean ptxas spilled."""
+    """{(kernel, metric, a_regs, tps): (registers a thread, local bytes a
+    thread)} of every kernel of the wgmma design (tps: the tiles a
+    warpgroup multiplies at once, 2 in K1's and K2's chunked plans), from
+    the CUDA runtime: local bytes above 0 mean ptxas spilled."""
     import ctypes
 
     from vectorindex_tpu_torch.kernels import _build
@@ -674,13 +681,17 @@ def wgmma_attributes() -> dict:
         for metric, mcode in _METRIC_CODE.items():
             if kernel == "bin_candidates_tree" and metric == Metric.COSINE:
                 continue
-            # the placements the kernel is built for (wgmma_placement)
-            for a_regs in (0,) if wgmma_placement(kernel, metric, 128) else (0, 4, 8):
+            # the placements the kernel is built for (wgmma_placement), and
+            # the chunked plans' two tiles a stage (K1, K2)
+            builds = [(a, 1) for a in ((0,) if wgmma_placement(kernel, metric, 128) else (0, 4, 8))]
+            if kernel != "bin_candidates_tree":
+                builds.append((0, WG_CHUNK_TILES))
+            for a_regs, tps in builds:
                 regs, local = ctypes.c_int(), ctypes.c_int()
-                err = lib.vi_scan_wgmma_attributes(mcode, mode, a_regs, ctypes.byref(regs),
+                err = lib.vi_scan_wgmma_attributes(mcode, mode, a_regs, tps, ctypes.byref(regs),
                                                    ctypes.byref(local))
                 _build.check(lib, err, "vi_scan_wgmma_attributes")
-                out[(kernel, metric.value, a_regs)] = (regs.value, local.value)
+                out[(kernel, metric.value, a_regs, tps)] = (regs.value, local.value)
     return out
 
 
@@ -856,9 +867,9 @@ def bin_candidates_mma_v1(
 def bin_candidates_fma(
     q: Tensor, x: Tensor, bias: Tensor, colscale: Optional[Tensor], *, metric: Metric
 ) -> Tuple[Tensor, Tensor]:
-    """K1 in the FMA design whatever the corpus dtype: on narrow bf16 rows
-    the CUDA-core design the tensor-core one replaced, for the A/B
-    (scripts/ab_flat_tree_torch.py). CUDA tensors only."""
+    """K1 in the FMA design whatever the corpus dtype: on bf16 rows the
+    CUDA-core design the tensor cores replaced, kept to time them against;
+    never on a main path. CUDA tensors only."""
     _check_inputs(q, x, bias, colscale, metric)
     if x.device.type == "cpu":
         raise ValueError("bin_candidates_fma times a CUDA kernel: pass CUDA tensors")
@@ -998,6 +1009,25 @@ def count_below_mma_v1(
     _check_thresh(q, x, thresh)
     _check_first_design("count_below_mma_v1", x)
     return _launch_counts("count_below_mma_v1", q, x, bias, colscale, thresh, metric, "mma_v1")
+
+
+def count_below_fma(
+    q: Tensor,
+    x: Tensor,
+    bias: Tensor,
+    colscale: Optional[Tensor],
+    thresh: Tensor,
+    *,
+    metric: Metric,
+) -> Tuple[Tensor, Tensor]:
+    """K2 in the FMA design whatever the corpus dtype (bin_candidates_fma's
+    pair), kept to time the tensor cores against; never on a main path.
+    CUDA tensors only."""
+    _check_inputs(q, x, bias, colscale, metric)
+    _check_thresh(q, x, thresh)
+    if x.device.type == "cpu":
+        raise ValueError("count_below_fma times a CUDA kernel: pass CUDA tensors")
+    return _launch_counts("count_below_fma", q, x, bias, colscale, thresh, metric, "fma")
 
 
 def count_below_fma_v1(

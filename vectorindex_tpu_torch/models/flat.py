@@ -12,9 +12,8 @@ FlatIndexOptimized.swift:20-420 and FlatIndex.swift).
   - Storage is torch.float32 or torch.bfloat16 on the device.
   - Search routing follows the JAX package's: at capacity >=
     LARGE_SCAN_THRESHOLD with L2/IP/cosine and k <= 2*C, the fused kernels
-    K1+K2 (kernels/scan_fused); at that capacity otherwise
-    (manhattan/chebyshev, larger k, rows wider than any kernel design) the
-    verified two-phase selection (ops/scan.scan_topk_verified), but only
+    K1+K2 (kernels/scan_fused), at any width; at that capacity otherwise
+    (manhattan/chebyshev, larger k) the verified two-phase selection (ops/scan.scan_topk_verified), but only
     when the [B, capacity] block has VERIFIED_MIN_BLOCK elements (on a
     smaller block its fixed cost outweighs the sort it saves, and the
     strict path runs); the strict path (ops/scan.scan_topk_strict) re-runs
@@ -22,8 +21,8 @@ FlatIndexOptimized.swift:20-420 and FlatIndex.swift).
     (K2's count; a tie at the c-th candidate). Below the threshold the
     strict path is the whole search. All give the exact top-k under the
     (score, id) contract. The fused pair runs in the design
-    scan_fused.scan_design picks (the wgmma tensor-core kernel on bf16 up
-    to d = 2,400, CUDA cores up to 7,264).
+    scan_fused.scan_design picks (the wgmma tensor-core kernel on bf16, the
+    CUDA cores' FMA kernel on f32).
   - utils/debug.enable() checks the search's distances for NaN and -inf
     before the results are built.
   - range_search is one distance block and a compaction
@@ -377,12 +376,7 @@ class FlatIndex(VectorIndex):
         qt = torch.from_numpy(q).to(self.device)
         stats = QueryStats(batch=q.shape[0], rows_scored=q.shape[0] * self.count)
         large = self.capacity >= LARGE_SCAN_THRESHOLD
-        fused = (
-            large
-            and self.metric in _FUSED_METRICS
-            and kk <= 2 * scan_fused.C
-            and scan_fused.scan_design(self.dimension, self.storage_dtype) != "strict"
-        )
+        fused = large and self.metric in _FUSED_METRICS and kk <= 2 * scan_fused.C
         exact = None
         with TELEM.timer("score_flat", stats):
             if fused:

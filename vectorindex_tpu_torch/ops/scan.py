@@ -8,8 +8,7 @@ Counterpart of vectorindex_tpu.ops.scan.
     fallback for queries that the fused kernels (kernels/scan_fused) or
     `scan_topk_verified` cannot prove exact.
   - `scan_topk_verified` serves the large corpora the fused kernels cannot
-    take: rows wider than their designs, manhattan/chebyshev, and k above
-    their candidate cap. Candidates: `torch.topk(dist, c, largest=False)`
+    take: manhattan/chebyshev, and k above their candidate cap. Candidates: `torch.topk(dist, c, largest=False)`
     over the distance block (the JAX package's approx_min_k PartialReduce),
     c = candidate_count(k); then a strict (score, id) top-k of those c.
     The caller re-runs the queries it flags through `scan_topk_strict`.
