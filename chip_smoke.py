@@ -114,13 +114,13 @@ just after:
         order), timed in turns with the first design beside their bounds.
 
   4k wide (phase_flat_wide_full): 2^20 x 4,096 bf16 rows (8.6 GB, drawn on
-        the card from a seed) through scan_topk_fused at B = 8, 64 and 256:
-        K1/K2 on the wgmma design, every query exact, recall@10 = 1.0 under
-        the tie rule against a row-chunked f64 brute force, K1 <-> K2 bit
-        for bit and both within the parity rule of their plain versions and
-        of the FMA design, timed by events and profiler device time in turns
-        with the FMA design, beside their plain versions, cuBLAS's bf16
-        q x^T alone and their bound.
+        the card from a seed) through scan_topk_fused at B = 8, 64, 128 and
+        256: K1/K2 on the wgmma design, every query exact, recall@10 = 1.0
+        under the tie rule against a row-chunked f64 brute force, K1 <-> K2
+        bit for bit and both within the parity rule of their plain versions
+        and of the FMA design, timed by events and profiler device time in
+        turns with the FMA design, beside their plain versions, cuBLAS's
+        bf16 q x^T alone and their bound.
 
   f32 past 7,264 (phase_flat_f32_xwide): 2^17 x 8,192 f32 rows through
         scan_topk_fused at B=8: K1/K2 on the FMA design (past the first FMA
@@ -349,8 +349,9 @@ FLAT_WIDE_DIM, FLAT_WIDE_ROWS, FLAT_WIDE_BATCHES, FLAT_WIDE_CAPACITY = 3072, 120
 FLAT_F32_WIDE_ROWS, FLAT_F32_WIDE_DIM, FLAT_F32_WIDE_BATCHES = 1 << 20, 768, (256, 8)
 #: a full-size wide corpus: 2^20 bf16 rows at d = 4,096 (e5-mistral-7b-
 #: instruct, NV-Embed-v2; 8.6 GB) drawn on the card, through
-#: scan_topk_fused on the tensor cores at B = 8, 64 and 256
-FLAT_4K_ROWS, FLAT_4K_DIM, FLAT_4K_BATCHES = 1 << 20, 4096, (8, 64, 256)
+#: scan_topk_fused on the tensor cores at B = 8, 64 (one query block), 128
+#: and 256 (two and four)
+FLAT_4K_ROWS, FLAT_4K_DIM, FLAT_4K_BATCHES = 1 << 20, 4096, (8, 64, 128, 256)
 #: f32 rows past the first FMA design's width (d > 7,264): 2^17 x 8,192
 #: (4.3 GB) through scan_topk_fused at B=8 on the FMA design
 FLAT_F32_XWIDE_ROWS, FLAT_F32_XWIDE_DIM, FLAT_F32_XWIDE_BATCH = 1 << 17, 8192, 8

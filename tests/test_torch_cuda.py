@@ -1165,11 +1165,38 @@ def test_wgmma_design_kernels_do_not_spill(cuda_device):
     assert len(attrs) == 28
     assert all(local == 0 and regs <= 255 for regs, local in attrs.values()), attrs
     for d in (2401, 3072, 3073, 4096, 8192, 16384):
-        for b in (8, 64, 256):
+        for b in (8, 64, 128, 129, 256):
             for kernel in ("bin_candidates", "count_below"):
                 p = sf.wgmma_plan(b, 1 << 20, d, kernel=kernel)
                 for metric in METRICS:
                     assert (kernel, metric.value, p.a_regs, p.tps) in attrs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [768, 4096])
+@pytest.mark.parametrize("b", [128, 256])
+def test_scan_topk_fused_wide_past_one_query_block_is_exact(d, b, cuda_device):
+    """scan_topk_fused at B = 128 and 256 (two and four query blocks) over
+    65,536 wide bf16 rows, queries near some of them: K1/K2 on the wgmma
+    design, every query proved exact (no strict fallback), recall@10 = 1.0
+    against an f64 brute force over the stored rows (a returned row within
+    1e-5 of the true 10th distance is a hit)."""
+    n = 65_536
+    gen = torch.Generator(device=cuda_device).manual_seed(d + b + 19)
+    x = torch.randn(n, d, generator=gen, device=cuda_device).bfloat16()
+    pick = torch.randint(0, n, (b,), generator=gen, device=cuda_device)
+    q = x[pick].float() + 0.1 * torch.randn(b, d, generator=gen, device=cuda_device)
+    xp, sqp, vp = sf.pad_corpus(x, None, None)
+    sf.reset_launches()
+    _, ids, exact = sf.scan_topk_fused(q, xp, sqp, vp, metric=Metric.L2, k=10)
+    torch.cuda.synchronize()
+    assert bool(exact.all())
+    assert sf.DESIGN_LAUNCHES["wgmma"] == {"bin_candidates": 1, "count_below": 1}
+    q64, x64 = q.bfloat16().double(), x.double()
+    dist = (x64 * x64).sum(dim=1)[None, :] - 2.0 * (q64 @ x64.T) + (q64 * q64).sum(dim=1, keepdim=True)
+    kth = torch.topk(dist, 10, dim=1, largest=False).values[:, -1]
+    got = torch.gather(dist, 1, ids.long())
+    assert bool((got <= kth[:, None] + 1e-5 * kth.abs()[:, None]).all())
 
 
 @pytest.mark.cuda

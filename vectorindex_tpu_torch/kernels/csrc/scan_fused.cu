@@ -57,10 +57,14 @@
 //     64 qt queries x 64 / qt classes (qt = 1 or 2): every query of a batch
 //     up to 128 in one CTA, and the corpus read once a pass there (256 do
 //     not fit: K1's tiers would need 4 units' registers; past 128 the query
-//     blocks that read one corpus slice run together and share it in L2;
-//     a 2-CTA cluster sharing each load by TMA multicast was slower). Rows
-//     past the batch take nothing; a warp (or half a warp's rows) with
-//     none skips its epilogues.
+//     blocks that read one corpus slice run together and share it in L2.
+//     Clusters of them sharing each load by TMA multicast were slower: 2
+//     CTAs on the narrow rows, whose query block sits in registers or
+//     shared memory, and 2 or 4 on the chunked wide rows, 1.17-1.41x at
+//     d = 768-8,192, B = 128 and 256 (H100 80GB HBM3, 700 W), where each
+//     CTA still takes in every byte of its stages). Rows past the batch
+//     take nothing; a warp (or half a warp's rows) with none skips its
+//     epilogues.
 //   - the producer's one thread brings each stage's corpus rows in by TMA
 //     (a 3-D tensor map [tile][class][k], 64-value k slabs of 128 bytes in
 //     the 128-byte swizzle wgmma reads, bias and colscale by 2-D maps) into
