@@ -120,7 +120,9 @@ just after:
         bit for bit and both within the parity rule of their plain versions
         and of the FMA design, timed by events and profiler device time in
         turns with the FMA design, beside their plain versions, cuBLAS's
-        bf16 q x^T alone and their bound.
+        bf16 q x^T alone and their bound; at B = 128 and 256 the route's
+        wide tile also in turns with the narrow tile's plan (plan_turns), whose
+        floats it equals bit for bit.
 
   f32 past 7,264 (phase_flat_f32_xwide): 2^17 x 8,192 f32 rows through
         scan_topk_fused at B=8: K1/K2 on the FMA design (past the first FMA
@@ -502,6 +504,74 @@ def check_identity(sf, qk, x, bias, cs, metric, kd):
         require(rank != 0 or not bool(lt.any()), "K2 finds a row below K1's smallest distance")
 
 
+def narrow_plan(sf, nq: int, n: int, d: int, kernel: str):
+    """The narrow tile's plan of the wgmma design at (nq, d), through wgmma_plan's hand
+    arguments: two ring tiles a chunked stage at one query tile past the
+    resident widths, at most two query tiles a CTA below them (cosine K1's
+    query block in shared memory there)."""
+    if sf.wgmma_plan(1, n, d).chunked:
+        return sf.wgmma_plan(nq, n, d, kernel=kernel, chunk_tiles=sf.WG_CHUNK_TILES)
+    return sf.wgmma_plan(nq, n, d, kernel=kernel, qt=min(2, -(-nq // 64)))
+
+
+def plan_turns(sf, qk, x, bias, cs, tau, metric, iters: int, calls: int,
+               required: bool = True):
+    """K1 and K2 (bf16 rows, the wgmma design) under the route's plan and
+    under the narrow tile's (narrow_plan), where the two differ (past one query tile:
+    the wide tile): first K1's candidates and K2's counts held equal bit for
+    bit, then both timed in turns (turns(); the narrow tile's under the "_v1" keys) ->
+    the figures and both plans, or None where the plans are one."""
+    nq, n, d = qk.shape[0], x.shape[0], x.shape[1]
+    names = ("bin_candidates", "count_below")
+    route = {k: sf.wgmma_plan(nq, n, d, kernel=k) for k in names}
+    old = {k: narrow_plan(sf, nq, n, d, k) for k in names}
+    if route == old:
+        return None
+    kd, ki = sf._wgmma_launch("bin_candidates", qk, x, bias, cs, metric, plan=route["bin_candidates"])
+    od, oi = sf._wgmma_launch("bin_candidates", qk, x, bias, cs, metric, plan=old["bin_candidates"])
+    lt, le = sf._wgmma_launch("count_below", qk, x, bias, cs, metric, tau, plan=route["count_below"])
+    olt, ole = sf._wgmma_launch("count_below", qk, x, bias, cs, metric, tau, plan=old["count_below"])
+    torch.cuda.synchronize()
+    require(torch.equal(kd, od) and torch.equal(ki, oi),
+            f"B={nq} d={d}: K1's wide tile is not the narrow tile's plan bit for bit")
+    require(torch.equal(lt, olt) and torch.equal(le, ole),
+            f"B={nq} d={d}: K2's wide tile is not the narrow tile's plan bit for bit")
+    launch = {k: (lambda p, k=k: (lambda: sf._wgmma_launch(
+        k, qk, x, bias, cs, metric, tau if k == "count_below" else None, plan=p))) for k in names}
+    t = turns({k: (launch[k](route[k]), launch[k](old[k])) for k in names}, iters, calls, required)
+    out = {}
+    for k in names:
+        out[k] = t[k]
+        out[k + "_dev"] = t[k + "_dev"]
+        out[k + "_narrow"] = t[k + "_v1"]
+        out[k + "_narrow_dev"] = t[k + "_v1_dev"]
+        out[k + "_rounds"] = t[k + "_rounds"]
+        out[k + "_narrow_rounds"] = t[k + "_v1_rounds"]
+        out[k + "_plan"] = route[k]._asdict()
+        out[k + "_narrow_plan"] = old[k]._asdict()
+    return out
+
+
+def plan_log(t) -> str:
+    if t is None:
+        return "the route's plan is the narrow tile's"
+    return "; ".join(
+        f"{k} wide tile {t[k]:.4g} ms (device {dev_str(t[k + '_dev'])}) against the narrow tile's plan "
+        f"{t[k + '_narrow']:.4g} ms (device {dev_str(t[k + '_narrow_dev'])}; rounds "
+        f"{rounds_str(t[k + '_rounds'])} / {rounds_str(t[k + '_narrow_rounds'])}), bit for bit"
+        for k in ("bin_candidates", "count_below"))
+
+
+def narrow_fields(t, name: str) -> dict:
+    """The kernels line's figures of the narrow tile's plan in turns with the route's
+    (plan_turns), where the two differ."""
+    if not t:
+        return {}
+    return {"wide_tile_ms": t[name], "wide_tile_device_ms": t[name + "_dev"],
+            "narrow_plan_ms": t[name + "_narrow"], "narrow_plan_device_ms": t[name + "_narrow_dev"],
+            "narrow_plan": t[name + "_narrow_plan"]}
+
+
 def earlier_design(sf, d: int, dtype):
     """The design K1/K2 ran on these rows before the one scan_design gives
     now, kept for timing (the suffix of its wrappers): on bf16 the first
@@ -777,6 +847,7 @@ def phase_times(sf, topk, idx, batches, errs):
             "recomputes K1's distances bit for bit")
         args = (qk, x, bias, cs)
         t = design_turns(sf, qk, x, bias, cs, tau, Metric.L2, 10, 5)
+        t["narrow"] = plan_turns(sf, qk, x, bias, cs, tau, Metric.L2, 10, 5)
         t["bin_candidates_plain"] = time_ms(lambda: sf.bin_candidates_ref(*args, metric=Metric.L2), 3)
         t["count_below_plain"] = time_ms(lambda: sf.count_below_ref(*args, tau, metric=Metric.L2), 3)
         idx.batch_search(batch, MAIN_K)  # warm
@@ -789,7 +860,8 @@ def phase_times(sf, topk, idx, batches, errs):
         t["qps"] = b / float(np.median(lat))
         times[b] = t
         log(f"times B={b} n={x.shape[0]} d={x.shape[1]} bf16 L2 (wgmma design, first design "
-            f"in turns): {design_log(t)}; plan {t['bin_candidates_plan']}; " + ", ".join(
+            f"in turns): {design_log(t)}; plan {t['bin_candidates_plan']}; {plan_log(t['narrow'])}; "
+            + ", ".join(
                 f"{key}={val:.4g}" for key, val in t.items() if key.endswith("_plain")
                 or key in ("search_ms_median", "qps")))
     return times
@@ -1768,9 +1840,11 @@ def wide_figures(sf, topk, qk, x, bias, cs, errs, label: str, iters: int, calls:
                          ("count_below", lambda: sf.count_below(*args, tau, metric=m))):
             t[name] = time_ms(fn, iters)
             t[name + "_dev"] = device_ms(fn, calls, required=False)
-            plan = (sf.wgmma_plan(qk.shape[0], n, d) if x.dtype == torch.bfloat16
+            plan = (sf.wgmma_plan(qk.shape[0], n, d, kernel=name) if x.dtype == torch.bfloat16
                     else sf.fma_plan(qk.shape[0], n, d, x.dtype, name))
             t[name + "_plan"] = {"design": sf.scan_design(d, x.dtype), **plan._asdict()}
+    t["narrow"] = (plan_turns(sf, qk, x, bias, cs, tau, m, iters, calls, required=False)
+                 if x.dtype == torch.bfloat16 else None)
     t["bin_candidates_plain"] = time_ms(lambda: sf.bin_candidates_ref(*args, metric=m), plain_iters, 1)
     t["count_below_plain"] = time_ms(lambda: sf.count_below_ref(*args, tau, metric=m), plain_iters, 1)
     qb = qk.to(x.dtype)
@@ -1788,7 +1862,8 @@ def wide_figures(sf, topk, qk, x, bias, cs, errs, label: str, iters: int, calls:
         f"{str(x.dtype).split('.')[-1]}) within the parity rule of their plain versions (K1 "
         f"max_abs_err {k1:.3g}, K2 count diff {k2}), K1 <-> K2 bit for bit"
         + (f", and of their earlier design ({t['earlier']})" if t["earlier"] else "")
-        + f"{earlier}; plain {t['bin_candidates_plain']:.4g} / {t['count_below_plain']:.4g} ms; "
+        + f"{earlier}; {plan_log(t['narrow'])}; plain {t['bin_candidates_plain']:.4g} / "
+        f"{t['count_below_plain']:.4g} ms; "
         f"cuBLAS q x^T alone {t['cublas_product_ms']:.4g} ms; bound "
         f"{t['bin_candidates_bound'][0]:.4g} / "
         f"{t['count_below_bound'][0]:.4g} ms ({t['bin_candidates_bound'][1]}), the f32 pipe's floor "
@@ -2085,7 +2160,7 @@ def design_turns(sf, qk, x, bias, cs, tau, metric, iters: int, calls: int,
     }, iters, calls, required)
     for name in ("bin_candidates", "count_below"):
         nq, n, d = qk.shape[0], x.shape[0], x.shape[1]
-        plan = (sf.wgmma_plan(nq, n, d) if design == "wgmma"
+        plan = (sf.wgmma_plan(nq, n, d, kernel=name) if design == "wgmma"
                 else sf.fma_plan(nq, n, d, x.dtype, name))
         out[name + "_plan"] = {"design": design, **plan._asdict()}
     out["earlier"] = v1
@@ -2098,7 +2173,7 @@ def design_shape(t: dict, name: str, bound_ms: tuple, launches=None) -> dict:
     fig = {"ms": t[name], "device_ms": t[name + "_dev"], "first_design_ms": t[name + "_v1"],
            "first_design_device_ms": t[name + "_v1_dev"], "earlier_design": t["earlier"],
            "plain_ms": t.get(name + "_plain"), "bound_ms": bound_ms[0], "bound_by": bound_ms[1],
-           "plan": t[name + "_plan"]}
+           "plan": t[name + "_plan"], **narrow_fields(t.get("narrow"), name)}
     if launches is not None:
         fig["launches"] = launches
     return fig
@@ -4417,7 +4492,7 @@ def run(ps: Persist) -> int:
             f"a wgmma-design kernel spills: {wg_attrs}")
     log("build: wgmma-design kernels' registers at entry (no local memory; consumers raise theirs "
         f"to {sf.WG_CONSUMER_REGS} by setmaxnreg): " + ", ".join(
-            f"{k[0]} {k[1]} a_regs={k[2]} tiles={k[3]} {regs}"
+            f"{k[0]} {k[1]} a_regs={k[2]} tiles={k[3]} units={k[4]} {regs}"
             for k, (regs, _) in sorted(wg_attrs.items())))
 
     errs = phase_compare(sf, topk)
@@ -4502,7 +4577,7 @@ def run(ps: Persist) -> int:
                         "bound_ms": bms, "bound_by": by, "device_ms": big[name + "_dev"],
                         "first_design_ms": big[name + "_v1"],
                         "first_design_device_ms": big[name + "_v1_dev"],
-                        "plan": big[name + "_plan"]})
+                        "plan": big[name + "_plan"], **narrow_fields(big["narrow"], name)})
         small = times[SMALL_BATCH]
         kernels[-1][f"B={SMALL_BATCH}"] = design_shape(
             small, name, flat_bound(n_flat, MAIN_DIM, SMALL_BATCH, itemsize, name))

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Sweep of the flat scan's wgmma design (K1/K2/K11 on Hopper's tensor cores)
-over bf16 row widths on one GPU, against the first tensor-core design.
+over bf16 row widths on one GPU, against the narrow tile's plan and the first
+tensor-core design.
 
     python3 scripts/ab_scan_wgmma_torch.py [--dims 100,128,256,512,768,1024,1536,2400,3072,4096,8192]
-                                           [--batches 8,256] [--rounds 3]
+                                           [--batches 8,256] [--rounds 3] [--no-earlier]
                                            [--out build/ab_scan_wgmma.json]
 
 Builds the port's kernels and prints the CUDA runtime's registers and local
@@ -11,12 +12,14 @@ Builds the port's kernels and prints the CUDA runtime's registers and local
 batch B (2^20 slots, 1,000,000 live gaussian bf16 rows made on the card from
 a seed, L2, k = 10), times K1 and K2 under wgmma_plan's own plan (through
 the `bin_candidates` / `count_below` wrappers: the route a flat index
-takes), under each other variant that fits (the query block's k chunk
-riding in each stage at one or two 64-query tiles, beside one ring tile's
-k chunk (the first chunked design) or two, each in its own accumulator,
-with 1, 2, 3, 4 or 6 slabs a stage and as many stages as fit; resident in
-shared memory at one),
-and in the earlier design of these rows: the first tensor-core design
+takes), under the narrow tile's plan where the route's differs (past one query
+tile: the wide tile against two query tiles a CTA, or two ring tiles a
+chunked stage, through wgmma_plan's hand arguments), under each other
+variant that fits (the query block's k chunk riding in each stage at one
+or two 64-query tiles, beside one ring tile's k chunk (the first chunked
+design), two or four, each in its own accumulator, with 1, 2, 3, 4 or 6
+slabs a stage and as many stages as fit; resident in shared memory at one),
+and (unless --no-earlier) in the earlier design of these rows: the first tensor-core design
 (`*_mma_v1`) up to d = 2,400, its route, and the FMA design on the CUDA
 cores (`bin_candidates_fma` / `count_below_fma`, the route of bf16 rows past
 2,400 before the tensor cores took them) past it, in `--rounds` rounds of
@@ -27,7 +30,10 @@ B = 256 it also times K11 (tiles 4096 and 8192) against its first design. A
 width where d % 8 != 0 (d = 100) has rows TMA cannot address, so the
 producer copies them. Each row prints its byte bound and, beside it, the
 bytes the plan moves from L2 to the SMs (every CTA's class rows, and its
-query rows where they ride in the stages). The card's name and power limit
+query rows where they ride in the stages), in all and a CTA (one CTA an
+SM), and the shared-memory bytes a CTA moves (smem_bytes: the products'
+operand reads, the wide tile's A fragment reads, TMA's writes), under the
+route's plan and the narrow tile's. The card's name and power limit
 come first (nvidia-smi); a JSON summary goes to --out. Imports nothing of
 JAX.
 """
@@ -108,6 +114,24 @@ def l2_bytes(sf, p, d: int) -> float:
     return float(ctas * (N // sf.C) * rows * slab_bytes)
 
 
+def smem_bytes(sf, p, d: int) -> float:
+    """Shared-memory bytes a CTA of plan p moves in a pass, a model: each
+    wgmma m64n32k16 reads its B (32 rows x 32 bytes) and, unless A is in
+    registers, its A (64 x 32 bytes); the wide tile's chunked stages read
+    their query chunk into A fragments once (64 qt rows x the stage's k
+    values); TMA writes each stage's rows, query chunk and bias. Stages hold
+    all their slabs where A comes from registers (TMA's zero fill)."""
+    slabs = sf._slabs(d)
+    nk = -(-slabs // p.cs) if p.chunked else 1
+    groups = -(-p.tiles_per_split // p.tps)
+    steps = 4 * p.cs  # k16 steps a stage (the last chunk's may be fewer without A in registers)
+    wgmmas = 2 * p.units * p.tps * steps
+    reads = wgmmas * (1024 + (0 if p.a_regs else 2048))
+    a_loads = 64 * p.qt * p.cs * 128 if (p.chunked and p.a_regs) else 0
+    writes = p.tps * p.g * p.cs * 128 + (64 * p.qt * p.cs * 128 if p.chunked else 0) + 8 * p.tps * p.g
+    return float(groups * nk * (reads + a_loads + writes))
+
+
 def rounds_in_turns(fns: dict, rounds: int) -> dict:
     """{name: [ms of each round]}: each round times every fn once, the order
     rotated by one each round."""
@@ -119,17 +143,31 @@ def rounds_in_turns(fns: dict, rounds: int) -> dict:
     return out
 
 
+def narrow_plan(sf, b: int, d: int, kernel: str = "bin_candidates"):
+    """The narrow tile's plan at (b, d), through wgmma_plan's hand arguments: two
+    ring tiles a chunked stage at one query tile past the resident widths,
+    at most two query tiles a CTA below them."""
+    if sf.wgmma_plan(1, N, d).chunked:
+        return sf.wgmma_plan(b, N, d, kernel=kernel, chunk_tiles=sf.WG_CHUNK_TILES)
+    return sf.wgmma_plan(b, N, d, kernel=kernel, qt=min(2, -(-b // 64)))
+
+
 def variant_plans(sf, b: int, d: int) -> dict:
     """{label: plan} of the wgmma variants other than the plan's own that fit
-    at (b, d): the query block's k chunk in each stage at one or two query
-    tiles, beside one tile's k chunk a stage (the first chunked design) or
-    two (each in its own accumulator), or resident at one; where it is
-    chunked, 1, 2, 3, 4 or 6 slabs a stage (as many stages as fit)."""
+    at (b, d): the narrow tile's plan ("narrow") where the route's wide tile differs;
+    the query block's k chunk in each stage at one or two query tiles,
+    beside one tile's k chunk a stage (the first chunked design), two or
+    four (each in its own accumulator), or resident at one; where the plan
+    is chunked at one query tile, 1, 2, 3, 4 or 6 slabs a stage (as many
+    stages as fit)."""
     own = sf.wgmma_plan(b, N, d)
     out = {}
+    old = narrow_plan(sf, b, d)
+    if old != own:
+        out["narrow"] = old
     if own.a_regs == 0:
         for label, kw in (("chunked", dict(a_mode="chunked")),
-                          ("chunked qt=2", dict(a_mode="chunked", qt=2)),
+                          ("chunked qt=2", dict(a_mode="chunked", qt=2, chunk_tiles=2)),
                           ("chunked 1 tile", dict(a_mode="chunked", chunk_tiles=1)),
                           ("chunked 1 tile qt=2", dict(a_mode="chunked", chunk_tiles=1, qt=2)),
                           ("resident qt=1", dict(a_mode="smem", qt=1))):
@@ -138,7 +176,7 @@ def variant_plans(sf, b: int, d: int) -> dict:
             p = sf.wgmma_plan(b, N, d, **kw)
             if p != own and p not in out.values() and (kw["a_mode"] == "chunked" or not p.chunked):
                 out[label] = p
-    if own.chunked:
+    if own.chunked and own.queue == 0:
         for cs in (1, 2, 3, 4, 6):
             stage, base = sf.wgmma_smem(d, own.qt, 0, True, cs, own.tps, 0)
             stages = min(sf.WG_MAX_STAGES, (sf.MAX_SMEM_BYTES - base) // stage)
@@ -147,7 +185,7 @@ def variant_plans(sf, b: int, d: int) -> dict:
     return out
 
 
-def sweep(sf, topk, d: int, b: int, rounds: int, x, sq, valid) -> dict:
+def sweep(sf, topk, d: int, b: int, rounds: int, x, sq, valid, earlier_too: bool = True) -> dict:
     from vectorindex_tpu_torch.utils.config import Metric
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7 * d + b)
@@ -168,11 +206,12 @@ def sweep(sf, topk, d: int, b: int, rounds: int, x, sq, valid) -> dict:
     # route (d <= 2,400), the FMA design (CUDA cores) past it
     earlier = "mma_v1" if d <= 2400 else "fma"
     fns = {"K1 wgmma": lambda: sf.bin_candidates(qk, x, bias, cs, metric=m),
-           "K1 " + earlier: lambda: getattr(sf, "bin_candidates_" + earlier)(qk, x, bias, cs,
-                                                                           metric=m),
-           "K2 wgmma": lambda: sf.count_below(qk, x, bias, cs, tau, metric=m),
-           "K2 " + earlier: lambda: getattr(sf, "count_below_" + earlier)(qk, x, bias, cs, tau,
-                                                                         metric=m)}
+           "K2 wgmma": lambda: sf.count_below(qk, x, bias, cs, tau, metric=m)}
+    if earlier_too:
+        fns["K1 " + earlier] = lambda: getattr(sf, "bin_candidates_" + earlier)(
+            qk, x, bias, cs, metric=m)
+        fns["K2 " + earlier] = lambda: getattr(sf, "count_below_" + earlier)(
+            qk, x, bias, cs, tau, metric=m)
     for label, p in plans.items():
         fns[f"K1 wgmma {label}"] = (lambda p=p: sf._wgmma_launch("bin_candidates", qk, x, bias,
                                                                  cs, m, plan=p))
@@ -187,25 +226,44 @@ def sweep(sf, topk, d: int, b: int, rounds: int, x, sq, valid) -> dict:
                     b, N, d, block_tiles=t // sf.C, a_mode="smem", kernel="bin_candidates_tree")))
             fns[f"K11 {tile} first design"] = (lambda t=tile: sf.bin_candidates_tree_v1(
                 qk, x, bias, metric=m, tile=t))
+    if "narrow" in plans:  # K2 under its own plan too (K1's wide tile may hold fewer slabs)
+        k2own = sf.wgmma_plan(b, N, d, kernel="count_below")
+        k2old = narrow_plan(sf, b, d, "count_below")
+        lt, le = sf._wgmma_launch("count_below", qk, x, bias, cs, m, tau, plan=k2own)
+        olt, ole = sf._wgmma_launch("count_below", qk, x, bias, cs, m, tau, plan=k2old)
+        torch.cuda.synchronize()
+        if not (torch.equal(lt, olt) and torch.equal(le, ole)):
+            raise AssertionError(f"d={d} B={b}: the wide tile changes K2's counts")
     times = rounds_in_turns(fns, rounds)
     own = sf.wgmma_plan(b, N, d)
+    ctas = {k: p.qblocks * (sf.C // p.g) * p.splits for k, p in plans.items()}
     row = {"d": d, "B": b, "bound_ms": bound_ms(d, b), "plan": own._asdict(),
-           "l2_gb": l2_bytes(sf, own, d) / 1e9, "earlier": earlier,
+           "l2_gb": l2_bytes(sf, own, d) / 1e9,
+           "l2_mb_a_cta": l2_bytes(sf, own, d) / 1e6 / (own.qblocks * (sf.C // own.g) * own.splits),
+           "variant_l2_mb_a_cta": {k: l2_bytes(sf, p, d) / 1e6 / ctas[k] for k, p in plans.items()},
+           "smem_mb_a_cta": smem_bytes(sf, own, d) / 1e6,
+           "variant_smem_mb_a_cta": {k: smem_bytes(sf, p, d) / 1e6 for k, p in plans.items()},
+           "earlier": earlier if earlier_too else None,
            "variants": {k: p._asdict() for k, p in plans.items()},
            "variant_l2_gb": {k: l2_bytes(sf, p, d) / 1e9 for k, p in plans.items()},
            "rounds": times}
     print(f"d={d} B={b}: plan {own}; bound {row['bound_ms'][0]:.4g} ms "
-          f"({row['bound_ms'][1]}); L2->SM {row['l2_gb']:.4g} GB", flush=True)
+          f"({row['bound_ms'][1]}); L2->SM {row['l2_gb']:.4g} GB, "
+          f"{row['l2_mb_a_cta']:.4g} MB a CTA; shared memory {row['smem_mb_a_cta']:.4g} MB a CTA",
+          flush=True)
     for label, p in plans.items():
-        print(f"  variant {label}: {p}; L2->SM {row['variant_l2_gb'][label]:.4g} GB", flush=True)
+        print(f"  variant {label}: {p}; L2->SM {row['variant_l2_gb'][label]:.4g} GB, "
+              f"{row['variant_l2_mb_a_cta'][label]:.4g} MB a CTA; shared memory "
+              f"{row['variant_smem_mb_a_cta'][label]:.4g} MB a CTA", flush=True)
     for name, ms in times.items():
         print(f"  {name}: mean {sum(ms) / len(ms):.4f} ms, rounds {[round(v, 4) for v in ms]}",
               flush=True)
     for k in ("K1", "K2"):
-        new, old = times[f"{k} wgmma"], times[f"{k} {earlier}"]
-        verdict = ("faster in every round" if max(new) < min(old) else
-                   "slower in every round" if min(new) > max(old) else "rounds cross")
-        print(f"  {k}: wgmma / {earlier} {sum(new) / sum(old):.3f} ({verdict})", flush=True)
+        for other in ([earlier] if earlier_too else []) + (["wgmma narrow"] if "narrow" in plans else []):
+            new, old = times[f"{k} wgmma"], times[f"{k} {other}"]
+            verdict = ("faster in every round" if max(new) < min(old) else
+                       "slower in every round" if min(new) > max(old) else "rounds cross")
+            print(f"  {k}: wgmma / {other} {sum(new) / sum(old):.3f} ({verdict})", flush=True)
     return row
 
 
@@ -214,6 +272,8 @@ def main() -> int:
     parser.add_argument("--dims", default="100,128,256,512,768,1024,1536,2400,3072,4096,8192")
     parser.add_argument("--batches", default="8,256")
     parser.add_argument("--rounds", type=int, default=3)
+    parser.add_argument("--no-earlier", action="store_true",
+                        help="skip the earlier design (the FMA design takes 62 ms at 4,096 B=256)")
     parser.add_argument("--out", default=str(ROOT / "build" / "ab_scan_wgmma.json"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -234,7 +294,7 @@ def main() -> int:
     for d in (int(v) for v in args.dims.split(",")):
         x, sq, valid = make_rows(d)
         for b in (int(v) for v in args.batches.split(",")):
-            rows.append(sweep(sf, topk, d, b, args.rounds, x, sq, valid))
+            rows.append(sweep(sf, topk, d, b, args.rounds, x, sq, valid, not args.no_earlier))
         del x, sq, valid
         torch.cuda.empty_cache()
     out = Path(args.out)

@@ -1054,21 +1054,24 @@ def test_wgmma_copied_rows_at_each_copy_width(metric, d, offset, cuda_device):
 @pytest.mark.parametrize("b", [8, 256])
 def test_wgmma_wide_row_plans_agree(metric, d, b, cuda_device):
     """Wide rows (the query block's k chunk in each stage): one or two query
-    tiles a CTA, one or two ring tiles a stage (each in its own
-    accumulator), and 1, 2 or 3 slabs a stage give K1 the same floats bit
-    for bit; K2 under one recomputes K1's under another."""
+    tiles a CTA, one, two or (past one query tile, the wide tile) four ring
+    tiles a stage (each in its own accumulator), and 1, 2 or 3 slabs a stage
+    give K1 the same floats bit for bit; K2 under one recomputes K1's under
+    another."""
     qk, xp, bias, cs = _wgmma_case("bf16-gauss", d, b, 66_304, metric, cuda_device)
     n = xp.shape[0]
     wd, wi = sf.bin_candidates(qk, xp, bias, cs, metric=metric)
     own = sf.wgmma_plan(b, n, d)
-    assert own.chunked and own.tps == 2
-    variants = [sf.wgmma_plan(b, n, d, qt=2, a_mode="chunked"),
+    assert own.chunked and own.tps == (sf.WG_WIDE_TILES if b > 64 else sf.WG_CHUNK_TILES)
+    narrow = sf.wgmma_plan(b, n, d, chunk_tiles=sf.WG_CHUNK_TILES)
+    variants = [narrow, sf.wgmma_plan(b, n, d, qt=2, a_mode="chunked", chunk_tiles=2),
                 sf.wgmma_plan(b, n, d, a_mode="chunked", chunk_tiles=1),
-                sf.wgmma_plan(b, n, d, qt=2, a_mode="chunked", chunk_tiles=1)]
+                sf.wgmma_plan(b, n, d, qt=2, a_mode="chunked", chunk_tiles=1),
+                sf.wgmma_plan(b, n, d, qt=2, a_mode="chunked", chunk_tiles=sf.WG_WIDE_TILES)]
     for slabs in (1, 2, 3):
-        stage, base = sf.wgmma_smem(d, own.qt, 0, True, slabs, own.tps, 0)
+        stage, base = sf.wgmma_smem(d, narrow.qt, 0, True, slabs, narrow.tps, 0)
         stages = min(sf.WG_MAX_STAGES, (sf.MAX_SMEM_BYTES - base) // stage)
-        variants.append(own._replace(cs=slabs, stages=stages, smem=base + stages * stage))
+        variants.append(narrow._replace(cs=slabs, stages=stages, smem=base + stages * stage))
     for plan in variants:
         kd, ki = sf._wgmma_launch("bin_candidates", qk, xp, bias, cs, metric, plan=plan)
         torch.cuda.synchronize()
@@ -1158,18 +1161,83 @@ def test_wgmma_tree_on_wide_rows(metric, d, cuda_device):
 @pytest.mark.cuda
 def test_wgmma_design_kernels_do_not_spill(cuda_device):
     """Every kernel of the wgmma design fits its registers: no local memory;
-    the plans of wide rows (two tiles a chunked stage) take kernels that
-    are among them."""
+    the plans of every width and batch (two or eight tiles a chunked stage,
+    two units a warpgroup) take kernels that are among them."""
     attrs = sf.wgmma_attributes()
-    # K1 7 + 3 (two tiles), K11 6, K2 9 + 3: cosine K1 takes a_regs 0 only
-    assert len(attrs) == 28
+    # K1 3 + 5 (two tiles a chunked stage; four, with 2 or 3 slabs of A in
+    # registers; two units a warpgroup) x 2 + 1 + 5 (cosine: a_regs 0 at one
+    # unit), K11 6, K2 8 x 3
+    assert len(attrs) == 52
     assert all(local == 0 and regs <= 255 for regs, local in attrs.values()), attrs
-    for d in (2401, 3072, 3073, 4096, 8192, 16384):
-        for b in (8, 64, 128, 129, 256):
+    for d in (64, 100, 128, 256, 768, 2401, 3072, 3073, 4096, 8192, 16384):
+        for b in (8, 64, 65, 128, 129, 200, 256, 300):
             for kernel in ("bin_candidates", "count_below"):
-                p = sf.wgmma_plan(b, 1 << 20, d, kernel=kernel)
                 for metric in METRICS:
-                    assert (kernel, metric.value, p.a_regs, p.tps) in attrs
+                    p = sf.wgmma_plan(b, 1 << 20, d, kernel=kernel,
+                                      a_mode=sf.wgmma_placement(kernel, metric, d, b))
+                    tps = p.tps if p.chunked else 1
+                    assert (kernel, metric.value, p.a_regs, tps, p.units) in attrs
+
+
+def _narrow_plan(b, n, d, kernel, metric):
+    """The narrow tile's plan of K1/K2 at this (B, d), through
+    wgmma_plan's hand arguments: two query tiles a CTA below the streamed
+    widths, two tiles a chunked stage past them."""
+    if sf.wgmma_plan(1, n, d).chunked:
+        return sf.wgmma_plan(b, n, d, kernel=kernel, chunk_tiles=sf.WG_CHUNK_TILES)
+    return sf.wgmma_plan(b, n, d, kernel=kernel, qt=min(2, -(-b // 64)),
+                         a_mode=sf.wgmma_placement(kernel, metric, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
+@pytest.mark.parametrize("d", [100, 128, 768, 3072, 4096])
+@pytest.mark.parametrize("b", [65, 128, 200, 256])
+def test_wide_tile_equals_narrow_plan(metric, d, b, cuda_device):
+    """Past one query tile the route's wide tile (four query tiles a CTA at
+    d <= 128, four ring tiles a chunked stage past d = 448; K1's tiers out
+    of registers behind its queue of hits) gives K1 the candidates of PR
+    18's plan bit for bit, and K2 the counts of the narrow tile's plan, at several tau
+    (K1's sorted candidates at ranks 0, 9, 99 and the last finite one);
+    K2 recomputes K1's floats (its counts at or below tau cover K1's
+    candidates there). d = 100 rows are copied by the producer, not TMA;
+    B = 200 ends mid-tile."""
+    qk, xp, bias, cs = _wgmma_case("bf16-gauss", d, b, 66_304, metric, cuda_device)
+    n = xp.shape[0]
+    route = {k: sf.wgmma_plan(b, n, d, kernel=k, a_mode=sf.wgmma_placement(k, metric, d, b))
+             for k in ("bin_candidates", "count_below")}
+    old = {k: _narrow_plan(b, n, d, k, metric) for k in route}
+    wide = d <= 128 and b > 128 or d > 448
+    assert (route["bin_candidates"].units == 2 or route["bin_candidates"].tps == sf.WG_WIDE_TILES) == wide
+    assert route["bin_candidates"].queue > 0 if wide else route["bin_candidates"] == old["bin_candidates"]
+    sf.reset_launches()
+    kd, ki = sf.bin_candidates(qk, xp, bias, cs, metric=metric)
+    od, oi = sf._wgmma_launch("bin_candidates", qk, xp, bias, cs, metric,
+                              plan=old["bin_candidates"])
+    torch.cuda.synchronize()
+    assert torch.equal(kd, od) and torch.equal(ki, oi), "the wide tile changes K1's candidates"
+    assert sf.DESIGN_LAUNCHES["wgmma"]["bin_candidates"] == 1
+    sd, _ = torch.sort(kd.view(b, -1), dim=1)
+    last = int(torch.isfinite(sd).sum(dim=1).min()) - 1
+    for rank in sorted({0, min(9, last), min(99, last), last}):
+        tau = sd[:, rank].contiguous()
+        lt, le = sf.count_below(qk, xp, bias, cs, tau, metric=metric)
+        olt, ole = sf._wgmma_launch("count_below", qk, xp, bias, cs, metric, tau,
+                                    plan=old["count_below"])
+        torch.cuda.synchronize()
+        assert torch.equal(lt, olt) and torch.equal(le, ole), f"the wide tile changes K2 at {rank}"
+        assert (le >= (sd <= tau[:, None]).sum(dim=1)).all(), f"K2 is not K1's floats at {rank}"
+        assert rank != 0 or not lt.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
+@pytest.mark.parametrize("d, b", [(128, 256), (128, 300), (4096, 256)])
+def test_wide_tile_is_exact_on_integer_rows(metric, d, b, cuda_device):
+    """Integer-valued bf16 rows (many equal distances, so ties at a class's
+    third tier): the wide tile's K1 and K2 equal their plain versions bit
+    for bit, so its queue of hits keeps the (dist, row) order."""
+    _wgmma_check("bf16-int", *_wgmma_case("bf16-int", d, b, 66_304, metric, cuda_device), metric)
 
 
 @pytest.mark.cuda
@@ -1649,3 +1717,19 @@ def test_bench_time_loop_on_the_card(cuda_device):
         s0 = s0 + w[0]
     assert out[0] == s0.cpu().numpy()
     assert timing.time_host(lambda: fn(qpool[:64], x)[0].item(), device=cuda_device) > 0
+
+
+@pytest.mark.cuda
+def test_filter_masks_default_to_the_card(cuda_device):
+    """filter_mask and bitset_from_ids build on the card unless the caller
+    asks for the CPU (the JAX counterparts return device arrays), with the
+    CPU's bits."""
+    from vectorindex_tpu_torch.ops import filtering
+
+    n, allow, deny = 300, [1, 5, 64, 299], [5, 7]
+    words = filtering.bitset_from_ids(allow, n)
+    mask = filtering.filter_mask(n, allow_ids=allow, deny_ids=deny)
+    assert words.device.type == "cuda" and mask.device.type == "cuda"
+    assert torch.equal(words.cpu(), filtering.bitset_from_ids(allow, n, device="cpu"))
+    assert torch.equal(mask.cpu(), filtering.filter_mask(n, allow_ids=allow, deny_ids=deny,
+                                                         device="cpu"))

@@ -190,7 +190,8 @@ def test_bitsets_match_jax():
     n = 200
     a_ids, b_ids = [0, 3, 31, 32, 100, 199], [3, 4, 64, 100]
     ja, jb = jfilt.bitset_from_ids(a_ids, n), jfilt.bitset_from_ids(b_ids, n)
-    ta, tb = filtering.bitset_from_ids(a_ids, n), filtering.bitset_from_ids(b_ids, n)
+    ta = filtering.bitset_from_ids(a_ids, n, device="cpu")
+    tb = filtering.bitset_from_ids(b_ids, n, device="cpu")
     for jw, tw in [
         (ja, ta),
         (jfilt.bitset_union(ja, jb), filtering.bitset_union(ta, tb)),
@@ -215,7 +216,7 @@ def test_bitsets_match_jax():
         jo = jfilt.IDFilterOverlay(ja, jmode).add([7, 8], n).remove([0, 100], n)
         np.testing.assert_array_equal(to.allow_mask(n).numpy(), np.asarray(jo.allow_mask(n)))
     np.testing.assert_array_equal(
-        filtering.filter_mask(n, allow_ids=a_ids, deny_ids=b_ids).numpy(),
+        filtering.filter_mask(n, allow_ids=a_ids, deny_ids=b_ids, device="cpu").numpy(),
         np.asarray(jfilt.filter_mask(n, allow_ids=a_ids, deny_ids=b_ids)),
     )
 

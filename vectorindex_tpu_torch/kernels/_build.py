@@ -102,9 +102,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vi_bin_candidates_fma.restype = ctypes.c_int
     lib.vi_count_below_fma.argtypes = [p, p, p, p, p] + [i] * 11 + [p, p, p]
     lib.vi_count_below_fma.restype = ctypes.c_int
-    lib.vi_scan_wgmma.argtypes = [i] + [p] * 6 + [i] * 13 + [p] * 7
+    lib.vi_scan_wgmma.argtypes = [i] + [p] * 6 + [i] * 15 + [p] * 7
     lib.vi_scan_wgmma.restype = ctypes.c_int
-    lib.vi_scan_wgmma_attributes.argtypes = [i] * 4 + [ctypes.POINTER(i)] * 2
+    lib.vi_scan_wgmma_attributes.argtypes = [i] * 5 + [ctypes.POINTER(i)] * 2
     lib.vi_scan_wgmma_attributes.restype = ctypes.c_int
     lib.vi_scan_fma_attributes.argtypes = [i] * 4 + [ctypes.POINTER(i)] * 2
     lib.vi_scan_fma_attributes.restype = ctypes.c_int

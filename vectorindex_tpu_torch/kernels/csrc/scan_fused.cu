@@ -46,25 +46,49 @@
 // (scan_wgmma_kernel, sized by kernels/scan_fused.wgmma_plan):
 //
 //   - wgmma.mma_async m64n32k16 (bf16 x bf16, f32 accumulate) with the
-//     queries as A (64 a warpgroup: M) and 32 classes of a 256-row tile as
-//     B (N), so each thread owns the same 16 (query, class) pairs in every
-//     tile and K1's tiers live in its registers. N = 32 issues at about 90%
-//     of the tensor cores' rate, N = 16 at about half (scripts/
-//     wgmma_rates.cu); 16 pairs a thread is what K1's 6 tier registers a
-//     pair allow.
-//   - a CTA: two consumer warpgroups (one unit each: query tile w % qt
-//     against class block w / qt) and one producer warpgroup, so a CTA covers
-//     64 qt queries x 64 / qt classes (qt = 1 or 2): every query of a batch
-//     up to 128 in one CTA, and the corpus read once a pass there (256 do
-//     not fit: K1's tiers would need 4 units' registers; past 128 the query
+//     queries as A (64 a unit: M) and 32 classes of a 256-row tile as B
+//     (N), so each thread owns the same 16 (query, class) pairs of a unit
+//     in every tile. N = 32 issues at about 90% of the tensor cores' rate,
+//     N = 16 at about half (scripts/wgmma_rates.cu).
+//   - a CTA: two consumer warpgroups of U units each (unit i of the CTA:
+//     query tile i % qt against class block i / qt) and one producer
+//     warpgroup, so a CTA covers 64 qt queries x 64 U / qt classes. Up to
+//     64 queries (qt = 1) and up to 128 (qt = 2) one unit a warpgroup (the
+//     narrow tile): the batch in one CTA, the corpus read once a pass. Past
+//     one query tile (B > 64) K1 and K2 take the wide tile: at d <= 128 four
+//     query tiles, two units a warpgroup (qt = 4, U = 2: 256 queries x 32
+//     classes, A from registers), so a batch up to 256 crosses the corpus
+//     once; at
+//     128 < d <= 448 two query tiles (a resident block of 256 queries leaves
+//     K1's tiers no room); on streamed rows (d > 448) two query tiles beside
+//     four ring tiles a stage (below). Past a CTA's queries the query
 //     blocks that read one corpus slice run together and share it in L2.
 //     Clusters of them sharing each load by TMA multicast were slower: 2
 //     CTAs on the narrow rows, whose query block sits in registers or
 //     shared memory, and 2 or 4 on the chunked wide rows, 1.17-1.41x at
 //     d = 768-8,192, B = 128 and 256 (H100 80GB HBM3, 700 W), where each
-//     CTA still takes in every byte of its stages). Rows past the batch
-//     take nothing; a warp (or half a warp's rows) with none skips its
-//     epilogues.
+//     CTA still takes in every byte of its stages. Rows past the batch take
+//     nothing; a warp (or half a warp's rows) with none skips its epilogues.
+//   - where K1's tiers live: in registers (6 a pair, beside a distance) at
+//     one unit and at most two accumulators a warpgroup (the narrow tile:
+//     B <= 64, and B <= 128 or 128 < d <= 448); in the wide tile in shared
+//     memory, 16 bytes a pair ([pair][word][thread]: the 3 distances and
+//     the 3 rows as their tiles' 10-bit indices in the split, so a split
+//     holds at most 1,023 tiles), with one register a pair, its third
+//     tier's distance. Rows grow along a thread's loop, so a distance
+//     enters the tiers iff it is below that threshold: one compare a pair
+//     on the common path, and the hits go to a per-thread queue in shared
+//     memory ([entry][thread], 8 bytes: the distance and its tile and
+//     pair), folded by push3 in the order they came once a thread's queue
+//     might not take the next 8 (a vote of the warpgroup, whose next
+//     products wait for its slowest warp, so its warps fold together), with
+//     no product in flight, each entry's tiers read before the last one's
+//     are written back; the fold reloads the thresholds (stale between
+//     folds: they only let in hits that the fold drops). On the main path
+//     (d = 128, B=256) the folds are the largest part of K1's epilogue
+//     (scripts/ab_scan_trees_torch.py). K11 keeps its tiers, touched once a
+//     block, in shared memory, so its A fragments fit in registers beside
+//     its block minima.
 //   - the producer's one thread brings each stage's corpus rows in by TMA
 //     (a 3-D tensor map [tile][class][k], 64-value k slabs of 128 bytes in
 //     the 128-byte swizzle wgmma reads, bias and colscale by 2-D maps) into
@@ -76,24 +100,33 @@
 //     the consumers: held in registers as A fragments up to d = 128,
 //     written into shared memory for the whole pass past that, and for rows
 //     too wide for that (d > 448) its k chunk rides in each stage (TMA from
-//     a padded copy the wrapper makes) beside the k chunk of two ring
-//     tiles' rows (K11: one), each multiplied into its own accumulator:
-//     every CTA brings its query rows from L2 with every stage, so a stage
-//     of one tile moved as many query bytes as corpus bytes, and the pass
-//     ran at the SMs' L2 bandwidth (24-26 bytes a clock an SM at B=256,
+//     a padded copy the wrapper makes) beside the k chunk of TPS ring
+//     tiles' rows, each multiplied into its own accumulator: two at one
+//     query tile (B <= 64; K11: one), four at two (the wide tile: 128
+//     queries x 128 rows a stage, 3 slabs for K2, 2 for K1, whose tiers and
+//     queue take 80 KiB; eight tiles' 128 accumulators spilled, as ptxas
+//     allocates a consumer thread the launch bound's 168 registers). The
+//     wide tile reads each stage's query chunk into A fragments once for its
+//     four tiles: with A and B both from shared memory an m64n32k16 reads 3
+//     KiB, and the chunked passes' stage times followed those reads and
+//     TMA's writes, not the corpus's bytes (PERF.md §6); its
+//     stages always hold all their slabs (TMA's zero fill past the row), so
+//     a stage's k16 steps are a constant. Every
+//     CTA brings its query rows from L2 with every stage, so a stage of one
+//     tile moved as many query bytes as corpus bytes, and the pass ran at
+//     the SMs' L2 bandwidth (24-26 bytes a clock an SM at B=256,
 //     d = 3,072-8,192, scripts/ab_scan_wgmma_torch.py), not the corpus's
-//     HBM bound. The placements give the same floats bit for bit, as the
-//     accumulators keep each dot product one chain in k order. K11 keeps its tiers, touched once a
-//     block, in shared memory, so its A fragments fit in registers beside
-//     its block minima.
-//   - a consumer warpgroup issues one tile's products, waits, and runs the
-//     mode's epilogue from the accumulator registers (the other warpgroup's
-//     products run meanwhile): K1's inserts (push3: selects only, so the
-//     pairs interleave), K11's running block minimum, or K2's counts behind
-//     one test of each query's smallest distance against tau. Issuing the next tile before the epilogue made
-//     ptxas serialize the products (it injects waits on the epilogue's
-//     divergent paths). setmaxnreg gives the consumers 224 registers of
-//     the launch bound's 168 a thread, the producer 56.
+//     HBM bound. The placements and tiles give the same floats bit for bit,
+//     as the accumulators keep each dot product one chain in k order.
+//   - a consumer warpgroup issues one tile's products (every unit's),
+//     waits, and runs the mode's epilogue from the accumulator registers
+//     (the other warpgroup's products run meanwhile): K1's inserts (push3:
+//     selects only, so the pairs interleave) or its compare and queue, K11's
+//     running block minimum, or K2's counts behind one test of each query's
+//     smallest distance against tau. Issuing the next tile before the
+//     epilogue made ptxas serialize the products (it injects waits on the
+//     epilogue's divergent paths). setmaxnreg gives the consumers 224
+//     registers of the launch bound's 168 a thread, the producer 56.
 //   - the grid is one wave of (query block, class group, split) CTAs, one
 //     CTA an SM, with the query blocks innermost, so the CTAs that read one
 //     corpus slice run together and find it in L2. K11's splits start on
@@ -107,9 +140,13 @@
 // bit, the float K1 produced for every (query, row). Tensor-core sums are
 // deterministic but not IEEE-sequential, so K1, K2 and K11 share one
 // __device__ tile function (wg_dist_tile; mma_dist_tile in the first
-// design) with the same instruction, the same k order, the same query
-// placement and the same row-to-fragment mapping for a given (nq, d), and
-// the same rounded epilogue (kernel_space). Against
+// design) with the same instruction, the same k order and the same
+// row-to-fragment mapping (a query's row of the unit's M, a class's column
+// of its N), and the same rounded epilogue (kernel_space): every wgmma plan
+// (query placement, query tiles, units, tiles and slabs a stage) gives each
+// (query, row) the same float, which the cuda tests hold bit for bit, so
+// K1 and K2 may each take their own stages and slabs, and K11 the narrow
+// tile beside K1's wide one. Against
 // the plain versions (cuBLAS f32 GEMM) they agree bit for bit only where
 // every partial sum is exact (integer-valued data); elsewhere each distance
 // is within 2 d 2^-23 sum_k |q_k x_k| (times 2 for L2, times cs for cosine)
@@ -720,46 +757,67 @@ constexpr int kWgThreads = kWgConsumerThreads + 128;  // + one producer warpgrou
 // setmaxnreg: the producer warpgroup gives up registers the consumers take
 // (the launch bound alone allows 168 a thread: 65,536 / 384)
 constexpr int kConsumerRegs = 224, kProducerRegs = 56;
-constexpr int kWgUnits = 1;      // (64-query tile, 32-class block) units a consumer warpgroup
 constexpr int kWgN = 32;         // classes of a unit: the wgmma's N
+constexpr int kWgPairs = kWgN / 2;  // (query, class) pairs a consumer thread owns in a unit
 constexpr int kSlab = 64;        // bf16 k values of one 128-byte swizzled row
 constexpr int kWgMaxStages = 8;
 constexpr int kWgHeader = 2048;  // barriers, then slack to align the regions to 1024 bytes
+// K1's tiers out of registers (the wide tile): a tier's row is kept as its
+// tile's index in the split, 10 bits, kWgNoTile for none, so a split holds
+// at most kWgMaxSplitTiles tiles
+constexpr int kWgTileBits = 10, kWgNoTile = (1 << kWgTileBits) - 1;
+constexpr int kWgMaxSplitTiles = kWgNoTile;
 
 // The geometry kernels/scan_fused.wgmma_plan chose.
 struct WgPlan {
-  int qt;       // 64-query tiles a CTA (1 or 2); a CTA holds 64 / qt classes
+  int qt;       // 64-query tiles a CTA (1, 2, or 4 with units = 2)
+  int units;    // 64-query tiles a consumer warpgroup multiplies (1 or 2)
   int a_regs;   // k16 steps of the query block held in registers (4 or 8); 0: shared memory
   int chunked;  // 1: the query block's k chunk rides in each stage (wide rows)
   int cs;       // 64-value k slabs a stage holds (every slab unless chunked)
-  int tps;      // 256-row tiles a stage holds (1 when chunked)
+  int tps;      // 256-row tiles a stage holds (chunked: multiplied at once)
   int stages;   // ring stages, 2..kWgMaxStages
+  int queue;    // K1's hit queue (entries a thread) where its tiers are out of registers
   int splits, tiles_per_split, block_tiles;
 };
+
+// K1 keeps its tiers out of registers (the wide tile: 32 pairs a thread, or
+// chunked stages of more than 2 tiles' accumulators)
+__host__ __device__ constexpr bool wg_queued(int units, int tps) { return units > 1 || tps > 2; }
 
 // K11's tiers in shared memory: a distance and a row in each of 3 tiers of
 // each consumer thread's 16 pairs, [pair][tier][thread] (a thread reads and
 // writes only its own column)
-constexpr int kWgTierBytes = 2 * (kWgN / 2) * kTiers * kWgConsumerThreads * 4;
+constexpr int kWgTierBytes = 2 * kWgPairs * kTiers * kWgConsumerThreads * 4;
+// K1's tiers out of registers: 4 words a pair, [pair][word][thread]: the 3
+// tiers' distances and their 3 tile indices packed kWgTileBits apart
+constexpr int kWgTierWords = 4;
+// one queued hit: the distance and (tile index << 5 | pair)
+constexpr int kWgQueueEntry = 8;
 
 // Shared memory of a wgmma CTA past the header: the query block once (its
 // k slabs [slab][query][64], when it is neither in registers nor chunked),
-// K11's tiers (`tiers`), then `stages` ring stages of: cs slabs of the tps
-// tiles' class-block rows ([slab][tile][class][64]), the query block's cs
-// slabs when chunked, and the tiles' bias and colscale [tile][class] (f32).
-// Rows are 128 bytes, swizzled as TMA's 128-byte swizzle writes them; every
-// part starts on 1024 bytes (bias and colscale on 128).
+// K11's or K1's tiers (`tiers`), K1's hit queue ([entry][thread]), then
+// `stages` ring stages of: cs slabs of the tps tiles' class-block rows
+// ([slab][tile][class][64]), the query block's cs slabs when chunked, and
+// the tiles' bias and colscale [tile][class] (f32). Rows are 128 bytes,
+// swizzled as TMA's 128-byte swizzle writes them; every part starts on 1024
+// bytes (bias and colscale on 128).
 struct WgLayout {
-  int g, qb, slabs, q_res, tiers, x_slab, x_bytes, q_bytes, b_off, c_off, stage_bytes, total;
+  int g, qb, slabs, q_res, tiers, queue, x_slab, x_bytes, q_bytes, b_off, c_off, stage_bytes,
+      total;
 };
 
-__host__ __device__ inline WgLayout wg_layout(int d, const WgPlan& p, bool tiers) {
+__host__ __device__ inline WgLayout wg_layout(int d, const WgPlan& p, int mode) {
   WgLayout l;
-  l.g = kWgUnits * kWgConsumers * kWgN / p.qt;
+  const bool queued = mode == kModeTop3 && wg_queued(p.units, p.chunked ? p.tps : 1);
+  l.g = p.units * kWgConsumers * kWgN / p.qt;
   l.qb = 64 * p.qt;
   l.slabs = (d + kSlab - 1) / kSlab;
   l.q_res = (p.a_regs == 0 && !p.chunked) ? l.slabs * l.qb * 128 : 0;
-  l.tiers = tiers ? kWgTierBytes : 0;
+  l.tiers = mode == kModeTree ? kWgTierBytes
+            : queued ? kWgTierWords * 4 * kWgPairs * p.units * kWgConsumerThreads : 0;
+  l.queue = queued ? p.queue * kWgQueueEntry * kWgConsumerThreads : 0;
   l.x_slab = p.tps * l.g * 128;
   l.x_bytes = p.cs * l.x_slab;
   l.q_bytes = p.chunked ? p.cs * l.qb * 128 : 0;
@@ -767,7 +825,7 @@ __host__ __device__ inline WgLayout wg_layout(int d, const WgPlan& p, bool tiers
   l.b_off = l.x_bytes + l.q_bytes;
   l.c_off = l.b_off + bb;
   l.stage_bytes = (l.c_off + bb + 1023) & ~1023;
-  l.total = kWgHeader + l.q_res + l.tiers + p.stages * l.stage_bytes;
+  l.total = kWgHeader + l.q_res + l.tiers + l.queue + p.stages * l.stage_bytes;
   return l;
 }
 
@@ -894,17 +952,20 @@ __device__ __forceinline__ void wgmma_wait() {
 // 64 queries against its 32 classes of one ring tile over the stage's k
 // steps (k order from the stage's first slab; accumulate = 0 starts the
 // sums), issued and not waited for. a: the query block's A fragments
-// (KS > 0) or its query rows' first slab in shared memory (qa, slab stride
-// qstride); xb: the class rows' first slab in the stage (slab stride
-// xstride).
-template <int KS>
+// (KS > 0: the whole row's, or a chunked stage's KS k16 steps) or its query
+// rows' first slab in shared memory (qa, slab stride qstride); xb: the
+// class rows' first slab in the stage (slab stride xstride).
+template <int KS, bool STAGE_A = false>
 __device__ __forceinline__ void wg_dist_tile(float (&acc)[16], const uint32_t (&a)[KS > 0 ? KS : 1][4],
                                              uint32_t qa, int qstride, uint32_t xb, int xstride,
                                              int nks, int accumulate) {
   if constexpr (KS > 0) {
+    // A of the whole row starts each sum; a chunked stage's (STAGE_A) goes on
+    // with `accumulate`
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      wgmma_rs(acc, a[ks], sw128_desc(xb + (ks >> 2) * xstride + (ks & 3) * 32), ks > 0);
+      wgmma_rs(acc, a[ks], sw128_desc(xb + (ks >> 2) * xstride + (ks & 3) * 32),
+               (STAGE_A && accumulate) || ks > 0);
     }
   } else {
     for (int ks = 0; ks < nks; ++ks) {
@@ -916,29 +977,33 @@ __device__ __forceinline__ void wg_dist_tile(float (&acc)[16], const uint32_t (&
 
 // K1 (MODE kModeTop3), K11 (kModeTree) and K2 (kModeCount) on Hopper's
 // asynchronous tensor cores. Grid (query block of 64 qt, class group of
-// g = 64 / qt, split), kWgThreads threads: warpgroups 0 and 1 consume,
+// g = 64 U / qt, split), kWgThreads threads: warpgroups 0 and 1 consume,
 // warpgroup 2 produces (setmaxnreg moves its registers to the consumers).
-// Consumer warpgroup w's unit is 64-query tile w % qt against 32-class
-// block w / qt, one m64n32k16 accumulator (warp i of the warpgroup: queries
-// 16 i + lane / 4 (+ 8), classes 2 (lane % 4) + 8 j (+ 1)), the same pairs
-// in every tile, so K1's tiers live in registers (16 pairs a thread; K11's
-// in shared memory). The producer fills a ring of stages through TMA (one
-// thread; the corpus by a 3-D tensor map [tile][class][k], bias and
-// colscale by 2-D maps), or, where rows are not 16-byte aligned, copies the
-// corpus rows itself into the same swizzled layout (all 128 threads, one
-// stage's copies in flight behind the next's) before its first thread
-// issues the rest; full barriers complete on the copies' bytes, every
-// consumer warp arrives on a stage's empty barrier once done with it. The
-// query block, rounded to bf16 by the consumers, sits in registers as A
-// fragments (KS > 0), in shared memory for the whole pass, or (chunked: a
-// wrapper-made padded copy) rides in each stage with its k chunk beside
-// the k chunk of TPS ring tiles' class rows, so each query chunk brought
-// from L2 serves TPS tiles; a warpgroup holds TPS accumulators across the
-// chunks (TPS = 2 for wide rows; 1 where the block is resident or in
-// registers, whose stages' tiles run one after another). K1/K11 write
-// per-split tiers to part_[dist|row] [split][query][tier][class]; K2 adds
-// into lt/le, which must be zeroed.
-template <int METRIC, int MODE, int KS, int TPS>
+// Consumer warpgroup w multiplies U units, units U w .. U w + U - 1 of the
+// CTA; unit i is 64-query tile i % qt against 32-class block i / qt, one
+// m64n32k16 accumulator (warp i of the warpgroup: queries 16 i + lane / 4
+// (+ 8), classes 2 (lane % 4) + 8 j (+ 1)), the same pairs in every tile.
+// K1 keeps its tiers in registers where a thread's 16 pairs beside one or
+// two accumulators leave room (U = 1, TPS <= 2); past that (the wide tile:
+// U = 2, or TPS > 2) one register a pair, its third tier's distance, which
+// every distance is tested against, and the tiers in shared memory behind a
+// queue of the hits (wg_queued). K11's tiers are in shared memory. The
+// producer fills a ring of stages through TMA (one thread; the corpus by a
+// 3-D tensor map [tile][class][k], bias and colscale by 2-D maps), or,
+// where rows are not 16-byte aligned, copies the corpus rows itself into the
+// same swizzled layout (all 128 threads, one stage's copies in flight behind
+// the next's) before its first thread issues the rest; full barriers
+// complete on the copies' bytes, every consumer warp arrives on a stage's
+// empty barrier once done with it. The query block, rounded to bf16 by the
+// consumers, sits in registers as A fragments (KS > 0), in shared memory for
+// the whole pass, or (chunked: a wrapper-made padded copy) rides in each
+// stage with its k chunk beside the k chunk of TPS ring tiles' class rows,
+// so each query chunk brought from L2 serves TPS tiles; a warpgroup holds
+// TPS accumulators across the chunks (TPS = 2 or 4 for wide rows; 1 where
+// the block is resident or in registers, whose stages' tiles run one after
+// another). K1/K11 write per-split tiers to part_[dist|row]
+// [split][query][tier][class]; K2 adds into lt/le, which must be zeroed.
+template <int METRIC, int MODE, int KS, int TPS, int U>
 __global__ void __launch_bounds__(kWgThreads, 1)
     scan_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                       const __grid_constant__ CUtensorMap bmap,
@@ -948,13 +1013,17 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                       const float* __restrict__ thresh, int nq, int d, int ntiles, WgPlan p,
                       int tma_x, float* __restrict__ part_dist, int* __restrict__ part_row,
                       int* __restrict__ lt, int* __restrict__ le) {
+  static_assert(U == 1 || (TPS == 1 && KS > 0), "two units a warpgroup take A from registers");
+  // a chunked stage's query chunk read into registers (the wide tile): its
+  // stages always hold KS / 4 slabs, TMA's zero fill past the row
+  constexpr bool kStageA = KS > 0 && TPS > 1;
   extern __shared__ float4 smem_v4[];
   uint8_t* const smem = reinterpret_cast<uint8_t*>(smem_v4);
-  const WgLayout L = wg_layout(d, p, MODE == kModeTree);
+  const WgLayout L = wg_layout(d, p, MODE);
   const uint32_t raw = smem_addr(smem);
   const uint32_t full0 = raw, empty0 = raw + 8 * kWgMaxStages;
   const uint32_t qres = (raw + 256 + 1023) & ~1023u;
-  const uint32_t ring = qres + L.q_res + L.tiers;
+  const uint32_t ring = qres + L.q_res + L.tiers + L.queue;
   const int q0 = blockIdx.x * L.qb;
   const int c0 = blockIdx.y * L.g;
   const int split = blockIdx.z;
@@ -984,7 +1053,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const int grp = s / nk;
       slot = s % p.stages;
       sl0 = (s - grp * nk) * p.cs;
-      nsl = min(p.cs, L.slabs - sl0);
+      nsl = kStageA ? p.cs : min(p.cs, L.slabs - sl0);
       tile0 = t0 + grp * p.tps;
     };
     // the TMA copies of stage s onto its full barrier: the corpus rows (when
@@ -1076,18 +1145,27 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   // -------------------------------------------------------------- consumers
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   const int lane = threadIdx.x & 31;
-  const int wq = (threadIdx.x >> 5) & 3;  // warp of the warpgroup: its 16 query rows
+  const int wq = (threadIdx.x >> 5) & 3;  // warp of the warpgroup: its 16 query rows of a unit
   const int gq = lane >> 2, tq = lane & 3;
-  const int mq = wg % p.qt;  // the warpgroup's query tile
-  const int cb = wg / p.qt;  // and class block
-  // The thread's queries are qrow and qrow + kHi; a warp whose 16 rows
-  // hold no query skips its epilogues, and one whose second 8 hold none
+  // Unit u's query tile mq[u] and class block cb[u]; the thread's queries
+  // in it are qrow[u] and qrow[u] + kHi. A warp whose 16 rows of a unit hold
+  // no query skips that unit's epilogues, and one whose second 8 hold none
   // skips that half (a small batch: spreading it over the 4 warps measured
   // slower).
   constexpr int kHi = 8;
-  const int qrow = q0 + mq * 64 + 16 * wq + gq;
-  const bool live = q0 + mq * 64 + 16 * wq < nq;
-  const bool hi_live = q0 + mq * 64 + 16 * wq + 8 < nq;
+  constexpr int kP = kWgPairs * U;  // (query, class) pairs a thread owns
+  int mq[U], cb[U], qrow[U];
+  bool live[U], hi_live[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int unit = wg * U + u;
+    mq[u] = unit % p.qt;
+    cb[u] = unit / p.qt;
+    const int r0 = q0 + mq[u] * 64 + 16 * wq;
+    qrow[u] = r0 + gq;
+    live[u] = r0 < nq;
+    hi_live[u] = r0 + kHi < nq;
+  }
   // q rounded to bf16 once a CTA: two consecutive k of query `row` as the
   // packed pair wgmma reads (0 past nq and d)
   auto qpair = [&](int row, int k) -> uint32_t {
@@ -1098,17 +1176,22 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     return *reinterpret_cast<const uint32_t*>(&v);
   };
 
-  // the query block's A fragments (KS > 0): queries qrow (+ 8), k pairs
-  // 2 tq (+ 8) of each k16 step; or (resident in shared memory) the block's
-  // k slabs written by the consumers in the 128-byte swizzle, once
-  uint32_t a[KS > 0 ? KS : 1][4];
-  if constexpr (KS > 0) {
+  // each unit's A fragments (KS > 0): queries qrow (+ 8), k pairs 2 tq (+ 8)
+  // of each k16 step, once (or each stage's: kStageA, below); or (resident
+  // in shared memory) the block's k slabs written by the consumers in the
+  // 128-byte swizzle, once
+  uint32_t a[KS > 0 ? U : 1][KS > 0 ? KS : 1][4];
+  if constexpr (kStageA) {
+  } else if constexpr (KS > 0) {
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      a[ks][0] = qpair(qrow, 16 * ks + 2 * tq);
-      a[ks][1] = qpair(qrow + kHi, 16 * ks + 2 * tq);
-      a[ks][2] = qpair(qrow, 16 * ks + 8 + 2 * tq);
-      a[ks][3] = qpair(qrow + kHi, 16 * ks + 8 + 2 * tq);
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        a[u][ks][0] = qpair(qrow[u], 16 * ks + 2 * tq);
+        a[u][ks][1] = qpair(qrow[u] + kHi, 16 * ks + 2 * tq);
+        a[u][ks][2] = qpair(qrow[u], 16 * ks + 8 + 2 * tq);
+        a[u][ks][3] = qpair(qrow[u] + kHi, 16 * ks + 8 + 2 * tq);
+      }
     }
   } else if (!p.chunked) {
     const int pairs = L.slabs * kSlab / 2;  // k pairs a row
@@ -1124,72 +1207,158 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     asm volatile("bar.sync 1, %0;\n" ::"n"(kWgConsumerThreads) : "memory");
   }
 
-  // per pair p = 4 j + e: query qrow + 8 (e / 2), class 32 cb + 8 j + 2 tq + e % 2
-  constexpr int kPairs = kWgN / 2;
-  // K1's tiers in registers; K11's, touched once a block, in shared memory
-  // (tier k of pair pp at [pp][k][thread]), so that its query block's A
-  // fragments fit in registers beside its block minima
-  constexpr bool kTiers3 = MODE == kModeTop3;
-  float td[kTiers3 ? kPairs : 1][kTiers];
-  int ti[kTiers3 ? kPairs : 1][kTiers];
-  float* const tds = reinterpret_cast<float*>(smem + (qres - raw) + L.q_res) + threadIdx.x;
-  int* const tis = reinterpret_cast<int*>(tds) + kPairs * kTiers * kWgConsumerThreads;
+  // per pair pp = 16 u + 4 j + e of unit u: query qrow[u] + 8 (e / 2),
+  // class 32 cb[u] + 8 j + 2 tq + e % 2
+  constexpr bool kQueued = MODE == kModeTop3 && wg_queued(U, TPS);
+  constexpr bool kRegTiers = MODE == kModeTop3 && !kQueued;
+  // K1's tiers in registers (U = 1); K11's, touched once a block, in shared
+  // memory (tier k of pair pp at [pp][k][thread]), so that its query
+  // block's A fragments fit in registers beside its block minima
+  float td[kRegTiers ? kWgPairs : 1][kTiers];
+  int ti[kRegTiers ? kWgPairs : 1][kTiers];
+  uint8_t* const tier_base = smem + (qres - raw) + L.q_res;
+  float* const tds = reinterpret_cast<float*>(tier_base) + threadIdx.x;
+  int* const tis = reinterpret_cast<int*>(tds) + kWgPairs * kTiers * kWgConsumerThreads;
   auto tier = [](auto* t, int pp, int k) -> auto& { return t[(pp * kTiers + k) * kWgConsumerThreads]; };
-  float m1[MODE == kModeTree ? kPairs : 1];
-  int r1[MODE == kModeTree ? kPairs : 1];  // the block minima's rows
-  float tau[2];
-  int n_lt[2] = {0, 0}, n_le[2] = {0, 0};
+  // K1's wide tile: the tiers of pair k in words [k][w][thread] (w = 0..2
+  // the distances, 3 their tiles' indices in the split), the third tier's
+  // distance also in thr[k], and the thread's queued hits, entry i at
+  // queue[i][thread]
+  constexpr uint32_t kNoTiles = kWgNoTile | (kWgNoTile << kWgTileBits) | (kWgNoTile << (2 * kWgTileBits));
+  uint32_t* const tw = reinterpret_cast<uint32_t*>(tier_base) + threadIdx.x;
+  auto word = [&](int k, int w) -> uint32_t& { return tw[(k * kWgTierWords + w) * kWgConsumerThreads]; };
+  uint2* const queue = reinterpret_cast<uint2*>(tier_base + L.tiers) + threadIdx.x;
+  const uint32_t queue_at = smem_addr(queue);
+  float thr[kQueued ? kP : 1];
+  int queued = 0;
+  float m1[MODE == kModeTree ? kWgPairs : 1];
+  int r1[MODE == kModeTree ? kWgPairs : 1];  // the block minima's rows
+  float tau[2 * U];
+  int n_lt[2 * U], n_le[2 * U];
   if constexpr (MODE != kModeCount) {
 #pragma unroll
-    for (int pp = 0; pp < kPairs; ++pp) {
+    for (int k = 0; k < kP; ++k) {
+      const int u = k / kWgPairs, pp = k % kWgPairs;
       // a query past nq takes nothing: no distance beats a tier
-      const float init = qrow + kHi * ((pp >> 1) & 1) >= nq ? -INFINITY : INFINITY;
+      const float init = qrow[u] + kHi * ((pp >> 1) & 1) >= nq ? -INFINITY : INFINITY;
+      if constexpr (kQueued) {
 #pragma unroll
-      for (int k = 0; k < kTiers; ++k) {
-        if constexpr (kTiers3) {
-          td[pp][k] = init;
-          ti[pp][k] = kInvalidId;
-        } else {
-          tier(tds, pp, k) = init;
-          tier(tis, pp, k) = kInvalidId;
+        for (int w = 0; w < kTiers; ++w) word(k, w) = __float_as_uint(init);
+        word(k, kTiers) = kNoTiles;
+        thr[k] = init;
+      } else {
+#pragma unroll
+        for (int t = 0; t < kTiers; ++t) {
+          if constexpr (kRegTiers) {
+            td[pp][t] = init;
+            ti[pp][t] = kInvalidId;
+          } else {
+            tier(tds, pp, t) = init;
+            tier(tis, pp, t) = kInvalidId;
+          }
         }
       }
     }
   }
   if constexpr (MODE == kModeTree) {
 #pragma unroll
-    for (int pp = 0; pp < kPairs; ++pp) m1[pp] = INFINITY;
+    for (int pp = 0; pp < kWgPairs; ++pp) m1[pp] = INFINITY;
   }
   if constexpr (MODE == kModeCount) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) tau[h] = qrow + kHi * h < nq ? thresh[qrow + kHi * h] : -INFINITY;
+    for (int i = 0; i < 2 * U; ++i) {
+      const int qi = qrow[i >> 1] + kHi * (i & 1);
+      tau[i] = qi < nq ? thresh[qi] : -INFINITY;
+      n_lt[i] = 0;
+      n_le[i] = 0;
+    }
   }
 
-  const int cls = cb * kWgN + 2 * tq;  // the thread's classes cls + 8 j (+ 1) of the group
-  const uint32_t xrow = cls - 2 * tq;  // the warpgroup's first class row of a ring tile
-  // The mode's step for split tile j (ring tile r of the stage at st), with
-  // no product in flight (the epilogue is on each warpgroup's critical
-  // path): K1's inserts without a branch, K11's running block minimum, or
-  // K2's counts behind one test of each query's smallest distance against
-  // tau (at or below it: about k rows of the corpus a query). Rows past nq
-  // take nothing (their tiers are -inf, their tau -inf); the second half of
-  // rows is skipped when it holds no query.
-  auto epilogue = [&](const float (&acc)[16], int j, int r, uint32_t st) {
+  // K1's wide tile: fold the thread's queued hits into its tiers in the
+  // order they came (each pair's rows grow along it, so push3's strict <
+  // keeps (dist, row) order; a hit a stale threshold let in changes
+  // nothing), then reload its thresholds. Off the products' path: each
+  // warpgroup runs it with none of its products in flight, all its warps
+  // at once (wg_any), since its next products wait for the slowest warp.
+  // The fold is pipelined: the next entry and its pair's tiers are read
+  // before this entry's tiers are written back (another pair's do not
+  // alias them; the same pair's take this entry's result instead).
+  auto flush = [&]() {
+    const int n = queued;
+    uint2 e = queue[0];
+    int k = e.y & 31;
+    uint32_t w[kWgTierWords];
+#pragma unroll
+    for (int t = 0; t < kWgTierWords; ++t) w[t] = word(k, t);
+    for (int i = 0; i < n; ++i) {
+      const uint2 en = queue[min(i + 1, n - 1) * kWgConsumerThreads];
+      const int kn = en.y & 31;
+      const float v = __uint_as_float(e.x);
+      const uint32_t j = e.y >> 5;
+      const float d0 = __uint_as_float(w[0]), d1 = __uint_as_float(w[1]);
+      const float d2 = __uint_as_float(w[2]);
+      const uint32_t i0 = w[3] & kWgNoTile, i1 = (w[3] >> kWgTileBits) & kWgNoTile;
+      const uint32_t i2 = w[3] >> (2 * kWgTileBits);
+      const bool c2 = v < d2, c1 = v < d1, c0 = v < d0;  // c0 => c1 => c2
+      uint32_t nw[kWgTierWords];
+      nw[0] = __float_as_uint(c0 ? v : d0);
+      nw[1] = __float_as_uint(c0 ? d0 : (c1 ? v : d1));
+      nw[2] = __float_as_uint(c1 ? d1 : (c2 ? v : d2));
+      nw[3] = (c0 ? j : i0) | ((c0 ? i0 : (c1 ? j : i1)) << kWgTileBits) |
+              ((c1 ? i1 : (c2 ? j : i2)) << (2 * kWgTileBits));
+      uint32_t next[kWgTierWords];
+#pragma unroll
+      for (int t = 0; t < kWgTierWords; ++t) next[t] = word(kn, t);
+#pragma unroll
+      for (int t = 0; t < kWgTierWords; ++t) word(k, t) = nw[t];
+#pragma unroll
+      for (int t = 0; t < kWgTierWords; ++t) w[t] = kn == k ? nw[t] : next[t];
+      e = en;
+      k = kn;
+    }
+    queued = 0;
+#pragma unroll
+    for (int k = 0; k < kP; ++k) thr[k] = __uint_as_float(word(k, 2));
+  };
+  // any thread of this consumer warpgroup (its 128 threads on named barrier
+  // 3 + wg; every one of them takes each vote)
+  auto wg_any = [&](bool pred) -> bool {
+    uint32_t any;
+    asm volatile(
+        "{\n.reg .pred p, q;\nsetp.ne.u32 q, %1, 0;\n"
+        "bar.red.or.pred p, %2, 128, q;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(any)
+        : "r"(static_cast<uint32_t>(pred)), "r"(3 + wg)
+        : "memory");
+    return any != 0;
+  };
+
+  // The mode's step for unit u's accumulator of split tile j (ring tile r
+  // of the stage at st), with no product in flight (the epilogue is on each
+  // warpgroup's critical path): K1's inserts without a branch (tiers in
+  // registers) or one compare a pair and the hits queued (the wide tile),
+  // K11's running block minimum, or K2's counts behind one test of each
+  // query's smallest distance against tau (at or below it: about k rows of
+  // the corpus a query). Rows past nq take nothing (their tiers are -inf,
+  // their tau -inf); the second half of rows is skipped when it holds no
+  // query.
+  auto epilogue = [&](const float (&acc)[16], int u, int j, int r, uint32_t st) {
     const int tile = t0 + j;
-    if (!live) {
+    if (!kQueued && !live[u]) {
       if constexpr (MODE == kModeTree) {
         if ((tile + 1) % p.block_tiles == 0) {
 #pragma unroll
-          for (int pp = 0; pp < kPairs; ++pp) m1[pp] = INFINITY;
+          for (int pp = 0; pp < kWgPairs; ++pp) m1[pp] = INFINITY;
         }
       }
       return;
     }
+    const int cls = cb[u] * kWgN + 2 * tq;  // the thread's classes cls + 8 jj (+ 1) of the group
     const float* sb = reinterpret_cast<const float*>(smem + (st - raw) + L.b_off) + r * L.g + cls;
     const float* sc = reinterpret_cast<const float*>(smem + (st - raw) + L.c_off) + r * L.g + cls;
     const int row = tile * kClasses + c0 + cls;
     // pair pp = 4 jj + e: query qrow + 8 (e / 2), class cls + 8 jj + e % 2
-    float b[kPairs / 2], c[kPairs / 2];
+    float b[kWgPairs / 2], c[kWgPairs / 2];
 #pragma unroll
     for (int jj = 0; jj < kWgN / 8; ++jj) {
       const float2 bb = *reinterpret_cast<const float2*>(sb + 8 * jj);
@@ -1216,13 +1385,44 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
     };
     auto live_pairs = [&](auto&& f) {
-      if (hi_live) {
+      if (hi_live[u]) {
         each_pair(std::integral_constant<int, 2>{}, f);
       } else {
         each_pair(std::integral_constant<int, 1>{}, f);
       }
     };
-    if constexpr (MODE == kModeTop3) {
+    if constexpr (kQueued) {
+      // rows only grow along the loop, so (v, row) enters the tiers iff v
+      // is below the third tier's distance: one compare a pair, the few
+      // hits queued; a half's 8 pairs at a time (a half with no query
+      // queues nothing but still votes), and the queue folded once a
+      // thread's next 8 might not fit
+      auto half = [&](int h, bool queries) {
+        if (queries) {
+#pragma unroll
+          for (int jj = 0; jj < kWgN / 8; ++jj) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int pp = 4 * jj + 2 * h + e;
+              const int k = kWgPairs * u + pp;
+              const float v = dist(pp);
+              const uint32_t hit = v < thr[k];
+              // a predicated store, no branch
+              asm volatile(
+                  "{\n.reg .pred p;\nsetp.ne.u32 p, %0, 0;\n"
+                  "@p st.shared.v2.u32 [%1], {%2, %3};\n}\n" ::"r"(hit),
+                  "r"(queue_at + queued * (kWgConsumerThreads * kWgQueueEntry)),
+                  "r"(__float_as_uint(v)), "r"((j << 5) | k)
+                  : "memory");
+              queued += hit;
+            }
+          }
+        }
+        if (wg_any(queued > p.queue - kWgPairs / 2)) flush();
+      };
+      half(0, live[u]);
+      half(1, hi_live[u]);
+    } else if constexpr (kRegTiers) {
       // rows only grow along the loop, so (v, row) beats a tier iff v is
       // smaller; the distances first, then push3, selects only (a branch a
       // pair measured slower). Cosine keeps no distance array (its colscale
@@ -1230,13 +1430,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       if constexpr (METRIC == kCos) {
         live_pairs([&](int pp, int rw) { push3(td[pp], ti[pp], dist(pp), rw); });
       } else {
-        float v[kPairs];
+        float v[kWgPairs];
         live_pairs([&](int pp, int) { v[pp] = dist(pp); });
         live_pairs([&](int pp, int rw) { push3(td[pp], ti[pp], v[pp], rw); });
       }
     } else if constexpr (MODE == kModeTree) {
 #pragma unroll
-      for (int pp = 0; pp < kPairs; ++pp) {
+      for (int pp = 0; pp < kWgPairs; ++pp) {
         // strict <: the first row of the block wins a tie (the JAX eq-scan)
         const float v = dist(pp);
         const bool lower = v < m1[pp];
@@ -1245,7 +1445,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
       if ((tile + 1) % p.block_tiles == 0) {
 #pragma unroll
-        for (int pp = 0; pp < kPairs; ++pp) {
+        for (int pp = 0; pp < kWgPairs; ++pp) {
           // rows of a later block lie above the tiers'
           if (m1[pp] < tier(tds, pp, 2)) {
             float d3[kTiers];
@@ -1266,9 +1466,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         }
       }
     } else {
-      float v[kPairs];
+      float v[kWgPairs];
 #pragma unroll
-      for (int pp = 0; pp < kPairs; ++pp) v[pp] = INFINITY;  // a skipped half counts nothing
+      for (int pp = 0; pp < kWgPairs; ++pp) v[pp] = INFINITY;  // a skipped half counts nothing
       live_pairs([&](int pp, int) { v[pp] = dist(pp); });
       float lo[2];
 #pragma unroll
@@ -1276,10 +1476,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         lo[h] = fminf(fminf(fminf(v[2 * h], v[2 * h + 1]), fminf(v[4 + 2 * h], v[5 + 2 * h])),
                       fminf(fminf(v[8 + 2 * h], v[9 + 2 * h]), fminf(v[12 + 2 * h], v[13 + 2 * h])));
       }
-      if (lo[0] <= tau[0] || lo[1] <= tau[1]) {
+      if (lo[0] <= tau[2 * u] || lo[1] <= tau[2 * u + 1]) {
 #pragma unroll
-        for (int pp = 0; pp < kPairs; ++pp) {
-          const int h = (pp >> 1) & 1;
+        for (int pp = 0; pp < kWgPairs; ++pp) {
+          const int h = 2 * u + ((pp >> 1) & 1);
           n_lt[h] += v[pp] < tau[h];  // tau is -inf past nq
           n_le[h] += v[pp] <= tau[h];
         }
@@ -1287,15 +1487,15 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
   };
 
-  // One tile's product at a time, waited for before its epilogue; the other
-  // consumer warpgroup's product runs meanwhile. (Issuing the next tile
-  // before this one's epilogue makes ptxas serialize the products: it
-  // injects waits on the pipeline's divergent paths.) With TPS > 1 (chunked)
-  // the stage's TPS tiles' products over its k chunk are issued together,
-  // each into its own accumulator, and waited for once; a tile past the
-  // split's end is multiplied too (its rows are TMA's zero fill or stale)
-  // but takes no epilogue.
-  float acc[TPS][16];
+  // One tile's products at a time (every unit's), waited for before its
+  // epilogues; the other consumer warpgroup's products run meanwhile.
+  // (Issuing the next tile before this one's epilogue makes ptxas serialize
+  // the products: it injects waits on the pipeline's divergent paths.) With
+  // TPS > 1 (chunked) the stage's TPS tiles' products over its k chunk are
+  // issued together, each into its own accumulator, and waited for once; a
+  // tile past the split's end is multiplied too (its rows are TMA's zero
+  // fill or stale) but takes no epilogue.
+  float acc[TPS * U][16];
   for (int s = 0; s < total; ++s) {
     const int slot = s % p.stages;
     mbar_wait(full0 + 8 * slot, (s / p.stages) & 1);
@@ -1304,15 +1504,31 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int nks = 4 * min(p.cs, L.slabs - kc * p.cs);
     const int tiles = min(p.tps, ntl - grp * p.tps);
     const uint32_t st = ring + slot * L.stage_bytes;
-    const uint32_t qa = (p.chunked ? st + L.x_bytes : qres) + mq * 64 * 128;
+    const uint32_t qa = p.chunked ? st + L.x_bytes : qres;
     if constexpr (TPS > 1) {
+      if constexpr (kStageA) {
+        // the stage's query chunk (rows qrow, qrow + 8 of the unit's tile)
+        // into A fragments, read once for its TPS tiles' products
+        const int r0 = mq[0] * 64 + 16 * wq + gq;  // the row of the block, in the swizzle
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            const int r = r0 + 8 * (f & 1);
+            const int k = 16 * (ks & 3) + 2 * tq + 8 * (f >> 1);
+            const uint32_t addr = qa + (ks >> 2) * L.qb * 128 + r * 128 +
+                                  ((((k >> 3) & 7) ^ (r & 7)) << 4) + ((k & 7) << 1);
+            asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(a[0][ks][f]) : "r"(addr) : "memory");
+          }
+        }
+      }
 #pragma unroll
       for (int r = 0; r < TPS; ++r) fence_acc(acc[r]);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int r = 0; r < TPS; ++r) {
-        wg_dist_tile<KS>(acc[r], a, qa, L.qb * 128, st + (r * L.g + xrow) * 128, L.x_slab, nks,
-                         kc > 0);
+        wg_dist_tile<KS, kStageA>(acc[r], a[0], qa + mq[0] * 64 * 128, L.qb * 128,
+                                  st + (r * L.g + cb[0] * kWgN) * 128, L.x_slab, nks, kc > 0);
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       wgmma_wait<0>();
@@ -1321,19 +1537,27 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       if (kc == nk - 1) {
 #pragma unroll
         for (int r = 0; r < TPS; ++r) {
-          if (r < tiles) epilogue(acc[r], grp * p.tps + r, r, st);
+          if (r < tiles) epilogue(acc[r], 0, grp * p.tps + r, r, st);
         }
       }
     } else {
       for (int r = 0; r < tiles; ++r) {
-        fence_acc(acc[0]);
+#pragma unroll
+        for (int u = 0; u < U; ++u) fence_acc(acc[u]);
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-        wg_dist_tile<KS>(acc[0], a, qa, L.qb * 128, st + (r * L.g + xrow) * 128, L.x_slab, nks,
-                         kc > 0);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          wg_dist_tile<KS>(acc[u], a[KS > 0 ? u : 0], qa + mq[u] * 64 * 128, L.qb * 128,
+                           st + (r * L.g + cb[u] * kWgN) * 128, L.x_slab, nks, kc > 0);
+        }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
         wgmma_wait<0>();
-        fence_acc(acc[0]);
-        if (kc == nk - 1) epilogue(acc[0], grp * p.tps + r, r, st);
+#pragma unroll
+        for (int u = 0; u < U; ++u) fence_acc(acc[u]);
+        if (kc == nk - 1) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) epilogue(acc[u], u, grp * p.tps + r, r, st);
+        }
       }
     }
     __syncwarp();
@@ -1342,34 +1566,42 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
   if constexpr (MODE == kModeCount) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      int cl = n_lt[h], ce = n_le[h];
+    for (int i = 0; i < 2 * U; ++i) {
+      int cl = n_lt[i], ce = n_le[i];
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes of one query row
         cl += __shfl_xor_sync(0xffffffffu, cl, off);
         ce += __shfl_xor_sync(0xffffffffu, ce, off);
       }
-      const int qi = qrow + kHi * h;
+      const int qi = qrow[i >> 1] + kHi * (i & 1);
       if (tq == 0 && qi < nq) {
         if (cl) atomicAdd(lt + qi, cl);
         if (ce) atomicAdd(le + qi, ce);
       }
     }
   } else {
+    if constexpr (kQueued) {
+      if (wg_any(queued > 0)) flush();
+    }
 #pragma unroll
-    for (int pp = 0; pp < kPairs; ++pp) {
-      const int qi = qrow + kHi * ((pp & 3) >> 1);
+    for (int k = 0; k < kP; ++k) {
+      const int u = k / kWgPairs, pp = k % kWgPairs;
+      const int qi = qrow[u] + kHi * ((pp & 3) >> 1);
       if (qi >= nq) continue;
-      const int c = c0 + cls + 8 * (pp >> 2) + (pp & 1);
+      const int c = c0 + cb[u] * kWgN + 2 * tq + 8 * (pp >> 2) + (pp & 1);
 #pragma unroll
-      for (int k = 0; k < kTiers; ++k) {
-        const size_t o = ((static_cast<size_t>(split) * nq + qi) * kTiers + k) * kClasses + c;
-        if constexpr (kTiers3) {
-          part_dist[o] = td[pp][k];
-          part_row[o] = ti[pp][k];
+      for (int t = 0; t < kTiers; ++t) {
+        const size_t o = ((static_cast<size_t>(split) * nq + qi) * kTiers + t) * kClasses + c;
+        if constexpr (kQueued) {
+          const uint32_t i = (word(k, kTiers) >> (kWgTileBits * t)) & kWgNoTile;
+          part_dist[o] = __uint_as_float(word(k, t));
+          part_row[o] = i == kWgNoTile ? kInvalidId : (t0 + static_cast<int>(i)) * kClasses + c;
+        } else if constexpr (kRegTiers) {
+          part_dist[o] = td[pp][t];
+          part_row[o] = ti[pp][t];
         } else {
-          part_dist[o] = tier(tds, pp, k);
-          part_row[o] = tier(tis, pp, k);
+          part_dist[o] = tier(tds, pp, t);
+          part_row[o] = tier(tis, pp, t);
         }
       }
     }
@@ -1815,21 +2047,25 @@ cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, con
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// scan_wgmma_kernel<METRIC, MODE, KS, TPS> under plan p: the tensor maps, then
-// the launch. q [nq, d] f32; qpad (chunked plans only) is q rounded to bf16,
-// zero-padded to [query blocks x 64 qt, slabs x 64]. The corpus goes
+// scan_wgmma_kernel<METRIC, MODE, KS, TPS, U> under plan p: the tensor maps,
+// then the launch. q [nq, d] f32; qpad (chunked plans only) is q rounded to
+// bf16, zero-padded to [query blocks x 64 qt, slabs x 64]. The corpus goes
 // through TMA where its rows are 16-byte aligned, else through the
 // producer's copies.
-template <int METRIC, int MODE, int KS, int TPS>
+template <int METRIC, int MODE, int KS, int TPS, int U>
 cudaError_t launch_wgmma(const float* q, const void* qpad, const void* x, const float* bias,
                          const float* cs,
                          const float* thresh, int nq, int n, int d, WgPlan p, float* part_dist,
                          int* part_row, int* lt, int* le, cudaStream_t stream) {
-  const WgLayout L = wg_layout(d, p, MODE == kModeTree);
-  if ((p.qt != 1 && p.qt != 2) || p.tps < 1 || p.tps > 256 || p.cs < 1 || p.cs > L.slabs ||
+  const WgLayout L = wg_layout(d, p, MODE);
+  const bool queued = MODE == kModeTop3 && wg_queued(U, TPS);
+  if (p.units != U || (U == 1 ? p.qt != 1 && p.qt != 2 : p.qt != 4 || p.chunked) ||
+      (queued && (p.queue < kWgPairs / 2 || p.tiles_per_split > kWgMaxSplitTiles)) ||
+      p.tps < 1 || p.tps > 256 || p.cs < 1 || p.cs > L.slabs ||
       p.stages < 2 || p.stages > kWgMaxStages || p.splits < 1 || p.tiles_per_split < 1 ||
-      p.block_tiles < 1 || (p.chunked && (p.tps != TPS || KS > 0)) || (!p.chunked && TPS != 1) ||
-      (!p.chunked && p.cs != L.slabs) || (KS > 0 && KS != 4 * L.slabs) ||
+      p.block_tiles < 1 || (p.chunked && (p.tps != TPS || (KS > 0 && KS != 4 * p.cs))) ||
+      (!p.chunked && TPS != 1) || (!p.chunked && p.cs != L.slabs) ||
+      (KS > 0 && !p.chunked && KS != 4 * L.slabs) ||
       L.total > 232448 || reinterpret_cast<uintptr_t>(bias) % 16 != 0 ||
       (METRIC == kCos && reinterpret_cast<uintptr_t>(cs) % 16 != 0) ||
       (p.chunked && (qpad == nullptr || reinterpret_cast<uintptr_t>(qpad) % 16 != 0))) {
@@ -1872,7 +2108,7 @@ cudaError_t launch_wgmma(const float* q, const void* qpad, const void* x, const 
         tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x, dims, strides, box, true);
     if (err != cudaSuccess) return err;
   }
-  auto kernel = scan_wgmma_kernel<METRIC, MODE, KS, TPS>;
+  auto kernel = scan_wgmma_kernel<METRIC, MODE, KS, TPS, U>;
   const size_t smem = static_cast<size_t>(L.total);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1883,31 +2119,52 @@ cudaError_t launch_wgmma(const float* q, const void* qpad, const void* x, const 
   return cudaGetLastError();
 }
 
-// f(integral_constant<METRIC>, integral_constant<KS>, integral_constant<TPS>)
-// for a runtime metric (K11: L2 and IP only), query-block placement (a_regs
-// 0, 4 or 8; cosine K1 takes 0 only: its tiers and colscale leave no
-// registers for the A fragments, kernels/scan_fused.wgmma_placement) and the
-// tiles a warpgroup multiplies at once (tps: 2 for K1's and K2's chunked
-// plans, else 1).
+// f(integral_constant<METRIC>, integral_constant<KS>, integral_constant<TPS>,
+// integral_constant<U>) for a runtime metric (K11: L2 and IP only),
+// query-block placement (a_regs 0, 4 or 8; cosine K1 at U = 1 takes 0 only:
+// its tiers and colscale leave no registers for the A fragments,
+// kernels/scan_fused.wgmma_placement), the tiles a warpgroup multiplies at
+// once (tps: 2 or 4 for K1's and K2's chunked plans, else 1) and its units
+// (2: the wide tile of A fragments in registers; K1 and K2 only).
 template <int MODE, typename F>
-cudaError_t with_metric_ks(int metric, int a_regs, int tps, F&& f) {
+cudaError_t with_metric_ks(int metric, int a_regs, int tps, int units, F&& f) {
   using L2 = std::integral_constant<int, kL2>;
   using IP = std::integral_constant<int, kIP>;
   using Cos = std::integral_constant<int, kCos>;
   using One = std::integral_constant<int, 1>;
+  using Two = std::integral_constant<int, 2>;
+  using K0 = std::integral_constant<int, 0>;
+  using K4 = std::integral_constant<int, 4>;
+  using K8 = std::integral_constant<int, 8>;
+  using K12 = std::integral_constant<int, 12>;
   auto by_ks = [&](auto m) -> cudaError_t {
     constexpr bool kRegs = !(MODE == kModeTop3 && decltype(m)::value == kCos);
-    if (a_regs == 0) {
-      if (tps == 1) return f(m, std::integral_constant<int, 0>{}, One{});
+    if (units == 2) {
       if constexpr (MODE != kModeTree) {
-        if (tps == 2) return f(m, std::integral_constant<int, 0>{}, std::integral_constant<int, 2>{});
+        if (tps == 1 && a_regs == 4) return f(m, K4{}, One{}, Two{});
+        if (tps == 1 && a_regs == 8) return f(m, K8{}, One{}, Two{});
+      }
+      return cudaErrorInvalidValue;
+    }
+    if (units != 1) return cudaErrorInvalidValue;
+    if (a_regs == 0) {
+      if (tps == 1) return f(m, K0{}, One{}, One{});
+      if constexpr (MODE != kModeTree) {
+        if (tps == 2) return f(m, K0{}, Two{}, One{});
+      }
+      return cudaErrorInvalidValue;
+    }
+    if (tps == 4) {  // the wide tile's chunked stages, A read into registers a stage
+      if constexpr (MODE != kModeTree) {
+        if (a_regs == 8) return f(m, K8{}, K4{}, One{});
+        if (a_regs == 12) return f(m, K12{}, K4{}, One{});
       }
       return cudaErrorInvalidValue;
     }
     if (tps != 1) return cudaErrorInvalidValue;
     if constexpr (kRegs) {
-      if (a_regs == 4) return f(m, std::integral_constant<int, 4>{}, One{});
-      if (a_regs == 8) return f(m, std::integral_constant<int, 8>{}, One{});
+      if (a_regs == 4) return f(m, K4{}, One{}, One{});
+      if (a_regs == 8) return f(m, K8{}, One{}, One{});
     }
     return cudaErrorInvalidValue;
   };
@@ -1927,19 +2184,22 @@ cudaError_t wgmma_dispatch(int metric, const float* q, const void* qpad, const v
                            cudaStream_t stream) {
   // a chunked plan's tiles a stage are the kernel's TPS; other plans run
   // their stages' tiles one after another (TPS = 1)
-  return with_metric_ks<MODE>(metric, p.a_regs, p.chunked ? p.tps : 1, [&](auto m, auto ks,
-                                                                          auto tps) {
-    return launch_wgmma<decltype(m)::value, MODE, decltype(ks)::value, decltype(tps)::value>(
-        q, qpad, x, bias, cs, thresh, nq, n, d, p, part_dist, part_row, lt, le, stream);
+  return with_metric_ks<MODE>(metric, p.a_regs, p.chunked ? p.tps : 1, p.units,
+                              [&](auto m, auto ks, auto tps, auto u) {
+    return launch_wgmma<decltype(m)::value, MODE, decltype(ks)::value, decltype(tps)::value,
+                        decltype(u)::value>(q, qpad, x, bias, cs, thresh, nq, n, d, p, part_dist,
+                                            part_row, lt, le, stream);
   });
 }
 
 template <int MODE>
-cudaError_t wgmma_attributes(int metric, int a_regs, int tps, int* regs, int* local_bytes) {
-  return with_metric_ks<MODE>(metric, a_regs, tps, [&](auto m, auto ks, auto t) {
+cudaError_t wgmma_attributes(int metric, int a_regs, int tps, int units, int* regs,
+                             int* local_bytes) {
+  return with_metric_ks<MODE>(metric, a_regs, tps, units, [&](auto m, auto ks, auto t, auto u) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(
-        &a, scan_wgmma_kernel<decltype(m)::value, MODE, decltype(ks)::value, decltype(t)::value>);
+        &a, scan_wgmma_kernel<decltype(m)::value, MODE, decltype(ks)::value, decltype(t)::value,
+                              decltype(u)::value>);
     if (err == cudaSuccess) {
       *regs = a.numRegs;
       *local_bytes = static_cast<int>(a.localSizeBytes);
@@ -2157,7 +2417,9 @@ int vi_count_below(const void* q, const void* x, const void* bias, const void* c
 }
 
 // K1 (mode 0), K11 (mode 1: bf16, L2 or IP) and K2 (mode 2) on the wgmma
-// design under the plan of kernels/scan_fused.wgmma_plan. q [nq, d] f32
+// design under the plan of kernels/scan_fused.wgmma_plan (units: 64-query
+// tiles a consumer warpgroup; queue: K1's hit queue, entries a thread, where
+// its tiers are out of registers). q [nq, d] f32
 // (rounded to bf16 by the kernel); qpad, for chunked plans only, is q
 // rounded to bf16 and zero-padded to [query blocks x 64 qt, slabs x 64]
 // (16-byte aligned); x [n, d] bf16, n a multiple of 256 (of 256 block_tiles for
@@ -2167,11 +2429,13 @@ int vi_count_below(const void* q, const void* x, const void* bias, const void* c
 // cudaGetLastError().
 int vi_scan_wgmma(int mode, const void* q, const void* qpad, const void* x, const void* bias,
                   const void* colscale, const void* thresh, int nq, int n, int d, int metric,
-                  int qt, int a_regs, int chunked, int cs, int tps, int stages, int splits,
-                  int tiles_per_split, int block_tiles, void* part_dist, void* part_row,
-                  void* out_dist, void* out_row, void* lt, void* le, void* stream) {
+                  int qt, int units, int a_regs, int chunked, int cs, int tps, int stages,
+                  int queue, int splits, int tiles_per_split, int block_tiles, void* part_dist,
+                  void* part_row, void* out_dist, void* out_row, void* lt, void* le,
+                  void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const WgPlan p{qt, a_regs, chunked, cs, tps, stages, splits, tiles_per_split, block_tiles};
+  const WgPlan p{qt, units, a_regs, chunked, cs, tps, stages, queue, splits, tiles_per_split,
+                 block_tiles};
   const auto* qf = static_cast<const float*>(q);
   const auto* bf = static_cast<const float*>(bias);
   const auto* cf = static_cast<const float*>(colscale);
@@ -2199,17 +2463,18 @@ int vi_scan_wgmma(int mode, const void* q, const void* qpad, const void* x, cons
 }
 
 // Registers a thread and local (spilled) bytes of the wgmma design's kernel
-// for metric, mode (0 K1, 1 K11, 2 K2), a_regs (0, 4, 8) and the tiles a
-// warpgroup multiplies at once (tps 1, or 2 for K1's and K2's chunked plans).
-int vi_scan_wgmma_attributes(int metric, int mode, int a_regs, int tps, int* regs,
+// for metric, mode (0 K1, 1 K11, 2 K2), a_regs (0, 4, 8), the tiles a
+// warpgroup multiplies at once (tps 1, or 2 or 4 for K1's and K2's chunked
+// plans) and its units (1, or 2 for K1's and K2's wide tile).
+int vi_scan_wgmma_attributes(int metric, int mode, int a_regs, int tps, int units, int* regs,
                              int* local_bytes) {
   cudaError_t err = cudaErrorInvalidValue;
   if (mode == kModeTop3) {
-    err = wgmma_attributes<kModeTop3>(metric, a_regs, tps, regs, local_bytes);
+    err = wgmma_attributes<kModeTop3>(metric, a_regs, tps, units, regs, local_bytes);
   } else if (mode == kModeTree) {
-    err = wgmma_attributes<kModeTree>(metric, a_regs, tps, regs, local_bytes);
+    err = wgmma_attributes<kModeTree>(metric, a_regs, tps, units, regs, local_bytes);
   } else if (mode == kModeCount) {
-    err = wgmma_attributes<kModeCount>(metric, a_regs, tps, regs, local_bytes);
+    err = wgmma_attributes<kModeCount>(metric, a_regs, tps, units, regs, local_bytes);
   }
   return static_cast<int>(err);
 }

@@ -24,9 +24,11 @@ csrc/scan_fused.cu, in two designs that `scan_design` chooses from the
 corpus dtype alone, at any width: on a bf16 corpus Hopper's asynchronous
 tensor cores (`scan_wgmma_kernel`: wgmma m64n32k16 with f32 accumulation,
 the corpus through a TMA-fed ring, read once a pass where the batch fits
-one CTA (up to 128 queries), the query block resident in registers or
-shared memory, or past d = 448 its k chunk riding in each stage beside the
-rows; `wgmma_plan` sizes each launch); on an f32 corpus the CUDA cores (one
+one CTA (up to 128 queries; 256 at d <= 128, the wide tile of two units a
+warpgroup, K1's tiers in shared memory behind one compare a pair), the
+query block resident in registers or shared memory, or past d = 448 its k
+chunk riding in each stage beside the rows (four tiles' past 64 queries);
+`wgmma_plan` sizes each launch); on an f32 corpus the CUDA cores (one
 f32 FMA chain per dot product, register-tiled over staged corpus tiles,
 rows streamed in k chunks where they do not fit whole; `fma_plan` sizes
 each launch).
@@ -78,29 +80,44 @@ TIERS = 3
 MMA_TILE, MMA_WARPS, MMA_STAGES, MMA_STAGE_ROWS, MMA_PAD = 16, 8, 2, 128, 8
 #: the wgmma design (csrc scan_wgmma_kernel): WG_THREADS threads, two
 #: consumer warpgroups and one producer warpgroup; a consumer warpgroup owns
-#: WG_UNITS unit, one m64n32k16 product (WG_M queries x WG_N classes), so a
-#: CTA covers 64 qt queries x 64 / qt classes (qt = 1 or 2 query tiles).
-#: Rows are staged as WG_SLAB-value k slabs of 128 bytes (kWgThreads,
-#: kWgUnits, kWgN, kSlab)
-WG_THREADS, WG_UNITS, WG_M, WG_N, WG_SLAB = 384, 1, 64, 32, 64
-WG_CTA_UNITS = 2 * WG_UNITS
+#: `units` units (1, or 2 in the wide tile), each one m64n32k16 product
+#: (WG_M queries x WG_N classes), so a CTA covers 64 qt queries x
+#: 64 units / qt classes (qt = 1 or 2 query tiles at one unit, 4 at two).
+#: Rows are staged as WG_SLAB-value k slabs of 128 bytes (kWgThreads, kWgN,
+#: kSlab)
+WG_THREADS, WG_M, WG_N, WG_SLAB = 384, 64, 32, 64
+WG_CONSUMERS = 2
 #: shared bytes before the regions (barriers, alignment), most ring stages
 #: (kWgHeader, kWgMaxStages)
 WG_HEADER, WG_MAX_STAGES = 2048, 8
 #: K11's tiers in shared memory: a distance and a row in 3 tiers of each
 #: consumer thread's WG_N / 2 pairs (kWgTierBytes)
 WG_TIER_BYTES = 2 * (WG_N // 2) * TIERS * 256 * 4
+#: K1's tiers out of registers (the wide tile, wg_queued): WG_TIER_WORDS
+#: words a pair of each consumer thread (3 distances, 3 tile indices of 10
+#: bits, so a split holds at most WG_MAX_SPLIT_TILES tiles), behind a queue
+#: of hits of WG_QUEUE_ENTRY bytes an entry, at least WG_QUEUE_MIN entries a
+#: thread (kWgTierWords, kWgQueueEntry, kWgMaxSplitTiles)
+WG_TIER_WORDS, WG_QUEUE_ENTRY, WG_QUEUE_MIN, WG_MAX_SPLIT_TILES = 4, 8, 8, 1023
+#: stages a ring of whole rows keeps beside K1's tiers and queue (the queue,
+#: which every tile's hits enter, takes the rest)
+WG_QUEUED_STAGES = 3
 #: corpus bytes a stage aims for
 WG_STAGE_BYTES = 16384
 #: ring tiles a chunked stage of K1/K2 holds, each in its own accumulator, so
-#: that each query chunk brought from L2 serves that many tiles (K11: 1)
-WG_CHUNK_TILES = 2
+#: that each query chunk brought from L2 serves that many tiles (K11: 1); past
+#: one query tile (B > 64) the wide tile's WG_WIDE_TILES at two query tiles
+#: (8 tiles' 128 accumulators spill: ptxas holds a consumer thread to the
+#: launch bound's 168 registers)
+WG_CHUNK_TILES, WG_WIDE_TILES = 2, 4
 #: by a chunked stage's tiles: its bytes at most, and the fewest stages of
 #: its ring. K1/K2: 4 slabs of 2 tiles' 64 class rows and 64 query rows in
 #: 2 stages; K11: 4 slabs of one tile's in 3. Fewer bytes a stage took
 #: longer at d = 768-8,192 (each stage pays a wait; 3 slabs in 3 stages
-#: 1.0-1.1x, 1 slab in 8 stages 1.2-1.8x, scripts/ab_scan_wgmma_torch.py)
-WG_CHUNK_RING = {1: (65536, 3), 2: (98304, 2)}
+#: 1.0-1.1x, 1 slab in 8 stages 1.2-1.8x, scripts/ab_scan_wgmma_torch.py).
+#: The wide tile: 3 slabs of 4 tiles' 32 class rows and 128 query rows (K1,
+#: whose tiers and queue take 80 KiB: 2 slabs)
+WG_CHUNK_RING = {1: (65536, 3), 2: (98304, 2), 4: (98304, 2)}
 #: registers a consumer thread holds (setmaxnreg, kConsumerRegs: the
 #: producer warpgroup keeps kProducerRegs of the launch bound's 65,536 /
 #: WG_THREADS = 168), of which WG_REG_BUDGET may be live state of the
@@ -372,80 +389,111 @@ def _grid(nq: int, n: int, d: int, mma: bool, block_tiles: int = 1) -> Tuple[int
 class WgmmaPlan(NamedTuple):
     """One launch of the wgmma design (csrc scan_wgmma_kernel)."""
 
-    qt: int  # 64-query tiles a CTA (1 or 2)
-    g: int  # classes a CTA: its rows of each 256-row tile (64 / qt)
+    qt: int  # 64-query tiles a CTA (1, 2; 4 at two units)
+    g: int  # classes a CTA: its rows of each 256-row tile (64 units / qt)
     qblocks: int  # CTAs along the batch: ceil(nq / 64 qt)
-    a_regs: int  # k16 steps of the query block in registers (4, 8); 0: shared memory
+    a_regs: int  # k16 steps of the query block in registers (4, 8; a wide chunked stage's 4 cs); 0: smem
     chunked: bool  # the query block's k chunk rides in each stage (wide rows)
     cs: int  # 64-value k slabs a stage holds (every slab unless chunked)
-    tps: int  # 256-row tiles a stage holds (chunked: multiplied at once, 1 or 2)
+    tps: int  # 256-row tiles a stage holds (chunked: multiplied at once, 1, 2 or 8)
     stages: int  # shared-memory ring stages
     splits: int
     tiles_per_split: int
     smem: int  # shared bytes a CTA uses
+    units: int = 1  # 64-query tiles a consumer warpgroup multiplies (2: the wide tile)
+    queue: int = 0  # K1's hit queue, entries a thread, where its tiers leave the registers
 
 
 def _slabs(d: int) -> int:
     return -(-d // WG_SLAB)
 
 
+def wg_queued(units: int, tps: int) -> bool:
+    """K1 keeps its tiers out of registers, behind a queue of hits (csrc
+    wg_queued): two units a warpgroup, or more than two accumulators (a
+    chunked stage's tiles) beside them."""
+    return units > 1 or tps > 2
+
+
 def wgmma_smem(d: int, qt: int, a_regs: int, chunked: bool, cs: int, tps: int,
-               stages: int, tiers: bool = False) -> Tuple[int, int]:
+               stages: int, tiers: bool = False, units: int = 1,
+               queue: int = 0) -> Tuple[int, int]:
     """(bytes a ring stage, shared bytes a CTA) of the wgmma design (csrc
     wg_layout): the header, the query block once (k slabs of 64 qt rows of
-    128 bytes, when neither in registers nor chunked), K11's tiers (tiers),
-    then `stages` stages of cs slabs of the tps tiles' 64 / qt class rows,
-    the query block's cs slabs when chunked, and the tiles' bias and
-    colscale (128-byte aligned), each stage rounded up to 1,024 bytes."""
-    g, qb = WG_CTA_UNITS * WG_N // qt, WG_M * qt
+    128 bytes, when neither in registers nor chunked), K11's tiers (tiers)
+    or, for K1's queue of `queue` entries a thread (> 0: its tiers out of
+    registers), K1's tiers and the queue, then `stages` stages of cs slabs
+    of the tps tiles' 64 units / qt class rows, the query block's cs slabs
+    when chunked, and the tiles' bias and colscale (128-byte aligned), each
+    stage rounded up to 1,024 bytes."""
+    g, qb = WG_CONSUMERS * units * WG_N // qt, WG_M * qt
     q_res = _slabs(d) * qb * 128 if a_regs == 0 and not chunked else 0
     bb = -(-tps * g * 4 // 128) * 128
     stage = cs * tps * g * 128 + (cs * qb * 128 if chunked else 0) + 2 * bb
     stage = -(-stage // 1024) * 1024
-    return stage, WG_HEADER + q_res + (WG_TIER_BYTES if tiers else 0) + stages * stage
+    threads = WG_CONSUMERS * 128
+    own = WG_TIER_BYTES if tiers else 0
+    if queue:
+        own = WG_TIER_WORDS * 4 * (WG_N // 2) * units * threads + queue * WG_QUEUE_ENTRY * threads
+    return stage, WG_HEADER + q_res + own + stages * stage
 
 
-def wgmma_registers(a_regs: int, kernel: str, tps: int = 1) -> int:
+def wgmma_registers(a_regs: int, kernel: str, tps: int = 1, units: int = 1) -> int:
     """Registers a consumer thread of the wgmma design holds live in its
-    loop: its accumulator (WG_N / 2) for each of the tps tiles it multiplies
-    at once, the query block's A fragments (4 a k16 step) when in
+    loop: its accumulator (WG_N / 2) for each unit of each of the tps tiles
+    it multiplies at once, each unit's A fragments (4 a k16 step) when in
     registers, and K1's tiers (a distance and a row in each of 3 tiers of
-    its WG_N / 2 (query, class) pairs) and the tile's distances, K11's block
-    minima and their rows (its tiers are in shared memory), or K2's tau and
-    two counts of its 2 queries and the tile's distances."""
-    pairs = WG_UNITS * WG_N // 2
-    own = {"bin_candidates": pairs * (2 * TIERS + 1),
+    its WG_N / 2 (query, class) pairs) and the tile's distances, or where
+    they leave the registers (wg_queued) one threshold a pair, the queue's
+    length and an entry; K11's block minima and their rows (its tiers are in
+    shared memory), or K2's tau and two counts of each unit's 2 queries and
+    a tile's distances."""
+    pairs = units * WG_N // 2
+    own = {"bin_candidates": pairs + 2 if wg_queued(units, tps) else pairs * (2 * TIERS + 1),
            "bin_candidates_tree": pairs * 2,
-           "count_below": 2 * 3 + pairs}[kernel]
-    return tps * pairs + WG_UNITS * 4 * a_regs + own
+           "count_below": units * 2 * 3 + pairs}[kernel]
+    return tps * pairs + units * 4 * a_regs + own
 
 
-def _wgmma_ring(d: int, qt: int, a_regs: int, chunked: bool,
-                tiers: bool, chunk_tiles: int = 1) -> Tuple[int, int, int]:
-    """(cs, tps, stages) of a wgmma CTA's ring: stages of about
+def _wgmma_ring(d: int, qt: int, a_regs: int, chunked: bool, tiers: bool,
+                chunk_tiles: int = 1, units: int = 1,
+                queued: bool = False) -> Tuple[int, int, int, int]:
+    """(cs, tps, stages, queue) of a wgmma CTA's ring: stages of about
     WG_STAGE_BYTES of whole rows (up to 8 tiles) in as many stages (up to
     WG_MAX_STAGES) as fit, fewer tiles a stage until 3 stages fit; chunked
     plans chunk_tiles tiles a stage, of at most WG_CHUNK_RING's bytes of
     rows and query chunk, fewer slabs a stage until its fewest stages fit.
-    stages is 0 where none fits."""
+    K1 with its tiers out of registers (queued) fits them and a queue of
+    at least WG_QUEUE_MIN entries first, and its queue takes what the
+    stages leave (whole rows: WG_QUEUED_STAGES stages). stages is 0 where
+    none fits."""
     slabs = _slabs(d)
-    g, qb = WG_CTA_UNITS * WG_N // qt, WG_M * qt
+    g, qb = WG_CONSUMERS * units * WG_N // qt, WG_M * qt
+    least = WG_QUEUE_MIN if queued else 0
 
     def depth(cs: int, tps: int) -> int:
-        stage, base = wgmma_smem(d, qt, a_regs, chunked, cs, tps, 0, tiers)
+        stage, base = wgmma_smem(d, qt, a_regs, chunked, cs, tps, 0, tiers, units, least)
         return max(0, min(WG_MAX_STAGES, (MAX_SMEM_BYTES - base) // stage))
 
     if chunked:
-        t = chunk_tiles
-        most, fewest = WG_CHUNK_RING[t]
-        cs = max(1, min(slabs, most // ((t * g + qb) * 128)))
-        while depth(cs, t) < fewest and cs > 1:
+        tps = chunk_tiles
+        most, fewest = WG_CHUNK_RING[tps]
+        cs = max(1, min(slabs, most // ((tps * g + qb) * 128)))
+        while depth(cs, tps) < fewest and cs > 1:
             cs -= 1
-        return cs, t, depth(cs, t)
-    tps = max(1, min(8, WG_STAGE_BYTES // (slabs * g * 128)))
-    while depth(slabs, tps) < 3 and tps > 1:
-        tps //= 2
-    return slabs, tps, depth(slabs, tps)
+    else:
+        cs = slabs
+        tps = max(1, min(8, WG_STAGE_BYTES // (slabs * g * 128)))
+        while depth(slabs, tps) < 3 and tps > 1:
+            tps //= 2
+    stages = depth(cs, tps)
+    queue = 0
+    if queued and not chunked:
+        stages = min(stages, WG_QUEUED_STAGES)
+    if queued:
+        stage, base = wgmma_smem(d, qt, a_regs, chunked, cs, tps, stages, tiers, units, 1)
+        queue = 1 + (MAX_SMEM_BYTES - base) // (WG_QUEUE_ENTRY * WG_CONSUMERS * 128)
+    return cs, tps, stages, queue
 
 
 def wgmma_plan(nq: int, n: int, d: int, *, block_tiles: int = 1, a_mode: Optional[str] = None,
@@ -457,91 +505,123 @@ def wgmma_plan(nq: int, n: int, d: int, *, block_tiles: int = 1, a_mode: Optiona
     query tiles, class groups and splits for one (nq, d), so that their
     distances agree bit for bit: the fewest 64-query tiles that hold the
     batch (up to 2, so every query of a batch up to 128 is in one CTA and
-    the corpus is read once a pass; K1's tiers in registers allow no more),
-    the query block in registers while a row is at most 2 slabs (d <= 128),
-    else resident in shared memory for the whole pass (with fewer query
-    tiles a CTA if that is what fits beside 3 stages of whole rows), else
-    streamed with each stage's k chunk at one query tile beside
-    WG_CHUNK_TILES tiles' k chunk (K11: one tile's), each tile in its own
-    accumulator, so each query chunk crosses from L2 once for that many
-    tiles; as many row splits as fill the card once with one CTA an SM
-    (chunked: each split a multiple of the stage's tiles). a_mode places the
-    query block ("regs", "smem" or "chunked"), qt sets the query tiles and
-    chunk_tiles a chunked stage's tiles (1 or 2) by hand (the A/B sweep's
-    variants: the same floats bit for bit, which the cuda tests check); a
-    plan that does not fit raises."""
+    the corpus is read once a pass), the query block in registers while a
+    row is at most 2 slabs (d <= 128), else resident in shared memory for
+    the whole pass (with fewer query tiles a CTA if that is what fits beside
+    3 stages of whole rows), else streamed with each stage's k chunk at one
+    query tile beside WG_CHUNK_TILES tiles' k chunk (K11: one tile's), each
+    tile in its own accumulator, so each query chunk crosses from L2 once for
+    that many tiles; as many row splits as fill the card once with one CTA an
+    SM (chunked: each split a multiple of the stage's tiles): the narrow
+    tile, one unit a warpgroup. Past one query tile (B > 64) K1 and K2 take
+    the wide tile, K1's tiers out of registers (wg_queued): at d <= 128 four
+    query tiles a CTA, two units a warpgroup (every query of a batch up to
+    256 in one CTA); streamed wide rows two query tiles beside
+    WG_WIDE_TILES tiles a stage (128 queries x 128 rows, each stage's query
+    chunk read into registers once for its tiles: a_regs = 4 cs); splits of
+    at most WG_MAX_SPLIT_TILES tiles. (Between, at 128 < d <= 448, a
+    resident block of 256 queries leaves K1's tiers no room: the narrow
+    tile.) a_mode places the query block ("regs", "smem" or "chunked"), qt
+    sets the query tiles (4: two units a warpgroup, from registers) and
+    chunk_tiles a chunked stage's tiles (1, 2 or WG_WIDE_TILES) by hand
+    (the A/B sweep's variants: the same floats bit for bit, which the cuda
+    tests check; qt=2 below d = 129 and chunk_tiles=2 past d = 448 give the
+    narrow tile at any batch); a plan that does not fit raises."""
     if d < 1:
         raise ValueError(f"d={d} is outside the wgmma route (d >= 1)")
     if kernel not in _WGMMA_MODES:
         raise ValueError(f"wgmma_plan plans {tuple(_WGMMA_MODES)}, got {kernel}")
-    if qt not in (None, 1, 2):
-        raise ValueError(f"qt must be 1 or 2, got {qt}")
+    if qt not in (None, 1, 2, 4):
+        raise ValueError(f"qt must be 1, 2 or 4, got {qt}")
     tiers = kernel == "bin_candidates_tree"
-    if chunk_tiles is None:
-        chunk_tiles = 1 if tiers else WG_CHUNK_TILES
-    if chunk_tiles not in (1, 2) or (tiers and chunk_tiles != 1):
-        raise ValueError(f"chunk_tiles must be 1 or 2 (K11: 1), got {chunk_tiles}")
+    if tiers and qt == 4:
+        raise ValueError("qt must be 1 or 2 for K11, whose plan stays one unit a warpgroup")
+    wide = not tiers and nq > WG_M  # the wide tile's batches
+    if chunk_tiles is None:  # one query tile by hand: the narrow tile's stages
+        chunk_tiles = 1 if tiers else (WG_WIDE_TILES if wide and qt != 1 else WG_CHUNK_TILES)
+    if chunk_tiles not in (1, 2, WG_WIDE_TILES) or (tiers and chunk_tiles != 1):
+        raise ValueError(f"chunk_tiles must be 1, 2 or {WG_WIDE_TILES} (K11: 1), got {chunk_tiles}")
     slabs = _slabs(d)
-    qt_want = qt or (1 if nq <= WG_M else 2)
     if a_mode is None:
         a_mode = "regs" if slabs <= 2 else "smem"
+    if a_mode != "regs" and qt == 4:
+        raise ValueError("qt=4 (two units a warpgroup) takes the query block from registers")
+    chunked_qt = 2 if chunk_tiles == WG_WIDE_TILES else 1
     if a_mode == "regs":
         if slabs > 2:
             raise ValueError(f"d={d}: the query block goes in registers only up to d = 128")
-        qt, a_regs, chunked = qt_want, 4 * slabs, False
+        qt = qt or (1 if nq <= WG_M else 2 if nq <= 2 * WG_M or not wide else 4)
+        a_regs, chunked = 4 * slabs, False
     elif a_mode == "smem":
+        qt_want = qt or (1 if nq <= WG_M else 2)
         qt = next((t for t in (2, 1) if t <= qt_want and (qt is None or t == qt)
                    and _wgmma_ring(d, t, 0, False, False)[2] >= 3), None)
         a_regs, chunked = 0, qt is None
-        qt = qt or 1
+        qt = qt or chunked_qt
     elif a_mode == "chunked":
-        qt, a_regs, chunked = qt or 1, 0, True
+        qt, a_regs, chunked = qt or chunked_qt, 0, True
     else:
         raise ValueError(f"a_mode must be 'regs', 'smem' or 'chunked', got {a_mode!r}")
-    cs, tps, stages = _wgmma_ring(d, qt, a_regs, chunked, tiers, chunk_tiles)
+    units = 2 if qt == 4 else 1
+    queued = kernel == "bin_candidates" and wg_queued(units, chunk_tiles if chunked else 1)
+    cs, tps, stages, queue = _wgmma_ring(d, qt, a_regs, chunked, tiers, chunk_tiles, units, queued)
     if tiers and a_regs == 0 and not chunked and stages < 3:
         # K11's tiers leave no room for the resident query block: its k
         # chunks ride in each stage, at K1's query tiles
         chunked = True
-        cs, tps, stages = _wgmma_ring(d, qt, a_regs, chunked, tiers, chunk_tiles)
-    if stages < 2:
-        raise ValueError(f"no wgmma stage ring fits d={d} at qt={qt}, a_mode={a_mode}")
-    g, qb = WG_CTA_UNITS * WG_N // qt, WG_M * qt
+        cs, tps, stages, queue = _wgmma_ring(d, qt, a_regs, chunked, tiers, chunk_tiles)
+    if stages < 2 or (queued and queue < WG_QUEUE_MIN):
+        raise ValueError(f"no wgmma stage ring fits d={d} at qt={qt}, a_mode={a_mode}, "
+                         f"chunk_tiles={chunk_tiles}")
+    if chunked and tps == WG_WIDE_TILES:
+        a_regs = 4 * cs  # the wide tile reads each stage's query chunk into registers
+    g, qb = WG_CONSUMERS * units * WG_N // qt, WG_M * qt
     qblocks = -(-max(nq, 1) // qb)
     ntiles = max(1, n // C)
     align = math.lcm(tps, block_tiles) if chunked else block_tiles
     splits, per = _splits(max(1, SMS // (qblocks * (C // g))), ntiles, align)
+    if wg_queued(units, tps if chunked else 1) and per > WG_MAX_SPLIT_TILES:
+        # K1 keeps a tier's row as its tile's index in the split (K2 takes
+        # the same splits)
+        most = WG_MAX_SPLIT_TILES // align * align
+        splits, per = _splits(-(-ntiles // most), ntiles, align)
     return WgmmaPlan(qt, g, qblocks, a_regs, chunked, cs, tps, stages, splits, per,
-                     wgmma_smem(d, qt, a_regs, chunked, cs, tps, stages, tiers)[1])
+                     wgmma_smem(d, qt, a_regs, chunked, cs, tps, stages, tiers, units, queue)[1],
+                     units, queue)
 
 
-def wgmma_placement(kernel: str, metric: Metric, d: int) -> Optional[str]:
-    """The query block's placement `kernel` takes (wgmma_plan's a_mode):
-    the plan's own, except that cosine K1 takes it from shared memory where
-    the plan would hold it in registers (d <= 128): its tiers and colscale
-    leave no registers for the A fragments. (K11 keeps its tiers in shared
-    memory, so its A fragments fit.) The placement does not change the
-    floats (the cuda tests hold every placement's K1 to the others' bit for
-    bit), so K2 still recomputes cosine K1's floats."""
+def wgmma_placement(kernel: str, metric: Metric, d: int,
+                    nq: Optional[int] = None) -> Optional[str]:
+    """The query block's placement `kernel` takes (wgmma_plan's a_mode)
+    for nq queries (None: a batch of at most 128): the plan's own, except
+    that cosine K1 takes it from shared memory where the plan would hold it
+    in registers (d <= 128) beside K1's tiers in registers (B <= 128): its
+    tiers and colscale leave no registers for the A fragments. (K11 keeps
+    its tiers in shared memory, and the wide tile K1's, so their A fragments
+    fit.) The placement does not change the floats (the cuda tests hold
+    every placement's K1 to the others' bit for bit), so K2 still
+    recomputes cosine K1's floats."""
     takes_smem = kernel == "bin_candidates" and metric == Metric.COSINE
-    return "smem" if takes_smem and _slabs(d) <= 2 else None
+    in_registers = nq is None or nq <= 2 * WG_M
+    return "smem" if takes_smem and _slabs(d) <= 2 and in_registers else None
 
 
 def wgmma_thread_map(plan: WgmmaPlan) -> Tuple[Tensor, Tensor]:
-    """(queries [256, 16], classes [256, 16]): the (query, class) pairs of
-    the CTA's block and group each consumer thread of a wgmma CTA owns, as
-    csrc scan_wgmma_kernel maps them: thread t is lane t % 32 of warp
-    (t // 32) % 4 of consumer warpgroup w = t // 128, whose unit is query
-    tile w % qt against class block w // qt; pair 4 j + e is query
-    64 (w % qt) + 16 warp + lane // 4 + 8 (e // 2) and class
-    32 (w // qt) + 8 j + 2 (lane % 4) + e % 2. Its classes' rows are its
-    pairs' rows in every tile."""
-    t = torch.arange(2 * 128)
+    """(queries [256, 16 units], classes [256, 16 units]): the (query,
+    class) pairs of the CTA's block and group each consumer thread of a
+    wgmma CTA owns, as csrc scan_wgmma_kernel maps them: thread t is lane
+    t % 32 of warp (t // 32) % 4 of consumer warpgroup w = t // 128, whose
+    unit u is the CTA's unit i = units w + u, query tile i % qt against class
+    block i // qt; pair 16 u + 4 j + e is query 64 (i % qt) + 16 warp +
+    lane // 4 + 8 (e // 2) and class 32 (i // qt) + 8 j + 2 (lane % 4) +
+    e % 2. Its classes' rows are its pairs' rows in every tile."""
+    t = torch.arange(WG_CONSUMERS * 128)
     wg, warp, lane = t // 128, (t // 32) % 4, t % 32
-    pair = torch.arange(WG_UNITS * WG_N // 2)
-    j, e = pair // 4, pair % 4
-    queries = WG_M * (wg % plan.qt)[:, None] + 16 * warp[:, None] + (lane // 4)[:, None] + 8 * (e // 2)
-    classes = WG_N * (wg // plan.qt)[:, None] + 8 * j + 2 * (lane % 4)[:, None] + e % 2
+    pair = torch.arange(plan.units * WG_N // 2)
+    u, j, e = pair // 16, (pair % 16) // 4, pair % 4
+    unit = plan.units * wg[:, None] + u
+    queries = WG_M * (unit % plan.qt) + 16 * warp[:, None] + (lane // 4)[:, None] + 8 * (e // 2)
+    classes = WG_N * (unit // plan.qt) + 8 * j + 2 * (lane % 4)[:, None] + e % 2
     return queries, classes
 
 
@@ -667,10 +747,12 @@ def fma_attributes() -> dict:
 
 
 def wgmma_attributes() -> dict:
-    """{(kernel, metric, a_regs, tps): (registers a thread, local bytes a
-    thread)} of every kernel of the wgmma design (tps: the tiles a
-    warpgroup multiplies at once, 2 in K1's and K2's chunked plans), from
-    the CUDA runtime: local bytes above 0 mean ptxas spilled."""
+    """{(kernel, metric, a_regs, tps, units): (registers a thread, local
+    bytes a thread)} of every kernel of the wgmma design (tps: the tiles a
+    warpgroup multiplies at once, 2 or WG_WIDE_TILES in K1's and K2's
+    chunked plans, the latter with a stage's 2 or 3 slabs of A in
+    registers; units: 2 in their wide tile from registers), from the CUDA
+    runtime: local bytes above 0 mean ptxas spilled."""
     import ctypes
 
     from vectorindex_tpu_torch.kernels import _build
@@ -681,17 +763,20 @@ def wgmma_attributes() -> dict:
         for metric, mcode in _METRIC_CODE.items():
             if kernel == "bin_candidates_tree" and metric == Metric.COSINE:
                 continue
-            # the placements the kernel is built for (wgmma_placement), and
-            # the chunked plans' two tiles a stage (K1, K2)
-            builds = [(a, 1) for a in ((0,) if wgmma_placement(kernel, metric, 128) else (0, 4, 8))]
+            # the placements the kernel is built for (wgmma_placement), the
+            # chunked plans' tiles a stage and the wide tile's two units
+            # from registers (K1, K2)
+            builds = [(a, 1, 1) for a in
+                      ((0,) if wgmma_placement(kernel, metric, 128) else (0, 4, 8))]
             if kernel != "bin_candidates_tree":
-                builds.append((0, WG_CHUNK_TILES))
-            for a_regs, tps in builds:
+                builds += [(0, WG_CHUNK_TILES, 1), (8, WG_WIDE_TILES, 1), (12, WG_WIDE_TILES, 1),
+                           (4, 1, 2), (8, 1, 2)]
+            for a_regs, tps, units in builds:
                 regs, local = ctypes.c_int(), ctypes.c_int()
-                err = lib.vi_scan_wgmma_attributes(mcode, mode, a_regs, tps, ctypes.byref(regs),
-                                                   ctypes.byref(local))
+                err = lib.vi_scan_wgmma_attributes(mcode, mode, a_regs, tps, units,
+                                                   ctypes.byref(regs), ctypes.byref(local))
                 _build.check(lib, err, "vi_scan_wgmma_attributes")
-                out[(kernel, metric.value, a_regs, tps)] = (regs.value, local.value)
+                out[(kernel, metric.value, a_regs, tps, units)] = (regs.value, local.value)
     return out
 
 
@@ -741,7 +826,7 @@ def _wgmma_launch(name: str, q: Tensor, x: Tensor, bias: Tensor, colscale: Optio
     if nq == 0 or n == 0:
         return out if count else (out[0].fill_(INVALID_DIST), out[1].fill_(INVALID_ID))
     p = plan or wgmma_plan(nq, n, d, block_tiles=tile // C,
-                           a_mode=wgmma_placement(name, metric, d), kernel=name)
+                           a_mode=wgmma_placement(name, metric, d, nq), kernel=name)
     qp = _query_block(q, p) if p.chunked else None
     bias, colscale = _aligned16(bias), _aligned16(colscale)
     if not count:
@@ -750,8 +835,9 @@ def _wgmma_launch(name: str, q: Tensor, x: Tensor, bias: Tensor, colscale: Optio
     lib = _build.load()
     err = lib.vi_scan_wgmma(
         _WGMMA_MODES[name], q.data_ptr(), _ptr(qp), x.data_ptr(), bias.data_ptr(), _ptr(colscale),
-        _ptr(thresh), nq, n, d, _METRIC_CODE[metric], p.qt, p.a_regs, int(p.chunked), p.cs,
-        p.tps, p.stages, p.splits, p.tiles_per_split, tile // C, _ptr(parts[0]), _ptr(parts[1]),
+        _ptr(thresh), nq, n, d, _METRIC_CODE[metric], p.qt, p.units, p.a_regs, int(p.chunked),
+        p.cs, p.tps, p.stages, p.queue, p.splits, p.tiles_per_split, tile // C, _ptr(parts[0]),
+        _ptr(parts[1]),
         None if count else out[0].data_ptr(), None if count else out[1].data_ptr(),
         out[0].data_ptr() if count else None, out[1].data_ptr() if count else None, _stream(x),
     )

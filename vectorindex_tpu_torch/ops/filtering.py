@@ -48,8 +48,10 @@ def _pack(mask: torch.Tensor) -> torch.Tensor:
     return (bits.view(nw, WORD_BITS) << _shifts(mask.device)).sum(dim=1)
 
 
-def bitset_from_ids(ids, n: int, device="cpu") -> torch.Tensor:
-    """Build a packed bitset [ceil(n/32)] from a host list/array of ids."""
+def bitset_from_ids(ids, n: int, device="cuda") -> torch.Tensor:
+    """Build a packed bitset [ceil(n/32)] from a host list/array of ids, on
+    `device` (the card unless the caller asks for the CPU, as the JAX
+    counterpart returns a device array)."""
     ids = torch.as_tensor(np.asarray(ids, dtype=np.int64), device=device)
     mask = torch.zeros(n, dtype=torch.bool, device=device)
     if ids.numel():
@@ -155,12 +157,14 @@ def filter_mask(
     n: int,
     allow_ids=None,
     deny_ids=None,
+    device="cuda",
 ) -> torch.Tensor:
     """Convenience: dense allow mask from optional allow/deny id lists
-    (reference idFilterPass allow/deny modes)."""
-    mask = torch.ones(n, dtype=torch.bool)
+    (reference idFilterPass allow/deny modes), on `device` (the card unless
+    the caller asks for the CPU)."""
+    mask = torch.ones(n, dtype=torch.bool, device=device)
     if allow_ids is not None:
-        mask &= bitset_to_mask(bitset_from_ids(allow_ids, n), n)
+        mask &= bitset_to_mask(bitset_from_ids(allow_ids, n, device=device), n)
     if deny_ids is not None:
-        mask &= ~bitset_to_mask(bitset_from_ids(deny_ids, n), n)
+        mask &= ~bitset_to_mask(bitset_from_ids(deny_ids, n, device=device), n)
     return mask
