@@ -124,6 +124,18 @@ just after:
         wide tile also in turns with the narrow tile's plan (plan_turns), whose
         floats it equals bit for bit.
 
+  band (phase_flat_band): 2^20 x 384 bf16 rows (0.8 GB, drawn on the card
+        from a seed; the band 128 < d <= 448 between the register-resident
+        and the streamed query block) through scan_topk_fused at B = 128
+        and 256: K1/K2 on the wgmma design, every query exact, recall@10 =
+        1.0 under the tie rule against a row-chunked f64 brute force; K1/K2
+        within the parity rule of their plain versions and of the first
+        tensor-core design, K1 <-> K2 bit for bit, the route's wide tile bit
+        for bit with the narrow tile's plan and timed in turns with it and with
+        the first design, beside their plain versions, cuBLAS's bf16 q x^T
+        and their bound. The MIPS index (d = 256, phase_api_flat) takes the
+        same turns at B=256.
+
   f32 past 7,264 (phase_flat_f32_xwide): 2^17 x 8,192 f32 rows through
         scan_topk_fused at B=8: K1/K2 on the FMA design (past the first FMA
         design's width), every query exact, recall@10 = 1.0, within the
@@ -354,6 +366,11 @@ FLAT_F32_WIDE_ROWS, FLAT_F32_WIDE_DIM, FLAT_F32_WIDE_BATCHES = 1 << 20, 768, (25
 #: scan_topk_fused on the tensor cores at B = 8, 64 (one query block), 128
 #: and 256 (two and four)
 FLAT_4K_ROWS, FLAT_4K_DIM, FLAT_4K_BATCHES = 1 << 20, 4096, (8, 64, 128, 256)
+#: the band between the register-resident and the streamed query block
+#: (128 < d <= 448): 2^20 bf16 rows at d = 384 (all-MiniLM-L6-v2,
+#: bge-small; 0.8 GB) drawn on the card, through scan_topk_fused at B = 128
+#: and 256, past one query tile (the wide chunked tile)
+FLAT_BAND_ROWS, FLAT_BAND_DIM, FLAT_BAND_BATCHES = 1 << 20, 384, (128, 256)
 #: f32 rows past the first FMA design's width (d > 7,264): 2^17 x 8,192
 #: (4.3 GB) through scan_topk_fused at B=8 on the FMA design
 FLAT_F32_XWIDE_ROWS, FLAT_F32_XWIDE_DIM, FLAT_F32_XWIDE_BATCH = 1 << 17, 8192, 8
@@ -511,7 +528,8 @@ def narrow_plan(sf, nq: int, n: int, d: int, kernel: str):
     query block in shared memory there)."""
     if sf.wgmma_plan(1, n, d).chunked:
         return sf.wgmma_plan(nq, n, d, kernel=kernel, chunk_tiles=sf.WG_CHUNK_TILES)
-    return sf.wgmma_plan(nq, n, d, kernel=kernel, qt=min(2, -(-nq // 64)))
+    return sf.wgmma_plan(nq, n, d, kernel=kernel, qt=min(2, -(-nq // 64)),
+                         chunk_tiles=sf.WG_CHUNK_TILES)
 
 
 def plan_turns(sf, qk, x, bias, cs, tau, metric, iters: int, calls: int,
@@ -2042,6 +2060,62 @@ def phase_flat_wide_full(sf, topk, errs) -> dict:
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"4k wide: phase {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_flat_band(sf, topk, errs) -> dict:
+    """The band's corpus: FLAT_BAND_ROWS x FLAT_BAND_DIM bf16 rows drawn on
+    the card from a seed (queries near some rows, rounded to bf16), through
+    scan_topk_fused at each of FLAT_BAND_BATCHES: K1/K2 on the wgmma design,
+    every query proved exact (no strict fallback), recall@10 = 1.0 under the
+    tie rule against a row-chunked f64 brute force; then wide_figures: K1/K2
+    held to their plain versions by the parity rule and K1 <-> K2 bit for
+    bit, K1 and K2 on the route's wide tile bit for bit with the narrow
+    tile's plan, timed in turns with it and with the first tensor-core
+    design, beside their plain versions, cuBLAS's bf16 q x^T and their
+    bound."""
+    from vectorindex_tpu_torch.utils.config import Metric
+
+    t_phase = time.perf_counter()
+    n, d = FLAT_BAND_ROWS, FLAT_BAND_DIM
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + d)
+    x = torch.empty((n, d), dtype=torch.bfloat16, device=DEVICE)
+    sq = torch.empty(n, device=DEVICE)
+    for s in range(0, n, 1 << 18):
+        xs = torch.randn((min(1 << 18, n - s), d), generator=gen, device=DEVICE).bfloat16()
+        x[s : s + len(xs)] = xs
+        xf = xs.float()
+        sq[s : s + len(xs)] = (xf * xf).sum(dim=1)
+    del xs, xf
+    nq = sum(FLAT_BAND_BATCHES)
+    pick = torch.randint(0, n, (nq,), generator=gen, device=DEVICE)
+    queries = (x[pick].float() + 0.1 * torch.randn((nq, d), generator=gen, device=DEVICE)
+               ).bfloat16().float()
+    xp, sqp, vp = sf.pad_corpus(x, sq, None)
+    log(f"band: {n} x {d} bf16 ({n * d * 2 / 1e9:.2f} GB) drawn on the card in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    out, start = {"launches": {"bin_candidates": 0, "count_below": 0}}, 0
+    for b in FLAT_BAND_BATCHES:
+        q = queries[start : start + b].contiguous()
+        start += b
+        ids, launched = fused_counted(sf, q, xp, sqp, vp, "wgmma", f"band B={b}")
+        for name, c in launched.items():
+            out["launches"][name] += c
+        r_tie, r_set = fused_recall64(x, q, ids, MAIN_K)
+        require(r_tie == 1.0, f"band B={b}: recall@{MAIN_K} {r_tie} < 1 under the tie rule")
+        log(f"band: B={b} through scan_topk_fused: K1/K2 launches on the wgmma design {launched}, "
+            f"every query exact, recall@{MAIN_K}={r_tie} under the tie rule against f64 brute force "
+            f"(set recall {r_set})")
+        qk, bias, cs, _ = sf.kernel_inputs(q, sqp, vp, Metric.L2)
+        t = wide_figures(sf, topk, qk, xp, bias, cs, errs, f"band B={b}", 10, 3, 2)
+        require(t["narrow"] is not None, f"band B={b}: the route takes the narrow tile's plan")
+        t["launches"] = launched
+        t["recall"] = r_tie
+        out[b] = t
+    del x, xp, sqp, vp, sq, queries
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"band: phase {out['phase_s']:.1f} s")
     return out
 
 
@@ -3791,6 +3865,11 @@ def phase_api_flat(sf, topk, idx, batches, api: Api, errs) -> None:
         m[name + "_first_design_device_ms"] = mt[name + "_v1_dev"]
     for name in ("bin_candidates", "count_below"):
         m[name + "_bound"] = flat_bound(x.shape[0], dim, len(big), 2, name)
+    # the band (d = 256) past one query tile: the route's tiles against the
+    # narrow tile's plan, bit for bit and in turns; cuBLAS's bf16 q x^T beside
+    m["narrow"] = plan_turns(sf, qk, x, bias, cs, tau, Metric.L2, 10, 5)
+    qb = qk.to(x.dtype)
+    m["cublas_product_ms"] = time_ms(lambda: torch.matmul(qb, x.T), 10)
     q8 = torch.from_numpy(small).to(DEVICE)
     hybrid = mips.mips_hybrid_score_block(q8, x_dev, r2)
     virtual = mips.mips_virtual_to_l2_scores(scoring.inner_product_block(q8, x_dev),
@@ -3808,7 +3887,8 @@ def phase_api_flat(sf, topk, idx, batches, api: Api, errs) -> None:
         f"versions at d={dim} (K1 max_abs_err {k1:.3g}, K2 count diff {k2}); B={MAIN_BATCH} K1 "
         f"{m['bin_candidates_ms']:.4g} ms (bound {m['bin_candidates_bound'][0]:.4g}), K2 "
         f"{m['count_below_ms']:.4g} ms (bound {m['count_below_bound'][0]:.4g}); in turns with the "
-        f"first design: {design_log(mt)}; hybrid == virtual "
+        f"first design: {design_log(mt)}; {plan_log(m['narrow'])}; cuBLAS q x^T alone "
+        f"{m['cublas_product_ms']:.4g} ms; hybrid == virtual "
         f"bit for bit, within 2e-4 of the explicit augmentation")
 
     # -- the acceleration seam on the flat index --
@@ -4516,6 +4596,7 @@ def run(ps: Persist) -> int:
         xwide = phase_api_verified_wide(sf, topk, api, errs)
     f32_wide = phase_flat_f32_wide(sf, topk, errs)
     wide_full = phase_flat_wide_full(sf, topk, errs)
+    band = phase_flat_band(sf, topk, errs)
     f32_xwide = phase_flat_f32_xwide(sf, topk, errs)
 
     errs.update(phase_ivf_compare(kp))
@@ -4588,7 +4669,9 @@ def run(ps: Persist) -> int:
         k["mips"] = {"ms": m[name + "_ms"], "device_ms": m[name + "_device_ms"],
                      "first_design_ms": m[name + "_first_design_ms"],
                      "first_design_device_ms": m[name + "_first_design_device_ms"],
-                     "bound_ms": m[name + "_bound"][0], "bound_by": m[name + "_bound"][1]}
+                     "bound_ms": m[name + "_bound"][0], "bound_by": m[name + "_bound"][1],
+                     "cublas_product_ms": m["cublas_product_ms"],
+                     **narrow_fields(m["narrow"], name)}
         # wide bf16 rows on the wgmma design, each timed in turns with the
         # FMA design (their earlier route), beside cuBLAS's bf16 q x^T alone
         def wide_shape(t, launches=None):
@@ -4603,6 +4686,8 @@ def run(ps: Persist) -> int:
                 xwide[b], xwide[b]["launches"][name]) for b in VERIFIED_BATCHES},
             **{f"bf16 {FLAT_4K_ROWS}x{FLAT_4K_DIM} B={b} (4k wide)": wide_shape(
                 wide_full[b], wide_full[b]["launches"][name]) for b in FLAT_4K_BATCHES},
+            **{f"bf16 {FLAT_BAND_ROWS}x{FLAT_BAND_DIM} B={b} (band)": wide_shape(
+                band[b], band[b]["launches"][name]) for b in FLAT_BAND_BATCHES},
         }
         # and on the FMA design: the bench CLI's f32 flat index (B=256, its
         # launches; B=8), the f32 rows at d = 768 and at d = 8,192 (past the
@@ -4679,7 +4764,7 @@ def run(ps: Persist) -> int:
     other = {"pq_host_tier": tier_launches, "hostpq": host_launches, "persist": ps.launches,
              **api.launches, "bench": bench["launches"], "bench_sweep": bench["sweep_launches"],
              "flat_wide (wgmma)": wide_launches, "api_verified_wide (wgmma)": xwide["launches"],
-             "flat_wide_4k (wgmma)": wide_full["launches"],
+             "flat_wide_4k (wgmma)": wide_full["launches"], "flat_band (wgmma)": band["launches"],
              "flat_f32_wide (fma)": {n: sum(f32_wide[b]["launches"][n] for b in FLAT_F32_WIDE_BATCHES)
                                      for n in ("bin_candidates", "count_below")},
              "flat_f32_xwide (fma)": f32_xwide["launches"]}
@@ -4703,6 +4788,10 @@ def run(ps: Persist) -> int:
                     f"{wide_full[b]['count_below']:.4g} ms (FMA design "
                     f"{wide_full[b]['bin_candidates_v1']:.4g} / {wide_full[b]['count_below_v1']:.4g})"
                     for b in FLAT_4K_BATCHES)
+        + f"; band {FLAT_BAND_ROWS}x{FLAT_BAND_DIM} "
+        + ", ".join(f"B={b} {band[b]['bin_candidates']:.4g} / {band[b]['count_below']:.4g} ms "
+                    f"(narrow tile {band[b]['narrow']['bin_candidates_narrow']:.4g} / "
+                    f"{band[b]['narrow']['count_below_narrow']:.4g})" for b in FLAT_BAND_BATCHES)
         + f"; f32 d={FLAT_F32_XWIDE_DIM} B={FLAT_F32_XWIDE_BATCH} {f32_xwide['bin_candidates']:.4g} / "
         f"{f32_xwide['count_below']:.4g} ms; f32 FMA {BENCH_ROWS}x{BENCH_DIM} B={BENCH_QUERIES} "
         f"{bf[BENCH_QUERIES]['bin_candidates']:.4g} / {bf[BENCH_QUERIES]['count_below']:.4g} ms (first "

@@ -3,47 +3,52 @@
 over bf16 row widths on one GPU, against the narrow tile's plan and the first
 tensor-core design.
 
-    python3 scripts/ab_scan_wgmma_torch.py [--dims 100,128,256,512,768,1024,1536,2400,3072,4096,8192]
+    python3 scripts/ab_scan_wgmma_torch.py [--dims 100,128,136,...,8192]
                                            [--batches 8,256] [--rounds 3] [--no-earlier]
                                            [--out build/ab_scan_wgmma.json]
 
-Builds the port's kernels and prints the CUDA runtime's registers and local
-(spilled) bytes of every wgmma-design kernel; then, for each width d and
-batch B (2^20 slots, 1,000,000 live gaussian bf16 rows made on the card from
-a seed, L2, k = 10), times K1 and K2 under wgmma_plan's own plan (through
-the `bin_candidates` / `count_below` wrappers: the route a flat index
-takes), under the narrow tile's plan where the route's differs (past one query
-tile: the wide tile against two query tiles a CTA, or two ring tiles a
-chunked stage, through wgmma_plan's hand arguments), under each other
-variant that fits (the query block's k chunk riding in each stage at one
-or two 64-query tiles, beside one ring tile's k chunk (the first chunked
-design), two or four, each in its own accumulator, with 1, 2, 3, 4 or 6
-slabs a stage and as many stages as fit; resident in shared memory at one),
-and (unless --no-earlier) in the earlier design of these rows: the first tensor-core design
-(`*_mma_v1`) up to d = 2,400, its route, and the FMA design on the CUDA
-cores (`bin_candidates_fma` / `count_below_fma`, the route of bf16 rows past
-2,400 before the tensor cores took them) past it, in `--rounds` rounds of
-turns (the order rotates each round): CUDA events over enough launches for
-about 20 ms. Every wgmma variant's K1 is first checked bit for bit against
-the plan's own (the placement does not change the floats). At d = 128 and
+Builds the port's kernels and prints `nvcc -Xptxas -v`'s stack frame, spills
+and registers of every wgmma-design kernel instance, the highest register
+each instance's SASS names (beside the launch bound's 168 a thread:
+setmaxnreg raises the consumers to 224) and its calls, and the CUDA runtime's
+registers and local (spilled) bytes; then, for each width d and batch B (2^20
+slots, 1,000,000 live gaussian bf16 rows made on the card from a seed, L2,
+k = 10), times K1 and K2 under wgmma_plan's own plan (through the
+`bin_candidates` / `count_below` wrappers: the route a flat index takes),
+under the narrow tile's plan where the route's differs (past one query tile:
+two query tiles a CTA, resident or from registers, or two ring tiles a
+chunked stage at one, through wgmma_plan's hand arguments), under each other
+variant that fits (the query block's k chunk riding in each stage at one or
+two 64-query tiles, beside one ring tile's k chunk (the first chunked
+design), two or four, each in its own accumulator, with 1, 2, 3, 4 or 6 slabs
+a stage and as many stages as fit; resident in shared memory at one), and
+(unless --no-earlier) in the earlier design of these rows: the first
+tensor-core design (`*_mma_v1`) up to d = 2,400, its route, and the FMA design
+on the CUDA cores (`bin_candidates_fma` / `count_below_fma`, the route of bf16
+rows past 2,400 before the tensor cores took them) past it, in `--rounds`
+rounds of turns (the order rotates each round): CUDA events over enough
+launches for about 20 ms. Every wgmma variant's K1 is first checked bit for
+bit against the plan's own (the placement does not change the floats), and
+K2's counts under the narrow tile's plan against its own's. At d = 128 and
 B = 256 it also times K11 (tiles 4096 and 8192) against its first design. A
-width where d % 8 != 0 (d = 100) has rows TMA cannot address, so the
+width where d % 8 != 0 (d = 100, 300) has rows TMA cannot address, so the
 producer copies them. Each row prints its byte bound and, beside it, the
 bytes the plan moves from L2 to the SMs (every CTA's class rows, and its
 query rows where they ride in the stages), in all and a CTA (one CTA an
 SM), and the shared-memory bytes a CTA moves (smem_bytes: the products'
 operand reads, the wide tile's A fragment reads, TMA's writes), under the
-route's plan and the narrow tile's. The card's name and power limit
-come first (nvidia-smi); a JSON summary goes to --out. Imports nothing of
-JAX.
+route's plan and the narrow tile's. The card's name and power limit come
+first (nvidia-smi); a JSON summary goes to --out. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -55,6 +60,9 @@ sys.path.insert(0, str(ROOT))
 SEED, K, N, LIVE = 4321, 10, 1 << 20, 1_000_000
 HBM_BYTES_S, BF16_FLOPS = 3.35e12, 989e12
 TREE_TILES = (4096, 8192)
+METRICS = {"0": "l2", "1": "ip", "2": "cos"}
+MODES = {"0": "top3", "1": "tree", "2": "count"}
+WGMMA_RE = re.compile(r"scan_wgmma_kernelILi(\d)ELi(\d)ELi(\d+)ELi(\d)ELi(\d)E")
 
 
 def gpu_name_and_power() -> str:
@@ -143,13 +151,58 @@ def rounds_in_turns(fns: dict, rounds: int) -> dict:
     return out
 
 
+def ptxas_report() -> dict:
+    """{instance: (ptxas's lines, highest register its SASS names, calls)}
+    of every scan_wgmma_kernel<METRIC, MODE, KS, TPS, U> instance: `nvcc
+    -Xptxas -v`'s stack frame, spills and registers, and from the instance's
+    SASS (cuobjdump) the highest Rn, which shows whether the consumers' code
+    uses more registers than the launch bound's 168 (setmaxnreg raises them
+    to 224), and its CALL instructions (an epilogue not inlined)."""
+    from vectorindex_tpu_torch.kernels import _build
+
+    nvcc = _build._nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = Path(tmp) / "scan_fused.o"
+        out = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+                              str(_build.CSRC / "scan_fused.cu")],
+                             capture_output=True, text=True, check=True)
+        sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(obj)],
+                              capture_output=True, text=True, check=True).stdout
+
+    def label(mangled: str):
+        m = WGMMA_RE.search(mangled)
+        return None if m is None else (
+            f"scan_wgmma_kernel<{METRICS[m.group(1)]},{MODES[m.group(2)]},KS={m.group(3)},"
+            f"TPS={m.group(4)},U={m.group(5)}>")
+
+    rows, name = {}, None
+    for line in (out.stdout + out.stderr).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+        if m:
+            name = label(m.group(1))
+        elif name and ("Used" in line or "spill" in line):
+            entry = rows.setdefault(name, ["", None, 0])
+            entry[0] = "; ".join(filter(None, (entry[0], line.split(":", 1)[-1].strip())))
+    for block in sass.split("Function : ")[1:]:
+        name = label(block.split(None, 1)[0])
+        if name:
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", block)]
+            entry = rows.setdefault(name, ["", None, 0])
+            entry[1:] = [max(regs) if regs else None, len(re.findall(r"\bCALL\.", block))]
+    for name, (line, top, calls) in sorted(rows.items()):
+        print(f"ptxas {name}: {line}; SASS names registers up to R{top}, {calls} calls",
+              flush=True)
+    return rows
+
+
 def narrow_plan(sf, b: int, d: int, kernel: str = "bin_candidates"):
     """The narrow tile's plan at (b, d), through wgmma_plan's hand arguments: two
     ring tiles a chunked stage at one query tile past the resident widths,
     at most two query tiles a CTA below them."""
     if sf.wgmma_plan(1, N, d).chunked:
         return sf.wgmma_plan(b, N, d, kernel=kernel, chunk_tiles=sf.WG_CHUNK_TILES)
-    return sf.wgmma_plan(b, N, d, kernel=kernel, qt=min(2, -(-b // 64)))
+    return sf.wgmma_plan(b, N, d, kernel=kernel, qt=min(2, -(-b // 64)),
+                         chunk_tiles=sf.WG_CHUNK_TILES)
 
 
 def variant_plans(sf, b: int, d: int) -> dict:
@@ -269,7 +322,8 @@ def sweep(sf, topk, d: int, b: int, rounds: int, x, sq, valid, earlier_too: bool
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--dims", default="100,128,256,512,768,1024,1536,2400,3072,4096,8192")
+    parser.add_argument("--dims", default="100,128,136,160,192,256,320,384,448,512,768,1024,1536,"
+                                          "2400,3072,4096,8192")
     parser.add_argument("--batches", default="8,256")
     parser.add_argument("--rounds", type=int, default=3)
     parser.add_argument("--no-earlier", action="store_true",
@@ -287,6 +341,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
+    ptxas = ptxas_report()
     attrs = sf.wgmma_attributes()
     for key, (regs, local) in sorted(attrs.items()):
         print(f"attributes {key}: {regs} registers, {local} local bytes", flush=True)
@@ -299,7 +354,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps({"gpu": gpu_name_and_power(), "rows": rows,
+    out.write_text(json.dumps({"gpu": gpu_name_and_power(), "rows": rows, "ptxas": ptxas,
                                "attributes": {str(k): v for k, v in attrs.items()}}, indent=1))
     print(f"wrote {out}", flush=True)
     return 0

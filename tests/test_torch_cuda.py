@@ -1161,7 +1161,7 @@ def test_wgmma_tree_on_wide_rows(metric, d, cuda_device):
 @pytest.mark.cuda
 def test_wgmma_design_kernels_do_not_spill(cuda_device):
     """Every kernel of the wgmma design fits its registers: no local memory;
-    the plans of every width and batch (two or eight tiles a chunked stage,
+    the plans of every width and batch (two or four tiles a chunked stage,
     two units a warpgroup) take kernels that are among them."""
     attrs = sf.wgmma_attributes()
     # K1 3 + 5 (two tiles a chunked stage; four, with 2 or 3 slabs of A in
@@ -1169,7 +1169,8 @@ def test_wgmma_design_kernels_do_not_spill(cuda_device):
     # unit), K11 6, K2 8 x 3
     assert len(attrs) == 52
     assert all(local == 0 and regs <= 255 for regs, local in attrs.values()), attrs
-    for d in (64, 100, 128, 256, 768, 2401, 3072, 3073, 4096, 8192, 16384):
+    for d in (64, 100, 128, 136, 192, 256, 300, 384, 448, 768, 2401, 3072, 3073, 4096, 8192,
+              16384):
         for b in (8, 64, 65, 128, 129, 200, 256, 300):
             for kernel in ("bin_candidates", "count_below"):
                 for metric in METRICS:
@@ -1186,7 +1187,15 @@ def _narrow_plan(b, n, d, kernel, metric):
     if sf.wgmma_plan(1, n, d).chunked:
         return sf.wgmma_plan(b, n, d, kernel=kernel, chunk_tiles=sf.WG_CHUNK_TILES)
     return sf.wgmma_plan(b, n, d, kernel=kernel, qt=min(2, -(-b // 64)),
-                         a_mode=sf.wgmma_placement(kernel, metric, d))
+                         chunk_tiles=sf.WG_CHUNK_TILES, a_mode=sf.wgmma_placement(kernel, metric, d))
+
+
+def _route_is_wide(d, b):
+    """K1's route takes the wide tile at (B, d): four query tiles a CTA at
+    d <= 128 past two query tiles, two query tiles beside WG_WIDE_TILES ring
+    tiles a chunked stage past one on streamed rows and the band's rows
+    that band_chunked gives it."""
+    return b > 128 if d <= 128 else b > 64 and (d > 448 or sf.band_chunked(d))
 
 
 @pytest.mark.cuda
@@ -1195,21 +1204,56 @@ def _narrow_plan(b, n, d, kernel, metric):
 @pytest.mark.parametrize("b", [65, 128, 200, 256])
 def test_wide_tile_equals_narrow_plan(metric, d, b, cuda_device):
     """Past one query tile the route's wide tile (four query tiles a CTA at
-    d <= 128, four ring tiles a chunked stage past d = 448; K1's tiers out
+    d <= 128, four ring tiles a chunked stage past d = 128; K1's tiers out
     of registers behind its queue of hits) gives K1 the candidates of PR
     18's plan bit for bit, and K2 the counts of the narrow tile's plan, at several tau
     (K1's sorted candidates at ranks 0, 9, 99 and the last finite one);
     K2 recomputes K1's floats (its counts at or below tau cover K1's
     candidates there). d = 100 rows are copied by the producer, not TMA;
     B = 200 ends mid-tile."""
-    qk, xp, bias, cs = _wgmma_case("bf16-gauss", d, b, 66_304, metric, cuda_device)
+    _wide_tile_equals_narrow_plan(metric, d, b, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
+@pytest.mark.parametrize("d", [192, 256, 300, 384])
+@pytest.mark.parametrize("b", [65, 128, 200, 256])
+def test_band_wide_tile_equals_narrow_plan(metric, d, b, cuda_device):
+    """The band between the register-resident and the streamed query block
+    (128 < d <= 448) past one query tile: the route's chunked wide tile
+    gives K1 the candidates of the narrow tile's resident query block bit
+    for bit and K2 its counts; d = 300 rows (600 bytes), which TMA cannot
+    address, keep the narrow tile (band_chunked), and the wide tile by hand
+    is held to it there."""
+    _wide_tile_equals_narrow_plan(metric, d, b, cuda_device)
+    if not sf.band_chunked(d):
+        qk, xp, bias, cs = _wgmma_case("bf16-gauss", d, b, 66_304, metric, cuda_device)
+        n = xp.shape[0]
+        kd, ki = sf.bin_candidates(qk, xp, bias, cs, metric=metric)
+        wide = {k: sf.wgmma_plan(b, n, d, kernel=k, a_mode="chunked", qt=2)
+                for k in ("bin_candidates", "count_below")}
+        wd, wi = sf._wgmma_launch("bin_candidates", qk, xp, bias, cs, metric,
+                                  plan=wide["bin_candidates"])
+        sd, _ = topk(kd.view(b, -1), 10, ids=ki.view(b, -1))
+        tau = sd[:, 9].contiguous()
+        lt, le = sf.count_below(qk, xp, bias, cs, tau, metric=metric)
+        wlt, wle = sf._wgmma_launch("count_below", qk, xp, bias, cs, metric, tau,
+                                    plan=wide["count_below"])
+        torch.cuda.synchronize()
+        assert torch.equal(wd, kd) and torch.equal(wi, ki)
+        assert torch.equal(wlt, lt) and torch.equal(wle, le)
+
+
+def _wide_tile_equals_narrow_plan(metric, d, b, device):
+    qk, xp, bias, cs = _wgmma_case("bf16-gauss", d, b, 66_304, metric, device)
     n = xp.shape[0]
     route = {k: sf.wgmma_plan(b, n, d, kernel=k, a_mode=sf.wgmma_placement(k, metric, d, b))
              for k in ("bin_candidates", "count_below")}
     old = {k: _narrow_plan(b, n, d, k, metric) for k in route}
-    wide = d <= 128 and b > 128 or d > 448
+    wide = _route_is_wide(d, b)
     assert (route["bin_candidates"].units == 2 or route["bin_candidates"].tps == sf.WG_WIDE_TILES) == wide
     assert route["bin_candidates"].queue > 0 if wide else route["bin_candidates"] == old["bin_candidates"]
+    assert route["bin_candidates"] != old["bin_candidates"] or not wide
     sf.reset_launches()
     kd, ki = sf.bin_candidates(qk, xp, bias, cs, metric=metric)
     od, oi = sf._wgmma_launch("bin_candidates", qk, xp, bias, cs, metric,
@@ -1232,7 +1276,7 @@ def test_wide_tile_equals_narrow_plan(metric, d, b, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.value)
-@pytest.mark.parametrize("d, b", [(128, 256), (128, 300), (4096, 256)])
+@pytest.mark.parametrize("d, b", [(128, 256), (128, 300), (384, 200), (4096, 256)])
 def test_wide_tile_is_exact_on_integer_rows(metric, d, b, cuda_device):
     """Integer-valued bf16 rows (many equal distances, so ties at a class's
     third tier): the wide tile's K1 and K2 equal their plain versions bit
@@ -1241,7 +1285,7 @@ def test_wide_tile_is_exact_on_integer_rows(metric, d, b, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [768, 4096])
+@pytest.mark.parametrize("d", [384, 768, 4096])
 @pytest.mark.parametrize("b", [128, 256])
 def test_scan_topk_fused_wide_past_one_query_block_is_exact(d, b, cuda_device):
     """scan_topk_fused at B = 128 and 256 (two and four query blocks) over

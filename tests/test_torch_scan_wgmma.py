@@ -125,7 +125,7 @@ def test_k1_k2_k11_share_one_tile_geometry(d, nq, block_tiles, metric):
     assert _geometry(k2) == _geometry(sf.wgmma_plan(nq, N, d, kernel="count_below"))
     assert sf.wgmma_placement("bin_candidates_tree", metric, d) is None
     assert k11.a_regs == k2.a_regs or k2.units == 2 or k2.tps == sf.WG_WIDE_TILES
-    if k11.chunked != k2.chunked:  # the tiers leave no room for the resident query block
+    if k11.chunked and not k2.chunked:  # the tiers leave no room for the resident query block
         assert sf._wgmma_ring(d, k11.qt, 0, False, True)[2] < 3
     assert k11.smem == sf.wgmma_smem(d, k11.qt, k11.a_regs, k11.chunked, k11.cs, k11.tps,
                                      k11.stages, True)[1]
@@ -135,7 +135,7 @@ def test_k1_k2_k11_share_one_tile_geometry(d, nq, block_tiles, metric):
 
 
 @pytest.mark.parametrize("nq", [1, 64, 65, 128, 129, 256])
-@pytest.mark.parametrize("d", [128, 4096])
+@pytest.mark.parametrize("d", [128, 384, 4096])
 def test_wgmma_thread_map_owns_each_pair_once(nq, d):
     """The consumers' 256 threads x 16 units pairs cover the CTA's 64 qt
     queries x 64 units / qt classes once each (four query tiles at two
@@ -267,7 +267,7 @@ def test_chunked_stages_hold_one_or_two_tiles(d, chunk_tiles):
 #: the wide tile's batches (past one query tile, one not a multiple of 64)
 #: and widths (registers, the producer's copies, resident, streamed)
 WIDE_BATCHES = [65, 128, 200, 256]
-WIDE_D = [100, 128, 256, 768, 3072, 4096, 8192]
+WIDE_D = [100, 128, 256, 300, 384, 768, 3072, 4096, 8192]
 
 
 @pytest.mark.parametrize("d", WIDE_D)
@@ -277,10 +277,11 @@ def test_wide_tile_plan_fits_and_states_its_queries(kernel, d, nq):
     """Past one query tile K1 and K2 take the wide tile where it applies:
     every query of a batch up to 256 in one CTA at d <= 128 (four query
     tiles, two units a warpgroup, A from registers), 128 queries x 128 rows
-    a stage on streamed rows (two query tiles, WG_WIDE_TILES tiles); the narrow tile's
-    two query tiles between (128 < d <= 448, or B <= 128 at d <= 128). Each
-    fits the shared memory and the register budget, and K1's tiers, queue
-    and tile indices fit beside it."""
+    a stage on streamed rows and on the band's rows that band_chunked gives
+    it (two query tiles, WG_WIDE_TILES tiles); the narrow tile's two query
+    tiles on the band's other rows (d % 8 != 0: d = 100 is below the band)
+    or at B <= 128 at d <= 128. Each fits the shared memory and the
+    register budget, and K1's tiers, queue and tile indices fit beside it."""
     p = sf.wgmma_plan(nq, N, d, kernel=kernel)
     tps = p.tps if p.chunked else 1
     assert p.smem <= sf.MAX_SMEM_BYTES
@@ -291,7 +292,7 @@ def test_wide_tile_plan_fits_and_states_its_queries(kernel, d, nq):
     if d <= 128:
         assert queries == (256 if nq > 128 else 128) and p.qblocks == 1
         assert p.units == (2 if nq > 128 else 1) and p.a_regs == 4 * (-(-d // 64))
-    elif d <= 448:
+    elif d <= 448 and not sf.band_chunked(d):
         assert queries == 128 and not p.chunked and p.qblocks == -(-nq // 128)
     else:
         assert queries == 128 and p.chunked and p.tps == sf.WG_WIDE_TILES
@@ -308,7 +309,7 @@ def test_wide_tile_splits_hold_at_most_1023_tiles():
     splits (K1 keeps a tier's row as its tile's index, 10 bits), K2 the
     same; the narrow tile's plan does not."""
     n = 1 << 26
-    for d in (128, 4096):
+    for d in (128, 384, 4096):
         k1 = sf.wgmma_plan(256, n, d)
         k2 = sf.wgmma_plan(256, n, d, kernel="count_below")
         assert k1.tiles_per_split <= sf.WG_MAX_SPLIT_TILES
@@ -401,3 +402,93 @@ def test_k1_queue_fold_equals_class_top3_fold(units, cap, data):
                         torch.full_like(ti, sf.INVALID_ID))
     assert torch.equal(td, want_d)
     assert torch.equal(got_i.to(want_i.dtype), want_i)
+
+
+#: the band between the register-resident and the streamed query block,
+#: each side of its slab edges, rows the producer copies (d % 8 != 0) and
+#: the sentence-embedding widths 256 and 384
+BAND_D = [129, 136, 160, 191, 192, 255, 256, 300, 320, 384, 447, 448]
+
+
+@pytest.mark.parametrize("d", BAND_D)
+@pytest.mark.parametrize("nq", [65, 128, 129, 200, 256, 300])
+def test_band_batches_past_one_query_tile_take_the_wide_chunked_tile(d, nq):
+    """At 128 < d <= 448 and B > 64, on the rows band_chunked gives it (the
+    rows TMA can address, d % 8 == 0), K1 and K2 stream the query
+    block's k chunk beside WG_WIDE_TILES ring tiles a stage at two query
+    tiles, every stage holding the fewest slabs that keep its k chunks (so
+    a row pads fewer zero slabs than it has chunks); the other rows keep the
+    narrow tile's resident query block at two query tiles. Each plan fits
+    the shared memory and the register budget, K1's queue and tile indices
+    fit beside it, and K1 and K2 share the query tiles and splits; the
+    narrow tile stays reachable by hand (qt=2, chunk_tiles=2)."""
+    slabs = -(-d // 64)
+    narrow = sf.wgmma_plan(nq, N, d, qt=2, chunk_tiles=sf.WG_CHUNK_TILES)
+    assert (narrow.qt, narrow.units, narrow.chunked, narrow.a_regs, narrow.cs) == (2, 1, False, 0, slabs)
+    plans = {}
+    for kernel in ("bin_candidates", "count_below"):
+        p = plans[kernel] = sf.wgmma_plan(nq, N, d, kernel=kernel)
+        tps = p.tps if p.chunked else 1
+        assert p.smem <= sf.MAX_SMEM_BYTES
+        assert sf.wgmma_registers(p.a_regs, kernel, tps, p.units) <= sf.WG_REG_BUDGET
+        if not sf.band_chunked(d):
+            assert d % 8
+            assert p == sf.wgmma_plan(nq, N, d, kernel=kernel, qt=2, chunk_tiles=sf.WG_CHUNK_TILES)
+            continue
+        assert p.chunked and p.tps == sf.WG_WIDE_TILES and p.a_regs == 4 * p.cs
+        assert (p.qt, p.units, p.qblocks) == (2, 1, -(-nq // 128))
+        chunks = -(-slabs // p.cs)
+        assert chunks * p.cs - slabs < chunks  # padding: under a slab a chunk
+        assert p.cs in (2, 3)  # the kernel's instances (KS = 4 cs)
+        if kernel == "bin_candidates":
+            assert p.queue >= sf.WG_QUEUE_MIN and p.tiles_per_split <= sf.WG_MAX_SPLIT_TILES
+    k1, k2 = plans.values()
+    assert (k1.qt, k1.g, k1.qblocks, k1.chunked, k1.tps, k1.splits, k1.tiles_per_split) == (
+        k2.qt, k2.g, k2.qblocks, k2.chunked, k2.tps, k2.splits, k2.tiles_per_split)
+
+
+#: plans the route gives batches of at most one query tile (K1, K2) and K11,
+#: which the band's wide tile leaves as they were: (qt, g, qblocks,
+#: a_regs, chunked, cs, tps, stages, splits, tiles_per_split, smem, units,
+#: queue) over 2^20 rows
+SMALL_BATCH_PLANS = {
+    16: (1, 64, 1, 4, False, 1, 2, 8, 33, 125, 141312, 1, 0),
+    100: (1, 64, 1, 8, False, 2, 1, 8, 33, 125, 141312, 1, 0),
+    128: (1, 64, 1, 8, False, 2, 1, 8, 33, 125, 141312, 1, 0),
+    136: (1, 64, 1, 0, False, 3, 1, 8, 33, 125, 231424, 1, 0),
+    192: (1, 64, 1, 0, False, 3, 1, 8, 33, 125, 231424, 1, 0),
+    256: (1, 64, 1, 0, False, 4, 1, 5, 33, 125, 203776, 1, 0),
+    300: (1, 64, 1, 0, False, 5, 1, 4, 33, 125, 210944, 1, 0),
+    384: (1, 64, 1, 0, False, 6, 1, 3, 33, 125, 201728, 1, 0),
+    448: (1, 64, 1, 0, True, 4, 2, 2, 33, 126, 200704, 1, 0),
+    768: (1, 64, 1, 0, True, 4, 2, 2, 33, 126, 200704, 1, 0),
+    3073: (1, 64, 1, 0, True, 4, 2, 2, 33, 126, 200704, 1, 0),
+    4096: (1, 64, 1, 0, True, 4, 2, 2, 33, 126, 200704, 1, 0),
+}
+#: K11's at block_tiles = 16 (tile 4096), B = 8 and 256
+TREE_PLANS = {
+    (128, 8): (1, 64, 1, 8, False, 2, 1, 7, 32, 128, 222208, 1, 0),
+    (128, 256): (2, 32, 2, 8, False, 2, 2, 7, 8, 512, 222208, 1, 0),
+    (256, 8): (1, 64, 1, 0, True, 2, 1, 3, 32, 128, 201728, 1, 0),
+    (256, 256): (2, 32, 2, 0, False, 4, 1, 3, 8, 512, 218112, 1, 0),
+    (384, 8): (1, 64, 1, 0, True, 2, 1, 3, 32, 128, 201728, 1, 0),
+    (384, 256): (2, 32, 2, 0, True, 2, 1, 3, 8, 512, 226304, 1, 0),
+    (768, 8): (1, 64, 1, 0, True, 2, 1, 3, 32, 128, 201728, 1, 0),
+    (768, 256): (1, 64, 4, 0, True, 2, 1, 3, 8, 512, 201728, 1, 0),
+    (4096, 256): (1, 64, 4, 0, True, 2, 1, 3, 8, 512, 201728, 1, 0),
+}
+
+
+@pytest.mark.parametrize("d", sorted(SMALL_BATCH_PLANS))
+def test_small_batch_plans_do_not_move(d):
+    """B <= 64 at every width: K1 and K2 keep the narrow tile's plans."""
+    for nq in (1, 8, 64):
+        for kernel in ("bin_candidates", "count_below"):
+            assert tuple(sf.wgmma_plan(nq, N, d, kernel=kernel)) == SMALL_BATCH_PLANS[d]
+
+
+@pytest.mark.parametrize("d, nq", sorted(TREE_PLANS))
+def test_k11_plans_do_not_move(d, nq):
+    """K11 keeps one unit a warpgroup and its plans at every width."""
+    p = sf.wgmma_plan(nq, N, d, kernel="bin_candidates_tree", block_tiles=16)
+    assert tuple(p) == TREE_PLANS[(d, nq)]

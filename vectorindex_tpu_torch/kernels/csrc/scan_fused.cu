@@ -58,24 +58,34 @@
 //     one query tile (B > 64) K1 and K2 take the wide tile: at d <= 128 four
 //     query tiles, two units a warpgroup (qt = 4, U = 2: 256 queries x 32
 //     classes, A from registers), so a batch up to 256 crosses the corpus
-//     once; at
-//     128 < d <= 448 two query tiles (a resident block of 256 queries leaves
-//     K1's tiers no room); on streamed rows (d > 448) two query tiles beside
-//     four ring tiles a stage (below). Past a CTA's queries the query
-//     blocks that read one corpus slice run together and share it in L2.
-//     Clusters of them sharing each load by TMA multicast were slower: 2
-//     CTAs on the narrow rows, whose query block sits in registers or
+//     once; past d = 128 two query tiles beside four ring tiles a chunked
+//     stage (below): on streamed rows (d > 448), and in the band
+//     128 < d <= 448 on rows TMA can address (d % 8 == 0), where it ran
+//     0.67-0.84x K1's and 0.45-0.99x K2's time with the narrow tile's
+//     resident block at d = 136-448, B = 128, 200 and 256 (H100 80GB HBM3,
+//     700 W; kernels/scan_fused.band_chunked). The band's other rows, which
+//     the producer copies, keep that resident block: fed by two stages of
+//     copies the chunked tile took 1.19-1.36x its time. A resident block of
+//     256 queries there leaves K1's tiers no room. Past a CTA's queries the
+//     query blocks that read one corpus slice run together and share it in
+//     L2. Clusters of them sharing each load by TMA multicast were slower:
+//     2 CTAs on the narrow rows, whose query block sits in registers or
 //     shared memory, and 2 or 4 on the chunked wide rows, 1.17-1.41x at
 //     d = 768-8,192, B = 128 and 256 (H100 80GB HBM3, 700 W), where each
-//     CTA still takes in every byte of its stages. Rows past the batch take
-//     nothing; a warp (or half a warp's rows) with none skips its epilogues.
+//     CTA still takes in every byte of its stages. So was a 256-query
+//     chunked tile for K2 (four query tiles, two units a warpgroup beside
+//     four ring tiles of one slab: 128 accumulators a consumer thread),
+//     which counted the same bit for bit but spilled 88-200 bytes a thread
+//     and took 1.4-2.2x the wide tile's time at d = 136-8,192, B = 200 and
+//     256 (PERF.md §6). Rows past the batch take nothing; a warp (or half a
+//     warp's rows) with none skips its epilogues.
 //   - where K1's tiers live: in registers (6 a pair, beside a distance) at
 //     one unit and at most two accumulators a warpgroup (the narrow tile:
-//     B <= 64, and B <= 128 or 128 < d <= 448); in the wide tile in shared
-//     memory, 16 bytes a pair ([pair][word][thread]: the 3 distances and
-//     the 3 rows as their tiles' 10-bit indices in the split, so a split
-//     holds at most 1,023 tiles), with one register a pair, its third
-//     tier's distance. Rows grow along a thread's loop, so a distance
+//     B <= 64, B <= 128 at d <= 128, and the band's copied rows); in the
+//     wide tile in shared memory, 16 bytes a pair ([pair][word][thread]:
+//     the 3 distances and the 3 rows as their tiles' 10-bit indices in the
+//     split, so a split holds at most 1,023 tiles), with one register a
+//     pair, its third tier's distance. Rows grow along a thread's loop, so a distance
 //     enters the tiers iff it is below that threshold: one compare a pair
 //     on the common path, and the hits go to a per-thread queue in shared
 //     memory ([entry][thread], 8 bytes: the distance and its tile and
@@ -99,13 +109,16 @@
 //     stages in flight). The query block is rounded to bf16 once a CTA by
 //     the consumers: held in registers as A fragments up to d = 128,
 //     written into shared memory for the whole pass past that, and for rows
-//     too wide for that (d > 448) its k chunk rides in each stage (TMA from
-//     a padded copy the wrapper makes) beside the k chunk of TPS ring
-//     tiles' rows, each multiplied into its own accumulator: two at one
-//     query tile (B <= 64; K11: one), four at two (the wide tile: 128
-//     queries x 128 rows a stage, 3 slabs for K2, 2 for K1, whose tiers and
-//     queue take 80 KiB; eight tiles' 128 accumulators spilled, as ptxas
-//     allocates a consumer thread the launch bound's 168 registers). The
+//     too wide for that (d > 448), or past one query tile from d = 129, its
+//     k chunk rides in each stage (TMA from a padded copy the wrapper makes)
+//     beside the k chunk of TPS ring tiles' rows, each multiplied into its
+//     own accumulator: two at one query tile (B <= 64; K11: one), four at
+//     two (the wide tile: 128 queries x 128 rows a stage, up to 3 slabs for
+//     K2, 2 for K1, whose tiers and queue take 80 KiB, the fewest slabs that
+//     keep a row's k chunks; eight tiles' 128 accumulators spilled: ptxas
+//     holds a consumer thread near the launch bound's 168 registers, its
+//     SASS naming at most R171-R187 where a kernel needed more, despite
+//     setmaxnreg's 224, scripts/ab_scan_wgmma_torch.py). The
 //     wide tile reads each stage's query chunk into A fragments once for its
 //     four tiles: with A and B both from shared memory an m64n32k16 reads 3
 //     KiB, and the chunked passes' stage times followed those reads and

@@ -26,8 +26,9 @@ tensor cores (`scan_wgmma_kernel`: wgmma m64n32k16 with f32 accumulation,
 the corpus through a TMA-fed ring, read once a pass where the batch fits
 one CTA (up to 128 queries; 256 at d <= 128, the wide tile of two units a
 warpgroup, K1's tiers in shared memory behind one compare a pair), the
-query block resident in registers or shared memory, or past d = 448 its k
-chunk riding in each stage beside the rows (four tiles' past 64 queries);
+query block resident in registers or shared memory, or past d = 448 (and
+past 64 queries from d = 129 on 16-byte rows) its k chunk riding in each
+stage beside the rows (four tiles' past 64 queries);
 `wgmma_plan` sizes each launch); on an f32 corpus the CUDA cores (one
 f32 FMA chain per dot product, register-tiled over staged corpus tiles,
 rows streamed in k chunks where they do not fit whole; `fma_plan` sizes
@@ -462,11 +463,14 @@ def _wgmma_ring(d: int, qt: int, a_regs: int, chunked: bool, tiers: bool,
     WG_STAGE_BYTES of whole rows (up to 8 tiles) in as many stages (up to
     WG_MAX_STAGES) as fit, fewer tiles a stage until 3 stages fit; chunked
     plans chunk_tiles tiles a stage, of at most WG_CHUNK_RING's bytes of
-    rows and query chunk, fewer slabs a stage until its fewest stages fit.
-    K1 with its tiers out of registers (queued) fits them and a queue of
-    at least WG_QUEUE_MIN entries first, and its queue takes what the
-    stages leave (whole rows: WG_QUEUED_STAGES stages). stages is 0 where
-    none fits."""
+    rows and query chunk, fewer slabs a stage until its fewest stages fit,
+    and where the stage's query chunk goes into registers (WG_WIDE_TILES
+    tiles a stage: its stages always hold every slab) the fewest slabs that
+    keep its number of k chunks, so that a row pads as few zero slabs as it
+    can (d = 256: 2 chunks of 2, not of 3). K1 with its tiers out of
+    registers (queued) fits them and a queue of at least WG_QUEUE_MIN
+    entries first, and its queue takes what the stages leave (whole rows:
+    WG_QUEUED_STAGES stages). stages is 0 where none fits."""
     slabs = _slabs(d)
     g, qb = WG_CONSUMERS * units * WG_N // qt, WG_M * qt
     least = WG_QUEUE_MIN if queued else 0
@@ -481,6 +485,9 @@ def _wgmma_ring(d: int, qt: int, a_regs: int, chunked: bool, tiers: bool,
         cs = max(1, min(slabs, most // ((tps * g + qb) * 128)))
         while depth(cs, tps) < fewest and cs > 1:
             cs -= 1
+        if tps == WG_WIDE_TILES:
+            chunks = -(-slabs // cs)
+            cs = -(-slabs // chunks)
     else:
         cs = slabs
         tps = max(1, min(8, WG_STAGE_BYTES // (slabs * g * 128)))
@@ -494,6 +501,17 @@ def _wgmma_ring(d: int, qt: int, a_regs: int, chunked: bool, tiers: bool,
         stage, base = wgmma_smem(d, qt, a_regs, chunked, cs, tps, stages, tiers, units, 1)
         queue = 1 + (MAX_SMEM_BYTES - base) // (WG_QUEUE_ENTRY * WG_CONSUMERS * 128)
     return cs, tps, stages, queue
+
+
+def band_chunked(d: int) -> bool:
+    """Rows of the band between the register-resident and the streamed
+    query block (128 < d <= 448) whose batches past one query tile take the
+    wide chunked tile rather than the narrow tile's resident block: the
+    rows TMA can address (d % 8 == 0), where the wide tile was the faster
+    at every width timed in turns from the band's first (d = 136); the
+    producer's copies of the other rows fed its two stages slower than the
+    resident block's ring (scripts/ab_scan_wgmma_torch.py)."""
+    return 2 * WG_SLAB < d <= 448 and d % 8 == 0
 
 
 def wgmma_plan(nq: int, n: int, d: int, *, block_tiles: int = 1, a_mode: Optional[str] = None,
@@ -513,20 +531,23 @@ def wgmma_plan(nq: int, n: int, d: int, *, block_tiles: int = 1, a_mode: Optiona
     tile in its own accumulator, so each query chunk crosses from L2 once for
     that many tiles; as many row splits as fill the card once with one CTA an
     SM (chunked: each split a multiple of the stage's tiles): the narrow
-    tile, one unit a warpgroup. Past one query tile (B > 64) K1 and K2 take
-    the wide tile, K1's tiers out of registers (wg_queued): at d <= 128 four
-    query tiles a CTA, two units a warpgroup (every query of a batch up to
-    256 in one CTA); streamed wide rows two query tiles beside
-    WG_WIDE_TILES tiles a stage (128 queries x 128 rows, each stage's query
-    chunk read into registers once for its tiles: a_regs = 4 cs); splits of
-    at most WG_MAX_SPLIT_TILES tiles. (Between, at 128 < d <= 448, a
-    resident block of 256 queries leaves K1's tiers no room: the narrow
-    tile.) a_mode places the query block ("regs", "smem" or "chunked"), qt
+    tile, one unit a warpgroup. Batches up to 64 queries and K11 keep it at
+    every width. Past one query tile (B > 64) K1 and K2 take the wide tile,
+    K1's tiers out of registers (wg_queued): at d <= 128 four query tiles a
+    CTA, two units a warpgroup (every query of a batch up to 256 in one
+    CTA); past d = 128 (streamed rows, d > 448, and the band 128 < d <= 448
+    where band_chunked: the band's other rows keep the narrow tile's
+    resident block) two query tiles beside WG_WIDE_TILES ring tiles a
+    chunked stage (128 queries x 128 rows, each stage's query chunk read
+    into registers once for its tiles: a_regs = 4 cs, with the fewest slabs
+    a stage that keep its k chunks); splits of at most WG_MAX_SPLIT_TILES
+    tiles. a_mode places the query block ("regs", "smem" or "chunked"), qt
     sets the query tiles (4: two units a warpgroup, from registers) and
     chunk_tiles a chunked stage's tiles (1, 2 or WG_WIDE_TILES) by hand
     (the A/B sweep's variants: the same floats bit for bit, which the cuda
-    tests check; qt=2 below d = 129 and chunk_tiles=2 past d = 448 give the
-    narrow tile at any batch); a plan that does not fit raises."""
+    tests check; qt=2 below d = 129, qt=2 with chunk_tiles=2 in the band
+    and chunk_tiles=2 past d = 448 give the narrow tile at any batch); a
+    plan that does not fit raises."""
     if d < 1:
         raise ValueError(f"d={d} is outside the wgmma route (d >= 1)")
     if kernel not in _WGMMA_MODES:
@@ -543,7 +564,8 @@ def wgmma_plan(nq: int, n: int, d: int, *, block_tiles: int = 1, a_mode: Optiona
         raise ValueError(f"chunk_tiles must be 1, 2 or {WG_WIDE_TILES} (K11: 1), got {chunk_tiles}")
     slabs = _slabs(d)
     if a_mode is None:
-        a_mode = "regs" if slabs <= 2 else "smem"
+        band = wide and band_chunked(d) and chunk_tiles == WG_WIDE_TILES
+        a_mode = "regs" if slabs <= 2 else "chunked" if band else "smem"
     if a_mode != "regs" and qt == 4:
         raise ValueError("qt=4 (two units a warpgroup) takes the query block from registers")
     chunked_qt = 2 if chunk_tiles == WG_WIDE_TILES else 1
