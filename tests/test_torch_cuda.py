@@ -185,6 +185,59 @@ def test_index_routes_through_the_kernels(dtype, cuda_device, monkeypatch):
     assert ids_match_up_to_ties(gi, wi, wd, 10)
 
 
+def _traced_search(index, q, k):
+    """The QueryStats TELEM's recorder saw for one batch_search."""
+    seen = []
+    TELEM.reset()
+    TELEM.enable()
+    TELEM.register_recorder("cuda-spans", seen.append)
+    try:
+        index.batch_search(q, k)
+    finally:
+        TELEM.disable()
+        TELEM.unregister_recorder("cuda-spans")
+        TELEM.reset()
+    assert len(seen) == 1
+    return seen[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_device_spans_time_k1_and_k2_inside_the_scan_span(dtype, cuda_device, monkeypatch):
+    """On the fused path CUDA events time K1 and K2 (dev.k1, dev.k2), and
+    both lie inside the host's score_flat span."""
+    monkeypatch.setattr(tflat, "LARGE_SCAN_THRESHOLD", 1024)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((1 << 17, 64)).astype(np.float32)
+    q = rng.standard_normal((64, 64)).astype(np.float32)
+    index = tflat.FlatIndex(64, Metric.L2, storage_dtype=dtype, device=cuda_device)
+    index.insert_batch(list(range(len(x))), x)
+    index.batch_search(q, 10)  # uploads the rows and loads the kernels
+    rec = _traced_search(index, q, 10)
+    assert {"upload", "score_flat", "fetch", "results", "dev.k1", "dev.k2"} <= set(rec.stage_ms)
+    assert rec.stage_ms["dev.k1"] > 0 and rec.stage_ms["dev.k2"] > 0
+    assert rec.stage_ms["dev.k1"] + rec.stage_ms["dev.k2"] <= rec.stage_ms["score_flat"]
+    assert "dev.strict" not in rec.stage_ms
+
+
+@pytest.mark.cuda
+def test_device_span_times_the_strict_fallback(cuda_device, monkeypatch):
+    """Integer rows 0..3 tie at the 10th distance: the flagged queries go
+    down the strict fallback, whose device work dev.strict times inside the
+    rerank span."""
+    monkeypatch.setattr(tflat, "LARGE_SCAN_THRESHOLD", 1024)
+    rng = np.random.default_rng(11)
+    x = rng.integers(0, 4, (4096, 16)).astype(np.float32)
+    q = rng.integers(0, 4, (6, 16)).astype(np.float32)
+    index = tflat.FlatIndex(16, Metric.L2, storage_dtype=torch.bfloat16, device=cuda_device)
+    index.insert_batch(list(range(len(x))), x)
+    index.batch_search(q, 10)
+    rec = _traced_search(index, q, 10)
+    assert "verify_fallback" in rec.flags
+    assert 0 < rec.stage_ms["dev.strict"] <= rec.stage_ms["rerank"]
+    assert rec.stage_ms["dev.k1"] + rec.stage_ms["dev.k2"] <= rec.stage_ms["score_flat"]
+
+
 @pytest.mark.cuda
 def test_wrappers_raise_instead_of_falling_back(cuda_device):
     x = torch.randn(512, 16, device=cuda_device)

@@ -66,6 +66,7 @@ import torch
 
 from vectorindex_tpu_torch.ops.topk import INVALID_DIST, INVALID_ID, topk
 from vectorindex_tpu_torch.utils.config import Metric
+from vectorindex_tpu_torch.utils.telemetry import TELEM
 
 Tensor = torch.Tensor
 
@@ -1212,11 +1213,15 @@ def scan_topk_fused(
     scan_topk_strict. x_pad, sq_pad, valid_pad come from pad_corpus."""
     b = q.shape[0]
     qk, bias, colscale, qsq = kernel_inputs(q, sq_pad, valid_pad, metric)
-    cd, ci = bin_candidates(qk, x_pad, bias, colscale, metric=metric)
+    # K1 and K2 timed by CUDA events as dev.k1 / dev.k2 of the caller's open
+    # TELEM call record (none open, or TELEM off: nothing recorded)
+    with TELEM.device_span("k1", qk):
+        cd, ci = bin_candidates(qk, x_pad, bias, colscale, metric=metric)
     kk = min(k, 2 * C)
     sd, si = topk(cd.view(b, -1), kk, ids=ci.view(b, -1), strict_ties=True)
     tau = sd[:, kk - 1].contiguous()  # kernel space: bit-identical to K2's
-    counts_lt, counts_le = count_below(qk, x_pad, bias, colscale, tau, metric=metric)
+    with TELEM.device_span("k2", qk):
+        counts_lt, counts_le = count_below(qk, x_pad, bias, colscale, tau, metric=metric)
     result_below = (sd < tau[:, None]).sum(dim=1)
     n_valid = valid_pad.sum()
     # exact requires (a) every strictly-better row selected and (b) no corpus

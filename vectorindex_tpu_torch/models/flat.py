@@ -25,6 +25,11 @@ FlatIndexOptimized.swift:20-420 and FlatIndex.swift).
     CUDA cores' FMA kernel on f32).
   - utils/debug.enable() checks the search's distances for NaN and -inf
     before the results are built.
+  - With TELEM enabled, batch_search's spans tile the call (upload,
+    score_flat, fetch, rerank for the strict fallback, results), CUDA
+    events time K1, K2 and the strict fallback on the card (stage_ms
+    dev.k1, dev.k2, dev.strict), and the call's QueryStats is recorded
+    once every span has closed.
   - range_search is one distance block and a compaction
     (ops/range_query.range_scan).
   - save_container / load_container write and read the binary container
@@ -373,60 +378,69 @@ class FlatIndex(VectorIndex):
         else:
             valid = None  # every slot live: no mask op
         kk = min(k, self.capacity)
-        qt = torch.from_numpy(q).to(self.device)
         stats = QueryStats(batch=q.shape[0], rows_scored=q.shape[0] * self.count)
         large = self.capacity >= LARGE_SCAN_THRESHOLD
         fused = large and self.metric in _FUSED_METRICS and kk <= 2 * scan_fused.C
         exact = None
-        with TELEM.timer("score_flat", stats):
-            if fused:
-                # capacity is a power of two >= MIN_CAPACITY, so a multiple
-                # of C: the kernels take the device tensors unpadded
-                dist, ids, exact = scan_fused.scan_topk_fused(
-                    qt, vecs, sqn, all_valid if valid is None else valid,
-                    metric=self.metric, k=kk,
-                )
-                kernel = "scan_fused"
-            elif large and q.shape[0] * self.capacity >= VERIFIED_MIN_BLOCK:
-                dist, ids, exact = scan_topk_verified(
-                    qt, vecs, sqn, inv, valid, metric=self.metric, k=kk
-                )
-                kernel = "scan_verified"
-            else:
-                dist, ids = scan_topk_strict(
-                    qt, vecs, sqn, inv, valid, metric=self.metric, k=kk
-                )
-                kernel = "scan_strict"
-            if exact is not None:
-                exact = exact.cpu().numpy()
-        dist = dist.cpu().numpy()
-        ids = ids.cpu().numpy()
-        if exact is not None and not exact.all():
-            # rerun only the queries the fused count or the verified tie
-            # check could not prove exact through the always-exact strict
-            # path and splice the results
-            flagged = np.nonzero(~exact)[0]
-            TELEM.inc("flat.verify_fallback", len(flagged))
-            stats.flags.add("verify_fallback")
-            qf, nf = pad_queries(qt[torch.from_numpy(flagged).to(self.device)])
-            with TELEM.timer("rerank", stats):
-                fd, fi = scan_topk_strict(
-                    qf, vecs, sqn, inv, valid, metric=self.metric, k=kk
-                )
-            TELEM.record_kernel("scan_strict", rows=nf * self.count)
-            dist[flagged] = fd[:nf].cpu().numpy()
-            ids[flagged] = fi[:nf].cpu().numpy()
-        stats.flags.add("dot_trick")
-        stats.bytes_read["vecs"] = self.count * self.dimension * vecs.element_size()
-        TELEM.add_bytes("vecs", stats.bytes_read["vecs"])
-        # per-kernel sink (reference L2SqrKernel.swift:46-57 recorder),
-        # naming the path that ran
-        TELEM.record_kernel(
-            kernel, rows=stats.rows_scored, bytes=stats.bytes_read["vecs"]
-        )
+        # the spans tile the call: upload, score_flat, fetch, rerank (the
+        # strict fallback), results; the call record reads the device spans
+        # once the host copies have waited for them
+        with TELEM.call(stats):
+            with TELEM.timer("upload", stats):
+                qt = torch.from_numpy(q).to(self.device)
+            with TELEM.timer("score_flat", stats):
+                if fused:
+                    # capacity is a power of two >= MIN_CAPACITY, so a multiple
+                    # of C: the kernels take the device tensors unpadded
+                    dist, ids, exact = scan_fused.scan_topk_fused(
+                        qt, vecs, sqn, all_valid if valid is None else valid,
+                        metric=self.metric, k=kk,
+                    )
+                    kernel = "scan_fused"
+                elif large and q.shape[0] * self.capacity >= VERIFIED_MIN_BLOCK:
+                    dist, ids, exact = scan_topk_verified(
+                        qt, vecs, sqn, inv, valid, metric=self.metric, k=kk
+                    )
+                    kernel = "scan_verified"
+                else:
+                    dist, ids = scan_topk_strict(
+                        qt, vecs, sqn, inv, valid, metric=self.metric, k=kk
+                    )
+                    kernel = "scan_strict"
+                if exact is not None:
+                    exact = exact.cpu().numpy()
+            with TELEM.timer("fetch", stats):
+                dist = dist.cpu().numpy()
+                ids = ids.cpu().numpy()
+            if exact is not None and not exact.all():
+                # rerun only the queries the fused count or the verified tie
+                # check could not prove exact through the always-exact strict
+                # path and splice the results
+                flagged = np.nonzero(~exact)[0]
+                TELEM.inc("flat.verify_fallback", len(flagged))
+                stats.flags.add("verify_fallback")
+                with TELEM.timer("rerank", stats):
+                    with TELEM.device_span("strict", qt):
+                        qf, nf = pad_queries(qt[torch.from_numpy(flagged).to(self.device)])
+                        fd, fi = scan_topk_strict(
+                            qf, vecs, sqn, inv, valid, metric=self.metric, k=kk
+                        )
+                    dist[flagged] = fd[:nf].cpu().numpy()
+                    ids[flagged] = fi[:nf].cpu().numpy()
+                TELEM.record_kernel("scan_strict", rows=nf * self.count)
+            stats.flags.add("dot_trick")
+            stats.bytes_read["vecs"] = self.count * self.dimension * vecs.element_size()
+            TELEM.add_bytes("vecs", stats.bytes_read["vecs"])
+            # per-kernel sink (reference L2SqrKernel.swift:46-57 recorder),
+            # naming the path that ran
+            TELEM.record_kernel(
+                kernel, rows=stats.rows_scored, bytes=stats.bytes_read["vecs"]
+            )
+            debug.check_search_output("FlatIndex.batch_search", dist)
+            with TELEM.timer("results", stats):
+                out = self._results(dist, ids, k)
         TELEM.record_query(stats)
-        debug.check_search_output("FlatIndex.batch_search", dist)
-        return self._results(dist, ids, k)
+        return out
 
     def _results(self, dist: np.ndarray, ids: np.ndarray, k: int):
         scores = self._public_score(dist)

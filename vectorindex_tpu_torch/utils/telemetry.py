@@ -17,6 +17,14 @@ Parity target (reference kernel #46): Kernels/Telemetry.swift —
 
 Stages are additionally wrapped in torch.profiler.record_function ranges so
 the counters line up with torch.profiler timelines (host and CUDA kernels).
+
+Device spans: inside a call record (`call(stats)`), `device_span(name, t)`
+brackets work on a CUDA tensor's current stream with two CUDA events from a
+small reused pool; the record's close reads their elapsed time into
+`stats.stage_ms["dev.<name>"]` (ms). It closes after the call's copies to
+the host, which wait for the stream, so reading adds no synchronisation.
+Disabled, a timer, a call record and a device span are each one flag test
+and the shared null context: no event is made or recorded.
 """
 
 from __future__ import annotations
@@ -25,11 +33,15 @@ import json
 import threading
 import time
 from collections import defaultdict, deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+import torch
 from torch.profiler import record_function
+
+#: what a disabled timer, call record or device span returns
+_NULL = nullcontext()
 
 # stage names mirroring TelemetryTimerId (Telemetry.swift:31-41)
 STAGES = (
@@ -103,6 +115,10 @@ class Telemetry:
         self._ring: deque[QueryStats] = deque(maxlen=self.RING_SIZE)
         self._recorders: dict[str, Callable[[QueryStats], None]] = {}
         self._seq = 0
+        # the open call record of each thread (its device spans as (name,
+        # device, start, end)), and idle timing events by device
+        self._tls = threading.local()
+        self._events: dict[torch.device, list] = defaultdict(list)
 
     # -- gating --
 
@@ -137,21 +153,75 @@ class Telemetry:
 
     # -- timers (reference TelemetryTimerGuard) --
 
-    @contextmanager
     def timer(self, stage: str, stats: Optional[QueryStats] = None):
         """Stage timer + torch.profiler range. No-op when disabled."""
         if not self.enabled:
-            yield
-            return
+            return _NULL
+        return self._timed(stage, stats)
+
+    @contextmanager
+    def _timed(self, stage: str, stats: Optional[QueryStats]):
         t0 = time.perf_counter()
         with record_function(f"vindex.{stage}"):
             yield
-        dt = time.perf_counter() - t0
+        ms = (time.perf_counter() - t0) * 1e3
         with self._lock:
-            self._stage_hist[stage].record(dt * 1e6)
-            self._counters[f"time_ms.{stage}"] += int(dt * 1e3)
+            self._stage_hist[stage].record(ms * 1e3)
+            self._counters[f"time_ms.{stage}"] += ms
         if stats is not None:
-            stats.stage_ms[stage] = stats.stage_ms.get(stage, 0.0) + dt * 1e3
+            stats.stage_ms[stage] = stats.stage_ms.get(stage, 0.0) + ms
+
+    # -- device spans (CUDA events) --
+
+    def call(self, stats: QueryStats):
+        """Open `stats` as this thread's call record for device spans; on a
+        clean close their times are added to stats.stage_ms. Close it only
+        after the call has waited for the stream its spans ran on (a copy
+        to the host does)."""
+        if not self.enabled:
+            return _NULL
+        return self._call(stats)
+
+    @contextmanager
+    def _call(self, stats: QueryStats):
+        outer = getattr(self._tls, "spans", None)
+        spans = self._tls.spans = []
+        try:
+            yield
+            for name, _, start, end in spans:
+                if end.query():  # complete: elapsed_time does not wait
+                    key = f"dev.{name}"
+                    stats.stage_ms[key] = stats.stage_ms.get(key, 0.0) + start.elapsed_time(end)
+        finally:
+            self._tls.spans = outer
+            with self._lock:
+                for _, device, start, end in spans:
+                    self._events[device].extend((start, end))
+
+    def device_span(self, name: str, t):
+        """Time the device work issued in the block on the current stream of
+        tensor t's device, as dev.<name> of the open call record. No-op when
+        disabled, with no call record open, or off CUDA."""
+        if not self.enabled:
+            return _NULL
+        spans = getattr(self._tls, "spans", None)
+        if spans is None or t.device.type != "cuda":
+            return _NULL
+        return self._device_timed(name, t.device, spans)
+
+    @contextmanager
+    def _device_timed(self, name: str, device: torch.device, spans: list):
+        with self._lock:
+            pool = self._events[device]  # events come and go in pairs
+            start, end = (pool.pop(), pool.pop()) if pool else (
+                torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        stream = torch.cuda.current_stream(device)
+        start.record(stream)
+        try:
+            yield
+        finally:
+            end.record(stream)
+            spans.append((name, device, start, end))
 
     # -- per-query records --
 
